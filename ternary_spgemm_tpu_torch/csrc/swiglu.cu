@@ -1,0 +1,63 @@
+// The whole ternary SwiGLU FFN of a BitNet W1.58-A8 block, for Hopper (sm_90a).
+//
+// Replaces ternary_spgemm_tpu/ops/fused_ffn.py::fused_bitplane_swiglu (:384,
+// body _swiglu_kernel :316). The TPU kernel keeps the (M, ff) f32 hidden
+// state in VMEM across a sequential 1-D grid: phase 1 streams the gate and
+// up planes, phase 2 the down planes. On an H100 that cannot carry over: at
+// 7B width 128 x 11008 x 4 B is 5.6 MB, far above a block's 227 KB of
+// shared memory, and blocks run in parallel in no order. So the one call
+// makes two launches on one stream:
+//   phase 1: gate and up dots over int8 xq in int32 (both planes decoded in
+//     the same pass, sharing the staged activations), the silu-mul epilogue
+//     in the JAX op order (:362-366) with the sigmoid evaluated in f64 and
+//     rounded once (so the card and the CPU agree bit for bit; expf and
+//     torch's f32 sigmoid differ in the last ULP), f32 h written to a scratch tensor
+//     (it stays in the 50 MB L2 at serving sizes), and the per-row absmax
+//     folded with one atomicMax per warp and row on the int bits of |h|
+//     (max is order-free, so rmax is bitwise the JAX value);
+//   phase 2: each h element is requantized as it is staged,
+//     rint(h / ((rmax + 1e-12) / 127)) with an IEEE division (:106-113),
+//     accumulated in int32 against the down planes, and scaled by
+//     ((rmax + 1e-12) / 127) * gamma_down (:116-118, :378-381).
+// Rows are independent, so there is no M <= 128 limit.
+//
+// What bounds it: see bitplane_core.cuh; phase 1 decodes two planes per
+// staged activation, and the hidden round trip through L2 costs 8 bytes per
+// hidden element against ~1.3 KB of plane bytes per hidden column.
+//
+// Returns cudaGetLastError(); the Python wrapper raises on anything but 0.
+
+#include "bitplane_core.cuh"
+
+extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
+                              const uint8_t* plane_gate,
+                              const uint8_t* plane_up, int nb1, int gn1,
+                              int tkb1, int tile_n1, int N1,
+                              const uint8_t* plane_down, int nb2, int gn2,
+                              int tkb2, int tile_n2, int N2,
+                              float gamma_gate, float gamma_up,
+                              float gamma_down, float* h, int* rmax,
+                              float* y, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaMemsetAsync(rmax, 0, sizeof(int) * (size_t)M, s);
+  if (err != 0) return err;
+
+  ternary::Args p1{};
+  p1.x = xq; p1.M = M; p1.K = K;
+  p1.plane0 = plane_gate; p1.plane1 = plane_up;
+  p1.nb = nb1; p1.gn = gn1; p1.tkb = tkb1; p1.tile_n = tile_n1; p1.N = N1;
+  p1.sx = sx; p1.rmax_out = rmax;
+  p1.gamma0 = gamma_gate; p1.gamma1 = gamma_up;
+  p1.y = h;
+  err = ternary::launch_bitplane<ternary::kStageTrunc, 2, ternary::kEpiSwiglu>(p1, s);
+  if (err != 0) return err;
+
+  ternary::Args p2{};
+  p2.x = h; p2.M = M; p2.K = N1;
+  p2.plane0 = plane_down; p2.plane1 = nullptr;
+  p2.nb = nb2; p2.gn = gn2; p2.tkb = tkb2; p2.tile_n = tile_n2; p2.N = N2;
+  p2.rmax_in = rmax;
+  p2.gamma0 = gamma_down;
+  p2.y = y;
+  return ternary::launch_bitplane<ternary::kStageRequant, 1, ternary::kEpiScale>(p2, s);
+}

@@ -1,0 +1,102 @@
+"""Build the package's CUDA kernels on first use and load them with ctypes.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface. The library lands in
+``build/cuda/`` beside the package (listed in ``.gitignore``), named by a
+hash of the sources and flags, so a changed source rebuilds and an unchanged
+one loads the cached library. No ``--use_fast_math``: the requantize
+division must stay IEEE, and ``exp`` accurate, for parity with the plain
+versions and the JAX reference.
+
+Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
+anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: argtypes of every C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "ternary_bitplane_x8": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ternary_bitplane_i8": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                       _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+}
+
+_LOADED = {}
+#: what the last :func:`load` did: ``{"path", "seconds", "built", "log"}``
+last_build: dict = {}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) +
+                  glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                           "machine with the GPU (CUDA toolkit required)")
+    return nvcc
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libternary_kernels_{h.hexdigest()[:16]}.so")
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process
+    (the sources are hashed once, at the first call)."""
+    if "lib" in _LOADED:
+        return _LOADED["lib"]
+    t0 = time.perf_counter()
+    path = library_path()
+    built, log = False, ""
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[p for p in _sources() if p.endswith(".cu")]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)
+        built = True
+    lib = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LOADED["lib"] = lib
+    last_build.update(path=path, seconds=time.perf_counter() - t0,
+                      built=built, log=log)
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

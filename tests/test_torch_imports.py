@@ -1,0 +1,46 @@
+"""The port imports no JAX: every module of ``ternary_spgemm_tpu_torch`` and
+``chip_smoke.py`` load in a fresh interpreter that never sees ``jax``."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    import ternary_spgemm_tpu_torch as pkg
+    names = [pkg.__name__]
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def test_every_module_is_listed():
+    names = _modules()
+    for must in ("ternary_spgemm_tpu_torch.ops.cuda_kernels",
+                 "ternary_spgemm_tpu_torch.ops.fused_ffn",
+                 "ternary_spgemm_tpu_torch.models.generate",
+                 "ternary_spgemm_tpu_torch.models.serving"):
+        assert must in names
+
+
+@pytest.mark.parametrize("extra", [[], ["chip_smoke"]], ids=["package", "smoke"])
+def test_no_jax_import(extra):
+    mods = _modules() + extra
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k.startswith('ternary_spgemm_tpu.') or "
+            "k == 'ternary_spgemm_tpu')\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
