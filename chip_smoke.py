@@ -26,39 +26,75 @@ result line if any fails, or if no GPU is visible):
    ``BitTransformerLM.init``, built once, one copy on the CPU (plain
    versions) and one on the card (kernels): identical greedy tokens, prefill
    logits within rtol=atol=1e-4;
-5. the main path, counted: the headline SpMM through ``ternary_spgemm``'s
+5. the serving path, counted: the headline SpMM through ``ternary_spgemm``'s
    default dispatch at the north star, then BitNet-7B width (all 32 layers,
    random ternary weights from a seed, built on the card) serving 4
    requests of 128 prompt tokens each, greedy-decoding 32 new tokens each
    through ``generate`` with an int8 KV cache. The launch counters must
    match the path (x8 twice and the SwiGLU once per layer per forward; i8
-   on the headline op) and no plain version may run on a CUDA tensor.
+   on the headline op) and no plain version may run on a CUDA tensor;
+6. the benchmark path's other kernels against their plain versions on the
+   card (bf16 bitplane, nibble-pair i8, tiled-dense i8 and x8) at the
+   north star 32x1024x4096 (s=4), at the BitNet-7B up-projection
+   32x4096x11008 (s=2, three N-tiles), and for bf16 and dense x8 at
+   512x4096x4096 (s=2): bitwise equal on integer X in each kernel's domain
+   with PReLU on and off; bf16 also on non-integer X (uniform in +-2),
+   within rtol=1e-5, atol=1e-3 (f32 summation order);
+7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
+   -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
+   (in-process, ``__main__.main``): every registered kernel correct, no
+   ERROR line, each of the six hand-written SpMM kernels launched and no
+   plain version on a CUDA tensor; then the headline
+   (``python -m ternary_spgemm_tpu_torch.bench.headline``), whose JSON line
+   is printed.
 
-The last lines are the kernels JSON, the card line, and
+The last lines are the headline JSON, the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the CUDA source of each hand-written kernel; the TPU kernel a registered
+#: kernel replaces is its registration's ``reference``
 SOURCES = {
-    "CudaTiledBitplane_x8": ("ternary_spgemm_tpu_torch/csrc/bitplane.cu",
-                             "ternary_spgemm_tpu/ops/pallas_kernels.py:1552"),
-    "CudaTiledBitplane_i8": ("ternary_spgemm_tpu_torch/csrc/bitplane.cu",
-                             "ternary_spgemm_tpu/ops/pallas_kernels.py:1277"),
-    "fused_bitplane_swiglu": ("ternary_spgemm_tpu_torch/csrc/swiglu.cu",
-                              "ternary_spgemm_tpu/ops/fused_ffn.py:384"),
+    "CudaTiledBitplane_x8": "ternary_spgemm_tpu_torch/csrc/bitplane.cu",
+    "CudaTiledBitplane_i8": "ternary_spgemm_tpu_torch/csrc/bitplane.cu",
+    "fused_bitplane_swiglu": "ternary_spgemm_tpu_torch/csrc/swiglu.cu",
+    "CudaTiledBitplane_bf16": "ternary_spgemm_tpu_torch/csrc/bitplane_bf16.cu",
+    "CudaTiledNibblePair_i8": "ternary_spgemm_tpu_torch/csrc/nibblepair.cu",
+    "CudaTiledDense_i8": "ternary_spgemm_tpu_torch/csrc/tiled_dense.cu",
+    "CudaTiledDense_x8": "ternary_spgemm_tpu_torch/csrc/tiled_dense.cu",
 }
+#: the fused SwiGLU is no registered SpMM kernel: the TPU kernel it replaces
+SWIGLU_REPLACES = "ternary_spgemm_tpu/ops/fused_ffn.py:384"
+#: phase 6: kernel -> (its plain version in ``ops/cuda_kernels.py``, whether
+#: it also runs at the large-M shape the TPU built it for); the wrapper, the
+#: container and the |x| domain come from the registry
+NEW_KERNELS = {
+    "CudaTiledBitplane_bf16": ("bitplane_bf16_plain", True),
+    "CudaTiledNibblePair_i8": ("nibblepair_i8_plain", False),
+    "CudaTiledDense_i8": ("tiled_dense_i8_plain", False),
+    "CudaTiledDense_x8": ("tiled_dense_x8_plain", True),
+}
+
+
+def spmm_kernels() -> list:
+    """The registered hand-written SpMM kernels: every one but BaseTCSC."""
+    from ternary_spgemm_tpu_torch.ops import BASELINE_KERNEL_NAME, all_kernels
+
+    return [n for n in all_kernels() if n != BASELINE_KERNEL_NAME]
 
 
 def check(cond, msg: str) -> None:
@@ -73,31 +109,11 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def event_ms(fn, *, reps: int = 15, warmup: int = 2, flush=None) -> float:
-    """Median device time of ``fn()`` from CUDA events; ``flush`` (a large
-    tensor) is overwritten before each timed launch to evict the L2."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    marks = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        marks.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in marks)
-
-
 def phase_kernels(dev, card: str) -> dict:
     """Phase 3: each kernel against its plain version at the path shapes."""
     import torch
 
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
@@ -109,7 +125,7 @@ def phase_kernels(dev, card: str) -> dict:
     gen.manual_seed(1234)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for name in SOURCES}
+             for name in SOURCES if name not in NEW_KERNELS}
 
     def fmt(K, N, s=2):
         return TiledBitplane.from_dense(random_ternary(K, N, s, gen, dev))
@@ -339,6 +355,117 @@ def phase_serve(dev, card: str) -> dict:
     return counts
 
 
+def phase_new_kernels(dev, card: str) -> dict:
+    """Phase 6: the benchmark path's other kernels against their plain
+    versions on the card."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+             for name in NEW_KERNELS}
+    shapes = [(32, 1024, 4096, 4), (32, 4096, 11008, 2), (512, 4096, 4096, 2)]
+    for M, K, N, s in shapes:
+        W = random_ternary(K, N, s, gen, dev)
+        fmts = {}
+        b = torch.full((N,), 2.0, device=dev)
+        a = torch.full((N,), 0.1, device=dev)
+        for name, (plain, large_m) in NEW_KERNELS.items():
+            if M == 512 and not large_m:
+                continue
+            spec = all_kernels()[name]
+            kern, plain, vr = spec.fn, getattr(ck, plain), spec.x_absmax
+            if spec.format_cls not in fmts:
+                fmts[spec.format_cls] = spec.format_cls.from_dense(W)
+            f = fmts[spec.format_cls]
+            xs = [torch.randint(-vr, vr + 1, (M, K), generator=gen,
+                                device=dev).to(torch.float32)]
+            if name == "CudaTiledBitplane_bf16":
+                xs.append(4.0 * torch.rand((M, K), generator=gen, device=dev)
+                          - 2.0)
+            for i, x in enumerate(xs):
+                for alpha in (None, a):
+                    got = kern(x, f, b, alpha)
+                    want = plain(x, f, b, alpha)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    what = (f"{name} {M}x{K}x{N} prelu={alpha is not None} "
+                            f"{'integer' if i == 0 else 'non-integer'} X")
+                    if i == 0:
+                        check(torch.equal(got, want),
+                              f"{what}: kernel != plain (max |diff| {err})")
+                    else:
+                        bad = (got - want).abs() > 1e-3 + 1e-5 * want.abs()
+                        check(not bool(bad.any()),
+                              f"{what}: {int(bad.sum())} outputs outside "
+                              f"rtol=1e-5, atol=1e-3 (max |diff| {err})")
+                    stats[name]["max_abs_err"] = max(
+                        stats[name]["max_abs_err"], err)
+            x = xs[0]
+            ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
+            pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
+            extra = "" if len(xs) == 1 else "; non-integer X within tolerance"
+            print(f"kernel {name} {M}x{K}x{N} s={s}: bitwise equal on integer "
+                  f"X (PReLU on/off){extra}; {ms:.4f} ms vs plain {pms:.4f} ms "
+                  f"[{card}]", flush=True)
+            if (M, K, N) == (32, 1024, 4096):
+                stats[name].update(ms=ms, plain_ms=pms)
+        del W, fmts
+    del flush
+    return stats
+
+
+def phase_entry_point(dev) -> dict:
+    """Phase 7: the benchmark CLI (correctness on, PReLU off and on), then
+    the headline; returns the CLI runs' launch counts."""
+    from ternary_spgemm_tpu_torch import __main__ as cli
+    from ternary_spgemm_tpu_torch.bench import headline
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    def run(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue()
+
+    ck.reset_counts()
+    for extra in ([], ["-prelu"]):
+        argv = ["-M", "32", "-K", "1024", "-N", "4096", "-s", "4",
+                "-correctness", *extra]
+        rc, out = run(cli.main, argv)
+        print(f"$ python -m ternary_spgemm_tpu_torch {' '.join(argv)}\n"
+              f"{out}", end="", flush=True)
+        check(rc == 0, f"the CLI exited {rc}")
+        check("ERROR" not in out, "the CLI reported an ERROR")
+        lines = out.splitlines()
+        for name in all_kernels():
+            mine = [ln for ln in lines if ln.split()[:1] == [name]]
+            check(len(mine) == 1 and mine[0].endswith("correct=True"),
+                  f"{name} not reported correct: {mine}")
+    counts = dict(ck.launches)
+    plain = dict(ck.plain_on_cuda)
+    print(f"entry-point launches: {counts}; plain versions on CUDA: {plain}",
+          flush=True)
+    check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
+    for name in spmm_kernels():
+        check(counts.get(name, 0) > 0, f"{name} was not launched")
+
+    rc, out = run(headline.main, [])
+    check(rc == 0, f"the headline exited {rc}:\n{out}")
+    rec = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(rec) == 1, f"no headline JSON line:\n{out}")
+    check(json.loads(rec[0]).get("value", 0) > 0, f"headline {rec[0]}")
+    print(out, end="", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -372,16 +499,25 @@ def main() -> int:
           f"({'compiled' if _build.last_build['built'] else 'cached'} "
           f"{os.path.relpath(_build.last_build['path'], ROOT)})", flush=True)
 
+    check(set(spmm_kernels()) | {"fused_bitplane_swiglu"} == set(SOURCES),
+          f"SOURCES {sorted(SOURCES)} != the hand-written kernels")
     stats = phase_kernels(dev, card)
     phase_model_parity(dev)
-    counts = phase_serve(dev, card)
+    serve_counts = phase_serve(dev, card)
+    stats.update(phase_new_kernels(dev, card))
+    bench_counts = phase_entry_point(dev)
     check("jax" not in sys.modules, "jax was imported")
 
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    registry = all_kernels()
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts.get(name, 0),
+                "replaces": (registry[name].reference if name in registry
+                             else SWIGLU_REPLACES),
+                "launches": serve_counts.get(name, 0)
+                + bench_counts.get(name, 0),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-               for name, (src, rep) in SOURCES.items()]
+               for name, src in SOURCES.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ from ternary_spgemm_tpu_torch import reference  # noqa: E402,F401
 
 def __getattr__(name):
     import importlib
-    if name in ("formats", "ops", "models", "utils"):
+    if name in ("formats", "ops", "models", "utils", "bench"):
         return importlib.import_module(f"ternary_spgemm_tpu_torch.{name}")
     raise AttributeError(
         f"module 'ternary_spgemm_tpu_torch' has no attribute {name!r}")

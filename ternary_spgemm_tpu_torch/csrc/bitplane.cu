@@ -29,31 +29,13 @@
 
 #include "bitplane_core.cuh"
 
-namespace {
-
-template <int STAGE>
-int run(const float* x, int M, int K, const uint8_t* plane, int nb, int gn,
-        int tkb, int tile_n, int N, const float* bias, const float* alpha,
-        float* y, void* stream) {
-  ternary::Args a{};
-  a.x = x; a.M = M; a.K = K;
-  a.plane0 = plane; a.plane1 = nullptr;
-  a.nb = nb; a.gn = gn; a.tkb = tkb; a.tile_n = tile_n; a.N = N;
-  a.bias = bias; a.alpha = alpha;
-  a.y = y;
-  return ternary::launch_bitplane<STAGE, 1, ternary::kEpiBias>(
-      a, static_cast<cudaStream_t>(stream));
-}
-
-}  // namespace
-
 extern "C" int ternary_bitplane_x8(const float* x, int M, int K,
                                    const uint8_t* plane, int nb, int gn,
                                    int tkb, int tile_n, int N,
                                    const float* bias, const float* alpha,
                                    float* y, void* stream) {
-  return run<ternary::kStageX8>(x, M, K, plane, nb, gn, tkb, tile_n, N, bias,
-                                alpha, y, stream);
+  return ternary::run_spmm<ternary::kStageX8, ternary::kWBitplane>(
+      x, M, K, plane, nb, gn, tkb, tile_n, N, bias, alpha, y, stream);
 }
 
 extern "C" int ternary_bitplane_i8(const float* x, int M, int K,
@@ -61,6 +43,6 @@ extern "C" int ternary_bitplane_i8(const float* x, int M, int K,
                                    int tkb, int tile_n, int N,
                                    const float* bias, const float* alpha,
                                    float* y, void* stream) {
-  return run<ternary::kStageI8>(x, M, K, plane, nb, gn, tkb, tile_n, N, bias,
-                                alpha, y, stream);
+  return ternary::run_spmm<ternary::kStageI8, ternary::kWBitplane>(
+      x, M, K, plane, nb, gn, tkb, tile_n, N, bias, alpha, y, stream);
 }

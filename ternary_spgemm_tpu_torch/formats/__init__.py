@@ -1,4 +1,5 @@
-"""Ternary sparse container formats (the slice ported so far: TiledBitplane)."""
+"""Ternary sparse container formats (ported so far: TiledBitplane,
+TiledNibblePair, TiledDenseTernary, TCSC)."""
 
 from ternary_spgemm_tpu_torch.formats.base import (
     TernaryFormat,
@@ -8,7 +9,9 @@ from ternary_spgemm_tpu_torch.formats.base import (
 )
 from ternary_spgemm_tpu_torch.formats.bitplane import (
     TiledBitplane,
+    TiledNibblePair,
     bitplane_rowmap,
+    decode_nibbles,
     decode_planes,
 )
 from ternary_spgemm_tpu_torch.formats.generate import (
@@ -17,10 +20,13 @@ from ternary_spgemm_tpu_torch.formats.generate import (
     generate_ternary,
     generate_x,
 )
+from ternary_spgemm_tpu_torch.formats.tcsc import TCSC
+from ternary_spgemm_tpu_torch.formats.tiled import TiledDenseTernary
 
 __all__ = [
     "TernaryFormat", "register_format",
     "register_format_buffers", "format_from_buffers",
-    "TiledBitplane", "bitplane_rowmap", "decode_planes",
+    "TiledBitplane", "TiledNibblePair", "TiledDenseTernary", "TCSC",
+    "bitplane_rowmap", "decode_planes", "decode_nibbles",
     "generate_ternary", "generate_x", "generate_bias", "generate_alpha",
 ]

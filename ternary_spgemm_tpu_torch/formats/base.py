@@ -2,7 +2,8 @@
 
 Counterpart of ``ternary_spgemm_tpu/formats/base.py``. A container is a
 frozen dataclass whose array fields (``ARRAY_FIELDS``) are torch tensors and
-whose other fields are static shape metadata. There is no pytree
+whose other fields are static shape metadata (an optional derived tensor,
+such as TCSC's gather tables, may be None). There is no pytree
 registration: :meth:`TernaryFormat.to` moves the tensors, and modules that
 hold a container keep its tensors as registered buffers
 (:func:`register_format_buffers`) so that ``module.to(device)`` moves them.
@@ -54,12 +55,26 @@ class TernaryFormat(abc.ABC):
                 if f.name not in self.ARRAY_FIELDS}
 
     @property
+    def nnz(self) -> int:
+        """Nonzero weights, counted on the container's device."""
+        return int(torch.count_nonzero(self.to_dense()))
+
+    def prepare(self, M: int) -> "TernaryFormat":
+        """Materialize any M-dependent derived views a kernel will need,
+        outside timed regions. Default: nothing to do (TCSC builds its
+        padded gather tables when the M-chunked path will run)."""
+        return self
+
+    @property
     def device(self) -> torch.device:
         return getattr(self, self.ARRAY_FIELDS[0]).device
 
     def to(self, device) -> "TernaryFormat":
+        """A copy with every tensor on ``device`` (optional tensors that are
+        None stay None)."""
         return dataclasses.replace(
-            self, **{k: v.to(device) for k, v in self.arrays().items()})
+            self, **{k: None if v is None else v.to(device)
+                     for k, v in self.arrays().items()})
 
 
 def register_format_buffers(module: torch.nn.Module, fmt: TernaryFormat,

@@ -3,13 +3,17 @@ PyTorch versions. Importing this package registers the kernels; nothing is
 built until a kernel first launches on a CUDA tensor."""
 
 from ternary_spgemm_tpu_torch.ops.api import (
+    BASELINE_KERNEL_NAME,
+    REFERENCE_KERNELS,
     KernelSpec,
     all_kernels,
     finish,
     get_kernel,
     register_kernel,
     ternary_spgemm,
+    unported,
 )
+from ternary_spgemm_tpu_torch.ops import xla_kernels  # noqa: F401  (registers BaseTCSC)
 from ternary_spgemm_tpu_torch.ops import cuda_kernels  # noqa: F401  (registers kernels)
 from ternary_spgemm_tpu_torch.ops.fused_ffn import (
     fused_bitplane_swiglu,
@@ -18,7 +22,7 @@ from ternary_spgemm_tpu_torch.ops.fused_ffn import (
 )
 
 __all__ = [
-    "KernelSpec", "all_kernels", "finish", "get_kernel", "register_kernel",
-    "ternary_spgemm",
+    "BASELINE_KERNEL_NAME", "REFERENCE_KERNELS", "KernelSpec", "all_kernels",
+    "finish", "get_kernel", "register_kernel", "ternary_spgemm", "unported",
     "fused_bitplane_swiglu", "requantize_rows", "unfused_reference_swiglu",
 ]

@@ -1,12 +1,13 @@
 """Build the package's CUDA kernels on first use and load them with ctypes.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface. The library lands in
-``build/cuda/`` beside the package (listed in ``.gitignore``), named by a
-hash of the sources and flags, so a changed source rebuilds and an unchanged
-one loads the cached library. No ``--use_fast_math``: the requantize
-division must stay IEEE, and ``exp`` accurate, for parity with the plain
-versions and the JAX reference.
+Every ``csrc/*.cu`` file compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects link into one shared
+library with a plain C interface. The library lands in ``build/cuda/``
+beside the package (listed in ``.gitignore``), named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one loads
+the cached library. No ``--use_fast_math``: the requantize division must
+stay IEEE, and ``exp`` accurate, for parity with the plain versions and the
+JAX reference.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 anything but 0.
@@ -20,20 +21,27 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: (x, M, K, weights, nb, gn, tkb, tile_n, N, bias, alpha, y, stream)
+_SPMM = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "ternary_bitplane_x8": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "ternary_bitplane_i8": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ternary_bitplane_x8": _SPMM,
+    "ternary_bitplane_i8": _SPMM,
+    "ternary_bitplane_bf16": _SPMM,
+    "ternary_nibblepair_i8": _SPMM,
+    "ternary_tiled_dense_i8": _SPMM,
+    "ternary_tiled_dense_x8": _SPMM,
     "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }
@@ -65,6 +73,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libternary_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _compile(nvcc: str, out: str) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``out``; returns the compilers' output. Every process is waited for
+    (and killed first if another one failed)."""
+    srcs = [p for p in _sources() if p.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs, failed = [], []
+        try:
+            for cmd, p in zip(cmds, procs):
+                text = p.communicate()[0]
+                logs.append(text)
+                if p.returncode != 0:
+                    failed.append(f"{' '.join(cmd)}\n{text}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]))
+    return "".join(logs)
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process
     (the sources are hashed once, at the first call)."""
@@ -76,13 +122,7 @@ def load() -> ctypes.CDLL:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[p for p in _sources() if p.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        log = _compile(_nvcc(), tmp)
         os.replace(tmp, path)
         built = True
     lib = ctypes.CDLL(path)

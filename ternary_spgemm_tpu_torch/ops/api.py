@@ -12,13 +12,62 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Dict, Optional, Type
+from typing import Callable, Dict, Iterable, List, Optional, Type
 
 import torch
 
 from ternary_spgemm_tpu_torch.formats.base import TernaryFormat
 
 _KERNEL_REGISTRY: Dict[str, "KernelSpec"] = {}
+
+#: The speedup denominator of the benchmark harness (``main.cpp:10``).
+BASELINE_KERNEL_NAME = "BaseTCSC"
+
+#: The JAX package's kernel registry (``ternary_spgemm_tpu.ops.all_kernels()``,
+#: in its order), each name with its counterpart in this registry, or None
+#: where that kernel is not ported yet (``ROADMAP.md`` queues A and B). The
+#: port's benchmark sweeps only the counterparts; :func:`unported` names the
+#: rest.
+REFERENCE_KERNELS: Dict[str, Optional[str]] = {
+    "BaseTCSC": "BaseTCSC",
+    "BaseTCSR": None,
+    "BlockedTCSC": None,
+    "InterleavedTCSC": None,
+    "InterleavedBlockedTCSC": None,
+    "EllTCSC": None,
+    "BlockedEllTCSC": None,
+    "DenseMXU": None,
+    "DenseMXU_bf16": None,
+    "DenseMXU_x8": None,
+    "PackedMXU_2bit": None,
+    "PackedMXU_base3": None,
+    "PackedCSC": None,
+    "PallasDense": None,
+    "PallasDense_bf16": None,
+    "PallasPacked2Bit": None,
+    "PallasPacked53": None,
+    "PallasDense_i8": None,
+    "PallasPacked2Bit_i8": None,
+    "PallasPacked53_i8": None,
+    "PallasBlockPacked_i8": None,
+    "PallasTiledDense_i8": "CudaTiledDense_i8",
+    "PallasTiledDense_x8": "CudaTiledDense_x8",
+    "PallasTiledBlockPacked_i8": None,
+    "PallasTiledBitplane_i8": "CudaTiledBitplane_i8",
+    "PallasTiledNibblePair_i8": "CudaTiledNibblePair_i8",
+    "PallasTiledBitplane_x8": "CudaTiledBitplane_x8",
+    "PallasTiledBitplane_bf16": "CudaTiledBitplane_bf16",
+    "PallasEllDeposit_i8": None,
+    "PallasTiledEllGather": None,
+    "PallasEllGather": None,
+}
+
+
+def unported(names: Optional[Iterable[str]] = None) -> List[str]:
+    """The JAX registry's kernels among ``names`` (default: all of them)
+    that have no counterpart here."""
+    names = REFERENCE_KERNELS if names is None else names
+    return [n for n in names if REFERENCE_KERNELS.get(n, "") is None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +82,13 @@ class KernelSpec:
     approximate: bool = False
     #: Largest |x| for which the kernel is exact on integer-valued
     #: activations: 512 for the _i8 kernels (which floor non-integer X),
-    #: 127 for the int8-native _x8 kernels (which round and clamp).
-    #: None = any float.
+    #: 256 for the _bf16 kernel (which rounds X to bf16), 127 for the
+    #: int8-native _x8 kernels (which round and clamp). None = any float.
     x_absmax: Optional[int] = None
-    #: Activation bytes per X element the kernel streams from memory.
+    #: Activation bytes per X element the kernel reads from device memory
+    #: (the own-bytes roofline input). Every kernel here reads f32 X: 4,
+    #: where the JAX registrations give 2 or 1 for kernels whose TPU
+    #: wrapper narrows X before the call.
     x_bytes: float = 4.0
 
     def __call__(self, X, fmt, bias, alpha=None):

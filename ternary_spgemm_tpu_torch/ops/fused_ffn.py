@@ -25,10 +25,10 @@ import torch
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
 from ternary_spgemm_tpu_torch.ops import _build
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
-    bitplane_matmul_plain,
     check_f32,
     check_plane,
     launches,
+    matmul_plain,
     note_plain,
     stream_handle,
 )
@@ -90,8 +90,8 @@ def swiglu_hidden_plain(xq, sx, fmt_gate, fmt_up, *, gamma_gate: float = 1.0,
     """``h = silu(gamma_g*(sx*(xq@Wg))) * (gamma_u*(sx*(xq@Wu)))`` in f32."""
     xi = torch.trunc(xq.to(torch.float32))
     sx = sx.reshape(-1, 1).to(torch.float32)
-    g = gamma_gate * (sx * bitplane_matmul_plain(xi, fmt_gate))
-    u = gamma_up * (sx * bitplane_matmul_plain(xi, fmt_up))
+    g = gamma_gate * (sx * matmul_plain(xi, fmt_gate))
+    u = gamma_up * (sx * matmul_plain(xi, fmt_up))
     return (g * sigmoid_f32(g)) * u
 
 
@@ -105,7 +105,7 @@ def swiglu_plain(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     h = swiglu_hidden_plain(xq, sx, fmt_gate, fmt_up, gamma_gate=gamma_gate,
                             gamma_up=gamma_up)
     hq, scale = requantize_rows(h)
-    return bitplane_matmul_plain(hq, fmt_down) * (scale * gamma_down)
+    return matmul_plain(hq, fmt_down) * (scale * gamma_down)
 
 
 def swiglu_launch(xq, sx, fmt_gate, fmt_up, fmt_down, *,

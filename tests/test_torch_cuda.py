@@ -7,7 +7,10 @@ repository's conftest left out (it imports JAX)::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
-to the plain versions. The SwiGLU kernel and its plain version both round
+to the plain versions; so must the bf16 kernel on integer X with |x| <= 256,
+where every bf16 value and f32 partial sum is exact. Off that domain the
+bf16 kernel and its plain version round X to bf16 identically and differ
+only in f32 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
 an f64 sigmoid to f32, which agree but for inputs on an f32 rounding
 midpoint; a difference there can move a requantized hidden value by one at
 an exact .5 boundary. Such flips must be rare (<= 1e-4 of the elements,
@@ -15,12 +18,16 @@ each by 1), and every row without a flip must agree within the fused-FFN
 tolerance of the JAX tests (rtol=1e-5, atol=0.01).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ternary_spgemm_tpu_torch.formats import (
     TiledBitplane,
+    TiledDenseTernary,
+    TiledNibblePair,
     generate_alpha,
     generate_bias,
     generate_ternary,
@@ -46,12 +53,32 @@ def dev():
     return torch.device("cuda")
 
 
+ck = cuda_kernels
+#: name -> (kernel, plain version, container class, weight field, |x| domain)
 KERNELS = {
-    "x8": (cuda_kernels.cuda_tiled_bitplane_x8_kernel,
-           cuda_kernels.bitplane_x8_plain, 127),
-    "i8": (cuda_kernels.cuda_tiled_bitplane_i8_kernel,
-           cuda_kernels.bitplane_i8_plain, 512),
+    "x8": (ck.cuda_tiled_bitplane_x8_kernel, ck.bitplane_x8_plain,
+           TiledBitplane, "plane", 127),
+    "i8": (ck.cuda_tiled_bitplane_i8_kernel, ck.bitplane_i8_plain,
+           TiledBitplane, "plane", 512),
+    "bf16": (ck.cuda_tiled_bitplane_bf16_kernel, ck.bitplane_bf16_plain,
+             TiledBitplane, "plane", 256),
+    "nibble_i8": (ck.cuda_tiled_nibblepair_i8_kernel, ck.nibblepair_i8_plain,
+                  TiledNibblePair, "words", 512),
+    "dense_i8": (ck.cuda_tiled_dense_i8_kernel, ck.tiled_dense_i8_plain,
+                 TiledDenseTernary, "tiles", 512),
+    "dense_x8": (ck.cuda_tiled_dense_x8_kernel, ck.tiled_dense_x8_plain,
+                 TiledDenseTernary, "tiles", 127),
 }
+
+
+def _case(dev, name, M, K, N, tile_n, prelu):
+    kern, plain, cls, _, vr = KERNELS[name]
+    fmt = cls.from_dense(generate_ternary(K, N, 3, seed=K + N),
+                         tile_n=tile_n).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=M, value_range=vr)).to(dev)
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    a = torch.from_numpy(generate_alpha(N)).to(dev) if prelu else None
+    return kern, plain, fmt, X, b, a
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
@@ -60,28 +87,45 @@ KERNELS = {
     (5, 384, 4100, 4096)])
 @pytest.mark.parametrize("prelu", [False, True])
 def test_bitplane_kernel_bitwise(dev, name, M, K, N, tile_n, prelu):
-    kern, plain, vr = KERNELS[name]
-    fmt = TiledBitplane.from_dense(generate_ternary(K, N, 3, seed=K + N),
-                                   tile_n=tile_n).to(dev)
-    X = torch.from_numpy(generate_x(M, K, seed=M, value_range=vr)).to(dev)
-    X = X + 0.37 * (torch.arange(K, device=dev) % 3)    # exercises rounding
-    b = torch.from_numpy(generate_bias(N)).to(dev)
-    a = torch.from_numpy(generate_alpha(N)).to(dev) if prelu else None
+    kern, plain, fmt, X, b, a = _case(dev, name, M, K, N, tile_n, prelu)
+    if name != "bf16":                   # exercises rounding and flooring
+        X = X + 0.37 * (torch.arange(K, device=dev) % 3)
     got = kern(X, fmt, b, a)
     want = plain(X, fmt, b, a)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-def test_wrapper_rejects_bad_inputs(dev):
-    fmt = TiledBitplane.from_dense(generate_ternary(64, 64, 2, seed=0)).to(dev)
+@pytest.mark.parametrize("M,K,N,tile_n", [(7, 1000, 260, 128),
+                                          (33, 2048, 520, 256)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_bf16_kernel_off_integer_domain(dev, M, K, N, tile_n, prelu):
+    kern, plain, fmt, X, b, a = _case(dev, "bf16", M, K, N, tile_n, prelu)
+    X = 1.7 * X + 0.37 * (torch.arange(K, device=dev) % 3)
+    got = kern(X, fmt, b, a)
+    want = plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_wrapper_rejects_bad_inputs(dev, name):
+    kern, _, cls, field, _ = KERNELS[name]
+    fmt = cls.from_dense(generate_ternary(64, 64, 2, seed=0)).to(dev)
     b = torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="float32"):
-        cuda_kernels.cuda_tiled_bitplane_x8_kernel(
-            torch.zeros((2, 64), dtype=torch.float16, device=dev), fmt, b)
-    with pytest.raises(ValueError, match="plane"):
-        cuda_kernels.cuda_tiled_bitplane_x8_kernel(
-            torch.zeros((2, 64), device=dev), fmt.to("cpu"), b)
+        kern(torch.zeros((2, 64), dtype=torch.float16, device=dev), fmt, b)
+    with pytest.raises(ValueError, match="float32"):
+        kern(torch.zeros((2, 65), device=dev), fmt, b)        # wrong K
+    with pytest.raises(ValueError, match="bias"):
+        kern(torch.zeros((2, 64), device=dev), fmt, b[:63])
+    with pytest.raises(ValueError, match=field):
+        kern(torch.zeros((2, 64), device=dev), fmt.to("cpu"), b)
+    w = getattr(fmt, field)
+    bad = dataclasses.replace(fmt, **{field: w[:, :, :-1].contiguous()})
+    with pytest.raises(ValueError, match=field):               # wrong shape
+        kern(torch.zeros((2, 64), device=dev), bad, b)
 
 
 @pytest.mark.parametrize("M,K,N1,N2,tile_n", [

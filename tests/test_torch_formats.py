@@ -1,8 +1,10 @@
-"""Port parity: generators and the TiledBitplane container.
+"""Port parity: generators and the containers (TiledBitplane,
+TiledNibblePair, TiledDenseTernary, TCSC).
 
 The same numpy seeds go through the JAX package and the PyTorch port. The
-container bytes are the contract between the two: ``plane`` and ``wsum``
-must be identical (``wsum`` as int32, the container's documented dtype).
+container bytes are the contract between the two: every array must be
+identical (``wsum`` as int32, the containers' documented dtype; the JAX
+packers sum it in numpy's default integer).
 """
 
 import numpy as np
@@ -80,3 +82,67 @@ def test_container_as_module_buffers():
     assert names == {"fmt_plane", "fmt_wsum"}
     back = format_from_buffers(mod)
     assert back.meta() == fmt.meta() and torch.equal(back.plane, fmt.plane)
+
+
+#: container -> the shapes and packer arguments it is checked at
+CASES = {
+    "TiledNibblePair": [(100, 300, {}), (2500, 260, {}),
+                        (300, 700, {"tile_n": 128}), (384, 256, {"tkb": 16}),
+                        (1000, 5000, {})],
+    "TiledDenseTernary": [(100, 300, {}), (700, 260, {"tile_k": 64}),
+                          (300, 700, {"tile_n": 128}), (1000, 5000, {})],
+    "TCSC": [(100, 300, {}), (2500, 260, {}), (37, 91, {})],
+}
+
+
+@pytest.mark.parametrize("cls,K,N,kw", [
+    (c, K, N, kw) for c, cases in CASES.items() for K, N, kw in cases])
+def test_container_bytes_identical(cls, K, N, kw):
+    W = jf.generate_ternary(K, N, 3, seed=K + N)
+    j = getattr(jf, cls).from_dense(W, **kw)
+    t = getattr(tf, cls).from_dense(W, **kw)
+    assert t.meta() == {k: v for k, v in j.__dict__.items()
+                        if k in t.meta()}
+    for field in t.ARRAY_FIELDS:
+        a, want = getattr(t, field), getattr(j, field)
+        if want is None:                  # TCSC's lazy gather tables
+            assert a is None
+            continue
+        want = np.asarray(want)
+        assert a.dtype == (torch.int32 if field == "wsum"
+                           else getattr(torch, str(want.dtype))), field
+        np.testing.assert_array_equal(a.numpy(), want.astype(a.numpy().dtype))
+    np.testing.assert_array_equal(t.to_dense().numpy(), W)
+    assert t.size_bytes() == j.size_bytes()
+    assert t.nnz == j.nnz == int(np.count_nonzero(W))
+
+
+@pytest.mark.parametrize("K,N,s", [(300, 260, 3), (64, 512, 1), (129, 7, 2)])
+def test_tcsc_ell_tables_identical(K, N, s):
+    W = jf.generate_ternary(K, N, s, seed=K)
+    j = jf.TCSC.from_dense(W).with_ell_tables()
+    t = tf.TCSC.from_dense(W).with_ell_tables()
+    np.testing.assert_array_equal(t.ell_pos.numpy(), j.ell_pos)
+    np.testing.assert_array_equal(t.ell_neg.numpy(), j.ell_neg)
+
+
+def test_tcsc_prepare_builds_tables_once(monkeypatch):
+    from ternary_spgemm_tpu_torch.ops import xla_kernels
+
+    fmt = tf.TCSC.from_dense(jf.generate_ternary(64, 96, 2, seed=4))
+    assert fmt.prepare(4) is fmt and fmt.ell_pos is None
+    monkeypatch.setattr(xla_kernels, "_GATHER_CHUNK_FLOATS", 4 * fmt.nnz - 1)
+    prepared = fmt.prepare(4)
+    assert prepared.ell_pos is not None and prepared is fmt.prepare(4)
+    assert prepared.to("cpu").ell_neg is not None
+    assert fmt.to("cpu").ell_pos is None       # None stays None when moved
+    mod = torch.nn.Module()
+    register_format_buffers(mod, fmt)
+    assert format_from_buffers(mod).ell_pos is None
+
+
+@pytest.mark.parametrize("cls", ["TiledBitplane", "TiledNibblePair",
+                                 "TiledDenseTernary"])
+def test_default_nnz_counts_the_dense_matrix(cls):
+    W = jf.generate_ternary(150, 70, 2, seed=6)
+    assert getattr(tf, cls).from_dense(W).nnz == int(np.count_nonzero(W))

@@ -22,7 +22,13 @@ def _modules():
 def test_every_module_is_listed():
     names = _modules()
     for must in ("ternary_spgemm_tpu_torch.ops.cuda_kernels",
+                 "ternary_spgemm_tpu_torch.ops.xla_kernels",
                  "ternary_spgemm_tpu_torch.ops.fused_ffn",
+                 "ternary_spgemm_tpu_torch.formats.tcsc",
+                 "ternary_spgemm_tpu_torch.formats.tiled",
+                 "ternary_spgemm_tpu_torch.bench.harness",
+                 "ternary_spgemm_tpu_torch.bench.headline",
+                 "ternary_spgemm_tpu_torch.__main__",
                  "ternary_spgemm_tpu_torch.models.generate",
                  "ternary_spgemm_tpu_torch.models.serving"):
         assert must in names
