@@ -33,20 +33,29 @@ result line if any fails, or if no GPU is visible):
    through ``generate`` with an int8 KV cache. The launch counters must
    match the path (x8 twice and the SwiGLU once per layer per forward; i8
    on the headline op) and no plain version may run on a CUDA tensor;
-6. the benchmark path's other kernels against their plain versions on the
-   card (bf16 bitplane, nibble-pair i8, tiled-dense i8 and x8) at the
-   north star 32x1024x4096 (s=4), at the BitNet-7B up-projection
-   32x4096x11008 (s=2, three N-tiles), and for bf16 and dense x8 at
-   512x4096x4096 (s=2): bitwise equal on integer X in each kernel's domain
-   with PReLU on and off; bf16 also on non-integer X (uniform in +-2),
-   within rtol=1e-5, atol=1e-3 (f32 summation order);
+6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
+   nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
+   block-packed and tiled block-packed i8, the last two at factor 4 and 5)
+   against its plain version on the card, at the north star 32x1024x4096
+   (s=4), at the BitNet-7B up-projection 32x4096x11008 (s=2, three
+   N-tiles), at the large-M 512x4096x4096 (s=2) and at a ragged 7x999x1000
+   (s=3; K not a multiple of 4, 8 or a block, N not of 32): bitwise equal
+   on integer X in each kernel's domain with PReLU on and off, and on
+   non-integer X (uniform in +-2) within rtol=1e-5, atol=1e-3 (the x8 and
+   i8 rules round or floor it as the plain versions do; the f32 and bf16
+   kernels sum it in another order than the plain matmul);
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
-   (in-process, ``__main__.main``): every registered kernel correct, no
-   ERROR line, each of the six hand-written SpMM kernels launched and no
-   plain version on a CUDA tensor; then the headline
+   (in-process, ``__main__.main``): every registered kernel correct (the
+   hand-written ones and the torch-op DenseMXU* and BaseTCSC), no ERROR
+   line, each hand-written SpMM kernel launched and no plain version on a
+   CUDA tensor; then the headline
    (``python -m ternary_spgemm_tpu_torch.bench.headline``), whose JSON line
    is printed.
+
+The hand-written kernels, their CUDA sources and plain versions come from
+the registry (``KernelSpec.source``, ``KernelSpec.plain``) and the fused
+SwiGLU's module (``ops/fused_ffn.py``).
 
 The last lines are the headline JSON, the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -66,35 +75,24 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-#: the CUDA source of each hand-written kernel; the TPU kernel a registered
-#: kernel replaces is its registration's ``reference``
-SOURCES = {
-    "CudaTiledBitplane_x8": "ternary_spgemm_tpu_torch/csrc/bitplane.cu",
-    "CudaTiledBitplane_i8": "ternary_spgemm_tpu_torch/csrc/bitplane.cu",
-    "fused_bitplane_swiglu": "ternary_spgemm_tpu_torch/csrc/swiglu.cu",
-    "CudaTiledBitplane_bf16": "ternary_spgemm_tpu_torch/csrc/bitplane_bf16.cu",
-    "CudaTiledNibblePair_i8": "ternary_spgemm_tpu_torch/csrc/nibblepair.cu",
-    "CudaTiledDense_i8": "ternary_spgemm_tpu_torch/csrc/tiled_dense.cu",
-    "CudaTiledDense_x8": "ternary_spgemm_tpu_torch/csrc/tiled_dense.cu",
-}
-#: the fused SwiGLU is no registered SpMM kernel: the TPU kernel it replaces
-SWIGLU_REPLACES = "ternary_spgemm_tpu/ops/fused_ffn.py:384"
-#: phase 6: kernel -> (its plain version in ``ops/cuda_kernels.py``, whether
-#: it also runs at the large-M shape the TPU built it for); the wrapper, the
-#: container and the |x| domain come from the registry
-NEW_KERNELS = {
-    "CudaTiledBitplane_bf16": ("bitplane_bf16_plain", True),
-    "CudaTiledNibblePair_i8": ("nibblepair_i8_plain", False),
-    "CudaTiledDense_i8": ("tiled_dense_i8_plain", False),
-    "CudaTiledDense_x8": ("tiled_dense_x8_plain", True),
-}
+#: the serve path's SpMM kernels, which phase 3 holds at the serving shapes
+#: and phase 5 counts; phase 6 takes every other hand-written SpMM kernel of
+#: the registry, so a new kernel needs no entry here
+SERVE_KERNELS = ("CudaTiledBitplane_x8", "CudaTiledBitplane_i8")
+#: phase 6 shapes (M, K, N, s), held for every kernel: the north star, the
+#: BitNet-7B up-projection (three N-tiles), the large-M shape, and a ragged
+#: one (K not a multiple of 4, 8 or a block, N not of 32)
+BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
+                (512, 4096, 4096, 2), (7, 999, 1000, 3)]
 
 
-def spmm_kernels() -> list:
-    """The registered hand-written SpMM kernels: every one but BaseTCSC."""
-    from ternary_spgemm_tpu_torch.ops import BASELINE_KERNEL_NAME, all_kernels
+def spmm_kernels() -> dict:
+    """The hand-written SpMM kernels, name -> ``KernelSpec``: every
+    registered kernel with a CUDA source (the torch-op formulations of the
+    JAX package's XLA kernels have none)."""
+    from ternary_spgemm_tpu_torch.ops import all_kernels
 
-    return [n for n in all_kernels() if n != BASELINE_KERNEL_NAME]
+    return {n: s for n, s in all_kernels().items() if s.source}
 
 
 def check(cond, msg: str) -> None:
@@ -118,14 +116,14 @@ def phase_kernels(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
-        requantize_rows, swiglu_hidden_plain, swiglu_launch, swiglu_plain,
-        true_div)
+        KERNEL_NAME, requantize_rows, swiglu_hidden_plain, swiglu_launch,
+        swiglu_plain, true_div)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for name in SOURCES if name not in NEW_KERNELS}
+             for name in (*SERVE_KERNELS, KERNEL_NAME)}
 
     def fmt(K, N, s=2):
         return TiledBitplane.from_dense(random_ternary(K, N, s, gen, dev))
@@ -187,8 +185,8 @@ def phase_kernels(dev, card: str) -> dict:
               f"SwiGLU M={M}: {int(bad.sum())} outputs outside rtol=1e-5, "
               f"atol=0.01")
         err = float((yc - wc).abs().max()) if yc.numel() else 0.0
-        stats["fused_bitplane_swiglu"]["max_abs_err"] = max(
-            stats["fused_bitplane_swiglu"]["max_abs_err"], err)
+        stats[KERNEL_NAME]["max_abs_err"] = max(
+            stats[KERNEL_NAME]["max_abs_err"], err)
         ms = event_ms(lambda: swiglu_launch(xq, sx, fg, fu, fd, **kw),
                       flush=flush)
         pms = event_ms(lambda: swiglu_plain(xq, sx, fg, fu, fd, **kw),
@@ -198,7 +196,7 @@ def phase_kernels(dev, card: str) -> dict:
               f"{int(clean.sum())}/{M} clean rows; {ms:.4f} ms vs plain "
               f"{pms:.4f} ms [{card}]", flush=True)
         if M == 4:
-            stats["fused_bitplane_swiglu"].update(ms=ms, plain_ms=pms)
+            stats[KERNEL_NAME].update(ms=ms, plain_ms=pms)
     del flush
     return stats
 
@@ -355,67 +353,70 @@ def phase_serve(dev, card: str) -> dict:
     return counts
 
 
-def phase_new_kernels(dev, card: str) -> dict:
-    """Phase 6: the benchmark path's other kernels against their plain
-    versions on the card."""
+def phase_bench_kernels(dev, card: str) -> dict:
+    """Phase 6: every hand-written SpMM kernel that phase 3 does not hold,
+    against its plain version on the card, at the benchmark path's shapes;
+    the block-packed containers at factor 4 and 5."""
     import torch
 
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
-    from ternary_spgemm_tpu_torch.ops import all_kernels
-    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    kernels = {n: s for n, s in spmm_kernels().items()
+               if n not in SERVE_KERNELS}
     stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for name in NEW_KERNELS}
-    shapes = [(32, 1024, 4096, 4), (32, 4096, 11008, 2), (512, 4096, 4096, 2)]
-    for M, K, N, s in shapes:
+             for name in kernels}
+    for M, K, N, s in BENCH_SHAPES:
         W = random_ternary(K, N, s, gen, dev)
         fmts = {}
         b = torch.full((N,), 2.0, device=dev)
         a = torch.full((N,), 0.1, device=dev)
-        for name, (plain, large_m) in NEW_KERNELS.items():
-            if M == 512 and not large_m:
-                continue
-            spec = all_kernels()[name]
-            kern, plain, vr = spec.fn, getattr(ck, plain), spec.x_absmax
-            if spec.format_cls not in fmts:
-                fmts[spec.format_cls] = spec.format_cls.from_dense(W)
-            f = fmts[spec.format_cls]
+        for name, spec in kernels.items():
+            kern, plain = spec.fn, spec.plain
+            vr = spec.x_absmax or 512
             xs = [torch.randint(-vr, vr + 1, (M, K), generator=gen,
-                                device=dev).to(torch.float32)]
-            if name == "CudaTiledBitplane_bf16":
-                xs.append(4.0 * torch.rand((M, K), generator=gen, device=dev)
-                          - 2.0)
-            for i, x in enumerate(xs):
-                for alpha in (None, a):
-                    got = kern(x, f, b, alpha)
-                    want = plain(x, f, b, alpha)
-                    torch.cuda.synchronize()
-                    err = float((got - want).abs().max())
-                    what = (f"{name} {M}x{K}x{N} prelu={alpha is not None} "
-                            f"{'integer' if i == 0 else 'non-integer'} X")
-                    if i == 0:
-                        check(torch.equal(got, want),
-                              f"{what}: kernel != plain (max |diff| {err})")
-                    else:
-                        bad = (got - want).abs() > 1e-3 + 1e-5 * want.abs()
-                        check(not bool(bad.any()),
-                              f"{what}: {int(bad.sum())} outputs outside "
-                              f"rtol=1e-5, atol=1e-3 (max |diff| {err})")
-                    stats[name]["max_abs_err"] = max(
-                        stats[name]["max_abs_err"], err)
-            x = xs[0]
-            ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
-            pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
-            extra = "" if len(xs) == 1 else "; non-integer X within tolerance"
-            print(f"kernel {name} {M}x{K}x{N} s={s}: bitwise equal on integer "
-                  f"X (PReLU on/off){extra}; {ms:.4f} ms vs plain {pms:.4f} ms "
-                  f"[{card}]", flush=True)
-            if (M, K, N) == (32, 1024, 4096):
-                stats[name].update(ms=ms, plain_ms=pms)
+                                device=dev).to(torch.float32),
+                  4.0 * torch.rand((M, K), generator=gen, device=dev) - 2.0]
+            variants = ([{"factor": 4}, {"factor": 5}]
+                        if "factor" in spec.format_cls.__dataclass_fields__
+                        else [{}])
+            for kw in variants:
+                key = (spec.format_cls, tuple(kw.items()))
+                if key not in fmts:
+                    fmts[key] = spec.format_cls.from_dense(W, **kw)
+                f = fmts[key]
+                for i, x in enumerate(xs):
+                    for alpha in (None, a):
+                        got = kern(x, f, b, alpha)
+                        want = plain(x, f, b, alpha)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max())
+                        what = (f"{name} {kw or ''} {M}x{K}x{N} prelu="
+                                f"{alpha is not None} "
+                                f"{'integer' if i == 0 else 'non-integer'} X")
+                        if i == 0:
+                            check(torch.equal(got, want),
+                                  f"{what}: kernel != plain (max |diff| "
+                                  f"{err})")
+                        else:
+                            bad = (got - want).abs() > 1e-3 + 1e-5 * want.abs()
+                            check(not bool(bad.any()),
+                                  f"{what}: {int(bad.sum())} outputs outside "
+                                  f"rtol=1e-5, atol=1e-3 (max |diff| {err})")
+                        stats[name]["max_abs_err"] = max(
+                            stats[name]["max_abs_err"], err)
+                x = xs[0]
+                ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
+                pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
+                print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
+                      f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
+                      f"on/off), non-integer X within tolerance; {ms:.4f} ms "
+                      f"vs plain {pms:.4f} ms [{card}]", flush=True)
+                if (M, K, N) == (32, 1024, 4096) and kw == variants[0]:
+                    stats[name].update(ms=ms, plain_ms=pms)
         del W, fmts
     del flush
     return stats
@@ -456,6 +457,8 @@ def phase_entry_point(dev) -> dict:
     check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
     for name in spmm_kernels():
         check(counts.get(name, 0) > 0, f"{name} was not launched")
+    check(set(counts) <= set(spmm_kernels()),
+          f"launches counted for kernels that are not hand-written: {counts}")
 
     rc, out = run(headline.main, [])
     check(rc == 0, f"the headline exited {rc}:\n{out}")
@@ -499,25 +502,27 @@ def main() -> int:
           f"({'compiled' if _build.last_build['built'] else 'cached'} "
           f"{os.path.relpath(_build.last_build['path'], ROOT)})", flush=True)
 
-    check(set(spmm_kernels()) | {"fused_bitplane_swiglu"} == set(SOURCES),
-          f"SOURCES {sorted(SOURCES)} != the hand-written kernels")
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+    #: every hand-written kernel: name -> (its CUDA source, the TPU kernel
+    #: it replaces)
+    sources = {n: (s.source, s.reference) for n, s in spmm_kernels().items()}
+    sources[fused_ffn.KERNEL_NAME] = (fused_ffn.SOURCE, fused_ffn.REFERENCE)
+    for src, _ in sources.values():
+        check(os.path.isfile(os.path.join(ROOT, src)), f"no source {src}")
     stats = phase_kernels(dev, card)
     phase_model_parity(dev)
     serve_counts = phase_serve(dev, card)
-    stats.update(phase_new_kernels(dev, card))
+    stats.update(phase_bench_kernels(dev, card))
     bench_counts = phase_entry_point(dev)
     check("jax" not in sys.modules, "jax was imported")
 
-    from ternary_spgemm_tpu_torch.ops import all_kernels
-    registry = all_kernels()
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": (registry[name].reference if name in registry
-                             else SWIGLU_REPLACES),
+                "replaces": ref,
                 "launches": serve_counts.get(name, 0)
                 + bench_counts.get(name, 0),
                 "max_abs_err": stats[name]["max_abs_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-               for name, src in SOURCES.items()]
+               for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ Prints the card's name on a ``#`` line, then ONE JSON line with the keys of
 Config: M=32, K=1024, N=4096, s=4 (``compiler_testing/test.sh:8``).
 Metric: useful-adds GFLOP/s of the best kernel that is exact on the full
 +-512 activation domain, among ``bench.py``'s default kernels that the port
-has (:data:`DEFAULT_KERNELS`). The JAX headline picks among all 19 of them;
-the others are not ported yet, and a ``#`` line names them. vs_baseline: the reference C++ code's best published
+has (:data:`DEFAULT_KERNELS`: the hand-written counterparts of its Pallas
+kernels and the torch-op DenseMXU formulations). The JAX headline picks
+among all 19 of them; a ``#`` line names those not ported yet.
+vs_baseline: the reference C++ code's best published
 number at this config on its CPU — 2.31712e7 cycles for 33,685,504 useful
 adds (``compiler_testing/compiler_results_cold_cache.txt:1-2``) at its
 FREQUENCY=3.2 GHz (``cpp_impl/perf.cpp:30``) = 4.652 GFLOP/s.
@@ -100,8 +102,11 @@ def main(argv=None) -> int:
         timer="cuda_events" if args.device == "cuda" else "wall")
     print(f"# device: {device_name(args.device)}")
     if kernels is DEFAULT_KERNELS:
-        print(f"# bench.py's default kernels not ported yet, so not swept: "
-              f"{', '.join(unported(BENCH_PY_DEFAULT_KERNELS))}")
+        left = unported(BENCH_PY_DEFAULT_KERNELS)
+        print(f"# {len(DEFAULT_KERNELS)} of bench.py's "
+              f"{len(BENCH_PY_DEFAULT_KERNELS)} default kernels; the "
+              f"comparison is incomplete, not ported yet, so not swept: "
+              f"{', '.join(left)}")
     beta = None
     if args.measure_beta:
         from ternary_spgemm_tpu_torch.bench import measure_hbm_bandwidth

@@ -15,10 +15,9 @@
 //   * kWNibble, TiledNibblePair: words (nb, gn, tkb, tile_n) int32 of 4-bit
 //     two's-complement nibbles; little-endian byte j of word row t holds
 //     dense row 4t + j in its low nibble and 4*tkb + 4t + j in its high one
-//     (formats/bitplane.py:176-180, 208-214 of the JAX package);
-//   * kWDense, TiledDenseTernary: tiles (gk, gn, tile_k, tile_n) int8, one
-//     weight a byte, dense rows in order; with tkb = tile_k / 8 byte-row t
-//     is the eight rows above, read straight from the tile (load_row).
+//     (formats/bitplane.py:176-180, 208-214 of the JAX package).
+// The int8 and block-packed containers have a core of their own
+// (packed_core.cuh).
 //
 // Design, simple first:
 //   * one output column per lane: a warp reads 32 neighbouring elements of
@@ -37,7 +36,7 @@
 //     rows; w * x is one multiply-add.
 //
 // What bounds it on an H100: at decode sizes (M <= 32) the weight bytes are
-// the floor — 2 bits per weight (bitplane), 4 (nibble) or 8 (dense) at
+// the floor — 2 bits per weight (bitplane) or 4 (nibble) at
 // 3.35 TB/s — but this first kernel spends about (3 + MT) instructions per
 // weight and lane, so it is bound by issue rate, not by memory. The tensor
 // cores (int8 / bf16 mma, wgmma) and a pipelined TMA stream of the weights
@@ -64,15 +63,17 @@ constexpr float kRqEps = 1e-12f;   // ops/fused_ffn.py _RQ_EPS
 constexpr float kRqAbsmax = 127.0f;
 
 enum StageMode { kStageX8 = 0, kStageI8 = 1, kStageTrunc = 2, kStageRequant = 3,
-                 kStageBf16 = 4 };
+                 kStageBf16 = 4, kStageF32 = 5 };
 enum EpiMode { kEpiBias = 0, kEpiSwiglu = 1, kEpiScale = 2 };
-enum WeightFmt { kWBitplane = 0, kWNibble = 1, kWDense = 2 };
+enum WeightFmt { kWBitplane = 0, kWNibble = 1 };
 
-// bf16 activations sum in f32; every other rule stages exact integers
+// bf16 and f32 activations sum in f32; every other rule stages exact integers
 template <int STAGE>
-using Acc = typename std::conditional<STAGE == kStageBf16, float, int>::type;
+constexpr bool kFloatAcc = STAGE == kStageBf16 || STAGE == kStageF32;
 template <int STAGE>
-using Acc4 = typename std::conditional<STAGE == kStageBf16, float4, int4>::type;
+using Acc = typename std::conditional<kFloatAcc<STAGE>, float, int>::type;
+template <int STAGE>
+using Acc4 = typename std::conditional<kFloatAcc<STAGE>, float4, int4>::type;
 
 struct Args {
   const float* x;           // (M, K) f32 activations, row-major
@@ -105,33 +106,23 @@ __device__ __forceinline__ Acc<STAGE> stage_value(float v, float scale) {
     return (int)v;
   else if constexpr (STAGE == kStageRequant)
     return (int)rintf(v / scale);
+  else if constexpr (STAGE == kStageF32)  // f32 X as it is
+    return v;
   else                                   // jnp.asarray(X, bfloat16), widened
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The raw bits of one byte-row, read once per lane from element ``off``:
-// the pos and neg bytes (kWBitplane; the neg plane ``second`` bytes on), the
-// nibble word (kWNibble), or the eight row bytes packed low half then high
-// half (kWDense; the high half ``second`` bytes on, rows tile_n apart).
+// the pos and neg bytes (kWBitplane; the neg plane ``second`` bytes on) or
+// the nibble word (kWNibble).
 template <int WFMT>
 __device__ __forceinline__ uint2 load_row(const uint8_t* base, size_t off,
-                                          size_t second, int tile_n) {
+                                          size_t second) {
   if constexpr (WFMT == kWBitplane) {
     return make_uint2(base[off], base[off + second]);
-  } else if constexpr (WFMT == kWNibble) {
+  } else {
     return make_uint2((unsigned)reinterpret_cast<const int32_t*>(base)[off],
                       0u);
-  } else {
-    unsigned half[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      half[h] = 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        half[h] |= (unsigned)base[off + h * second + (size_t)j * tile_n]
-                   << (8 * j);
-    }
-    return make_uint2(half[0], half[1]);
   }
 }
 
@@ -144,10 +135,8 @@ __device__ __forceinline__ void decode_half(uint2 r, int h, int w[4]) {
     if constexpr (WFMT == kWBitplane) {
       const int b = 4 * h + j;
       w[j] = (int)((r.x >> b) & 1u) - (int)((r.y >> b) & 1u);
-    } else if constexpr (WFMT == kWNibble) {   // sign extend: ((v+8)&0xF)-8
+    } else {                                   // sign extend: ((v+8)&0xF)-8
       w[j] = (int)(((r.x >> (8 * j + 4 * h)) + 8u) & 0xFu) - 8;
-    } else {
-      w[j] = (int)(int8_t)(((h ? r.y : r.x) >> (8 * j)) & 0xFFu);
     }
   }
 }
@@ -174,13 +163,10 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) { acc0[m] = 0; acc1[m] = 0; }
 
-  // elements (of the format's type) of one (K-block, N-tile) slab
-  const size_t slab_elems =
-      (size_t)(WFMT == kWBitplane ? 2 : WFMT == kWNibble ? 1 : 8) * a.tkb * a.tile_n;
-  // byte-row t starts row_step * t elements into the slab; the second
-  // operand of load_row (neg plane, high half) lies neg_off further on
-  const int row_step = WFMT == kWDense ? 4 * a.tile_n : a.tile_n;
-  const size_t neg_off = (size_t)(WFMT == kWDense ? 4 * a.tkb : a.tkb) * a.tile_n;
+  // elements (of the format's type) of one (K-block, N-tile) slab; the neg
+  // plane lies neg_off elements after the pos plane
+  const size_t slab_elems = (size_t)(WFMT == kWBitplane ? 2 : 1) * a.tkb * a.tile_n;
+  const size_t neg_off = (size_t)a.tkb * a.tile_n;
 
   for (int kb = 0; kb < a.nb; ++kb) {
     const size_t at = ((size_t)kb * a.gn + g) * slab_elems + n;
@@ -202,11 +188,11 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
       if (col_ok) {
 #pragma unroll 4
         for (int tl = warp; tl < tc; tl += kWarps) {
-          const size_t off = at + (size_t)(t0 + tl) * row_step;
-          const uint2 r0 = load_row<WFMT>(a.plane0, off, neg_off, a.tile_n);
+          const size_t off = at + (size_t)(t0 + tl) * a.tile_n;
+          const uint2 r0 = load_row<WFMT>(a.plane0, off, neg_off);
           uint2 r1 = make_uint2(0u, 0u);
           if constexpr (NP == 2)
-            r1 = load_row<WFMT>(a.plane1, off, neg_off, a.tile_n);
+            r1 = load_row<WFMT>(a.plane1, off, neg_off);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             int w0[4], w1[4];

@@ -1,10 +1,16 @@
-"""Tile-contiguous int8 ternary plane — counterpart of
-``ternary_spgemm_tpu/formats/tiled.py::TiledDenseTernary``.
+"""Tile-contiguous ternary layouts — counterpart of
+``ternary_spgemm_tpu/formats/tiled.py``.
 
-The plane is stored pre-tiled as a 4-D ``(grid_k, grid_n, tile_k, tile_n)``
-int8 array, every (K-tile, N-tile) block contiguous; the ``tiles`` bytes are
-identical to the JAX packer's for the same matrix and tile sizes.
-``TiledBlockPacked`` is not ported yet.
+Both containers store their planes pre-tiled as 4-D arrays whose every
+(K-tile, N-tile) block is contiguous; the ``tiles`` bytes are identical to
+the JAX packers' for the same matrix and arguments:
+
+* :class:`TiledDenseTernary` — ``(grid_k, grid_n, tile_k, tile_n)`` int8,
+  one weight a byte;
+* :class:`TiledBlockPacked` — ``(nb, gn, tile_kq, tile_n)`` uint8, the
+  block-local 2-bit or base-3 codes of ``BlockPackedTernary``
+  (``formats/packed.py``) with the stride block ``B = factor * tile_kq``
+  as the K-tile.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ from ternary_spgemm_tpu_torch.formats.base import (
     TernaryFormat,
     _as_int8_dense,
     register_format,
+)
+from ternary_spgemm_tpu_torch.formats.packed import (
+    decode_fields,
+    encode_fields,
 )
 from ternary_spgemm_tpu_torch.utils import round_up
 
@@ -64,6 +74,59 @@ class TiledDenseTernary(TernaryFormat):
 
     def to_dense(self) -> torch.Tensor:
         return _untile4(self.tiles)[:self.K, :self.N]
+
+    def size_bytes(self) -> int:
+        return int(self.tiles.numel())
+
+    @property
+    def shape(self):
+        return (self.K, self.N)
+
+
+@register_format
+class TiledBlockPacked(TernaryFormat):
+    """Tile-contiguous block-local packed codes: packed tile ``(b, j)``
+    holds, at packed row ``kq``, the codes of dense rows ``b*factor*tile_kq
+    + f*tile_kq + kq`` for fields ``f < factor``."""
+
+    ARRAY_FIELDS = ("tiles",)
+
+    tiles: torch.Tensor  # (nb, gn, tile_kq, tile_n) uint8
+    K: int
+    N: int
+    factor: int
+    tile_kq: int
+    tile_n: int
+
+    @classmethod
+    def from_dense(cls, W, factor: int = 4, tile_kq: int = 256,
+                   tile_n: int = 4096, *, device=None) -> "TiledBlockPacked":
+        """Pack a dense ternary ``(K, N)`` matrix (numpy or torch; on
+        ``device``, default the tensor's own) with the JAX defaults; K pads
+        to a multiple of ``factor * tile_kq``, N to one of ``tile_n =
+        min(tile_n, round_up(N, 128))``."""
+        W = _as_int8_dense(W, device)
+        K, N = W.shape
+        tile_n = min(tile_n, round_up(N, 128))
+        B = factor * tile_kq
+        Kp, Np = round_up(K, B), round_up(N, tile_n)
+        Wp = torch.zeros((Kp, Np), dtype=torch.int8, device=W.device)
+        Wp[:K, :N] = W
+        nb, gn = Kp // B, Np // tile_n
+        packed = encode_fields(Wp.view(nb, factor, tile_kq, gn, tile_n),
+                               factor)                 # (nb, tkq, gn, tn)
+        return cls(tiles=packed.permute(0, 2, 1, 3).contiguous(), K=K, N=N,
+                   factor=factor, tile_kq=tile_kq, tile_n=tile_n)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.tiles.shape[0]
+
+    def to_dense(self) -> torch.Tensor:
+        nb, gn, tkq, tn = self.tiles.shape
+        p = self.tiles.permute(0, 2, 1, 3).reshape(nb, tkq, gn * tn)
+        out = torch.stack(decode_fields(p, self.factor), dim=1)
+        return out.reshape(nb * self.factor * tkq, gn * tn)[:self.K, :self.N]
 
     def size_bytes(self) -> int:
         return int(self.tiles.numel())

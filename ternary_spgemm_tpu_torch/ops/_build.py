@@ -32,8 +32,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: (x, M, K, weights, nb, gn, tkb, tile_n, N, bias, alpha, y, stream)
+#: (x, M, K, weights, nb, gn, rows a K-block (the bitplane core's byte-rows
+#: tkb, the packed core's rows tkq), tile_n, N, bias, alpha, y, stream)
 _SPMM = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#: (x, M, K, weights, nb, gn, tile_kq, tile_n, factor, N, bias, alpha, y,
+#: stream)
+_PACKED = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "ternary_bitplane_x8": _SPMM,
@@ -42,6 +46,10 @@ SIGNATURES = {
     "ternary_nibblepair_i8": _SPMM,
     "ternary_tiled_dense_i8": _SPMM,
     "ternary_tiled_dense_x8": _SPMM,
+    "ternary_dense_f32": _SPMM,
+    "ternary_dense_bf16": _SPMM,
+    "ternary_dense_i8": _SPMM,
+    "ternary_blockpacked_i8": _PACKED,
     "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }

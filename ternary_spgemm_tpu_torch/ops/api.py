@@ -36,23 +36,23 @@ REFERENCE_KERNELS: Dict[str, Optional[str]] = {
     "InterleavedBlockedTCSC": None,
     "EllTCSC": None,
     "BlockedEllTCSC": None,
-    "DenseMXU": None,
-    "DenseMXU_bf16": None,
-    "DenseMXU_x8": None,
+    "DenseMXU": "DenseMXU",
+    "DenseMXU_bf16": "DenseMXU_bf16",
+    "DenseMXU_x8": "DenseMXU_x8",
     "PackedMXU_2bit": None,
     "PackedMXU_base3": None,
     "PackedCSC": None,
-    "PallasDense": None,
-    "PallasDense_bf16": None,
+    "PallasDense": "CudaDense",
+    "PallasDense_bf16": "CudaDense_bf16",
     "PallasPacked2Bit": None,
     "PallasPacked53": None,
-    "PallasDense_i8": None,
+    "PallasDense_i8": "CudaDense_i8",
     "PallasPacked2Bit_i8": None,
     "PallasPacked53_i8": None,
-    "PallasBlockPacked_i8": None,
+    "PallasBlockPacked_i8": "CudaBlockPacked_i8",
     "PallasTiledDense_i8": "CudaTiledDense_i8",
     "PallasTiledDense_x8": "CudaTiledDense_x8",
-    "PallasTiledBlockPacked_i8": None,
+    "PallasTiledBlockPacked_i8": "CudaTiledBlockPacked_i8",
     "PallasTiledBitplane_i8": "CudaTiledBitplane_i8",
     "PallasTiledNibblePair_i8": "CudaTiledNibblePair_i8",
     "PallasTiledBitplane_x8": "CudaTiledBitplane_x8",
@@ -90,6 +90,12 @@ class KernelSpec:
     #: where the JAX registrations give 2 or 1 for kernels whose TPU
     #: wrapper narrows X before the call.
     x_bytes: float = 4.0
+    #: a hand-written kernel's CUDA source (path in the repository); ""
+    #: for the kernels written as torch ops
+    source: str = ""
+    #: a hand-written kernel's plain PyTorch version (what its wrapper runs
+    #: on a CPU tensor, and what ``chip_smoke.py`` holds it against)
+    plain: Optional[Callable] = None
 
     def __call__(self, X, fmt, bias, alpha=None):
         return self.fn(X, fmt, bias, alpha)
@@ -98,7 +104,8 @@ class KernelSpec:
 def register_kernel(name: str, format_cls: Type[TernaryFormat], *,
                     description: str = "", reference: str = "",
                     approximate: bool = False,
-                    x_absmax: Optional[int] = None, x_bytes: float = 4.0):
+                    x_absmax: Optional[int] = None, x_bytes: float = 4.0,
+                    source: str = "", plain: Optional[Callable] = None):
     """Decorator: register a kernel under ``name``."""
 
     def deco(fn):
@@ -107,7 +114,7 @@ def register_kernel(name: str, format_cls: Type[TernaryFormat], *,
         _KERNEL_REGISTRY[name] = KernelSpec(
             name=name, fn=fn, format_cls=format_cls, description=description,
             reference=reference, approximate=approximate,
-            x_absmax=x_absmax, x_bytes=x_bytes)
+            x_absmax=x_absmax, x_bytes=x_bytes, source=source, plain=plain)
         return fn
 
     return deco
@@ -123,6 +130,38 @@ def get_kernel(name: str) -> KernelSpec:
     except KeyError:
         raise KeyError(
             f"unknown kernel {name!r}; registered: {sorted(_KERNEL_REGISTRY)}") from None
+
+
+def to_f32(X: torch.Tensor) -> torch.Tensor:
+    """X as it is, in f32 (the exact f32 kernels)."""
+    return X.to(torch.float32)
+
+
+def to_x8(X: torch.Tensor) -> torch.Tensor:
+    """``_to_x8``: round half to even, clamp to [-127, 127] (f32 values)."""
+    return torch.clamp(torch.round(X.to(torch.float32)), -127.0, 127.0)
+
+
+def to_i8(X: torch.Tensor) -> torch.Tensor:
+    """The value the TPU's int8 split ``x = 8a + r - 512`` represents:
+    ``floor(x + 512) - 512`` in f32 (= floor(x) for |x| <= 512)."""
+    return torch.floor(X.to(torch.float32) + 512.0) - 512.0
+
+
+def to_bf16(X: torch.Tensor) -> torch.Tensor:
+    """``jnp.asarray(X, bfloat16)`` (round to nearest even), widened back
+    to f32 values."""
+    return X.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def matmul_plain(Xv: torch.Tensor, fmt: TernaryFormat) -> torch.Tensor:
+    """f32 ``Xv (M, K)`` times the decoded ternary matrix, in full f32 —
+    exact while ``Xv`` is integer-valued and every partial sum stays below
+    2**24."""
+    if Xv.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain ternary matmul needs full f32: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    return Xv @ fmt.to_dense().to(torch.float32)
 
 
 def finish(Y: torch.Tensor, bias, alpha=None) -> torch.Tensor:

@@ -1,24 +1,32 @@
-"""CUDA SpMM kernels over the tiled containers — counterpart of the tiled
-part of ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
+"""CUDA SpMM kernels — counterpart of the SpMM kernels of
+``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Six registered kernels, one shared core (``csrc/bitplane_core.cuh``):
+Eleven registered kernels, two cores (``csrc/bitplane_core.cuh`` for the
+bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
+and block-packed ones):
 
-====================  ======================  ===================  ==========
-kernel                replaces (Pallas)       source               X rule
-====================  ======================  ===================  ==========
-CudaTiledBitplane_x8  PallasTiledBitplane_x8  bitplane.cu          x8
-CudaTiledBitplane_i8  PallasTiledBitplane_i8  bitplane.cu          i8
-CudaTiledBitplane_bf16  ..._bf16              bitplane_bf16.cu     bf16
-CudaTiledNibblePair_i8  PallasTiledNibblePair_i8  nibblepair.cu    i8
-CudaTiledDense_i8     PallasTiledDense_i8     tiled_dense.cu       i8
-CudaTiledDense_x8     PallasTiledDense_x8     tiled_dense.cu       x8
-====================  ======================  ===================  ==========
+=======================  ========================  ==================  =====
+kernel                   replaces (Pallas)         source              X rule
+=======================  ========================  ==================  =====
+CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu         x8
+CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu         i8
+CudaTiledBitplane_bf16   PallasTiledBitplane_bf16  bitplane_bf16.cu    bf16
+CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu       i8
+CudaTiledDense_i8        PallasTiledDense_i8       tiled_dense.cu      i8
+CudaTiledDense_x8        PallasTiledDense_x8       tiled_dense.cu      x8
+CudaDense                PallasDense               dense.cu            f32
+CudaDense_bf16           PallasDense_bf16          dense.cu            bf16
+CudaDense_i8             PallasDense_i8            dense.cu            i8
+CudaBlockPacked_i8       PallasBlockPacked_i8      blockpacked.cu      i8
+CudaTiledBlockPacked_i8  PallasTiledBlockPacked_i8 blockpacked.cu      i8
+=======================  ========================  ==================  =====
 
-X rules: *x8* rounds half to even and clamps to int8 +-127 (``_to_x8``),
-int32 accumulation — exact on any float; *i8* stages ``floor(x + 512) -
-512``, the value of the TPU's int8 split (exact for integer |x| <= 512,
-non-integer X floored), int32 accumulation; *bf16* rounds X to bf16
-(nearest even) and sums in f32 (exact for integer |x| <= 256).
+X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
+(``_to_x8``), int32 accumulation — exact on any float; *i8* stages
+``floor(x + 512) - 512``, the value of the TPU's int8 split (exact for
+integer |x| <= 512, non-integer X floored), int32 accumulation; *bf16*
+rounds X to bf16 (nearest even) and sums in f32 (exact for integer
+|x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order.
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to :data:`launches`. On a CPU tensor, and only
@@ -27,7 +35,9 @@ a dense +-1 matrix, the X rule, one f32 matmul — exact on the integer
 domains, since every partial sum is an integer below 2**24). On a CUDA
 tensor it launches or raises; there is no fallback. A plain version that
 runs on a CUDA tensor (as ``chip_smoke.py`` does to compare) adds one to
-:data:`plain_on_cuda`.
+:data:`plain_on_cuda`. Each registration names its CUDA source and its
+plain version (``KernelSpec.source``, ``KernelSpec.plain``): the registry is
+the one list of the hand-written SpMM kernels.
 """
 
 from __future__ import annotations
@@ -38,15 +48,33 @@ import torch
 
 from ternary_spgemm_tpu_torch.formats.base import TernaryFormat
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane, TiledNibblePair
-from ternary_spgemm_tpu_torch.formats.tiled import TiledDenseTernary
+from ternary_spgemm_tpu_torch.formats.packed import (
+    BlockPackedTernary,
+    DenseTernary,
+    check_factor,
+)
+from ternary_spgemm_tpu_torch.formats.tiled import (
+    TiledBlockPacked,
+    TiledDenseTernary,
+)
 from ternary_spgemm_tpu_torch.ops import _build
-from ternary_spgemm_tpu_torch.ops.api import finish, register_kernel
+from ternary_spgemm_tpu_torch.ops.api import (  # noqa: F401  (X rules re-exported)
+    finish,
+    matmul_plain,
+    register_kernel,
+    to_bf16,
+    to_f32,
+    to_i8,
+    to_x8,
+)
 from ternary_spgemm_tpu_torch.utils import cdiv
 
 #: kernel launches by name (each wrapper counts where it launches)
 launches: collections.Counter = collections.Counter()
 #: plain-version runs on CUDA tensors, by name
 plain_on_cuda: collections.Counter = collections.Counter()
+
+_CSRC = "ternary_spgemm_tpu_torch/csrc/"
 
 
 def reset_counts() -> None:
@@ -57,33 +85,6 @@ def reset_counts() -> None:
 def note_plain(name: str, X: torch.Tensor) -> None:
     if X.is_cuda:
         plain_on_cuda[name] += 1
-
-
-def to_x8(X: torch.Tensor) -> torch.Tensor:
-    """``_to_x8``: round half to even, clamp to [-127, 127] (f32 values)."""
-    return torch.clamp(torch.round(X.to(torch.float32)), -127.0, 127.0)
-
-
-def to_i8(X: torch.Tensor) -> torch.Tensor:
-    """The value the TPU's int8 split ``x = 8a + r - 512`` represents:
-    ``floor(x + 512) - 512`` in f32 (= floor(x) for |x| <= 512)."""
-    return torch.floor(X.to(torch.float32) + 512.0) - 512.0
-
-
-def to_bf16(X: torch.Tensor) -> torch.Tensor:
-    """``jnp.asarray(X, bfloat16)`` (round to nearest even), widened back
-    to f32 values."""
-    return X.to(torch.float32).to(torch.bfloat16).to(torch.float32)
-
-
-def matmul_plain(Xv: torch.Tensor, fmt: TernaryFormat) -> torch.Tensor:
-    """f32 ``Xv (M, K)`` times the decoded ternary matrix, in full f32 —
-    exact while ``Xv`` is integer-valued and every partial sum stays below
-    2**24."""
-    if Xv.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the plain ternary matmul needs full f32: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
-    return Xv @ fmt.to_dense().to(torch.float32)
 
 
 def _plain(name: str, rule):
@@ -102,6 +103,11 @@ bitplane_bf16_plain = _plain("CudaTiledBitplane_bf16", to_bf16)
 nibblepair_i8_plain = _plain("CudaTiledNibblePair_i8", to_i8)
 tiled_dense_i8_plain = _plain("CudaTiledDense_i8", to_i8)
 tiled_dense_x8_plain = _plain("CudaTiledDense_x8", to_x8)
+dense_plain = _plain("CudaDense", to_f32)
+dense_bf16_plain = _plain("CudaDense_bf16", to_bf16)
+dense_i8_plain = _plain("CudaDense_i8", to_i8)
+blockpacked_i8_plain = _plain("CudaBlockPacked_i8", to_i8)
+tiled_blockpacked_i8_plain = _plain("CudaTiledBlockPacked_i8", to_i8)
 
 
 def _check_weights(t: torch.Tensor, what: str, dtype: torch.dtype,
@@ -129,14 +135,34 @@ def check_words(fmt: TiledNibblePair, device: torch.device) -> torch.Tensor:
 
 
 def check_tiles(fmt: TiledDenseTernary, device: torch.device) -> torch.Tensor:
-    """TiledDenseTernary ``tiles``: int8 (gk, gn, tile_k, tile_n), tile_k a
-    multiple of 8 (the core reads a tile as tile_k / 8 byte-rows)."""
-    if fmt.tile_k % 8:
-        raise ValueError(f"tiles: tile_k must be a multiple of 8, got "
-                         f"{fmt.tile_k}")
+    """TiledDenseTernary ``tiles``: int8 (gk, gn, tile_k, tile_n)."""
     shape = (cdiv(fmt.K, fmt.tile_k), cdiv(fmt.N, fmt.tile_n), fmt.tile_k,
              fmt.tile_n)
     return _check_weights(fmt.tiles, "tiles", torch.int8, shape, device)
+
+
+def check_dense(fmt: DenseTernary, device: torch.device) -> torch.Tensor:
+    """DenseTernary ``dense``: int8 (K, N), unpadded."""
+    return _check_weights(fmt.dense, "dense", torch.int8, (fmt.K, fmt.N),
+                          device)
+
+
+def check_packed(fmt: BlockPackedTernary, device: torch.device) -> torch.Tensor:
+    """BlockPackedTernary ``packed``: uint8 (nb*tile_kq, N), K padded to
+    nb blocks of factor*tile_kq rows."""
+    check_factor(fmt.factor)
+    nb = cdiv(fmt.K, fmt.factor * fmt.tile_kq)
+    return _check_weights(fmt.packed, "packed", torch.uint8,
+                          (nb * fmt.tile_kq, fmt.N), device)
+
+
+def check_packed_tiles(fmt: TiledBlockPacked,
+                       device: torch.device) -> torch.Tensor:
+    """TiledBlockPacked ``tiles``: uint8 (nb, gn, tile_kq, tile_n)."""
+    check_factor(fmt.factor)
+    shape = (cdiv(fmt.K, fmt.factor * fmt.tile_kq), cdiv(fmt.N, fmt.tile_n),
+             fmt.tile_kq, fmt.tile_n)
+    return _check_weights(fmt.tiles, "tiles", torch.uint8, shape, device)
 
 
 def check_f32(t: torch.Tensor, shape: tuple, device: torch.device,
@@ -155,10 +181,11 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, tkb: int,
+def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
             bias, alpha) -> torch.Tensor:
-    """Launch ``entry`` over ``fmt``; ``weights`` checks and returns the
-    container's weight tensor, ``tkb`` is its byte-rows per K-block."""
+    """Launch ``entry`` over ``fmt``: ``weights`` checks and returns the
+    container's weight tensor, ``geom`` is the tuple of integers the entry
+    point takes between the weight pointer and N."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors (CPU tensors take the "
@@ -176,8 +203,7 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, tkb: int,
         return Y
     lib = _build.load()
     err = getattr(lib, entry)(
-        X.data_ptr(), M, K, w.data_ptr(), w.shape[0], w.shape[1], tkb,
-        fmt.tile_n, N, bias.data_ptr(),
+        X.data_ptr(), M, K, w.data_ptr(), *geom, N, bias.data_ptr(),
         None if alpha is None else alpha.data_ptr(), Y.data_ptr(),
         stream_handle(dev))
     _build.check(err, entry)
@@ -191,12 +217,13 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, tkb: int,
                 "native activations (round + clamp +-127) accumulated in "
                 "int32; the A8 serving projections",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1552",
-    x_absmax=127)
+    x_absmax=127, source=_CSRC + "bitplane.cu", plain=bitplane_x8_plain)
 def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     if X.device.type == "cpu":
         return bitplane_x8_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8", X, fmt,
-                   check_plane, fmt.tkb, bias, alpha)
+                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha)
 
 
 @register_kernel(
@@ -205,12 +232,13 @@ def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
                 "integer activations |x| <= 512 (non-integer X floored) "
                 "accumulated in int32; the headline SpMM",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1277",
-    x_absmax=512)
+    x_absmax=512, source=_CSRC + "bitplane.cu", plain=bitplane_i8_plain)
 def cuda_tiled_bitplane_i8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     if X.device.type == "cpu":
         return bitplane_i8_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledBitplane_i8", "ternary_bitplane_i8", X, fmt,
-                   check_plane, fmt.tkb, bias, alpha)
+                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha)
 
 
 @register_kernel(
@@ -219,12 +247,14 @@ def cuda_tiled_bitplane_i8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
                 "rounded to bf16 and summed in f32 (exact for integer "
                 "activations |x| <= 256; bf16 rounding outside)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1602",
-    x_absmax=256)
+    x_absmax=256, source=_CSRC + "bitplane_bf16.cu",
+    plain=bitplane_bf16_plain)
 def cuda_tiled_bitplane_bf16_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     if X.device.type == "cpu":
         return bitplane_bf16_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledBitplane_bf16", "ternary_bitplane_bf16", X, fmt,
-                   check_plane, fmt.tkb, bias, alpha)
+                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha)
 
 
 @register_kernel(
@@ -233,13 +263,14 @@ def cuda_tiled_bitplane_bf16_kernel(X, fmt: TiledBitplane, bias, alpha=None):
                 "integer activations |x| <= 512 (non-integer X floored) "
                 "accumulated in int32",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1463",
-    x_absmax=512)
+    x_absmax=512, source=_CSRC + "nibblepair.cu", plain=nibblepair_i8_plain)
 def cuda_tiled_nibblepair_i8_kernel(X, fmt: TiledNibblePair, bias,
                                     alpha=None):
     if X.device.type == "cpu":
         return nibblepair_i8_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledNibblePair_i8", "ternary_nibblepair_i8", X, fmt,
-                   check_words, fmt.tkb, bias, alpha)
+                   check_words, (*fmt.words.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha)
 
 
 @register_kernel(
@@ -248,12 +279,14 @@ def cuda_tiled_nibblepair_i8_kernel(X, fmt: TiledNibblePair, bias,
                 "activations |x| <= 512 (non-integer X floored) accumulated "
                 "in int32",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:777",
-    x_absmax=512)
+    x_absmax=512, source=_CSRC + "tiled_dense.cu", plain=tiled_dense_i8_plain)
 def cuda_tiled_dense_i8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
     if X.device.type == "cpu":
         return tiled_dense_i8_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledDense_i8", "ternary_tiled_dense_i8", X, fmt,
-                   check_tiles, fmt.tile_k // 8, bias, alpha)
+                   check_tiles,
+                   (*fmt.tiles.shape[:2], fmt.tile_k, fmt.tile_n), bias,
+                   alpha)
 
 
 @register_kernel(
@@ -261,9 +294,85 @@ def cuda_tiled_dense_i8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
     description="tile-contiguous int8 plane (8 bits/weight), int8-native "
                 "activations (round + clamp +-127) accumulated in int32",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:821",
-    x_absmax=127)
+    x_absmax=127, source=_CSRC + "tiled_dense.cu", plain=tiled_dense_x8_plain)
 def cuda_tiled_dense_x8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
     if X.device.type == "cpu":
         return tiled_dense_x8_plain(X, fmt, bias, alpha)
     return _launch("CudaTiledDense_x8", "ternary_tiled_dense_x8", X, fmt,
-                   check_tiles, fmt.tile_k // 8, bias, alpha)
+                   check_tiles,
+                   (*fmt.tiles.shape[:2], fmt.tile_k, fmt.tile_n), bias,
+                   alpha)
+
+
+@register_kernel(
+    "CudaDense", DenseTernary,
+    description="unpadded int8 plane (8 bits/weight), f32 activations as "
+                "they are, f32 sums in a fixed order (exact f32 SpMM)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:173",
+    source=_CSRC + "dense.cu", plain=dense_plain)
+def cuda_dense_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    if X.device.type == "cpu":
+        return dense_plain(X, fmt, bias, alpha)
+    # one block of K one-field rows, one N-tile
+    return _launch("CudaDense", "ternary_dense_f32", X, fmt, check_dense,
+                   (1, 1, fmt.K, fmt.N), bias, alpha)
+
+
+@register_kernel(
+    "CudaDense_bf16", DenseTernary,
+    description="unpadded int8 plane (8 bits/weight), X rounded to bf16 and "
+                "summed in f32 (inexact for |x| > 256)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:181",
+    approximate=True, source=_CSRC + "dense.cu", plain=dense_bf16_plain)
+def cuda_dense_bf16_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    if X.device.type == "cpu":
+        return dense_bf16_plain(X, fmt, bias, alpha)
+    return _launch("CudaDense_bf16", "ternary_dense_bf16", X, fmt,
+                   check_dense, (1, 1, fmt.K, fmt.N), bias, alpha)
+
+
+@register_kernel(
+    "CudaDense_i8", DenseTernary,
+    description="unpadded int8 plane (8 bits/weight), integer activations "
+                "|x| <= 512 (non-integer X floored) accumulated in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:420",
+    x_absmax=512, source=_CSRC + "dense.cu", plain=dense_i8_plain)
+def cuda_dense_i8_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    if X.device.type == "cpu":
+        return dense_i8_plain(X, fmt, bias, alpha)
+    return _launch("CudaDense_i8", "ternary_dense_i8", X, fmt, check_dense,
+                   (1, 1, fmt.K, fmt.N), bias, alpha)
+
+
+@register_kernel(
+    "CudaBlockPacked_i8", BlockPackedTernary,
+    description="block-local 2-bit or base-3 codes (2 / 1.6 bits/weight) "
+                "decoded per lane, integer activations |x| <= 512 "
+                "(non-integer X floored) accumulated in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:596",
+    x_absmax=512, source=_CSRC + "blockpacked.cu", plain=blockpacked_i8_plain)
+def cuda_blockpacked_i8_kernel(X, fmt: BlockPackedTernary, bias, alpha=None):
+    if X.device.type == "cpu":
+        return blockpacked_i8_plain(X, fmt, bias, alpha)
+    return _launch("CudaBlockPacked_i8", "ternary_blockpacked_i8", X, fmt,
+                   check_packed,
+                   (fmt.packed.shape[0] // fmt.tile_kq, 1, fmt.tile_kq, fmt.N,
+                    fmt.factor), bias, alpha)
+
+
+@register_kernel(
+    "CudaTiledBlockPacked_i8", TiledBlockPacked,
+    description="tile-contiguous block-local 2-bit or base-3 codes (2 / 1.6 "
+                "bits/weight) decoded per lane, integer activations "
+                "|x| <= 512 (non-integer X floored) accumulated in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:886",
+    x_absmax=512, source=_CSRC + "blockpacked.cu",
+    plain=tiled_blockpacked_i8_plain)
+def cuda_tiled_blockpacked_i8_kernel(X, fmt: TiledBlockPacked, bias,
+                                     alpha=None):
+    if X.device.type == "cpu":
+        return tiled_blockpacked_i8_plain(X, fmt, bias, alpha)
+    return _launch("CudaTiledBlockPacked_i8", "ternary_blockpacked_i8", X,
+                   fmt, check_packed_tiles,
+                   (*fmt.tiles.shape[:2], fmt.tile_kq, fmt.tile_n, fmt.factor),
+                   bias, alpha)

@@ -38,6 +38,9 @@ _RQ_ABSMAX = 127.0
 _RQ_EPS = 1e-12
 
 KERNEL_NAME = "fused_bitplane_swiglu"
+#: the kernel's CUDA source, and the TPU kernel it replaces
+SOURCE = "ternary_spgemm_tpu_torch/csrc/swiglu.cu"
+REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:384"
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:

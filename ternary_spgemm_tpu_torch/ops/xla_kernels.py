@@ -1,8 +1,26 @@
-"""The benchmark's speedup denominator ``BaseTCSC`` as plain torch ops —
-counterpart of ``ternary_spgemm_tpu/ops/xla_kernels.py:67-160``.
+"""The XLA formulations of the JAX registry as torch ops — counterpart of
+``ternary_spgemm_tpu/ops/xla_kernels.py``: the speedup denominator
+``BaseTCSC`` (``:67-160`` there) and the three dense products over
+``DenseTernary``, ``DenseMXU``, ``DenseMXU_bf16`` and ``DenseMXU_x8``
+(``:267-305``).
 
-In the JAX package this kernel is XLA (a gather plus a sorted segment sum),
-not Pallas, so the port writes it with torch ops and no kernel of its own:
+In the JAX package these are XLA, not Pallas, so the port writes them with
+torch ops and no kernel of its own; they are registered kernels, not plain
+versions of one, and count no plain-version runs. The dense products are
+one ``torch.matmul`` each, in full f32 (``allow_tf32`` must be off on the
+card, as for :func:`ops.api.matmul_plain`):
+
+* ``DenseMXU``: f32 X times the int8 plane widened to f32 — JAX's f32 dot at
+  precision HIGHEST;
+* ``DenseMXU_bf16``: X rounded to bf16 and widened back, so the sums stay
+  f32 as with JAX's ``preferred_element_type=float32`` (a bf16 x bf16
+  ``torch.matmul`` would round its output to bf16);
+* ``DenseMXU_x8``: X rounded half to even and clamped to +-127, JAX's int8 x
+  int8 -> int32 dot; in f32 every partial sum is an integer of magnitude
+  at most 127*K, exact while 127*K <= 2**24 (K <= 132,104), so the result is
+  the int32 dot's.
+
+BaseTCSC (in JAX a gather plus a sorted segment sum) is an
 ``index_select`` of the activation columns each nonzero reads, then
 ``index_add_`` into its output column. Above ``_GATHER_CHUNK_FLOATS`` the
 (M, nnz) gathered stream would be too large, and the kernel walks M in
@@ -18,8 +36,16 @@ from __future__ import annotations
 
 import torch
 
+from ternary_spgemm_tpu_torch.formats.packed import DenseTernary
 from ternary_spgemm_tpu_torch.formats.tcsc import TCSC
-from ternary_spgemm_tpu_torch.ops.api import finish, register_kernel
+from ternary_spgemm_tpu_torch.ops.api import (
+    finish,
+    matmul_plain,
+    register_kernel,
+    to_bf16,
+    to_f32,
+    to_x8,
+)
 
 #: Cap (in f32 elements) for the materialized (M, nnz) gather stream; above
 #: it the kernel takes the M-chunked path. 2**26 floats = 256 MB.
@@ -79,3 +105,31 @@ def tcsc_kernel(X, fmt: TCSC, bias, alpha=None):
     neg = _segment_cols(X.index_select(1, fmt.row_index_neg),
                         fmt.col_ids_neg, fmt.N)
     return finish(pos - neg, bias, alpha)
+
+
+@register_kernel(
+    "DenseMXU", DenseTernary,
+    description="densified int8 weights, exact f32 torch.matmul",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:272")
+def dense_mxu_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    return finish(matmul_plain(to_f32(X), fmt), bias, alpha)
+
+
+@register_kernel(
+    "DenseMXU_bf16", DenseTernary,
+    description="X rounded to bf16, f32 torch.matmul (inexact for |x| > 256)",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:283",
+    approximate=True)
+def dense_mxu_bf16_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    return finish(matmul_plain(to_bf16(X), fmt), bias, alpha)
+
+
+@register_kernel(
+    "DenseMXU_x8", DenseTernary,
+    description="int8-native activations (round + clamp +-127), exact "
+                "integer sums in an f32 torch.matmul (exact for integer "
+                "activations |x| <= 127, clamps outside)",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:298",
+    x_absmax=127)
+def dense_mxu_x8_kernel(X, fmt: DenseTernary, bias, alpha=None):
+    return finish(matmul_plain(to_x8(X), fmt), bias, alpha)

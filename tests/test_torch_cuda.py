@@ -7,10 +7,11 @@ repository's conftest left out (it imports JAX)::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
-to the plain versions; so must the bf16 kernel on integer X with |x| <= 256,
-where every bf16 value and f32 partial sum is exact. Off that domain the
-bf16 kernel and its plain version round X to bf16 identically and differ
-only in f32 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
+to the plain versions; so must the f32 and bf16 kernels on integer X in
+their domains, where every value and f32 partial sum is exact. Off those
+domains the f32 and bf16 kernels and their plain versions see the same X
+(rounded to bf16 identically where they round) and differ only in f32
+summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
 an f64 sigmoid to f32, which agree but for inputs on an f32 rounding
 midpoint; a difference there can move a requantized hidden value by one at
 an exact .5 boundary. Such flips must be rare (<= 1e-4 of the elements,
@@ -25,7 +26,10 @@ import pytest
 import torch
 
 from ternary_spgemm_tpu_torch.formats import (
+    BlockPackedTernary,
+    DenseTernary,
     TiledBitplane,
+    TiledBlockPacked,
     TiledDenseTernary,
     TiledNibblePair,
     generate_alpha,
@@ -54,27 +58,61 @@ def dev():
 
 
 ck = cuda_kernels
-#: name -> (kernel, plain version, container class, weight field, |x| domain)
+#: name -> (kernel, plain version, container class, weight field, |x| domain,
+#: packer arguments, whether the X rule yields integers: x8 rounds, i8
+#: floors); the tile_k and tile_kq cover several chunks of the packed-row
+#: core (256 int8 rows, 64 block-packed rows), a ragged last chunk and a
+#: multiple of 4 or not
 KERNELS = {
     "x8": (ck.cuda_tiled_bitplane_x8_kernel, ck.bitplane_x8_plain,
-           TiledBitplane, "plane", 127),
+           TiledBitplane, "plane", 127, {}, True),
     "i8": (ck.cuda_tiled_bitplane_i8_kernel, ck.bitplane_i8_plain,
-           TiledBitplane, "plane", 512),
+           TiledBitplane, "plane", 512, {}, True),
     "bf16": (ck.cuda_tiled_bitplane_bf16_kernel, ck.bitplane_bf16_plain,
-             TiledBitplane, "plane", 256),
+             TiledBitplane, "plane", 256, {}, False),
     "nibble_i8": (ck.cuda_tiled_nibblepair_i8_kernel, ck.nibblepair_i8_plain,
-                  TiledNibblePair, "words", 512),
+                  TiledNibblePair, "words", 512, {}, True),
     "dense_i8": (ck.cuda_tiled_dense_i8_kernel, ck.tiled_dense_i8_plain,
-                 TiledDenseTernary, "tiles", 512),
+                 TiledDenseTernary, "tiles", 512, {}, True),
+    "dense_i8_k100": (ck.cuda_tiled_dense_i8_kernel, ck.tiled_dense_i8_plain,
+                      TiledDenseTernary, "tiles", 512, {"tile_k": 100}, True),
     "dense_x8": (ck.cuda_tiled_dense_x8_kernel, ck.tiled_dense_x8_plain,
-                 TiledDenseTernary, "tiles", 127),
+                 TiledDenseTernary, "tiles", 127, {}, True),
+    "dense_x8_k520": (ck.cuda_tiled_dense_x8_kernel, ck.tiled_dense_x8_plain,
+                      TiledDenseTernary, "tiles", 127, {"tile_k": 520}, True),
+    "plain_dense": (ck.cuda_dense_kernel, ck.dense_plain, DenseTernary,
+                    "dense", 512, {}, False),
+    "plain_dense_bf16": (ck.cuda_dense_bf16_kernel, ck.dense_bf16_plain,
+                         DenseTernary, "dense", 256, {}, False),
+    "plain_dense_i8": (ck.cuda_dense_i8_kernel, ck.dense_i8_plain,
+                       DenseTernary, "dense", 512, {}, True),
+    "blockpacked_i8_f4": (ck.cuda_blockpacked_i8_kernel,
+                          ck.blockpacked_i8_plain, BlockPackedTernary,
+                          "packed", 512, {"factor": 4}, True),
+    "blockpacked_i8_f5": (ck.cuda_blockpacked_i8_kernel,
+                          ck.blockpacked_i8_plain, BlockPackedTernary,
+                          "packed", 512, {"factor": 5, "tile_kq": 24}, True),
+    "tiled_blockpacked_i8_f4": (ck.cuda_tiled_blockpacked_i8_kernel,
+                                ck.tiled_blockpacked_i8_plain,
+                                TiledBlockPacked, "tiles", 512,
+                                {"factor": 4, "tile_kq": 100}, True),
+    "tiled_blockpacked_i8_f5": (ck.cuda_tiled_blockpacked_i8_kernel,
+                                ck.tiled_blockpacked_i8_plain,
+                                TiledBlockPacked, "tiles", 512,
+                                {"factor": 5, "tile_kq": 13}, True),
 }
 
 
+def _build(cls, W, tile_n, kw):
+    if "tile_n" in cls.__dataclass_fields__:
+        kw = dict(kw, tile_n=tile_n)
+    return cls.from_dense(W, **kw)
+
+
 def _case(dev, name, M, K, N, tile_n, prelu):
-    kern, plain, cls, _, vr = KERNELS[name]
-    fmt = cls.from_dense(generate_ternary(K, N, 3, seed=K + N),
-                         tile_n=tile_n).to(dev)
+    kern, plain, cls, _, vr, kw, _ = KERNELS[name]
+    fmt = _build(cls, generate_ternary(K, N, 3, seed=K + N), tile_n,
+                 kw).to(dev)
     X = torch.from_numpy(generate_x(M, K, seed=M, value_range=vr)).to(dev)
     b = torch.from_numpy(generate_bias(N)).to(dev)
     a = torch.from_numpy(generate_alpha(N)).to(dev) if prelu else None
@@ -84,11 +122,11 @@ def _case(dev, name, M, K, N, tile_n, prelu):
 @pytest.mark.parametrize("name", sorted(KERNELS))
 @pytest.mark.parametrize("M,K,N,tile_n", [
     (1, 100, 300, 4096), (7, 1000, 260, 128), (33, 2048, 520, 256),
-    (5, 384, 4100, 4096)])
+    (5, 384, 4100, 4096), (3, 999, 77, 128)])
 @pytest.mark.parametrize("prelu", [False, True])
 def test_bitplane_kernel_bitwise(dev, name, M, K, N, tile_n, prelu):
     kern, plain, fmt, X, b, a = _case(dev, name, M, K, N, tile_n, prelu)
-    if name != "bf16":                   # exercises rounding and flooring
+    if KERNELS[name][6]:   # exercises rounding and flooring
         X = X + 0.37 * (torch.arange(K, device=dev) % 3)
     got = kern(X, fmt, b, a)
     want = plain(X, fmt, b, a)
@@ -109,10 +147,39 @@ def test_bf16_kernel_off_integer_domain(dev, M, K, N, tile_n, prelu):
                                rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("name", ["plain_dense", "plain_dense_bf16"])
+@pytest.mark.parametrize("M,K,N", [(7, 999, 260), (33, 2048, 520)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_dense_float_kernels_off_integer_domain(dev, name, M, K, N, prelu):
+    """Non-integer X, uniform +-2 (the f32 kernel) or X x 1.7 past the bf16
+    kernel's exact +-256, within rtol=1e-5, atol=1e-3; the f32 kernel sums
+    in a fixed order, so two launches agree bit for bit."""
+    kern, plain, fmt, X, b, a = _case(dev, name, M, K, N, 4096, prelu)
+    g = torch.Generator(device=dev).manual_seed(M)
+    X = (4.0 * torch.rand((M, K), generator=g, device=dev) - 2.0
+         if name == "plain_dense" else 1.7 * X + 0.37)
+    got = kern(X, fmt, b, a)
+    want = plain(X, fmt, b, a)
+    again = kern(X, fmt, b, a)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, again)
+
+
+def test_blockpacked_rejects_bad_factor(dev):
+    fmt = TiledBlockPacked.from_dense(generate_ternary(64, 64, 2, seed=0),
+                                      factor=4, tile_kq=16).to(dev)
+    bad = dataclasses.replace(fmt, factor=3)
+    with pytest.raises(ValueError, match="factor"):
+        ck.cuda_tiled_blockpacked_i8_kernel(torch.zeros((2, 64), device=dev),
+                                            bad, torch.zeros(64, device=dev))
+
+
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_wrapper_rejects_bad_inputs(dev, name):
-    kern, _, cls, field, _ = KERNELS[name]
-    fmt = cls.from_dense(generate_ternary(64, 64, 2, seed=0)).to(dev)
+    kern, _, cls, field, _, kw, _ = KERNELS[name]
+    fmt = cls.from_dense(generate_ternary(64, 64, 2, seed=0), **kw).to(dev)
     b = torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="float32"):
         kern(torch.zeros((2, 64), dtype=torch.float16, device=dev), fmt, b)
@@ -123,7 +190,7 @@ def test_wrapper_rejects_bad_inputs(dev, name):
     with pytest.raises(ValueError, match=field):
         kern(torch.zeros((2, 64), device=dev), fmt.to("cpu"), b)
     w = getattr(fmt, field)
-    bad = dataclasses.replace(fmt, **{field: w[:, :, :-1].contiguous()})
+    bad = dataclasses.replace(fmt, **{field: w[..., :-1].contiguous()})
     with pytest.raises(ValueError, match=field):               # wrong shape
         kern(torch.zeros((2, 64), device=dev), bad, b)
 

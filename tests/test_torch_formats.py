@@ -1,5 +1,6 @@
 """Port parity: generators and the containers (TiledBitplane,
-TiledNibblePair, TiledDenseTernary, TCSC).
+TiledNibblePair, TiledDenseTernary, TiledBlockPacked, BlockPackedTernary,
+DenseTernary, TCSC).
 
 The same numpy seeds go through the JAX package and the PyTorch port. The
 container bytes are the contract between the two: every array must be
@@ -92,6 +93,17 @@ CASES = {
     "TiledDenseTernary": [(100, 300, {}), (700, 260, {"tile_k": 64}),
                           (300, 700, {"tile_n": 128}), (1000, 5000, {})],
     "TCSC": [(100, 300, {}), (2500, 260, {}), (37, 91, {})],
+    "DenseTernary": [(100, 300, {}), (37, 91, {})],
+    # ragged K (not a multiple of the block factor * tile_kq), any tile_kq
+    "BlockPackedTernary": [(300, 260, {"factor": 4, "tile_kq": 16}),
+                           (300, 260, {"factor": 5, "tile_kq": 32}),
+                           (301, 259, {"factor": 5, "tile_kq": 13}),
+                           (1000, 130, {}), (1000, 130, {"factor": 5})],
+    "TiledBlockPacked": [(300, 260, {"factor": 4, "tile_kq": 16,
+                                     "tile_n": 128}),
+                         (301, 259, {"factor": 5, "tile_kq": 24,
+                                     "tile_n": 128}),
+                         (1000, 5000, {}), (2500, 300, {"factor": 5})],
 }
 
 
@@ -142,7 +154,37 @@ def test_tcsc_prepare_builds_tables_once(monkeypatch):
 
 
 @pytest.mark.parametrize("cls", ["TiledBitplane", "TiledNibblePair",
-                                 "TiledDenseTernary"])
+                                 "TiledDenseTernary", "TiledBlockPacked",
+                                 "BlockPackedTernary", "DenseTernary"])
 def test_default_nnz_counts_the_dense_matrix(cls):
     W = jf.generate_ternary(150, 70, 2, seed=6)
     assert getattr(tf, cls).from_dense(W).nnz == int(np.count_nonzero(W))
+
+
+@pytest.mark.parametrize("factor", [4, 5])
+def test_codecs_match_jax_on_every_byte(factor):
+    """The port's decode of every byte 0..255 is the JAX containers' (both
+    packages also decode bytes the packers never emit alike)."""
+    from ternary_spgemm_tpu_torch.formats.packed import decode_fields
+
+    p = np.arange(256, dtype=np.uint8).reshape(256, 1)
+    j = jf.BlockPackedTernary(packed=p, K=factor * 256, N=1, factor=factor,
+                              tile_kq=256)
+    want = j.to_dense().reshape(factor, 256)
+    got = torch.stack(decode_fields(torch.from_numpy(p[:, 0]), factor))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_packed_from_torch_and_bad_factor():
+    W = jf.generate_ternary(90, 40, 2, seed=3)
+    for cls in (tf.BlockPackedTernary, tf.TiledBlockPacked):
+        a = cls.from_dense(W, factor=5, tile_kq=8)
+        b = cls.from_dense(torch.from_numpy(W).to(torch.float32), factor=5,
+                           tile_kq=8)
+        assert torch.equal(a.arrays()[cls.ARRAY_FIELDS[0]],
+                           b.arrays()[cls.ARRAY_FIELDS[0]])
+        assert torch.equal(a.to("cpu").to_dense(), torch.from_numpy(W))
+        with pytest.raises(ValueError, match="factor"):
+            cls.from_dense(W, factor=3)
+    d = tf.DenseTernary.from_dense(torch.from_numpy(W).t())
+    assert d.dense.is_contiguous() and d.shape == (40, 90)

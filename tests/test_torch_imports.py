@@ -26,6 +26,7 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.ops.fused_ffn",
                  "ternary_spgemm_tpu_torch.formats.tcsc",
                  "ternary_spgemm_tpu_torch.formats.tiled",
+                 "ternary_spgemm_tpu_torch.formats.packed",
                  "ternary_spgemm_tpu_torch.bench.harness",
                  "ternary_spgemm_tpu_torch.bench.headline",
                  "ternary_spgemm_tpu_torch.__main__",

@@ -1,9 +1,10 @@
 """Port parity: the plain versions of the CUDA SpMM kernels against the JAX
 Pallas kernels (run in interpret mode on the CPU, as the JAX tests run
-them), and the torch-ops BaseTCSC against the JAX XLA one. On the integer
-domains both compute exact sums, so equality is exact; the bf16 kernel off
-its integer domain rounds X to bf16 identically in both and differs only in
-f32 summation order (rtol=1e-5, atol=1e-3)."""
+them), and the torch-ops BaseTCSC and DenseMXU* against the JAX XLA ones. On
+the integer domains both compute exact sums, so equality is exact; the f32
+and bf16 kernels off their integer domains see the same X (bf16-rounded
+identically where they round) and differ only in f32 summation order
+(rtol=1e-5, atol=1e-3)."""
 
 import warnings
 
@@ -22,12 +23,28 @@ from ternary_spgemm_tpu_torch.models.exported import (
     _default_a8_kernel,
 )
 from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
-from ternary_spgemm_tpu_torch.ops import get_kernel, ternary_spgemm
+from ternary_spgemm_tpu_torch.ops import all_kernels, get_kernel, ternary_spgemm
 from ternary_spgemm_tpu_torch.ops import xla_kernels
 
 K, N = 300, 260
 
-#: kind -> (port kernel, JAX kernel, container, integer |x| domain)
+#: container key -> (container class, packer arguments); tile_n = 128 so
+#: that gn = 3, block-packed tile_kq of 16 and 32 so that nb > 1 and K is
+#: not a multiple of the block
+CONTAINERS = {
+    "TiledBitplane": ("TiledBitplane", {"tile_n": 128}),
+    "TiledNibblePair": ("TiledNibblePair", {"tile_n": 128}),
+    "TiledDenseTernary": ("TiledDenseTernary", {"tile_n": 128}),
+    "DenseTernary": ("DenseTernary", {}),
+    "BlockPacked4": ("BlockPackedTernary", {"factor": 4, "tile_kq": 16}),
+    "BlockPacked5": ("BlockPackedTernary", {"factor": 5, "tile_kq": 32}),
+    "TiledBlockPacked4": ("TiledBlockPacked",
+                          {"factor": 4, "tile_kq": 16, "tile_n": 128}),
+    "TiledBlockPacked5": ("TiledBlockPacked",
+                          {"factor": 5, "tile_kq": 32, "tile_n": 128}),
+}
+
+#: kind -> (port kernel, JAX kernel, container key, integer |x| domain)
 KINDS = {
     "x8": ("CudaTiledBitplane_x8", "PallasTiledBitplane_x8", "TiledBitplane",
            127),
@@ -41,6 +58,19 @@ KINDS = {
                  "TiledDenseTernary", 512),
     "dense_x8": ("CudaTiledDense_x8", "PallasTiledDense_x8",
                  "TiledDenseTernary", 127),
+    "dense": ("CudaDense", "PallasDense", "DenseTernary", 512),
+    "dense_bf16": ("CudaDense_bf16", "PallasDense_bf16", "DenseTernary", 256),
+    "dense_i8": ("CudaDense_i8", "PallasDense_i8", "DenseTernary", 512),
+    "blockpacked_i8_f4": ("CudaBlockPacked_i8", "PallasBlockPacked_i8",
+                          "BlockPacked4", 512),
+    "blockpacked_i8_f5": ("CudaBlockPacked_i8", "PallasBlockPacked_i8",
+                          "BlockPacked5", 512),
+    "tiled_blockpacked_i8_f4": ("CudaTiledBlockPacked_i8",
+                                "PallasTiledBlockPacked_i8",
+                                "TiledBlockPacked4", 512),
+    "tiled_blockpacked_i8_f5": ("CudaTiledBlockPacked_i8",
+                                "PallasTiledBlockPacked_i8",
+                                "TiledBlockPacked5", 512),
 }
 
 
@@ -51,11 +81,10 @@ def dense_w():
 
 @pytest.fixture(scope="module")
 def containers(dense_w):
-    """container name -> (JAX container, port container), tile_n = 128 so
-    that gn = 3."""
-    return {c: (getattr(jf, c).from_dense(dense_w, tile_n=128),
-                getattr(tf, c).from_dense(dense_w, tile_n=128))
-            for c in ("TiledBitplane", "TiledNibblePair", "TiledDenseTernary")}
+    """container key -> (JAX container, port container) (:data:`CONTAINERS`)."""
+    return {key: (getattr(jf, c).from_dense(dense_w, **kw),
+                  getattr(tf, c).from_dense(dense_w, **kw))
+            for key, (c, kw) in CONTAINERS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +107,7 @@ def _both(jname, tkern, jfmt, tfmt, X, b, a):
 def test_plain_equals_pallas(containers, kind, M, prelu):
     tname, jname, cls, vr = KINDS[kind]
     jfmt, tfmt = containers[cls]
-    assert tfmt.meta()["tile_n"] == 128 and N > 2 * 128     # gn > 1
+    assert tfmt.meta().get("tile_n", N) in (128, N) and N > 2 * 128
     X = jf.generate_x(M, K, seed=M, value_range=vr)
     if vr == 127:
         X = X * 1.3                      # rounds and clamps past +-127
@@ -105,6 +134,72 @@ def test_bf16_off_integer_domain(containers, M, prelu):
     ref = (jref.dense_gemm_prelu(Xb, W, b, a) if prelu
            else jref.dense_gemm(Xb, W, b))
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-3)
+
+
+#: the kernels that take any float X: kind -> (port kernel, JAX kernel)
+FLOAT_KINDS = {"dense": ("CudaDense", "PallasDense"),
+               "dense_bf16": ("CudaDense_bf16", "PallasDense_bf16"),
+               "DenseMXU": ("DenseMXU", "DenseMXU"),
+               "DenseMXU_bf16": ("DenseMXU_bf16", "DenseMXU_bf16")}
+
+
+@pytest.mark.parametrize("kind", sorted(FLOAT_KINDS))
+@pytest.mark.parametrize("M", [1, 7, 32])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_float_kernels_off_integer_domain(containers, kind, M, prelu):
+    """f32 and bf16 over DenseTernary on non-integer X (uniform +-2 for
+    f32; +-700 for bf16, past its exact +-256): the same values, rounded to
+    bf16 alike where the kernel rounds, summed in another order."""
+    tname, jname = FLOAT_KINDS[kind]
+    jfmt, tfmt = containers["DenseTernary"]
+    hi = 700.0 if "bf16" in kind else 2.0
+    X = np.random.default_rng(M).uniform(-hi, hi,
+                                         size=(M, K)).astype(np.float32)
+    b = jf.generate_bias(N)
+    a = jf.generate_alpha(N) if prelu else None
+    got, want = _both(jname, get_kernel(tname), jfmt, tfmt, X, b, a)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    if "bf16" in kind:
+        X = np.asarray(jnp.asarray(X, jnp.bfloat16).astype(jnp.float32))
+    W = tfmt.to_dense().numpy()
+    ref = (jref.dense_gemm_prelu(X, W, b, a) if prelu
+           else jref.dense_gemm(X, W, b))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["DenseMXU", "DenseMXU_x8"])
+@pytest.mark.parametrize("M", [1, 7, 32])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_dense_mxu_equals_jax(containers, name, M, prelu):
+    """The exact XLA formulations on integer X: DenseMXU on +-512,
+    DenseMXU_x8 on X x 1.3, which it rounds and clamps past +-127 — equal to
+    JAX's int32 dot bit for bit."""
+    jfmt, tfmt = containers["DenseTernary"]
+    X = jf.generate_x(M, K, seed=M + 3)
+    if name == "DenseMXU_x8":
+        X = X * 1.3
+    b = jf.generate_bias(N)
+    a = jf.generate_alpha(N) if prelu else None
+    got, want = _both(name, get_kernel(name), jfmt, tfmt, X, b, a)
+    np.testing.assert_array_equal(got, want)
+    ck.reset_counts()
+    get_kernel(name)(torch.from_numpy(X), tfmt, torch.from_numpy(b))
+    assert not ck.launches and not ck.plain_on_cuda   # torch ops, no plain
+
+
+@pytest.mark.parametrize("kind", [k for k in sorted(KINDS)
+                                  if KINDS[k][3] == 512 and "i8" in k])
+def test_i8_kernels_floor_non_integer_x(containers, kind):
+    """Every i8 kernel floors non-integer X, as the TPU's int8 split does."""
+    tname, jname, cls, _ = KINDS[kind]
+    jfmt, tfmt = containers[cls]
+    X = np.random.default_rng(1).uniform(-511.9, 511.9,
+                                         size=(5, K)).astype(np.float32)
+    b = jf.generate_bias(N)
+    got, want = _both(jname, get_kernel(tname), jfmt, tfmt, X, b, None)
+    np.testing.assert_array_equal(got, want)
+    W = tfmt.to_dense().numpy().astype(np.float32)
+    np.testing.assert_array_equal(got, np.floor(X) @ W + b)
 
 
 @pytest.mark.parametrize("chunked", [False, True], ids=["direct", "chunked"])
@@ -183,7 +278,10 @@ def test_i8_matches_dense_reference(weights):
 @pytest.mark.parametrize("cls,default,a8", [
     ("TiledBitplane", "CudaTiledBitplane_i8", "CudaTiledBitplane_x8"),
     ("TiledNibblePair", "CudaTiledNibblePair_i8", "CudaTiledNibblePair_i8"),
-    ("TiledDenseTernary", "CudaTiledDense_i8", "CudaTiledDense_x8")])
+    ("TiledDenseTernary", "CudaTiledDense_i8", "CudaTiledDense_x8"),
+    ("BlockPacked4", "CudaBlockPacked_i8", "CudaBlockPacked_i8"),
+    ("TiledBlockPacked5", "CudaTiledBlockPacked_i8",
+     "CudaTiledBlockPacked_i8")])
 def test_default_dispatch_per_container(containers, cls, default, a8):
     """Default dispatch takes the widest integer domain (the bf16 kernel's
     +-256 does not displace i8's +-512); the A8 default is int8-native."""
@@ -219,3 +317,40 @@ def test_plain_runs_only_on_cpu(containers, kind):
     assert not ck.launches and not ck.plain_on_cuda
     with pytest.raises(ValueError, match="CUDA tensors"):
         kern(torch.zeros(2, K, device="meta"), tfmt, torch.zeros(N))
+
+
+def test_dense_ternary_dispatch(containers):
+    """Default dispatch over DenseTernary has two exact kernels of
+    unrestricted domain, CudaDense and DenseMXU; the port picks by name, so
+    the hand-written kernel wins, without a warning (JAX's picks Pallas on a
+    TPU). The A8 default is the int8-native DenseMXU_x8 in both packages."""
+    from ternary_spgemm_tpu.models.exported import (
+        _default_a8_kernel as j_default_a8)
+
+    jfmt, tfmt = containers["DenseTernary"]
+    X = torch.from_numpy(np.random.default_rng(2).uniform(
+        -3.0, 3.0, size=(4, K)).astype(np.float32))
+    b = torch.from_numpy(jf.generate_bias(N))
+    ck.reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        y = ternary_spgemm(X, tfmt, b)
+    assert torch.equal(y, ck.dense_plain(X, tfmt, b))
+    assert torch.equal(y, get_kernel("CudaDense")(X, tfmt, b))
+    assert _default_a8_kernel(tfmt) == "DenseMXU_x8" == j_default_a8(jfmt)
+
+
+@pytest.mark.parametrize("cls", ["BlockPacked4", "TiledBlockPacked4"])
+def test_block_packed_have_no_int8_native_kernel(containers, cls):
+    """Neither package has an int8-native (_x8) kernel over the block-packed
+    containers: the A8 default falls to their i8 kernel in both."""
+    from ternary_spgemm_tpu.models.exported import (
+        _default_a8_kernel as j_default_a8)
+    from ternary_spgemm_tpu.ops import all_kernels as jall
+
+    jfmt, tfmt = containers[cls]
+    for reg, fmt, a8 in ((jall(), jfmt, j_default_a8),
+                         (all_kernels(), tfmt, _default_a8_kernel)):
+        over = [s for s in reg.values() if isinstance(fmt, s.format_cls)]
+        assert [s.x_absmax for s in over] == [512]
+        assert a8(fmt) == over[0].name
