@@ -21,6 +21,13 @@ result line if any fails, or if no GPU is visible):
    every row without a flip agrees within rtol=1e-5, atol=0.01). Median
    times from CUDA events, with a 256 MB buffer written between launches
    so that the weights come from device memory as they do in serving;
+   beside each, two yardsticks: ``library_ms``, one ``torch.matmul`` of the
+   staged X by the dense f32 W decoded beforehand (TF32 off; none for the
+   fused SwiGLU), and ``bound_ms``, the least time the card could take: the
+   larger of the bytes (weights, f32 X and Y, bias; for an ELL container
+   one byte a nonzero plus its cap tables) at 3.35 TB/s and the operations
+   (2*M*K*N, or 2*M*nnz for the ELL gathers) at 1,979 TOP/s, the int8
+   peak, with which of the two bounds it;
 4. whole-model parity: a small model (2 layers, d=256, 4 heads, ff=512,
    vocab 64) from a numpy-seeded parameter tree in the shape of the JAX
    ``BitTransformerLM.init``, built once, one copy on the CPU (plain
@@ -35,23 +42,25 @@ result line if any fails, or if no GPU is visible):
    on the headline op) and no plain version may run on a CUDA tensor;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
    nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
-   block-packed and tiled block-packed i8, the last two at factor 4 and 5)
-   against its plain version on the card, at the north star 32x1024x4096
-   (s=4), at the BitNet-7B up-projection 32x4096x11008 (s=2, three
-   N-tiles), at the large-M 512x4096x4096 (s=2) and at a ragged 7x999x1000
-   (s=3; K not a multiple of 4, 8 or a block, N not of 32): bitwise equal
-   on integer X in each kernel's domain with PReLU on and off, and on
-   non-integer X (uniform in +-2) within rtol=1e-5, atol=1e-3 (the x8 and
-   i8 rules round or floor it as the plain versions do; the f32 and bf16
-   kernels sum it in another order than the plain matmul);
+   block-packed and tiled block-packed i8 at factor 4 and 5, stride-packed
+   f32 and i8 at factor 4 and 5, ELL deposit i8, tiled ELL and blocked ELL
+   f32) against its plain version on the card, at the north star
+   32x1024x4096 (s=4), at the BitNet-7B up-projection 32x4096x11008 (s=2,
+   several N-tiles), at the large-M 512x4096x4096 (s=2) and at a ragged
+   7x999x1000 (s=3; K not a multiple of 4, 5, 8, 127, 128, 248 or a block,
+   N not of 32 or 128): bitwise equal on integer X in each kernel's domain
+   with PReLU on and off, and on non-integer X (uniform in +-2) within
+   rtol=1e-5, atol=1e-3 (the x8 and i8 rules round or floor it as the plain
+   versions do; the f32 and bf16 kernels sum it in another order than the
+   plain matmul); the yardsticks of phase 3 at the north star;
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
    (in-process, ``__main__.main``): every registered kernel correct (the
-   hand-written ones and the torch-op DenseMXU* and BaseTCSC), no ERROR
-   line, each hand-written SpMM kernel launched and no plain version on a
-   CUDA tensor; then the headline
-   (``python -m ternary_spgemm_tpu_torch.bench.headline``), whose JSON line
-   is printed.
+   hand-written ones and the torch ops: BaseTCSC, BlockedEllTCSC,
+   DenseMXU*, PackedMXU_*), no ERROR line, each hand-written SpMM kernel
+   launched and no plain version on a CUDA tensor; then the headline
+   (``python -m ternary_spgemm_tpu_torch.bench.headline``) over all 19 of
+   ``bench.py``'s default kernels, whose JSON line is printed.
 
 The hand-written kernels, their CUDA sources and plain versions come from
 the registry (``KernelSpec.source``, ``KernelSpec.plain``) and the fused
@@ -84,6 +93,64 @@ SERVE_KERNELS = ("CudaTiledBitplane_x8", "CudaTiledBitplane_i8")
 #: one (K not a multiple of 4, 8 or a block, N not of 32)
 BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
                 (512, 4096, 4096, 2), (7, 999, 1000, 3)]
+#: the H100 SXM's published peaks at its 700 W limit (NVIDIA's data sheet):
+#: device memory, and the int8 tensor-core rate, the fastest it computes at
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 1979e12
+
+
+def _is_ell(fmt) -> bool:
+    from ternary_spgemm_tpu_torch.formats import (
+        BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC)
+
+    return isinstance(fmt, (BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC))
+
+
+def weight_bytes(fmt) -> int:
+    """The weight bytes a kernel over ``fmt`` must read once: the weight
+    array of a dense or packed container (its first array); for an ELL
+    container one byte a nonzero plus the cap tables (the slots the
+    nonzeros need, not the cap padding)."""
+    if _is_ell(fmt):
+        return fmt.nnz + sum(4 * t.numel() for n, t in fmt.arrays().items()
+                             if "cap" in n)
+    t = fmt.arrays()[fmt.ARRAY_FIELDS[0]]
+    return t.numel() * t.element_size()
+
+
+def spmm_ops(M: int, fmt) -> int:
+    """Operations of Y = X.W over ``fmt``: 2*M*K*N where every weight is
+    multiplied, 2*M*nnz for the ELL gathers (only the nonzeros' slots)."""
+    K, N = fmt.shape
+    return 2 * M * (fmt.nnz if _is_ell(fmt) else K * N)
+
+
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``nbytes`` at the memory rate and ``ops`` at the int8 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def spmm_bound(M: int, fmt):
+    """:func:`bound` of one SpMM call: the weights, f32 X and Y, the bias."""
+    K, N = fmt.shape
+    return bound(weight_bytes(fmt) + 4 * (M * K + M * N + N),
+                 spmm_ops(M, fmt))
+
+
+def library_ms(xs, fmt, flush) -> float:
+    """The yardstick: one ``torch.matmul`` of the staged X ``xs`` by the
+    container's dense f32 W, decoded before the timed region (TF32 off) —
+    the PyTorch call that computes the same product; the port never calls
+    it."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+
+    w = fmt.to_dense().to(torch.float32)
+    return event_ms(lambda: torch.matmul(xs, w), flush=flush)
 
 
 def spmm_kernels() -> dict:
@@ -122,13 +189,13 @@ def phase_kernels(dev, card: str) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for name in (*SERVE_KERNELS, KERNEL_NAME)}
+    stats = {name: {"max_abs_err": 0.0} for name in (*SERVE_KERNELS,
+                                                     KERNEL_NAME)}
 
     def fmt(K, N, s=2):
         return TiledBitplane.from_dense(random_ternary(K, N, s, gen, dev))
 
-    def spmm_case(name, kern, plain, M, K, N, *, s, x, headline):
+    def spmm_case(name, kern, plain, stage, M, K, N, *, s, x, headline):
         f = fmt(K, N, s)
         b = torch.full((N,), 2.0, device=dev)
         a = torch.full((N,), 0.1, device=dev)
@@ -143,23 +210,27 @@ def phase_kernels(dev, card: str) -> dict:
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
         pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
+        lms = library_ms(stage(x), f, flush)
+        bms, by = spmm_bound(M, f)
         print(f"kernel {name} {M}x{K}x{N}: bitwise equal (PReLU on/off); "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms [{card}]", flush=True)
+              f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}) [{card}]", flush=True)
         if headline:
-            stats[name].update(ms=ms, plain_ms=pms)
+            stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by)
 
     for M in (4, 256, 512):
         # A8 activations: floats that round and clamp to int8
         for K, N, what in ((4096, 12288, "qkv"), (4096, 4096, "wo")):
             x = 60.0 * torch.randn((M, K), generator=gen, device=dev)
             spmm_case("CudaTiledBitplane_x8", ck.cuda_tiled_bitplane_x8_kernel,
-                      ck.bitplane_x8_plain, M, K, N, s=2, x=x,
+                      ck.bitplane_x8_plain, ck.to_x8, M, K, N, s=2, x=x,
                       headline=(M == 4 and what == "qkv"))
     for K, N, s in ((1024, 4096, 4), (4096, 11008, 2)):
         x = torch.randint(-512, 513, (32, K), generator=gen,
                           device=dev).to(torch.float32)
         spmm_case("CudaTiledBitplane_i8", ck.cuda_tiled_bitplane_i8_kernel,
-                  ck.bitplane_i8_plain, 32, K, N, s=s, x=x,
+                  ck.bitplane_i8_plain, ck.to_i8, 32, K, N, s=s, x=x,
                   headline=(K == 1024))
 
     fg, fu, fd = fmt(4096, 11008), fmt(4096, 11008), fmt(11008, 4096)
@@ -195,8 +266,15 @@ def phase_kernels(dev, card: str) -> dict:
               f"{flips} of {diff.numel()} hq flips, max |err| {err:.3g} in "
               f"{int(clean.sum())}/{M} clean rows; {ms:.4f} ms vs plain "
               f"{pms:.4f} ms [{card}]", flush=True)
+        # three planes, xq and y (M, 4096) f32, sx; gate, up and down
+        # products; no single PyTorch call computes the fused FFN
+        bms, by = bound(sum(weight_bytes(t) for t in (fg, fu, fd))
+                        + 4 * (2 * M * 4096 + M),
+                        sum(spmm_ops(M, t) for t in (fg, fu, fd)))
+        print(f"  SwiGLU M={M} bound {bms:.4f} ms ({by})", flush=True)
         if M == 4:
-            stats[KERNEL_NAME].update(ms=ms, plain_ms=pms)
+            stats[KERNEL_NAME].update(ms=ms, plain_ms=pms, library_ms=None,
+                                      bound_ms=bms, bound_by=by)
     del flush
     return stats
 
@@ -367,8 +445,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     kernels = {n: s for n, s in spmm_kernels().items()
                if n not in SERVE_KERNELS}
-    stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-             for name in kernels}
+    stats = {name: {"max_abs_err": 0.0} for name in kernels}
     for M, K, N, s in BENCH_SHAPES:
         W = random_ternary(K, N, s, gen, dev)
         fmts = {}
@@ -408,15 +485,21 @@ def phase_bench_kernels(dev, card: str) -> dict:
                                   f"rtol=1e-5, atol=1e-3 (max |diff| {err})")
                         stats[name]["max_abs_err"] = max(
                             stats[name]["max_abs_err"], err)
-                x = xs[0]
+                x = xs[0]      # integer, in the domain: every X rule keeps it
                 ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
                 pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
+                bms, by = spmm_bound(M, f)
+                extra = ""
+                if (M, K, N) == BENCH_SHAPES[0][:3] and kw == variants[0]:
+                    lms = library_ms(x, f, flush)
+                    stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                       bound_ms=bms, bound_by=by)
+                    extra = f", library {lms:.4f} ms"
                 print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
                       f"on/off), non-integer X within tolerance; {ms:.4f} ms "
-                      f"vs plain {pms:.4f} ms [{card}]", flush=True)
-                if (M, K, N) == (32, 1024, 4096) and kw == variants[0]:
-                    stats[name].update(ms=ms, plain_ms=pms)
+                      f"vs plain {pms:.4f} ms{extra}, bound {bms:.4f} ms "
+                      f"({by}) [{card}]", flush=True)
         del W, fmts
     del flush
     return stats
@@ -462,10 +545,17 @@ def phase_entry_point(dev) -> dict:
 
     rc, out = run(headline.main, [])
     check(rc == 0, f"the headline exited {rc}:\n{out}")
+    check(len(headline.DEFAULT_KERNELS) == 19 and
+          "# bench.py's 19 default kernels, each by its counterpart here"
+          in out.splitlines() and "incomplete" not in out,
+          f"the headline does not compete bench.py's 19 kernels:\n{out}")
     rec = [ln for ln in out.splitlines() if ln.startswith("{")]
     check(len(rec) == 1, f"no headline JSON line:\n{out}")
-    check(json.loads(rec[0]).get("value", 0) > 0, f"headline {rec[0]}")
+    head = json.loads(rec[0])
+    check(head.get("value", 0) > 0, f"headline {rec[0]}")
     print(out, end="", flush=True)
+    print(f"headline best_kernel {head['best_kernel']}, best_any_kernel "
+          f"{head['best_any_kernel']}", flush=True)
     return counts
 
 
@@ -520,8 +610,9 @@ def main() -> int:
                 "replaces": ref,
                 "launches": serve_counts.get(name, 0)
                 + bench_counts.get(name, 0),
-                "max_abs_err": stats[name]["max_abs_err"],
-                "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+                **{k: stats[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

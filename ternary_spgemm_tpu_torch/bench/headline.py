@@ -13,10 +13,10 @@ Prints the card's name on a ``#`` line, then ONE JSON line with the keys of
 
 Config: M=32, K=1024, N=4096, s=4 (``compiler_testing/test.sh:8``).
 Metric: useful-adds GFLOP/s of the best kernel that is exact on the full
-+-512 activation domain, among ``bench.py``'s default kernels that the port
-has (:data:`DEFAULT_KERNELS`: the hand-written counterparts of its Pallas
-kernels and the torch-op DenseMXU formulations). The JAX headline picks
-among all 19 of them; a ``#`` line names those not ported yet.
++-512 activation domain, among ``bench.py``'s 19 default kernels, each by
+its counterpart here (:data:`DEFAULT_KERNELS`: the hand-written counterparts
+of its Pallas kernels and the torch-op DenseMXU formulations), the
+competition of the JAX headline; a ``#`` line says so.
 vs_baseline: the reference C++ code's best published
 number at this config on its CPU — 2.31712e7 cycles for 33,685,504 useful
 adds (``compiler_testing/compiler_results_cold_cache.txt:1-2``) at its
@@ -29,7 +29,7 @@ import argparse
 import json
 import sys
 
-from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS, all_kernels, unported
+from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS, all_kernels
 
 #: Reference best at the north-star config (see module docstring).
 REFERENCE_GFLOPS = 33_685_504 / (2.31712e7 / 3.2e9) / 1e9
@@ -48,10 +48,8 @@ BENCH_PY_DEFAULT_KERNELS = [
 ]
 #: The kernels benchmarked by default: the port's counterparts of
 #: ``bench.py``'s default set, so that the headline holds the same
-#: competition as far as the port reaches (``--all`` sweeps the port's
-#: whole registry).
-DEFAULT_KERNELS = [REFERENCE_KERNELS[n] for n in BENCH_PY_DEFAULT_KERNELS
-                   if REFERENCE_KERNELS[n] is not None]
+#: competition (``--all`` sweeps the port's whole registry).
+DEFAULT_KERNELS = [REFERENCE_KERNELS[n] for n in BENCH_PY_DEFAULT_KERNELS]
 
 
 def _round(v, nd):
@@ -102,11 +100,8 @@ def main(argv=None) -> int:
         timer="cuda_events" if args.device == "cuda" else "wall")
     print(f"# device: {device_name(args.device)}")
     if kernels is DEFAULT_KERNELS:
-        left = unported(BENCH_PY_DEFAULT_KERNELS)
-        print(f"# {len(DEFAULT_KERNELS)} of bench.py's "
-              f"{len(BENCH_PY_DEFAULT_KERNELS)} default kernels; the "
-              f"comparison is incomplete, not ported yet, so not swept: "
-              f"{', '.join(left)}")
+        print(f"# bench.py's {len(BENCH_PY_DEFAULT_KERNELS)} default "
+              "kernels, each by its counterpart here")
     beta = None
     if args.measure_beta:
         from ternary_spgemm_tpu_torch.bench import measure_hbm_bandwidth

@@ -7,6 +7,10 @@
 //     uint8: the wrapper passes gn = 1, tile_n = N;
 //   * pallas_tiled_blockpacked_i8_kernel (:886, _tiled_blockpacked_i8(s)_
 //     kernel :840-876) over TiledBlockPacked (nb, gn, tile_kq, tile_n) uint8.
+// and, with one block (nb = gn = 1, tile_kq = Kq, tile_n = N), the global
+// stride layout of PackedTernary2Bit / PackedTernary53 (Kq, N) uint8:
+//   * pallas_packed2_i8_kernel (:502) and pallas_packed53_i8_kernel (:513),
+//     body _packed_i8_kernel :424.
 // Both decode factor = 4 two-bit or factor = 5 base-3 codes (a kernel
 // parameter: one instantiation each) and stage X as floor(x + 512) - 512,
 // the value of the TPU's int8 split, accumulated in int32 directly (no

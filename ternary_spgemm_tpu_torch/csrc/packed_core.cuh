@@ -14,7 +14,9 @@
 //   * TiledDenseTernary (gk, gn, tile_k, tile_n) int8: F = 1, nb = gk,
 //     tkq = tile_k;
 //   * BlockPackedTernary (nb*tile_kq, N) uint8: gn = 1, tile_n = N;
-//   * TiledBlockPacked (nb, gn, tile_kq, tile_n) uint8.
+//   * TiledBlockPacked (nb, gn, tile_kq, tile_n) uint8;
+//   * PackedTernary2Bit / PackedTernary53 (Kq, N) uint8, the global stride:
+//     nb = gn = 1, tkq = Kq, tile_n = N.
 // The F weights of one byte are tkq dense rows apart, not adjacent, so the
 // bitplane core's staging (four adjacent rows under one 16-byte shared load)
 // does not fit. Here a chunk of KTQ packed rows stages its X as F runs of

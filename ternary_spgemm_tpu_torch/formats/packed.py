@@ -1,6 +1,7 @@
-"""Dense and block-packed ternary containers — counterpart of
-``ternary_spgemm_tpu/formats/packed.py`` (``DenseTernary``,
-``BlockPackedTernary``, the codecs, ``_pad_k`` and ``_POW3``).
+"""Dense, stride-packed and block-packed ternary containers — counterpart
+of ``ternary_spgemm_tpu/formats/packed.py`` (``DenseTernary``,
+``PackedTernary2Bit``, ``PackedTernary53``, ``BlockPackedTernary``, the
+codecs, ``_pad_k`` and ``_POW3``).
 
 Codes are chosen so the all-zero byte decodes to weight 0, making
 zero-padding of K free:
@@ -10,13 +11,15 @@ zero-padding of K free:
 * base-3 digit (``factor=5``): {0: 0, +1: 1, -1: 2}, five digits a byte
   weighted by ``_POW3``; decode ``w = d - 3*(d >> 1)``.
 
-:class:`BlockPackedTernary` applies the stride within blocks of ``B =
-factor * tile_kq`` dense rows: packed row ``blk*tile_kq + kq`` holds, in
-field ``f``, the weight of dense row ``blk*B + f*tile_kq + kq``. The weights
-of one byte are therefore ``tile_kq`` rows apart. Its ``packed`` bytes, and
-``DenseTernary``'s ``dense``, are identical to the JAX packer's for the same
-matrix and arguments. ``PackedTernary2Bit``, ``PackedTernary53`` and
-``PackedCSC`` are not ported yet.
+:class:`PackedTernary2Bit` (``FACTOR = 4``) and :class:`PackedTernary53`
+(``FACTOR = 5``) use the global stride: K pads to a multiple of ``F``, and
+field ``j`` of packed row ``k'`` holds dense row ``j*Kq + k'``, ``Kq =
+K_pad / F``. :class:`BlockPackedTernary` applies the stride within blocks
+of ``B = factor * tile_kq`` dense rows: packed row ``blk*tile_kq + kq``
+holds, in field ``f``, the weight of dense row ``blk*B + f*tile_kq + kq``.
+The global stride is thus the block layout with one block of ``tile_kq =
+Kq``. Every container's bytes are identical to the JAX packer's for the
+same matrix and arguments. ``PackedCSC`` is not ported yet.
 
 The packers are vectorised torch and run on whatever device their input
 lies on.
@@ -24,7 +27,7 @@ lies on.
 
 from __future__ import annotations
 
-from typing import List
+from typing import ClassVar, List
 
 import torch
 
@@ -83,6 +86,53 @@ def check_factor(factor: int) -> None:
     if factor not in (4, 5):
         raise ValueError(f"factor must be 4 (2-bit) or 5 (base-3), got "
                          f"{factor}")
+
+
+@register_format
+class _StridePacked(TernaryFormat):
+    """Global stride packing, ``FACTOR`` weights a byte (module docstring)."""
+
+    ARRAY_FIELDS = ("packed",)
+    FACTOR: ClassVar[int]
+
+    packed: torch.Tensor  # (Kq, N) uint8, Kq = round_up(K, FACTOR) / FACTOR
+    K: int
+    N: int
+
+    @classmethod
+    def from_dense(cls, W, *, device=None):
+        """Pack a dense ternary ``(K, N)`` matrix (numpy or torch; on
+        ``device``, default the tensor's own)."""
+        W = _as_int8_dense(W, device)
+        K, N = W.shape
+        Wp = _pad_k(W, cls.FACTOR)
+        Kq = Wp.shape[0] // cls.FACTOR
+        packed = encode_fields(Wp.view(1, cls.FACTOR, Kq, N), cls.FACTOR)
+        return cls(packed=packed[0], K=K, N=N)
+
+    def to_dense(self) -> torch.Tensor:
+        return torch.cat(decode_fields(self.packed, self.FACTOR))[:self.K]
+
+    def size_bytes(self) -> int:
+        return int(self.packed.numel())
+
+    @property
+    def shape(self):
+        return (self.K, self.N)
+
+
+@register_format
+class PackedTernary2Bit(_StridePacked):
+    """Dense ternary packed 4 values a byte (2-bit codes), stride layout."""
+
+    FACTOR = 4
+
+
+@register_format
+class PackedTernary53(_StridePacked):
+    """Dense ternary packed 5 values a byte (base-3 codes), stride layout."""
+
+    FACTOR = 5
 
 
 @register_format

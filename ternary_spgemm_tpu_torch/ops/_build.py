@@ -38,6 +38,9 @@ _SPMM = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 #: (x, M, K, weights, nb, gn, tile_kq, tile_n, factor, N, bias, alpha, y,
 #: stream)
 _PACKED = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#: (x, M, K, pos, neg, cap_pos, cap_neg, nb, gn, rows_pos, rows_neg, slab_n,
+#: cap_tile, ncaps, block_k, N, bias, alpha, y, stream)
+_ELL = [_P, _I, _I, _P, _P, _P, _P, *[_I] * 9, _P, _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "ternary_bitplane_x8": _SPMM,
@@ -50,6 +53,10 @@ SIGNATURES = {
     "ternary_dense_bf16": _SPMM,
     "ternary_dense_i8": _SPMM,
     "ternary_blockpacked_i8": _PACKED,
+    "ternary_packed_f32": _PACKED,
+    "ternary_tiled_ell_f32": _ELL,
+    "ternary_ell_deposit_i8": _ELL,
+    "ternary_blocked_ell_f32": _ELL,
     "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }

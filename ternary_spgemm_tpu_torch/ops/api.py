@@ -35,20 +35,20 @@ REFERENCE_KERNELS: Dict[str, Optional[str]] = {
     "InterleavedTCSC": None,
     "InterleavedBlockedTCSC": None,
     "EllTCSC": None,
-    "BlockedEllTCSC": None,
+    "BlockedEllTCSC": "BlockedEllTCSC",
     "DenseMXU": "DenseMXU",
     "DenseMXU_bf16": "DenseMXU_bf16",
     "DenseMXU_x8": "DenseMXU_x8",
-    "PackedMXU_2bit": None,
-    "PackedMXU_base3": None,
+    "PackedMXU_2bit": "PackedMXU_2bit",
+    "PackedMXU_base3": "PackedMXU_base3",
     "PackedCSC": None,
     "PallasDense": "CudaDense",
     "PallasDense_bf16": "CudaDense_bf16",
-    "PallasPacked2Bit": None,
-    "PallasPacked53": None,
+    "PallasPacked2Bit": "CudaPacked2Bit",
+    "PallasPacked53": "CudaPacked53",
     "PallasDense_i8": "CudaDense_i8",
-    "PallasPacked2Bit_i8": None,
-    "PallasPacked53_i8": None,
+    "PallasPacked2Bit_i8": "CudaPacked2Bit_i8",
+    "PallasPacked53_i8": "CudaPacked53_i8",
     "PallasBlockPacked_i8": "CudaBlockPacked_i8",
     "PallasTiledDense_i8": "CudaTiledDense_i8",
     "PallasTiledDense_x8": "CudaTiledDense_x8",
@@ -57,9 +57,9 @@ REFERENCE_KERNELS: Dict[str, Optional[str]] = {
     "PallasTiledNibblePair_i8": "CudaTiledNibblePair_i8",
     "PallasTiledBitplane_x8": "CudaTiledBitplane_x8",
     "PallasTiledBitplane_bf16": "CudaTiledBitplane_bf16",
-    "PallasEllDeposit_i8": None,
-    "PallasTiledEllGather": None,
-    "PallasEllGather": None,
+    "PallasEllDeposit_i8": "CudaEllDeposit_i8",
+    "PallasTiledEllGather": "CudaTiledEllGather",
+    "PallasEllGather": "CudaEllGather",
 }
 
 
@@ -154,14 +154,19 @@ def to_bf16(X: torch.Tensor) -> torch.Tensor:
     return X.to(torch.float32).to(torch.bfloat16).to(torch.float32)
 
 
-def matmul_plain(Xv: torch.Tensor, fmt: TernaryFormat) -> torch.Tensor:
-    """f32 ``Xv (M, K)`` times the decoded ternary matrix, in full f32 —
+def matmul_dense(Xv: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """f32 ``Xv (M, K)`` times a dense ternary ``W (K, N)``, in full f32 —
     exact while ``Xv`` is integer-valued and every partial sum stays below
     2**24."""
     if Xv.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the plain ternary matmul needs full f32: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    return Xv @ fmt.to_dense().to(torch.float32)
+    return Xv @ W.to(torch.float32)
+
+
+def matmul_plain(Xv: torch.Tensor, fmt: TernaryFormat) -> torch.Tensor:
+    """f32 ``Xv (M, K)`` times the decoded container (:func:`matmul_dense`)."""
+    return matmul_dense(Xv, fmt.to_dense())
 
 
 def finish(Y: torch.Tensor, bias, alpha=None) -> torch.Tensor:
@@ -180,7 +185,10 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
     ``kernel=None`` picks a fully-exact kernel for ``type(fmt)``; where the
     format has only restricted-domain kernels it takes the widest domain
     (_i8 over _x8) and warns that non-integer X is rounded — the JAX
-    package's default dispatch (``ops/api.py:130-158`` there)."""
+    package's default dispatch (``ops/api.py:130-158`` there). Among the
+    candidates a hand-written kernel (one with a CUDA ``source``) comes
+    before a torch-op formulation, as JAX takes Pallas on its accelerator;
+    then the name decides."""
     if kernel is not None:
         spec = get_kernel(kernel)
         if not isinstance(fmt, spec.format_cls):
@@ -205,4 +213,5 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
                 stacklevel=3)
     if not candidates:
         raise TypeError(f"no registered kernel for format {type(fmt).__name__}")
-    return min(candidates, key=lambda s: s.name).fn(X, fmt, bias, alpha)
+    spec = min(candidates, key=lambda s: (not s.source, s.name))
+    return spec.fn(X, fmt, bias, alpha)

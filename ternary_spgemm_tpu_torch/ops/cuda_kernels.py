@@ -1,9 +1,9 @@
 """CUDA SpMM kernels — counterpart of the SpMM kernels of
 ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Eleven registered kernels, two cores (``csrc/bitplane_core.cuh`` for the
+Eighteen registered kernels, three cores (``csrc/bitplane_core.cuh`` for the
 bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
-and block-packed ones):
+and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers):
 
 =======================  ========================  ==================  =====
 kernel                   replaces (Pallas)         source              X rule
@@ -19,6 +19,13 @@ CudaDense_bf16           PallasDense_bf16          dense.cu            bf16
 CudaDense_i8             PallasDense_i8            dense.cu            i8
 CudaBlockPacked_i8       PallasBlockPacked_i8      blockpacked.cu      i8
 CudaTiledBlockPacked_i8  PallasTiledBlockPacked_i8 blockpacked.cu      i8
+CudaPacked2Bit           PallasPacked2Bit          packed.cu           f32
+CudaPacked53             PallasPacked53            packed.cu           f32
+CudaPacked2Bit_i8        PallasPacked2Bit_i8       blockpacked.cu      i8
+CudaPacked53_i8          PallasPacked53_i8         blockpacked.cu      i8
+CudaEllDeposit_i8        PallasEllDeposit_i8       ell.cu              i8
+CudaTiledEllGather       PallasTiledEllGather      ell.cu              f32
+CudaEllGather            PallasEllGather           ell.cu              f32
 =======================  ========================  ==================  =====
 
 X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
@@ -48,9 +55,18 @@ import torch
 
 from ternary_spgemm_tpu_torch.formats.base import TernaryFormat
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane, TiledNibblePair
+from ternary_spgemm_tpu_torch.formats.blocked_ell import BlockedEllTCSC
+from ternary_spgemm_tpu_torch.formats.ell_deposit import (
+    SB_ROWS,
+    WORDS,
+    TiledEllDeposit,
+)
+from ternary_spgemm_tpu_torch.formats.ell_tiled import TiledEllTCSC
 from ternary_spgemm_tpu_torch.formats.packed import (
     BlockPackedTernary,
     DenseTernary,
+    PackedTernary2Bit,
+    PackedTernary53,
     check_factor,
 )
 from ternary_spgemm_tpu_torch.formats.tiled import (
@@ -108,6 +124,13 @@ dense_bf16_plain = _plain("CudaDense_bf16", to_bf16)
 dense_i8_plain = _plain("CudaDense_i8", to_i8)
 blockpacked_i8_plain = _plain("CudaBlockPacked_i8", to_i8)
 tiled_blockpacked_i8_plain = _plain("CudaTiledBlockPacked_i8", to_i8)
+packed2_plain = _plain("CudaPacked2Bit", to_f32)
+packed53_plain = _plain("CudaPacked53", to_f32)
+packed2_i8_plain = _plain("CudaPacked2Bit_i8", to_i8)
+packed53_i8_plain = _plain("CudaPacked53_i8", to_i8)
+ell_deposit_i8_plain = _plain("CudaEllDeposit_i8", to_i8)
+tiled_ell_plain = _plain("CudaTiledEllGather", to_f32)
+ell_gather_plain = _plain("CudaEllGather", to_f32)
 
 
 def _check_weights(t: torch.Tensor, what: str, dtype: torch.dtype,
@@ -165,6 +188,66 @@ def check_packed_tiles(fmt: TiledBlockPacked,
     return _check_weights(fmt.tiles, "tiles", torch.uint8, shape, device)
 
 
+def check_stride_packed(fmt: PackedTernary2Bit,
+                        device: torch.device) -> torch.Tensor:
+    """PackedTernary2Bit / PackedTernary53 ``packed``: uint8 (Kq, N), Kq =
+    round_up(K, FACTOR) / FACTOR."""
+    return _check_weights(fmt.packed, "packed", torch.uint8,
+                          (cdiv(fmt.K, fmt.FACTOR), fmt.N), device)
+
+
+def _check_caps(fmt, names, shape, device) -> tuple:
+    return tuple(_check_weights(getattr(fmt, n), n, torch.int32, shape,
+                                device) for n in names)
+
+
+def check_tiled_ell(fmt: TiledEllTCSC, device: torch.device) -> tuple:
+    """TiledEllTCSC: ``plane`` int8 (nb, gn, CAPS, tile_n) split at row
+    ``cap_p_max`` into its pos and neg sections, ``cap_pos``/``cap_neg``
+    int32 (nb, gn)."""
+    nb, gn = cdiv(fmt.K, fmt.block_k), cdiv(fmt.N, fmt.tile_n)
+    caps = fmt.plane.shape[2] if fmt.plane.dim() == 4 else 0
+    plane = _check_weights(fmt.plane, "plane", torch.int8,
+                           (nb, gn, caps, fmt.tile_n), device)
+    if not 0 < fmt.block_k <= 127 or not 0 <= fmt.cap_p_max <= caps:
+        raise ValueError(f"TiledEllTCSC: block_k={fmt.block_k} must be in "
+                         f"1..127 and cap_p_max={fmt.cap_p_max} in 0..{caps}")
+    return (plane, plane[:, :, fmt.cap_p_max:],
+            *_check_caps(fmt, ("cap_pos", "cap_neg"), (nb, gn), device))
+
+
+def check_ell_deposit(fmt: TiledEllDeposit, device: torch.device) -> tuple:
+    """TiledEllDeposit: ``plane`` int8 (nsb, gn, 8*CAPS, tile_n) split at
+    row ``8*cap_p_max``, ``cap_pos``/``cap_neg`` int32 (nsb, gn)."""
+    nsb, gn = cdiv(fmt.K, SB_ROWS), cdiv(fmt.N, fmt.tile_n)
+    rows = fmt.plane.shape[2] if fmt.plane.dim() == 4 else 0
+    plane = _check_weights(fmt.plane, "plane", torch.int8,
+                           (nsb, gn, rows, fmt.tile_n), device)
+    if rows % WORDS or not 0 <= WORDS * fmt.cap_p_max <= rows:
+        raise ValueError(f"TiledEllDeposit: plane rows {rows} must be a "
+                         f"multiple of {WORDS} holding cap_p_max="
+                         f"{fmt.cap_p_max} slots")
+    return (plane, plane[:, :, WORDS * fmt.cap_p_max:],
+            *_check_caps(fmt, ("cap_pos", "cap_neg"), (nsb, gn), device))
+
+
+def check_blocked_ell(fmt: BlockedEllTCSC, device: torch.device) -> tuple:
+    """BlockedEllTCSC: ``idx_pos``/``idx_neg`` int8 (nb, CAP, N_pad),
+    ``tile_cap_pos``/``tile_cap_neg`` int32 (nb, N_pad / tile_n)."""
+    if not 0 < fmt.block_k <= 128:
+        raise ValueError(f"BlockedEllTCSC: block_k={fmt.block_k} must be in "
+                         "1..128")
+    nb, n_pad = cdiv(fmt.K, fmt.block_k), cdiv(fmt.N, fmt.tile_n) * fmt.tile_n
+    planes = []
+    for name in ("idx_pos", "idx_neg"):
+        t = getattr(fmt, name)
+        cap = t.shape[1] if t.dim() == 3 else 0
+        planes.append(_check_weights(t, name, torch.int8, (nb, cap, n_pad),
+                                     device))
+    return (*planes, *_check_caps(fmt, ("tile_cap_pos", "tile_cap_neg"),
+                                  (nb, n_pad // fmt.tile_n), device))
+
+
 def check_f32(t: torch.Tensor, shape: tuple, device: torch.device,
               what: str) -> torch.Tensor:
     if not isinstance(t, torch.Tensor) or t.device != device \
@@ -184,8 +267,9 @@ def stream_handle(device: torch.device) -> int:
 def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
             bias, alpha) -> torch.Tensor:
     """Launch ``entry`` over ``fmt``: ``weights`` checks and returns the
-    container's weight tensor, ``geom`` is the tuple of integers the entry
-    point takes between the weight pointer and N."""
+    container's weight tensor (or a tuple of them, passed in order), ``geom``
+    is the tuple of integers the entry point takes between the weight
+    pointers and N."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors (CPU tensors take the "
@@ -195,6 +279,7 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
     M, K, N = X.shape[0], fmt.K, fmt.N
     check_f32(X, (M, K), dev, f"{name}: X")
     w = weights(fmt, dev)
+    ptrs = [t.data_ptr() for t in (w if isinstance(w, tuple) else (w,))]
     check_f32(bias, (N,), dev, f"{name}: bias")
     if alpha is not None:
         check_f32(alpha, (N,), dev, f"{name}: alpha")
@@ -203,7 +288,7 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
         return Y
     lib = _build.load()
     err = getattr(lib, entry)(
-        X.data_ptr(), M, K, w.data_ptr(), *geom, N, bias.data_ptr(),
+        X.data_ptr(), M, K, *ptrs, *geom, N, bias.data_ptr(),
         None if alpha is None else alpha.data_ptr(), Y.data_ptr(),
         stream_handle(dev))
     _build.check(err, entry)
@@ -375,4 +460,124 @@ def cuda_tiled_blockpacked_i8_kernel(X, fmt: TiledBlockPacked, bias,
     return _launch("CudaTiledBlockPacked_i8", "ternary_blockpacked_i8", X,
                    fmt, check_packed_tiles,
                    (*fmt.tiles.shape[:2], fmt.tile_kq, fmt.tile_n, fmt.factor),
+                   bias, alpha)
+
+
+@register_kernel(
+    "CudaPacked2Bit", PackedTernary2Bit,
+    description="stride-packed 2-bit codes (2 bits/weight) decoded per lane, "
+                "f32 activations as they are, f32 sums in a fixed order "
+                "(exact f32 SpMM)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:264",
+    source=_CSRC + "packed.cu", plain=packed2_plain)
+def cuda_packed2_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
+    if X.device.type == "cpu":
+        return packed2_plain(X, fmt, bias, alpha)
+    # the global stride is the block layout with one block of Kq rows
+    return _launch("CudaPacked2Bit", "ternary_packed_f32", X, fmt,
+                   check_stride_packed,
+                   (1, 1, cdiv(fmt.K, fmt.FACTOR), fmt.N, fmt.FACTOR), bias,
+                   alpha)
+
+
+@register_kernel(
+    "CudaPacked53", PackedTernary53,
+    description="stride-packed base-3 codes (1.6 bits/weight) decoded per "
+                "lane, f32 activations as they are, f32 sums in a fixed "
+                "order (exact f32 SpMM)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:275",
+    source=_CSRC + "packed.cu", plain=packed53_plain)
+def cuda_packed53_kernel(X, fmt: PackedTernary53, bias, alpha=None):
+    if X.device.type == "cpu":
+        return packed53_plain(X, fmt, bias, alpha)
+    return _launch("CudaPacked53", "ternary_packed_f32", X, fmt,
+                   check_stride_packed,
+                   (1, 1, cdiv(fmt.K, fmt.FACTOR), fmt.N, fmt.FACTOR), bias,
+                   alpha)
+
+
+@register_kernel(
+    "CudaPacked2Bit_i8", PackedTernary2Bit,
+    description="stride-packed 2-bit codes (2 bits/weight) decoded per lane, "
+                "integer activations |x| <= 512 (non-integer X floored) "
+                "accumulated in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:502",
+    x_absmax=512, source=_CSRC + "blockpacked.cu", plain=packed2_i8_plain)
+def cuda_packed2_i8_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
+    if X.device.type == "cpu":
+        return packed2_i8_plain(X, fmt, bias, alpha)
+    return _launch("CudaPacked2Bit_i8", "ternary_blockpacked_i8", X, fmt,
+                   check_stride_packed,
+                   (1, 1, cdiv(fmt.K, fmt.FACTOR), fmt.N, fmt.FACTOR), bias,
+                   alpha)
+
+
+@register_kernel(
+    "CudaPacked53_i8", PackedTernary53,
+    description="stride-packed base-3 codes (1.6 bits/weight) decoded per "
+                "lane, integer activations |x| <= 512 (non-integer X "
+                "floored) accumulated in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:513",
+    x_absmax=512, source=_CSRC + "blockpacked.cu", plain=packed53_i8_plain)
+def cuda_packed53_i8_kernel(X, fmt: PackedTernary53, bias, alpha=None):
+    if X.device.type == "cpu":
+        return packed53_i8_plain(X, fmt, bias, alpha)
+    return _launch("CudaPacked53_i8", "ternary_blockpacked_i8", X, fmt,
+                   check_stride_packed,
+                   (1, 1, cdiv(fmt.K, fmt.FACTOR), fmt.N, fmt.FACTOR), bias,
+                   alpha)
+
+
+@register_kernel(
+    "CudaEllDeposit_i8", TiledEllDeposit,
+    description="ELL offset slots (8/s bits/weight before cap padding) "
+                "gathered per lane from staged 248-row superblocks, integer "
+                "activations |x| <= 512 (non-integer X floored) accumulated "
+                "in int32",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1703",
+    x_absmax=512, source=_CSRC + "ell.cu", plain=ell_deposit_i8_plain)
+def cuda_ell_deposit_i8_kernel(X, fmt: TiledEllDeposit, bias, alpha=None):
+    if X.device.type == "cpu":
+        return ell_deposit_i8_plain(X, fmt, bias, alpha)
+    nsb, gn, rows = (cdiv(fmt.K, SB_ROWS), cdiv(fmt.N, fmt.tile_n),
+                     fmt.plane.shape[2])
+    return _launch("CudaEllDeposit_i8", "ternary_ell_deposit_i8", X, fmt,
+                   check_ell_deposit,
+                   (nsb, gn, rows, rows, fmt.tile_n, fmt.tile_n, gn, SB_ROWS),
+                   bias, alpha)
+
+
+@register_kernel(
+    "CudaTiledEllGather", TiledEllTCSC,
+    description="tile-contiguous split-sign ELL gather of f32 activations "
+                "with exact per-tile capacity loop bounds and a zero-entry "
+                "sentinel, f32 sums in a fixed order (exact f32 SpMM)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1839",
+    source=_CSRC + "ell.cu", plain=tiled_ell_plain)
+def cuda_tiled_ell_kernel(X, fmt: TiledEllTCSC, bias, alpha=None):
+    if X.device.type == "cpu":
+        return tiled_ell_plain(X, fmt, bias, alpha)
+    nb, gn, caps = (cdiv(fmt.K, fmt.block_k), cdiv(fmt.N, fmt.tile_n),
+                    fmt.plane.shape[2])
+    return _launch("CudaTiledEllGather", "ternary_tiled_ell_f32", X, fmt,
+                   check_tiled_ell,
+                   (nb, gn, caps, caps, fmt.tile_n, fmt.tile_n, gn,
+                    fmt.block_k), bias, alpha)
+
+
+@register_kernel(
+    "CudaEllGather", BlockedEllTCSC,
+    description="per-K-block local-offset ELL gather of f32 activations, "
+                "the -1 slots reading a staged zero, f32 sums in a fixed "
+                "order (exact f32 SpMM)",
+    reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1890",
+    source=_CSRC + "ell.cu", plain=ell_gather_plain)
+def cuda_ell_gather_kernel(X, fmt: BlockedEllTCSC, bias, alpha=None):
+    if X.device.type == "cpu":
+        return ell_gather_plain(X, fmt, bias, alpha)
+    nb, ntiles = cdiv(fmt.K, fmt.block_k), cdiv(fmt.N, fmt.tile_n)
+    return _launch("CudaEllGather", "ternary_blocked_ell_f32", X, fmt,
+                   check_blocked_ell,
+                   (nb, 1, fmt.idx_pos.shape[1], fmt.idx_neg.shape[1],
+                    ntiles * fmt.tile_n, fmt.tile_n, ntiles, fmt.block_k),
                    bias, alpha)

@@ -1,8 +1,10 @@
 """The XLA formulations of the JAX registry as torch ops — counterpart of
 ``ternary_spgemm_tpu/ops/xla_kernels.py``: the speedup denominator
-``BaseTCSC`` (``:67-160`` there) and the three dense products over
-``DenseTernary``, ``DenseMXU``, ``DenseMXU_bf16`` and ``DenseMXU_x8``
-(``:267-305``).
+``BaseTCSC`` (``:67-160`` there), the masked gather ``BlockedEllTCSC``
+(``:242-264``), the three dense products over ``DenseTernary``,
+``DenseMXU``, ``DenseMXU_bf16`` and ``DenseMXU_x8`` (``:267-305``), and the
+two decode-then-dot products over the stride-packed containers,
+``PackedMXU_2bit`` and ``PackedMXU_base3`` (``:308-356``).
 
 In the JAX package these are XLA, not Pallas, so the port writes them with
 torch ops and no kernel of its own; they are registered kernels, not plain
@@ -18,7 +20,14 @@ card, as for :func:`ops.api.matmul_plain`):
 * ``DenseMXU_x8``: X rounded half to even and clamped to +-127, JAX's int8 x
   int8 -> int32 dot; in f32 every partial sum is an integer of magnitude
   at most 127*K, exact while 127*K <= 2**24 (K <= 132,104), so the result is
-  the int32 dot's.
+  the int32 dot's;
+* ``PackedMXU_2bit`` / ``PackedMXU_base3``: the stride codes decoded
+  (:func:`decode_2bit`, :func:`decode_base3`, K taken from X as JAX does),
+  then f32 X times them.
+
+``BlockedEllTCSC`` gathers, per K-block, the X column of each slot's local
+offset (a sentinel -1 reads an appended zero column) and sums over the
+slots, pos minus neg.
 
 BaseTCSC (in JAX a gather plus a sorted segment sum) is an
 ``index_select`` of the activation columns each nonzero reads, then
@@ -36,10 +45,17 @@ from __future__ import annotations
 
 import torch
 
-from ternary_spgemm_tpu_torch.formats.packed import DenseTernary
+from ternary_spgemm_tpu_torch.formats.blocked_ell import BlockedEllTCSC
+from ternary_spgemm_tpu_torch.formats.packed import (
+    DenseTernary,
+    PackedTernary2Bit,
+    PackedTernary53,
+    decode_fields,
+)
 from ternary_spgemm_tpu_torch.formats.tcsc import TCSC
 from ternary_spgemm_tpu_torch.ops.api import (
     finish,
+    matmul_dense,
     matmul_plain,
     register_kernel,
     to_bf16,
@@ -108,6 +124,31 @@ def tcsc_kernel(X, fmt: TCSC, bias, alpha=None):
 
 
 @register_kernel(
+    "BlockedEllTCSC", BlockedEllTCSC,
+    description="masked gather over per-K-block local-offset ELL planes as "
+                "torch ops (the formulation of the PallasEllGather strategy)",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:248")
+def blocked_ell_kernel(X, fmt: BlockedEllTCSC, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    M = X.shape[0]
+    nb, BK = fmt.num_blocks, fmt.block_k
+    # one zero column after each block: the sentinel -1 reads it
+    Xz = torch.nn.functional.pad(
+        torch.nn.functional.pad(X, (0, nb * BK - fmt.K)).view(M, nb, BK),
+        (0, 1))
+    out = []
+    for idx in (fmt.idx_pos, fmt.idx_neg):      # (nb, CAP, N_pad) int8
+        cap, n_pad = idx.shape[1:]
+        lanes = torch.where(idx >= 0, idx.long(), BK)
+        acc = torch.zeros((M, n_pad), dtype=torch.float32, device=X.device)
+        for b in range(nb):                     # one (M, CAP, N_pad) gather
+            acc += Xz[:, b].index_select(1, lanes[b].reshape(-1)).view(
+                M, cap, n_pad).sum(dim=1)
+        out.append(acc)
+    return finish((out[0] - out[1])[:, :fmt.N], bias, alpha)
+
+
+@register_kernel(
     "DenseMXU", DenseTernary,
     description="densified int8 weights, exact f32 torch.matmul",
     reference="ternary_spgemm_tpu/ops/xla_kernels.py:272")
@@ -133,3 +174,36 @@ def dense_mxu_bf16_kernel(X, fmt: DenseTernary, bias, alpha=None):
     x_absmax=127)
 def dense_mxu_x8_kernel(X, fmt: DenseTernary, bias, alpha=None):
     return finish(matmul_plain(to_x8(X), fmt), bias, alpha)
+
+
+def decode_2bit(packed: torch.Tensor, K: int) -> torch.Tensor:
+    """A stride-packed 2-bit plane ``(Kq, N)`` uint8 -> ``(K, N)`` int8:
+    field j of byte row k' is dense row ``j*Kq + k'``."""
+    return torch.cat(decode_fields(packed, 4))[:K]
+
+
+def decode_base3(packed: torch.Tensor, K: int) -> torch.Tensor:
+    """A stride-packed base-3 plane ``(Kq, N)`` uint8 -> ``(K, N)`` int8."""
+    return torch.cat(decode_fields(packed, 5))[:K]
+
+
+@register_kernel(
+    "PackedMXU_2bit", PackedTernary2Bit,
+    description="2-bit packed weights (4 a byte) decoded, exact f32 "
+                "torch.matmul",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:339")
+def packed2_mxu_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    return finish(matmul_dense(X, decode_2bit(fmt.packed, X.shape[1])),
+                  bias, alpha)
+
+
+@register_kernel(
+    "PackedMXU_base3", PackedTernary53,
+    description="base-3 packed weights (5 a byte) decoded, exact f32 "
+                "torch.matmul",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:352")
+def packed53_mxu_kernel(X, fmt: PackedTernary53, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    return finish(matmul_dense(X, decode_base3(fmt.packed, X.shape[1])),
+                  bias, alpha)

@@ -26,9 +26,12 @@ from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS, all_kernels, unporte
 #: port kernel -> the JAX kernel it replaces
 PAIRS = {
     "BaseTCSC": "BaseTCSC",
+    "BlockedEllTCSC": "BlockedEllTCSC",
     "DenseMXU": "DenseMXU",
     "DenseMXU_bf16": "DenseMXU_bf16",
     "DenseMXU_x8": "DenseMXU_x8",
+    "PackedMXU_2bit": "PackedMXU_2bit",
+    "PackedMXU_base3": "PackedMXU_base3",
     "CudaTiledBitplane_x8": "PallasTiledBitplane_x8",
     "CudaTiledBitplane_i8": "PallasTiledBitplane_i8",
     "CudaTiledBitplane_bf16": "PallasTiledBitplane_bf16",
@@ -40,6 +43,13 @@ PAIRS = {
     "CudaDense_i8": "PallasDense_i8",
     "CudaBlockPacked_i8": "PallasBlockPacked_i8",
     "CudaTiledBlockPacked_i8": "PallasTiledBlockPacked_i8",
+    "CudaPacked2Bit": "PallasPacked2Bit",
+    "CudaPacked53": "PallasPacked53",
+    "CudaPacked2Bit_i8": "PallasPacked2Bit_i8",
+    "CudaPacked53_i8": "PallasPacked53_i8",
+    "CudaEllDeposit_i8": "PallasEllDeposit_i8",
+    "CudaTiledEllGather": "PallasTiledEllGather",
+    "CudaEllGather": "PallasEllGather",
 }
 
 
@@ -88,8 +98,8 @@ def test_reference_kernels_cover_jax_registry():
 
 
 def test_headline_default_follows_bench_py():
-    """The headline's default set is ``bench.py``'s, limited to the
-    kernels the port has."""
+    """The headline's default set is ``bench.py``'s, every kernel by its
+    counterpart here."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
         "bench_py", os.path.join(root, "bench.py"))
@@ -97,18 +107,19 @@ def test_headline_default_follows_bench_py():
     spec.loader.exec_module(bench_py)
     assert headline.BENCH_PY_DEFAULT_KERNELS == bench_py.DEFAULT_KERNELS
     assert headline.DEFAULT_KERNELS == [
-        "CudaDense", "CudaDense_bf16", "CudaDense_i8", "CudaBlockPacked_i8",
+        "CudaDense", "CudaDense_bf16", "CudaDense_i8",
+        "CudaPacked2Bit", "CudaPacked2Bit_i8",
+        "CudaPacked53", "CudaPacked53_i8",
+        "CudaBlockPacked_i8",
         "CudaTiledDense_i8", "CudaTiledBlockPacked_i8",
-        "CudaTiledBitplane_i8", "CudaTiledBitplane_x8", "CudaTiledDense_x8",
-        "DenseMXU_x8", "DenseMXU", "DenseMXU_bf16"]
-    assert unported(headline.BENCH_PY_DEFAULT_KERNELS) == [
-        "PallasPacked2Bit", "PallasPacked2Bit_i8", "PallasPacked53",
-        "PallasPacked53_i8", "PallasEllDeposit_i8", "PallasEllGather",
-        "PallasTiledEllGather"]
+        "CudaTiledBitplane_i8", "CudaEllDeposit_i8",
+        "CudaTiledBitplane_x8", "CudaTiledDense_x8", "DenseMXU_x8",
+        "CudaEllGather", "CudaTiledEllGather", "DenseMXU", "DenseMXU_bf16"]
+    assert unported(headline.BENCH_PY_DEFAULT_KERNELS) == []
 
 
 @pytest.mark.parametrize("name, says", [
-    ("PallasPacked53", "not ported yet"),
+    ("PackedCSC", "not ported yet"),
     ("PallasDense", "'CudaDense'"),
     ("PallasTiledBitplane_i8", "'CudaTiledBitplane_i8'"),
     ("NoSuchKernel", "registered: "),
@@ -122,7 +133,10 @@ def test_run_config_rejects_unknown_kernels(name, says):
 
 @pytest.mark.parametrize("cls", ["TCSC", "TiledBitplane", "TiledNibblePair",
                                  "TiledDenseTernary", "TiledBlockPacked",
-                                 "BlockPackedTernary", "DenseTernary"])
+                                 "BlockPackedTernary", "DenseTernary",
+                                 "PackedTernary2Bit", "PackedTernary53",
+                                 "TiledEllTCSC", "BlockedEllTCSC",
+                                 "TiledEllDeposit"])
 @pytest.mark.parametrize("prelu", [False, True])
 @pytest.mark.parametrize("x_bytes", [4.0, 2.0, 1.0])
 def test_instrument_matches_jax(cls, prelu, x_bytes):
@@ -241,14 +255,10 @@ def test_headline_default_set_on_cpu(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     lines = out.strip().splitlines()
-    left = unported(headline.BENCH_PY_DEFAULT_KERNELS)
-    assert lines[1] == (
-        f"# {len(headline.DEFAULT_KERNELS)} of bench.py's "
-        f"{len(headline.BENCH_PY_DEFAULT_KERNELS)} default kernels; the "
-        "comparison is incomplete, not ported yet, so not swept: "
-        + ", ".join(left))
-    assert len(headline.DEFAULT_KERNELS) + len(left) == \
-        len(headline.BENCH_PY_DEFAULT_KERNELS)
+    assert lines[1] == ("# bench.py's 19 default kernels, each by its "
+                        "counterpart here")
+    assert len(headline.DEFAULT_KERNELS) == \
+        len(headline.BENCH_PY_DEFAULT_KERNELS) == 19
     rec = json.loads(lines[-1])
     # the best kernel of the default set that is exact on +-512
     spec = all_kernels()[rec["best_kernel"]]

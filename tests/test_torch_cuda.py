@@ -7,8 +7,8 @@ repository's conftest left out (it imports JAX)::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
-to the plain versions; so must the f32 and bf16 kernels on integer X in
-their domains, where every value and f32 partial sum is exact. Off those
+to the plain versions; so must the f32 and bf16 kernels (dense, stride-packed, ELL gathers) on
+integer X in their domains, where every value and f32 partial sum is exact. Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
 (rounded to bf16 identically where they round) and differ only in f32
 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
@@ -26,11 +26,16 @@ import pytest
 import torch
 
 from ternary_spgemm_tpu_torch.formats import (
+    BlockedEllTCSC,
     BlockPackedTernary,
     DenseTernary,
+    PackedTernary2Bit,
+    PackedTernary53,
     TiledBitplane,
     TiledBlockPacked,
     TiledDenseTernary,
+    TiledEllDeposit,
+    TiledEllTCSC,
     TiledNibblePair,
     generate_alpha,
     generate_bias,
@@ -62,7 +67,7 @@ ck = cuda_kernels
 #: packer arguments, whether the X rule yields integers: x8 rounds, i8
 #: floors); the tile_k and tile_kq cover several chunks of the packed-row
 #: core (256 int8 rows, 64 block-packed rows), a ragged last chunk and a
-#: multiple of 4 or not
+#: multiple of 4 or not; the ELL block_k of 31 and 7 give many K-blocks
 KERNELS = {
     "x8": (ck.cuda_tiled_bitplane_x8_kernel, ck.bitplane_x8_plain,
            TiledBitplane, "plane", 127, {}, True),
@@ -100,7 +105,30 @@ KERNELS = {
                                 ck.tiled_blockpacked_i8_plain,
                                 TiledBlockPacked, "tiles", 512,
                                 {"factor": 5, "tile_kq": 13}, True),
+    "packed2": (ck.cuda_packed2_kernel, ck.packed2_plain, PackedTernary2Bit,
+                "packed", 512, {}, False),
+    "packed53": (ck.cuda_packed53_kernel, ck.packed53_plain, PackedTernary53,
+                 "packed", 512, {}, False),
+    "packed2_i8": (ck.cuda_packed2_i8_kernel, ck.packed2_i8_plain,
+                   PackedTernary2Bit, "packed", 512, {}, True),
+    "packed53_i8": (ck.cuda_packed53_i8_kernel, ck.packed53_i8_plain,
+                    PackedTernary53, "packed", 512, {}, True),
+    "ell_deposit_i8": (ck.cuda_ell_deposit_i8_kernel, ck.ell_deposit_i8_plain,
+                       TiledEllDeposit, "plane", 512, {}, True),
+    "tiled_ell": (ck.cuda_tiled_ell_kernel, ck.tiled_ell_plain, TiledEllTCSC,
+                  "plane", 512, {}, False),
+    "tiled_ell_k31": (ck.cuda_tiled_ell_kernel, ck.tiled_ell_plain,
+                      TiledEllTCSC, "plane", 512, {"block_k": 31}, False),
+    "ell_gather": (ck.cuda_ell_gather_kernel, ck.ell_gather_plain,
+                   BlockedEllTCSC, "idx_pos", 512, {}, False),
+    "ell_gather_k7": (ck.cuda_ell_gather_kernel, ck.ell_gather_plain,
+                      BlockedEllTCSC, "idx_pos", 512,
+                      {"block_k": 7, "cap_align": 1}, False),
 }
+
+#: the kernels that sum f32 X as it is (or rounded to bf16)
+FLOAT_KERNELS = ["plain_dense", "plain_dense_bf16", "packed2", "packed53",
+                 "tiled_ell", "tiled_ell_k31", "ell_gather", "ell_gather_k7"]
 
 
 def _build(cls, W, tile_n, kw):
@@ -147,17 +175,17 @@ def test_bf16_kernel_off_integer_domain(dev, M, K, N, tile_n, prelu):
                                rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("name", ["plain_dense", "plain_dense_bf16"])
+@pytest.mark.parametrize("name", FLOAT_KERNELS)
 @pytest.mark.parametrize("M,K,N", [(7, 999, 260), (33, 2048, 520)])
 @pytest.mark.parametrize("prelu", [False, True])
 def test_dense_float_kernels_off_integer_domain(dev, name, M, K, N, prelu):
-    """Non-integer X, uniform +-2 (the f32 kernel) or X x 1.7 past the bf16
-    kernel's exact +-256, within rtol=1e-5, atol=1e-3; the f32 kernel sums
-    in a fixed order, so two launches agree bit for bit."""
+    """Non-integer X, uniform +-2 (the f32 kernels) or X x 1.7 past the bf16
+    kernel's exact +-256, within rtol=1e-5, atol=1e-3; the kernels sum in a
+    fixed order, so two launches agree bit for bit."""
     kern, plain, fmt, X, b, a = _case(dev, name, M, K, N, 4096, prelu)
     g = torch.Generator(device=dev).manual_seed(M)
     X = (4.0 * torch.rand((M, K), generator=g, device=dev) - 2.0
-         if name == "plain_dense" else 1.7 * X + 0.37)
+         if "bf16" not in name else 1.7 * X + 0.37)
     got = kern(X, fmt, b, a)
     want = plain(X, fmt, b, a)
     again = kern(X, fmt, b, a)
@@ -219,3 +247,37 @@ def test_swiglu_kernel(dev, M, K, N1, N2, tile_n):
     clean = ~(diff > 0).any(dim=1)
     np.testing.assert_allclose(y[clean].cpu().numpy(),
                                want[clean].cpu().numpy(), rtol=1e-5, atol=0.01)
+
+
+@pytest.mark.parametrize("M,K,N,tile_n,block_k", [
+    (5, 300, 259, 100, 128), (33, 999, 260, 48, 31), (3, 64, 77, 7, 16)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_blocked_ell_tiles_not_a_multiple_of_32(dev, M, K, N, tile_n, block_k,
+                                                 prelu):
+    """BlockedEllTCSC with a tile_n that is not a multiple of 32: a block's
+    32 columns straddle tiles of other caps, and N_pad is not a multiple of
+    32 either; bitwise on integer X."""
+    fmt = BlockedEllTCSC.from_dense(generate_ternary(K, N, 3, seed=K),
+                                    block_k=block_k, tile_n=tile_n).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=M)).to(dev)
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    a = torch.from_numpy(generate_alpha(N)).to(dev) if prelu else None
+    got = ck.cuda_ell_gather_kernel(X, fmt, b, a)
+    want = ck.ell_gather_plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ell_deposit_large_caps(dev):
+    """A dense column block (s = 1 for half the columns): every word holds
+    up to 31 slots, the largest deposit cap; bitwise on integer X."""
+    W = generate_ternary(600, 300, 3, seed=2)
+    W[:, :150] = np.where(W[:, :150] == 0, 1, W[:, :150])
+    fmt = TiledEllDeposit.from_dense(W, tile_n=128).to(dev)
+    assert fmt.cap_p_max + fmt.cap_n_max >= 31
+    X = torch.from_numpy(generate_x(9, 600, seed=1)).to(dev)
+    b = torch.from_numpy(generate_bias(300)).to(dev)
+    got = ck.cuda_ell_deposit_i8_kernel(X, fmt, b)
+    want = ck.ell_deposit_i8_plain(X, fmt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

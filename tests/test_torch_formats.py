@@ -1,6 +1,7 @@
 """Port parity: generators and the containers (TiledBitplane,
 TiledNibblePair, TiledDenseTernary, TiledBlockPacked, BlockPackedTernary,
-DenseTernary, TCSC).
+PackedTernary2Bit, PackedTernary53, DenseTernary, TCSC, TiledEllTCSC,
+BlockedEllTCSC, TiledEllDeposit).
 
 The same numpy seeds go through the JAX package and the PyTorch port. The
 container bytes are the contract between the two: every array must be
@@ -104,6 +105,22 @@ CASES = {
                          (301, 259, {"factor": 5, "tile_kq": 24,
                                      "tile_n": 128}),
                          (1000, 5000, {}), (2500, 300, {"factor": 5})],
+    # ragged K (not a multiple of 4 or 5) and N
+    "PackedTernary2Bit": [(300, 260, {}), (301, 259, {}), (37, 91, {})],
+    "PackedTernary53": [(300, 260, {}), (301, 259, {}), (999, 100, {})],
+    # nb > 1 (block_k 31 or the default 127), gn > 1, ragged K and N
+    "TiledEllTCSC": [(300, 260, {"block_k": 31, "tile_n": 128}),
+                     (999, 1000, {}), (301, 259, {"block_k": 127}),
+                     (64, 130, {"block_k": 1, "tile_n": 128})],
+    # tile_n not a multiple of 32 (100), cap_align 1 and 16
+    "BlockedEllTCSC": [(300, 260, {"block_k": 32, "tile_n": 128}),
+                       (301, 259, {"tile_n": 100}), (999, 77, {}),
+                       (300, 260, {"block_k": 31, "tile_n": 64,
+                                   "cap_align": 1}),
+                       (129, 300, {"cap_align": 16})],
+    # nsb > 1 (K past 248), gn > 1, ragged K and N
+    "TiledEllDeposit": [(300, 260, {"tile_n": 128}), (999, 1000, {}),
+                        (248, 384, {"tile_n": 128}), (37, 91, {})],
 }
 
 
@@ -155,7 +172,8 @@ def test_tcsc_prepare_builds_tables_once(monkeypatch):
 
 @pytest.mark.parametrize("cls", ["TiledBitplane", "TiledNibblePair",
                                  "TiledDenseTernary", "TiledBlockPacked",
-                                 "BlockPackedTernary", "DenseTernary"])
+                                 "BlockPackedTernary", "PackedTernary2Bit",
+                                 "PackedTernary53", "DenseTernary"])
 def test_default_nnz_counts_the_dense_matrix(cls):
     W = jf.generate_ternary(150, 70, 2, seed=6)
     assert getattr(tf, cls).from_dense(W).nnz == int(np.count_nonzero(W))
@@ -188,3 +206,35 @@ def test_packed_from_torch_and_bad_factor():
             cls.from_dense(W, factor=3)
     d = tf.DenseTernary.from_dense(torch.from_numpy(W).t())
     assert d.dense.is_contiguous() and d.shape == (40, 90)
+
+
+@pytest.mark.parametrize("cls", ["PackedTernary2Bit", "PackedTernary53",
+                                 "TiledEllTCSC", "BlockedEllTCSC",
+                                 "TiledEllDeposit"])
+def test_new_containers_from_torch_and_roundtrip(cls):
+    """The packers take a float torch tensor as they take numpy, and the
+    stride-packed containers keep their factor as a class constant."""
+    W = jf.generate_ternary(260, 140, 2, seed=8)
+    a = getattr(tf, cls).from_dense(W)
+    b = getattr(tf, cls).from_dense(torch.from_numpy(W).to(torch.float32))
+    for field in a.ARRAY_FIELDS:
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+    assert a.meta() == b.meta()
+    assert torch.equal(b.to("cpu").to_dense(), torch.from_numpy(W))
+    if cls.startswith("Packed"):
+        assert a.FACTOR == getattr(jf, cls).FACTOR and "FACTOR" not in a.meta()
+
+
+@pytest.mark.parametrize("cls,kw,says", [
+    ("TiledEllTCSC", {"block_k": 128}, "block_k"),
+    ("TiledEllTCSC", {"tile_n": 200}, "multiple of 128"),
+    ("BlockedEllTCSC", {"block_k": 129}, "block_k"),
+    ("BlockedEllTCSC", {"block_k": 0}, "block_k"),
+    ("TiledEllDeposit", {"tile_n": 100}, "multiple of 128"),
+])
+def test_ell_packers_reject_bad_arguments(cls, kw, says):
+    W = jf.generate_ternary(300, 400, 2, seed=1)
+    with pytest.raises(ValueError, match=says):
+        getattr(jf, cls).from_dense(W, **kw)
+    with pytest.raises(ValueError, match=says):
+        getattr(tf, cls).from_dense(W, **kw)

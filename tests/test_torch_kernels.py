@@ -6,6 +6,7 @@ and bf16 kernels off their integer domains see the same X (bf16-rounded
 identically where they round) and differ only in f32 summation order
 (rtol=1e-5, atol=1e-3)."""
 
+import dataclasses
 import warnings
 
 import jax.numpy as jnp
@@ -29,8 +30,9 @@ from ternary_spgemm_tpu_torch.ops import xla_kernels
 K, N = 300, 260
 
 #: container key -> (container class, packer arguments); tile_n = 128 so
-#: that gn = 3, block-packed tile_kq of 16 and 32 so that nb > 1 and K is
-#: not a multiple of the block
+#: that gn = 3, block-packed tile_kq of 16 and 32 and ELL block_k of 31 and
+#: 32 so that nb > 1 and K is not a multiple of the block (nor of 4, 5 or
+#: the deposit's 248-row superblock)
 CONTAINERS = {
     "TiledBitplane": ("TiledBitplane", {"tile_n": 128}),
     "TiledNibblePair": ("TiledNibblePair", {"tile_n": 128}),
@@ -42,6 +44,11 @@ CONTAINERS = {
                           {"factor": 4, "tile_kq": 16, "tile_n": 128}),
     "TiledBlockPacked5": ("TiledBlockPacked",
                           {"factor": 5, "tile_kq": 32, "tile_n": 128}),
+    "Packed2Bit": ("PackedTernary2Bit", {}),
+    "Packed53": ("PackedTernary53", {}),
+    "TiledEll": ("TiledEllTCSC", {"block_k": 31, "tile_n": 128}),
+    "BlockedEll": ("BlockedEllTCSC", {"block_k": 32, "tile_n": 128}),
+    "EllDeposit": ("TiledEllDeposit", {"tile_n": 128}),
 }
 
 #: kind -> (port kernel, JAX kernel, container key, integer |x| domain)
@@ -54,8 +61,8 @@ KINDS = {
              "TiledBitplane", 256),
     "nibble_i8": ("CudaTiledNibblePair_i8", "PallasTiledNibblePair_i8",
                   "TiledNibblePair", 512),
-    "dense_i8": ("CudaTiledDense_i8", "PallasTiledDense_i8",
-                 "TiledDenseTernary", 512),
+    "tiled_dense_i8": ("CudaTiledDense_i8", "PallasTiledDense_i8",
+                       "TiledDenseTernary", 512),
     "dense_x8": ("CudaTiledDense_x8", "PallasTiledDense_x8",
                  "TiledDenseTernary", 127),
     "dense": ("CudaDense", "PallasDense", "DenseTernary", 512),
@@ -71,6 +78,16 @@ KINDS = {
     "tiled_blockpacked_i8_f5": ("CudaTiledBlockPacked_i8",
                                 "PallasTiledBlockPacked_i8",
                                 "TiledBlockPacked5", 512),
+    "packed2": ("CudaPacked2Bit", "PallasPacked2Bit", "Packed2Bit", 512),
+    "packed53": ("CudaPacked53", "PallasPacked53", "Packed53", 512),
+    "packed2_i8": ("CudaPacked2Bit_i8", "PallasPacked2Bit_i8", "Packed2Bit",
+                   512),
+    "packed53_i8": ("CudaPacked53_i8", "PallasPacked53_i8", "Packed53", 512),
+    "ell_deposit_i8": ("CudaEllDeposit_i8", "PallasEllDeposit_i8",
+                       "EllDeposit", 512),
+    "tiled_ell": ("CudaTiledEllGather", "PallasTiledEllGather", "TiledEll",
+                  512),
+    "ell_gather": ("CudaEllGather", "PallasEllGather", "BlockedEll", 512),
 }
 
 
@@ -136,22 +153,32 @@ def test_bf16_off_integer_domain(containers, M, prelu):
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-3)
 
 
-#: the kernels that take any float X: kind -> (port kernel, JAX kernel)
-FLOAT_KINDS = {"dense": ("CudaDense", "PallasDense"),
-               "dense_bf16": ("CudaDense_bf16", "PallasDense_bf16"),
-               "DenseMXU": ("DenseMXU", "DenseMXU"),
-               "DenseMXU_bf16": ("DenseMXU_bf16", "DenseMXU_bf16")}
+#: the kernels that take any float X: kind -> (port kernel, JAX kernel,
+#: container key)
+FLOAT_KINDS = {
+    "dense": ("CudaDense", "PallasDense", "DenseTernary"),
+    "dense_bf16": ("CudaDense_bf16", "PallasDense_bf16", "DenseTernary"),
+    "DenseMXU": ("DenseMXU", "DenseMXU", "DenseTernary"),
+    "DenseMXU_bf16": ("DenseMXU_bf16", "DenseMXU_bf16", "DenseTernary"),
+    "packed2": ("CudaPacked2Bit", "PallasPacked2Bit", "Packed2Bit"),
+    "packed53": ("CudaPacked53", "PallasPacked53", "Packed53"),
+    "tiled_ell": ("CudaTiledEllGather", "PallasTiledEllGather", "TiledEll"),
+    "ell_gather": ("CudaEllGather", "PallasEllGather", "BlockedEll"),
+    "PackedMXU_2bit": ("PackedMXU_2bit", "PackedMXU_2bit", "Packed2Bit"),
+    "PackedMXU_base3": ("PackedMXU_base3", "PackedMXU_base3", "Packed53"),
+    "BlockedEllTCSC": ("BlockedEllTCSC", "BlockedEllTCSC", "BlockedEll"),
+}
 
 
 @pytest.mark.parametrize("kind", sorted(FLOAT_KINDS))
 @pytest.mark.parametrize("M", [1, 7, 32])
 @pytest.mark.parametrize("prelu", [False, True])
 def test_float_kernels_off_integer_domain(containers, kind, M, prelu):
-    """f32 and bf16 over DenseTernary on non-integer X (uniform +-2 for
-    f32; +-700 for bf16, past its exact +-256): the same values, rounded to
-    bf16 alike where the kernel rounds, summed in another order."""
-    tname, jname = FLOAT_KINDS[kind]
-    jfmt, tfmt = containers["DenseTernary"]
+    """f32 and bf16 kernels on non-integer X (uniform +-2 for f32; +-700
+    for bf16, past its exact +-256): the same values, rounded to bf16 alike
+    where the kernel rounds, summed in another order."""
+    tname, jname, cls = FLOAT_KINDS[kind]
+    jfmt, tfmt = containers[cls]
     hi = 700.0 if "bf16" in kind else 2.0
     X = np.random.default_rng(M).uniform(-hi, hi,
                                          size=(M, K)).astype(np.float32)
@@ -281,7 +308,8 @@ def test_i8_matches_dense_reference(weights):
     ("TiledDenseTernary", "CudaTiledDense_i8", "CudaTiledDense_x8"),
     ("BlockPacked4", "CudaBlockPacked_i8", "CudaBlockPacked_i8"),
     ("TiledBlockPacked5", "CudaTiledBlockPacked_i8",
-     "CudaTiledBlockPacked_i8")])
+     "CudaTiledBlockPacked_i8"),
+    ("EllDeposit", "CudaEllDeposit_i8", "CudaEllDeposit_i8")])
 def test_default_dispatch_per_container(containers, cls, default, a8):
     """Default dispatch takes the widest integer domain (the bf16 kernel's
     +-256 does not displace i8's +-512); the A8 default is int8-native."""
@@ -321,9 +349,9 @@ def test_plain_runs_only_on_cpu(containers, kind):
 
 def test_dense_ternary_dispatch(containers):
     """Default dispatch over DenseTernary has two exact kernels of
-    unrestricted domain, CudaDense and DenseMXU; the port picks by name, so
-    the hand-written kernel wins, without a warning (JAX's picks Pallas on a
-    TPU). The A8 default is the int8-native DenseMXU_x8 in both packages."""
+    unrestricted domain, CudaDense and DenseMXU; the hand-written kernel
+    wins, without a warning (JAX's picks Pallas on a TPU). The A8 default is
+    the int8-native DenseMXU_x8 in both packages."""
     from ternary_spgemm_tpu.models.exported import (
         _default_a8_kernel as j_default_a8)
 
@@ -354,3 +382,85 @@ def test_block_packed_have_no_int8_native_kernel(containers, cls):
         over = [s for s in reg.values() if isinstance(fmt, s.format_cls)]
         assert [s.x_absmax for s in over] == [512]
         assert a8(fmt) == over[0].name
+
+
+#: the torch-op formulations of JAX's XLA kernels over the new containers
+TORCH_OPS = {"PackedMXU_2bit": "Packed2Bit", "PackedMXU_base3": "Packed53",
+             "BlockedEllTCSC": "BlockedEll"}
+
+
+@pytest.mark.parametrize("name", sorted(TORCH_OPS))
+@pytest.mark.parametrize("M", [1, 7, 32])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_torch_ops_equal_jax(containers, name, M, prelu):
+    """The decode-then-dot and masked-gather formulations equal JAX's XLA
+    ones bit for bit on integer X, and are torch ops (no launch, no plain
+    version)."""
+    jfmt, tfmt = containers[TORCH_OPS[name]]
+    X = jf.generate_x(M, K, seed=M + 5)
+    b = jf.generate_bias(N)
+    a = jf.generate_alpha(N) if prelu else None
+    ck.reset_counts()
+    got, want = _both(name, get_kernel(name), jfmt, tfmt, X, b, a)
+    np.testing.assert_array_equal(got, want)
+    assert not ck.launches and not ck.plain_on_cuda
+    W = tfmt.to_dense().numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.dense_gemm_prelu(X, W, b, a) if prelu
+        else jref.dense_gemm(X, W, b)))
+
+
+def _both_kinds(fmt):
+    """The exact, unrestricted-domain kernels over ``fmt``: (hand-written,
+    torch ops)."""
+    cands = [s for s in all_kernels().values()
+             if isinstance(fmt, s.format_cls) and not s.approximate
+             and s.x_absmax is None]
+    return ([s.name for s in cands if s.source],
+            [s.name for s in cands if not s.source])
+
+
+def test_containers_with_both_kinds(containers):
+    both = sorted(k for k, (_, t) in containers.items()
+                  if all(_both_kinds(t)))
+    assert both == ["BlockedEll", "DenseTernary", "Packed2Bit", "Packed53"]
+
+
+@pytest.mark.parametrize("cls,want", [
+    ("DenseTernary", "CudaDense"), ("Packed2Bit", "CudaPacked2Bit"),
+    ("Packed53", "CudaPacked53"), ("BlockedEll", "CudaEllGather")])
+def test_dispatch_prefers_hand_written_kernel(monkeypatch, containers, cls,
+                                              want):
+    """Where a container has both a hand-written kernel and a torch-op
+    formulation, default dispatch takes the hand-written one, whatever the
+    names' order (``BlockedEllTCSC`` < ``CudaEllGather``)."""
+    from ternary_spgemm_tpu_torch.ops import api
+
+    tfmt = containers[cls][1]
+    hand, ops = _both_kinds(tfmt)
+    assert hand == [want] and ops
+    for name in hand + ops:
+        spec = api.get_kernel(name)
+        monkeypatch.setitem(api._KERNEL_REGISTRY, name, dataclasses.replace(
+            spec, fn=lambda X, f, b, a=None, _n=name: _n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert ternary_spgemm(torch.zeros(2, K), tfmt, torch.zeros(N)) == want
+
+
+@pytest.mark.parametrize("cls,want", [
+    ("Packed2Bit", "CudaPacked2Bit_i8"), ("Packed53", "CudaPacked53_i8"),
+    ("EllDeposit", "CudaEllDeposit_i8"), ("TiledEll", None),
+    ("BlockedEll", None)])
+def test_a8_default_kernel_matches_jax(containers, cls, want):
+    """Both packages resolve the A8 kernel of the new containers alike: the
+    _i8 kernel where the container has one, else None (fully-exact f32
+    kernels, default dispatch)."""
+    from ternary_spgemm_tpu.models.exported import (
+        _default_a8_kernel as j_default_a8)
+    from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS
+
+    jfmt, tfmt = containers[cls]
+    assert _default_a8_kernel(tfmt) == want
+    j = j_default_a8(jfmt)
+    assert (j is None) if want is None else (REFERENCE_KERNELS[j] == want)
