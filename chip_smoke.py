@@ -18,7 +18,11 @@ result line if any fails, or if no GPU is visible):
    north star 32x1024x4096 and at 32x4096x11008 (gn=3), both bitwise equal
    with PReLU on and off; the SwiGLU kernel at M in {4, 128, 512}
    (at most 1e-4 of the requantized hidden values may flip, each by 1, and
-   every row without a flip agrees within rtol=1e-5, atol=0.01). Median
+   every row without a flip agrees within rtol=1e-5, atol=0.01); the PReLU
+   FFN kernel at the ffn_bench blocks (M = 32, 1024 -> 4096 -> 1024 and
+   2048 -> 4096 -> 2048) and at M in {1, 33, 128}, PReLU2 off and on, with
+   a random bias and slope per column, its hidden state, requantized
+   hidden values and output bitwise equal. Median
    times from CUDA events, with a 256 MB buffer written between launches
    so that the weights come from device memory as they do in serving;
    beside each, two yardsticks: ``library_ms``, one ``torch.matmul`` of the
@@ -60,11 +64,26 @@ result line if any fails, or if no GPU is visible):
    DenseMXU*, PackedMXU_*), no ERROR line, each hand-written SpMM kernel
    launched and no plain version on a CUDA tensor; then the headline
    (``python -m ternary_spgemm_tpu_torch.bench.headline``) over all 19 of
-   ``bench.py``'s default kernels, whose JSON line is printed.
+   ``bench.py``'s default kernels, whose JSON line is printed;
+8. the FFN-block benchmark, counted: ``python -m
+   ternary_spgemm_tpu_torch.tools.ffn_bench`` in-process at its default
+   blocks (two PReLU, four SwiGLU, the JAX tool's): every row correct, both
+   fused kernels launched, no plain version on a CUDA tensor;
+9. the probes: the stream kernel (every geometry of the membench sweep
+   below and a small tile; timed at 512 MB), the decode-rate kernel
+   (random and all-ones X, one block and one an SM) and every rung of the
+   deposit ladder (each of deposit_study's three configs and a ragged
+   shape) bitwise against their plain versions; then, counted,
+   ``tools.membench`` over 16/64/256/512 MB x two tiles x both layouts (no
+   rate above 1.05 x 3.35 TB/s: the L2 flush holds at 16 MB),
+   ``tools.decode_roofline`` at its four configs and ``tools.deposit_study``
+   (bytes audit and ladder; full and staticcap exact), each in-process, no
+   plain version on a CUDA tensor.
 
 The hand-written kernels, their CUDA sources and plain versions come from
-the registry (``KernelSpec.source``, ``KernelSpec.plain``) and the fused
-SwiGLU's module (``ops/fused_ffn.py``).
+the registry (``KernelSpec.source``, ``KernelSpec.plain``), the fused FFNs'
+module (``ops/fused_ffn.py``) and the study tools' modules
+(``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``).
 
 The last lines are the headline JSON, the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -93,10 +112,13 @@ SERVE_KERNELS = ("CudaTiledBitplane_x8", "CudaTiledBitplane_i8")
 #: one (K not a multiple of 4, 8 or a block, N not of 32)
 BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
                 (512, 4096, 4096, 2), (7, 999, 1000, 3)]
-#: the H100 SXM's published peaks at its 700 W limit (NVIDIA's data sheet):
-#: device memory, and the int8 tensor-core rate, the fastest it computes at
+#: the H100 SXM's device-memory rate at its 700 W limit (NVIDIA's data
+#: sheet); its int8 peak is the port's ``bench.instrument.INT8_OPS_PER_S``
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 1979e12
+#: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
+#: times is first held against the plain version
+SWEEP_SIZES_MB = (16, 64, 256, 512)
+SWEEP_TILES = ((256, 4096), (512, 4096))
 
 
 def _is_ell(fmt) -> bool:
@@ -128,7 +150,9 @@ def spmm_ops(M: int, fmt) -> int:
 def bound(nbytes: int, ops: int):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of ``nbytes`` at the memory rate and ``ops`` at the int8 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    from ternary_spgemm_tpu_torch.bench.instrument import INT8_OPS_PER_S
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -183,8 +207,8 @@ def phase_kernels(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
-        KERNEL_NAME, requantize_rows, swiglu_hidden_plain, swiglu_launch,
-        swiglu_plain, true_div)
+        FFN_KERNEL_NAME, KERNEL_NAME, requantize_rows, swiglu_hidden_plain,
+        swiglu_launch, swiglu_plain, true_div)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -275,8 +299,69 @@ def phase_kernels(dev, card: str) -> dict:
         if M == 4:
             stats[KERNEL_NAME].update(ms=ms, plain_ms=pms, library_ms=None,
                                       bound_ms=bms, bound_by=by)
+    stats[FFN_KERNEL_NAME] = phase_prelu_ffn(dev, card, flush)
     del flush
     return stats
+
+
+def phase_prelu_ffn(dev, card: str, flush) -> dict:
+    """Phase 3, the PReLU FFN: the kernel against its plain version at the
+    ffn_bench blocks (M = 32) and at M in {1, 33, 128}, PReLU2 off and on;
+    the hidden state, its requantized values and the output bitwise."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        ffn_hidden_plain, ffn_launch, ffn_plain, requantize_rows, true_div)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    stat = {"max_abs_err": 0.0}
+    kw = dict(gamma1=0.037, gamma2=1.9)
+    cases = [(32, 1024, 4096, 1024), (32, 2048, 4096, 2048),
+             (1, 1024, 4096, 1024), (33, 1024, 4096, 1024),
+             (128, 1024, 4096, 1024)]
+    for M, K, N1, N2 in cases:
+        f1 = TiledBitplane.from_dense(random_ternary(K, N1, 4, gen, dev))
+        f2 = TiledBitplane.from_dense(random_ternary(N1, N2, 4, gen, dev))
+        x = torch.randint(-512, 513, (M, K), generator=gen,
+                          device=dev).to(torch.float32)
+        # a bias and a PReLU slope per column, so that an indexing slip in
+        # an epilogue shows
+        b1, b2 = (4.0 * torch.rand((n,), generator=gen, device=dev) - 2.0
+                  for n in (N1, N2))
+        a1, a2_on = (0.25 * torch.rand((n,), generator=gen, device=dev)
+                     for n in (N1, N2))
+        for a2 in (None, a2_on):
+            y, h, rmax = ffn_launch(x, f1, b1, a1, f2, b2, a2, **kw)
+            want = ffn_plain(x, f1, b1, a1, f2, b2, a2, **kw)
+            h_plain = ffn_hidden_plain(x, f1, b1, a1, gamma1=kw["gamma1"])
+            hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
+            hq_plain, _ = requantize_rows(h_plain)
+            torch.cuda.synchronize()
+            what = f"PReLU FFN M={M} {K}->{N1}->{N2} prelu2={a2 is not None}"
+            check(torch.equal(h, h_plain), f"{what}: hidden h != plain")
+            check(torch.equal(hq, hq_plain), f"{what}: requantized h != plain")
+            err = float((y - want).abs().max())
+            check(torch.equal(y, want), f"{what}: y != plain (max |diff| {err})")
+            stat["max_abs_err"] = max(stat["max_abs_err"], err)
+        args = (x, f1, b1, a1, f2, b2, None)
+        ms = event_ms(lambda: ffn_launch(*args, **kw), flush=flush)
+        pms = event_ms(lambda: ffn_plain(*args, **kw), flush=flush)
+        # two planes, X and Y f32, b1 and alpha1, b2; up and down products;
+        # no single PyTorch call computes the fused block
+        bms, by = bound(weight_bytes(f1) + weight_bytes(f2)
+                        + 4 * (M * K + M * N2 + 2 * N1 + N2),
+                        2 * M * (K * N1 + N1 * N2))
+        print(f"kernel fused_bitplane_ffn M={M} {K}->{N1}->{N2}: h, hq and y "
+              f"bitwise equal (PReLU2 on/off); {ms:.4f} ms vs plain {pms:.4f} "
+              f"ms, bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+        if (M, K) == (32, 1024):
+            stat.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                        bound_by=by)
+    return stat
 
 
 def small_tree(cfg, seed: int) -> dict:
@@ -505,6 +590,14 @@ def phase_bench_kernels(dev, card: str) -> dict:
     return stats
 
 
+def run_main(main, argv):
+    """``main(argv)`` in-process -> (exit code, what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
 def phase_entry_point(dev) -> dict:
     """Phase 7: the benchmark CLI (correctness on, PReLU off and on), then
     the headline; returns the CLI runs' launch counts."""
@@ -513,12 +606,7 @@ def phase_entry_point(dev) -> dict:
     from ternary_spgemm_tpu_torch.ops import all_kernels
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
 
-    def run(main, argv):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = main(argv)
-        return rc, buf.getvalue()
-
+    run = run_main
     ck.reset_counts()
     for extra in ([], ["-prelu"]):
         argv = ["-M", "32", "-K", "1024", "-N", "4096", "-s", "4",
@@ -559,6 +647,188 @@ def phase_entry_point(dev) -> dict:
     return counts
 
 
+def phase_ffn_bench(card: str) -> dict:
+    """Phase 8: the FFN-block benchmark (``tools.ffn_bench``) in-process at
+    its default blocks, counted; returns its launch counts."""
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        FFN_KERNEL_NAME, KERNEL_NAME)
+    from ternary_spgemm_tpu_torch.tools import ffn_bench
+
+    ck.reset_counts()
+    rc, out = run_main(ffn_bench.main, [])
+    counts, plain = dict(ck.launches), dict(ck.plain_on_cuda)
+    print(f"$ python -m ternary_spgemm_tpu_torch.tools.ffn_bench\n{out}",
+          end="", flush=True)
+    rec = json.loads(out.splitlines()[-1])
+    rows = rec["blocks"]
+    check(rc == 0 and len(rows) == 6 and all(r["correct"] for r in rows),
+          f"ffn_bench: a block is not correct (exit {rc})")
+    print(f"ffn_bench launches: {counts}; plain versions on CUDA: {plain} "
+          f"[{card}]", flush=True)
+    check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
+    for name in (FFN_KERNEL_NAME, KERNEL_NAME):
+        check(counts.get(name, 0) > 0, f"ffn_bench did not launch {name}")
+    return counts
+
+
+def phase_probes(dev, card: str):
+    """Phase 9: each probe kernel (stream, decode rate, the deposit ladder)
+    bitwise against its plain version on the card, timed beside its
+    yardsticks; then the three study tools in-process, counted. Returns
+    (stats, launch counts of the tools' runs)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import TiledEllDeposit
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.tools import decode_roofline as dr
+    from ternary_spgemm_tpu_torch.tools import deposit_study as ds
+    from ternary_spgemm_tpu_torch.tools import membench
+    from ternary_spgemm_tpu_torch.utils.device import sm_count
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    stats = {}
+
+    # the stream probe: every geometry of the membench sweep below, on the
+    # array the tool times (seed 0), and a small tile of many blocks' runs
+    sweep = [(layout, tk, tn, mb, 0) for layout in membench.LAYOUTS
+             for tk, tn in SWEEP_TILES for mb in SWEEP_SIZES_MB]
+    for layout, tk, tn, mb, seed in [("tiled4d", 16, 256, 1, 1), *sweep]:
+        gk, gn = membench.grid_for(mb * 2**20, tk, tn)
+        arr = membench.make_array(gk, gn, tk, tn, layout, dev, seed=seed)
+        x = torch.randint(-2**31, 2**31 - 1, (8, 128), generator=gen,
+                          device=dev, dtype=torch.int32)
+        got = membench.stream_checksum(arr, tk, tn, layout, x)
+        want = membench.stream_plain(arr, x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"stream {layout} ({tk}, {tn}) {mb} MB: checksum != plain")
+        del arr
+    # timed at 512 MB, tiled4d (256, 4096)
+    layout, tk, tn = "tiled4d", 256, 4096
+    gk, gn = membench.grid_for(512 * 2**20, tk, tn)
+    arr = membench.make_array(gk, gn, tk, tn, layout, dev)
+    nbytes = arr.numel()
+    out = x.clone()
+    ms = event_ms(lambda: membench.stream_launch(arr, tk, tn, layout, out),
+                  flush=flush)
+    pms = event_ms(lambda: membench.stream_plain(arr, x), flush=flush)
+    words = arr.view(-1).view(torch.int32).view(-1, membench.BUCKETS)
+    lms = event_ms(lambda: torch.sum(words, dim=0, dtype=torch.int32),
+                   flush=flush)
+    bms, by = bound(nbytes + 2 * 4096, nbytes // 4)
+    stats[membench.KERNEL_NAME] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                       library_ms=lms, bound_ms=bms,
+                                       bound_by=by)
+    print(f"kernel stream_rate: checksums bitwise equal ({len(sweep) + 1} "
+          f"geometries, both layouts); 512 MB tiled4d (256, 4096): "
+          f"{ms:.4f} ms = "
+          f"{nbytes / ms / 1e9:.3f} TB/s vs plain {pms:.4f} ms, library "
+          f"(torch.sum) {lms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]",
+          flush=True)
+    del arr, words
+
+    # the decode-rate probe: random and all-ones X, one SM and all of them
+    tkb, tns, reps = 128, 512, 64
+    plane, ones = dr.probe_inputs(tkb, tns, dev, seed=1)
+    xr = torch.randint(-127, 128, ones.shape, generator=gen, device=dev,
+                       dtype=torch.int32)
+    sms = sm_count(dev)
+    for xx in (xr, ones):
+        want = dr.decode_rate_plain(plane, xx, reps)
+        for blocks in (1, sms):
+            got = dr.decode_rate(plane, xx, reps, blocks)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"decode rate blocks={blocks}: kernel != plain")
+    ms = event_ms(lambda: dr.decode_rate_launch(plane, ones, reps, 1))
+    pms = event_ms(lambda: dr.decode_rate_plain(plane, ones, reps))
+    # one block computes the (8, tns) output: a multiply and an add for
+    # each weight, row and repetition; the tile, X and the output once
+    bms, by = bound(plane.numel() + 4 * (ones.numel() + 8 * tns),
+                    2 * 8 * reps * 8 * tkb * tns)
+    stats[dr.KERNEL_NAME] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                 library_ms=None, bound_ms=bms, bound_by=by)
+    print(f"kernel decode_rate: bitwise equal (random and all-ones X, 1 and "
+          f"{sms} blocks); one SM {ms:.4f} ms = "
+          f"{reps * 8 * tkb * tns / ms / 1e6:.2f} G weights/s vs plain "
+          f"{pms:.4f} ms, bound {bms:.6f} ms ({by}) [{card}]", flush=True)
+
+    # the deposit ladder: every mode at each of deposit_study's configs
+    # (the north star among them) and at a ragged shape
+    for M, K, N, s in (*ds.LADDER_CONFIGS, (7, 999, 1000, 3)):
+        fmt = TiledEllDeposit.from_dense(random_ternary(K, N, s, gen, dev))
+        x = torch.randint(-512, 513, (M, K), generator=gen,
+                          device=dev).to(torch.float32)
+        b = torch.full((N,), 2.0, device=dev)
+        for mode in ds.MODES:
+            got = ds.deposit_variant(x, fmt, b, mode=mode)
+            want = ds.deposit_variant_plain(x, fmt, b, mode=mode)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"deposit ladder {mode} {M}x{K}x{N}: kernel != plain")
+        if (M, K, N, s) == (32, 1024, 4096, 4):
+            times = {m: event_ms(lambda m=m: ds.deposit_variant_launch(
+                x, fmt, b, mode=m), flush=flush) for m in ds.MODES}
+            pms = event_ms(lambda: ds.deposit_variant_plain(
+                x, fmt, b, mode="full"), flush=flush)
+            lms = library_ms(x, fmt, flush)
+            bms, by = spmm_bound(M, fmt)
+            stats[ds.KERNEL_NAME] = dict(
+                max_abs_err=0.0, ms=times["full"], plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by)
+            print(f"kernel deposit_variant {M}x{K}x{N} s={s}: every mode "
+                  f"bitwise equal; " + ", ".join(
+                      f"{m} {t:.4f} ms" for m, t in times.items())
+                  + f"; plain (full) {pms:.4f} ms, library {lms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+        else:
+            print(f"kernel deposit_variant {M}x{K}x{N} s={s}: every mode "
+                  f"bitwise equal", flush=True)
+        del fmt
+    del flush
+
+    # the study tools, counted
+    ck.reset_counts()
+    argv = ["--sizes-mb", ",".join(map(str, SWEEP_SIZES_MB)),
+            "--tiles", ";".join(f"{tk},{tn}" for tk, tn in SWEEP_TILES)]
+    rc, out = run_main(membench.main, argv)
+    print(f"$ python -m ternary_spgemm_tpu_torch.tools.membench "
+          f"{' '.join(argv)}\n{out}", end="", flush=True)
+    recs = json.loads(out.splitlines()[-1])["records"]
+    check(rc == 0 and len(recs) == 2 * len(SWEEP_TILES) * len(SWEEP_SIZES_MB),
+          f"membench: exit {rc}")
+    top = max(r["gbps"] for r in recs)
+    check(top <= 1.05 * HBM_BYTES_PER_S / 1e9,
+          f"membench: {top:.1f} GB/s is above the card's memory rate")
+    rc, out = run_main(dr.main, [])
+    print(f"$ python -m ternary_spgemm_tpu_torch.tools.decode_roofline\n"
+          f"{out}", end="", flush=True)
+    rec = json.loads(out.splitlines()[-1])
+    check(rc == 0 and len(rec["configs"]) == 4
+          and not any("error" in r for r in rec["configs"]),
+          f"decode_roofline: exit {rc} or a config failed")
+    rc, out = run_main(ds.main, [])
+    print(f"$ python -m ternary_spgemm_tpu_torch.tools.deposit_study\n"
+          f"{out}", end="", flush=True)
+    rec = json.loads(out.splitlines()[-1])
+    check(rc == 0 and len(rec["ladder"]) == 3
+          and all(r["correct"] == {"full": True, "staticcap": True}
+                  for r in rec["ladder"]),
+          f"deposit_study: exit {rc}, or full / staticcap not exact")
+    counts, plain = dict(ck.launches), dict(ck.plain_on_cuda)
+    print(f"study-tool launches: {counts}; plain versions on CUDA: {plain} "
+          f"[{card}]", flush=True)
+    check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
+    for name in (membench.KERNEL_NAME, dr.KERNEL_NAME, ds.KERNEL_NAME):
+        check(counts.get(name, 0) > 0, f"the study tools did not launch {name}")
+    return stats, counts
+
+
 def main() -> int:
     import torch
 
@@ -593,10 +863,16 @@ def main() -> int:
           f"{os.path.relpath(_build.last_build['path'], ROOT)})", flush=True)
 
     from ternary_spgemm_tpu_torch.ops import fused_ffn
+    from ternary_spgemm_tpu_torch.tools import (
+        decode_roofline, deposit_study, membench)
     #: every hand-written kernel: name -> (its CUDA source, the TPU kernel
     #: it replaces)
     sources = {n: (s.source, s.reference) for n, s in spmm_kernels().items()}
     sources[fused_ffn.KERNEL_NAME] = (fused_ffn.SOURCE, fused_ffn.REFERENCE)
+    sources[fused_ffn.FFN_KERNEL_NAME] = (fused_ffn.FFN_SOURCE,
+                                          fused_ffn.FFN_REFERENCE)
+    for mod in (membench, decode_roofline, deposit_study):
+        sources[mod.KERNEL_NAME] = (mod.SOURCE, mod.REFERENCE)
     for src, _ in sources.values():
         check(os.path.isfile(os.path.join(ROOT, src)), f"no source {src}")
     stats = phase_kernels(dev, card)
@@ -604,12 +880,15 @@ def main() -> int:
     serve_counts = phase_serve(dev, card)
     stats.update(phase_bench_kernels(dev, card))
     bench_counts = phase_entry_point(dev)
+    ffn_counts = phase_ffn_bench(card)
+    probe_stats, probe_counts = phase_probes(dev, card)
+    stats.update(probe_stats)
     check("jax" not in sys.modules, "jax was imported")
 
+    runs = (serve_counts, bench_counts, ffn_counts, probe_counts)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
-                "launches": serve_counts.get(name, 0)
-                + bench_counts.get(name, 0),
+                "launches": sum(c.get(name, 0) for c in runs),
                 **{k: stats[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}

@@ -48,6 +48,7 @@ from ternary_spgemm_tpu_torch.ops import (
     REFERENCE_KERNELS,
     all_kernels,
 )
+from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -91,19 +92,6 @@ class BenchConfig:
     device: str = "cuda"
 
 
-def bench_device(name: str) -> torch.device:
-    """The device a benchmark runs on; raises for ``cuda`` without a card
-    (a benchmark never carries on on the CPU in its place)."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} asked for, but torch sees no CUDA device; pass "
-            "device='cpu' to run the plain versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
-    return dev
-
-
 def device_name(device: str) -> str:
     """The name a result line gives its device."""
     dev = torch.device(device)
@@ -120,7 +108,7 @@ def _counterpart_hint(name: str) -> str:
 
 def run_config(cfg: BenchConfig, *, bandwidth: Optional[float] = None,
                verbose: bool = False) -> List[KernelResult]:
-    dev = bench_device(cfg.device)
+    dev = resolve_device(cfg.device)
     registry = all_kernels()
     if cfg.kernels is not None:
         for n in cfg.kernels:

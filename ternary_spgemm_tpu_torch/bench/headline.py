@@ -85,10 +85,10 @@ def main(argv=None) -> int:
 
     from ternary_spgemm_tpu_torch.bench import (
         BenchConfig, dump_json, run_config, to_reference_json)
-    from ternary_spgemm_tpu_torch.bench.harness import (
-        bench_device, device_name)
+    from ternary_spgemm_tpu_torch.bench.harness import device_name
+    from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
-    bench_device(args.device)
+    resolve_device(args.device)
     if args.kernels:
         kernels = args.kernels.split(",")
     else:

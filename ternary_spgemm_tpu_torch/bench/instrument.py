@@ -64,6 +64,12 @@ ADVERTISED_HBM_GBPS = {
 }
 
 
+#: The H100 SXM's int8 tensor-core peak at its 700 W limit (operations a
+#: second, dense; NVIDIA's data sheet): the fastest rate the card computes
+#: at, which bounds any kernel's operations.
+INT8_OPS_PER_S = 1979e12
+
+
 def advertised_hbm_bandwidth(device=None) -> float:
     """Bytes/s of the card ``device`` (default: the current one); raises
     for a device the table does not know — pass ``bandwidth=`` then."""

@@ -64,7 +64,11 @@ constexpr float kRqAbsmax = 127.0f;
 
 enum StageMode { kStageX8 = 0, kStageI8 = 1, kStageTrunc = 2, kStageRequant = 3,
                  kStageBf16 = 4, kStageF32 = 5 };
-enum EpiMode { kEpiBias = 0, kEpiSwiglu = 1, kEpiScale = 2 };
+// kEpiBias: + b [PReLU]; kEpiSwiglu: the silu-mul of two planes + row
+// absmax; kEpiScale: the requantized product's scale; kEpiBiasRmax: + b
+// [PReLU] + row absmax; kEpiScaleBias: scale, then + b [PReLU]
+enum EpiMode { kEpiBias = 0, kEpiSwiglu = 1, kEpiScale = 2, kEpiBiasRmax = 3,
+               kEpiScaleBias = 4 };
 enum WeightFmt { kWBitplane = 0, kWNibble = 1 };
 
 // bf16 and f32 activations sum in f32; every other rule stages exact integers
@@ -81,11 +85,11 @@ struct Args {
   const uint8_t* plane0;    // the weights (layout by WeightFmt)
   const uint8_t* plane1;    // second plane of the same geometry (NP == 2)
   int nb, gn, tkb, tile_n, N;
-  const float* bias;        // kEpiBias: (N,)
-  const float* alpha;       // kEpiBias: (N,) PReLU slopes, or null
+  const float* bias;        // kEpiBias / BiasRmax / ScaleBias: (N,)
+  const float* alpha;       // the same: (N,) PReLU slopes, or null
   const float* sx;          // kEpiSwiglu: (M,) input row scales
-  const int* rmax_in;       // kStageRequant / kEpiScale: (M,) row absmax bits
-  int* rmax_out;            // kEpiSwiglu: (M,) row absmax bits, pre-zeroed
+  const int* rmax_in;       // kStageRequant / kEpiScale(Bias): (M,) row absmax bits
+  int* rmax_out;            // kEpiSwiglu / BiasRmax: (M,) row absmax bits, pre-zeroed
   float gamma0, gamma1;
   float* y;                 // (M, N) f32 output
 };
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
   const int n = col_ok ? col - g * a.tile_n : 0;
   const int B = 8 * a.tkb;
 
-  if (STAGE == kStageRequant || EPI == kEpiScale) {
+  if (STAGE == kStageRequant || EPI == kEpiScale || EPI == kEpiScaleBias) {
     if (tid < MT) rs[tid] = (m0 + tid < a.M) ? requant_scale(a.rmax_in, m0 + tid) : 1.0f;
   }
 
@@ -240,12 +244,17 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
     const bool row_ok = m < MT && gm < a.M;
     const bool ok = row_ok && col_ok;
     const size_t o = (size_t)gm * a.N + col;
-    if (EPI == kEpiBias) {
+    if (EPI == kEpiBias || EPI == kEpiBiasRmax) {
       // _epilogue: float(acc) + b, then where(y > 0, y, alpha * y)
+      float yv = 0.0f;
       if (ok) {
-        float yv = (float)s0[r] + a.bias[col];
+        yv = (float)s0[r] + a.bias[col];
         if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
         a.y[o] = yv;
+      }
+      if (EPI == kEpiBiasRmax) {   // the running row absmax, as kEpiSwiglu
+        const int bits = __reduce_max_sync(0xffffffffu, __float_as_int(fabsf(yv)));
+        if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
       }
     } else if (EPI == kEpiSwiglu) {
       // ops/fused_ffn.py:362-366: g = gg * (sx * acc_g), u = gu * (sx * acc_u),
@@ -263,9 +272,19 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
       // running row absmax: |h| >= 0, so its int bits order like the floats
       const int bits = __reduce_max_sync(0xffffffffu, __float_as_int(fabsf(hv)));
       if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
-    } else {
+    } else if (EPI == kEpiScale) {
       // _phase2_scale: acc * (((rmax + eps) / 127) * gamma_down)
       if (ok) a.y[o] = (float)s0[r] * (rs[m] * a.gamma0);
+    } else {
+      // ops/fused_ffn.py:189-191: acc * (((rmax + eps) / 127) * gamma) + b,
+      // then PReLU; rounded products and sums, never one FMA, so that the
+      // card rounds twice as the plain version does
+      if (ok) {
+        float yv = __fadd_rn(__fmul_rn((float)s0[r], __fmul_rn(rs[m], a.gamma0)),
+                             a.bias[col]);
+        if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
+        a.y[o] = yv;
+      }
     }
   }
 }

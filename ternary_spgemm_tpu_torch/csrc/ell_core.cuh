@@ -57,6 +57,18 @@ namespace ternary {
 
 enum EllLayout { kEllTiled = 0, kEllDeposit = 1, kEllBlocked = 2 };
 
+// The kernel's work, and the attribution ladder of the deposit study
+// (ternary_spgemm_tpu_torch/tools/deposit_study.py; deposit layout only):
+//   kVarFull: the registered kernels, slot loops to the per-tile caps;
+//   kVarStaticCap: the loops run to the whole section (static_pos /
+//     static_neg slot rows); the extra sentinel slots add 0;
+//   kVarNoGather: slot bytes loaded and summed into every row's result,
+//     but X read at entry (r & 7) * 32 + lane, lane-contiguous (no
+//     random-offset bank conflicts);
+//   kVarNoSlots: no slot loads; X read as kVarNoGather.
+enum EllVariant { kVarFull = 0, kVarStaticCap = 1, kVarNoGather = 2,
+                  kVarNoSlots = 3 };
+
 constexpr int kEllEntries = 256;   // staged entries a K-block, at most
 
 struct EllArgs {
@@ -67,6 +79,7 @@ struct EllArgs {
   const int* cap_pos;       // (nb, ncaps) slot counts
   const int* cap_neg;
   int nb, gn, rows_pos, rows_neg, slab_n, cap_tile, ncaps, block_k, N;
+  int static_pos, static_neg;  // kVarStaticCap: slot rows of each section
   const float* bias;        // (N,)
   const float* alpha;       // (N,) PReLU slopes, or null
   float* y;                 // (M, N) f32 output
@@ -112,15 +125,29 @@ struct EllTraits<kEllBlocked> {
 };
 
 // Add (or, NEG, subtract) the staged rows that ``rows`` slot rows of one
-// column name; warp w takes rows w, w + 8, ...
-template <int MT, int S, int L, bool NEG, typename A>
+// column name; warp w takes rows w, w + 8, ... (VAR: the entry each slot
+// row reads, and whether its byte is loaded; kVarNoGather sums the bytes
+// into ``osum``)
+template <int MT, int S, int L, bool NEG, int VAR, typename A>
 __device__ __forceinline__ void ell_gather(const int8_t* p, int stride,
-                                           int rows, int warp, const A* xs,
-                                           A (&acc)[MT]) {
+                                           int rows, int warp, int lane,
+                                           const A* xs, A (&acc)[MT],
+                                           int& osum) {
   using A4 = Acc4<EllTraits<L>::kStage>;
 #pragma unroll 4
   for (int r = warp; r < rows; r += kWarps) {
-    const int e = EllTraits<L>::entry((int)p[(size_t)r * stride], r);
+    int e;
+    if constexpr (VAR == kVarNoSlots) {
+      e = EllTraits<L>::entry(lane, r);
+    } else {
+      const int off = (int)p[(size_t)r * stride];
+      if constexpr (VAR == kVarNoGather) {
+        osum += off;
+        e = EllTraits<L>::entry(lane, r);
+      } else {
+        e = EllTraits<L>::entry(off, r);
+      }
+    }
     const A4* xv = reinterpret_cast<const A4*>(xs + e * S);
 #pragma unroll
     for (int j = 0; j < MT / 4; ++j) {
@@ -136,8 +163,10 @@ __device__ __forceinline__ void ell_gather(const int8_t* p, int stride,
   }
 }
 
-template <int MT, int L>
+template <int MT, int L, int VAR>
 __global__ void __launch_bounds__(kThreads) ell_kernel(const EllArgs a) {
+  static_assert(VAR == kVarFull || L == kEllDeposit,
+                "the attribution ladder is the deposit layout's");
   using T = EllTraits<L>;
   using A = Acc<T::kStage>;
   constexpr int S = MT == 4 ? 4 : MT + 4;     // words an entry, S/4 odd
@@ -157,13 +186,18 @@ __global__ void __launch_bounds__(kThreads) ell_kernel(const EllArgs a) {
   A acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0;
+  int osum = 0;
 
   for (int kb = 0; kb < a.nb; ++kb) {
     // slot rows to walk: the largest cap among the warp's columns
     const int cp = col_ok ? a.cap_pos[kb * a.ncaps + ci] * T::kRowsPerSlot : 0;
     const int cn = col_ok ? a.cap_neg[kb * a.ncaps + ci] * T::kRowsPerSlot : 0;
-    const int rp = __reduce_max_sync(0xffffffffu, cp);
-    const int rn = __reduce_max_sync(0xffffffffu, cn);
+    int rp = __reduce_max_sync(0xffffffffu, cp);
+    int rn = __reduce_max_sync(0xffffffffu, cn);
+    if constexpr (VAR == kVarStaticCap) {
+      rp = a.static_pos;
+      rn = a.static_neg;
+    }
     __syncthreads();   // previous K-block's stage consumed
     for (int i = tid; i < E * MT; i += kThreads) {
       const int e = i / MT, m = i - e * MT;
@@ -177,13 +211,17 @@ __global__ void __launch_bounds__(kThreads) ell_kernel(const EllArgs a) {
     __syncthreads();
     if (col_ok) {
       const size_t slab = (size_t)kb * a.gn + g;
-      ell_gather<MT, S, L, false>(
-          a.pos + slab * a.rows_pos * a.slab_n + n, a.slab_n, rp, warp, xs,
-          acc);
-      ell_gather<MT, S, L, true>(
-          a.neg + slab * a.rows_neg * a.slab_n + n, a.slab_n, rn, warp, xs,
-          acc);
+      ell_gather<MT, S, L, false, VAR>(
+          a.pos + slab * a.rows_pos * a.slab_n + n, a.slab_n, rp, warp, lane,
+          xs, acc, osum);
+      ell_gather<MT, S, L, true, VAR>(
+          a.neg + slab * a.rows_neg * a.slab_n + n, a.slab_n, rn, warp, lane,
+          xs, acc, osum);
     }
+  }
+  if constexpr (VAR == kVarNoGather) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m] += osum;
   }
 
   // add the 8 warps' partial sums (warp w finishes rows w, w + 8, ...) and
@@ -211,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) ell_kernel(const EllArgs a) {
 // Launch over one ELL layout with the smallest M-tile that holds M (more
 // row tiles above 32); cudaErrorInvalidValue if the K-block does not fit
 // the stage.
-template <int L>
+template <int L, int VAR = kVarFull>
 int run_ell(const EllArgs& a, void* stream) {
   if (a.block_k < 1 || EllTraits<L>::entries(a.block_k) > kEllEntries ||
       a.slab_n < 1 || a.cap_tile < 1)
@@ -220,13 +258,13 @@ int run_ell(const EllArgs& a, void* stream) {
   const dim3 block(kCols, kWarps);
   const int gx = cdiv(a.N, kCols);
   if (a.M <= 4) {
-    ell_kernel<4, L><<<dim3(gx, cdiv(a.M, 4)), block, 0, s>>>(a);
+    ell_kernel<4, L, VAR><<<dim3(gx, cdiv(a.M, 4)), block, 0, s>>>(a);
   } else if (a.M <= 8) {
-    ell_kernel<8, L><<<dim3(gx, cdiv(a.M, 8)), block, 0, s>>>(a);
+    ell_kernel<8, L, VAR><<<dim3(gx, cdiv(a.M, 8)), block, 0, s>>>(a);
   } else if (a.M <= 16) {
-    ell_kernel<16, L><<<dim3(gx, cdiv(a.M, 16)), block, 0, s>>>(a);
+    ell_kernel<16, L, VAR><<<dim3(gx, cdiv(a.M, 16)), block, 0, s>>>(a);
   } else {
-    ell_kernel<32, L><<<dim3(gx, cdiv(a.M, 32)), block, 0, s>>>(a);
+    ell_kernel<32, L, VAR><<<dim3(gx, cdiv(a.M, 32)), block, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -17,15 +17,18 @@ from ternary_spgemm_tpu_torch.models.transformer import (
     BitTransformerConfig,
     ExportedTransformerBlock,
 )
+from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 
 def lm_from_jax_params(cfg: BitTransformerConfig, params_np: dict, *,
                        a8: bool, fused_qkv: bool, fused_ffn: bool,
-                       device=None, **fmt_kwargs) -> ExportedTransformerLM:
+                       device="cuda", **fmt_kwargs) -> ExportedTransformerLM:
     """The port's :class:`ExportedTransformerLM` from a JAX QAT tree (the
     counterpart of ``ExportedTransformerLM.from_params(model, params,
     TiledBitplane, a8=..., fused_qkv=..., fused_ffn=..., with_transpose=
-    False)``), built on ``device``."""
+    False)``), built on the card (raises without one) unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
     if cfg.moe_experts:
         raise NotImplementedError("MoE blocks are not ported yet")
     if len(params_np["blocks"]) != cfg.n_layers:

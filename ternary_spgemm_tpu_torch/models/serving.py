@@ -23,6 +23,7 @@ from ternary_spgemm_tpu_torch.models.transformer import (
     ExportedTransformerBlock,
     MergedQKV,
 )
+from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 #: the BitNet-7B widths of the JAX serving tool (``tools/serving_bench.py:47-48``)
 PRESETS = {
@@ -44,9 +45,10 @@ def random_ternary(K: int, N: int, s: int, gen: torch.Generator,
 
 
 def build_serving_lm(cfg: BitTransformerConfig, *, s: int = 2, seed: int = 0,
-                     device=None) -> ExportedTransformerLM:
-    """A serving-export LM with random ternary weights of density 1/s."""
-    device = torch.device(device or "cpu")
+                     device="cuda") -> ExportedTransformerLM:
+    """A serving-export LM with random ternary weights of density 1/s, built
+    on the card (raises without one) unless ``device="cpu"``."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, ff, kvw = cfg.d_model, cfg.d_ff, cfg.kv_width

@@ -59,6 +59,19 @@ SIGNATURES = {
     "ternary_blocked_ell_f32": _ELL,
     "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    #: (x, M, K, plane1, nb1, gn1, tkb1, tile_n1, N1, b1/gamma1, alpha1,
+    #: plane2, nb2, gn2, tkb2, tile_n2, N2, b2, alpha2, gamma1*gamma2, h,
+    #: rmax, y, stream)
+    "ternary_prelu_ffn": [_P, _I, _I, _P, *[_I] * 5, _P, _P, _P, *[_I] * 5,
+                          _P, _P, _F, _P, _P, _P, _P],
+    #: (array, gk, gn, tk, tn, layout, sms, scratch, replicas, out, stream)
+    "ternary_stream_rate": [_P, *[_I] * 6, _P, _I, _P, _P],
+    #: (plane, tkb, tns, x, reps, blocks, out, stream)
+    "ternary_decode_rate": [_P, _I, _I, _P, _I, _I, _P, _P],
+    #: (x, M, K, pos, neg, cap_pos, cap_neg, nsb, gn, rows, tile_n,
+    #: static_pos, static_neg, N, bias, y, mode, stream)
+    "ternary_deposit_variant": [_P, _I, _I, _P, _P, _P, _P, *[_I] * 7, _P,
+                                _P, _I, _P],
 }
 
 _LOADED = {}

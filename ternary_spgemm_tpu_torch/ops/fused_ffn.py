@@ -1,21 +1,31 @@
-"""Fused ternary SwiGLU FFN block — counterpart of the SwiGLU part of
+"""Fused ternary FFN blocks — counterpart of
 ``ternary_spgemm_tpu/ops/fused_ffn.py``.
 
-The W1.58-A8 transformer FFN::
+The W1.58-A8 transformer's SwiGLU FFN::
 
     g   = gamma_g * (sx * (xq @ Wg))        u = gamma_u * (sx * (xq @ Wu))
     h   = silu(g) * u
     hq  = round(h / ((rowmax|h| + 1e-12) / 127))        (requantize_rows)
     y   = (hq @ Wd) * (((rowmax|h| + 1e-12) / 127) * gamma_d)
 
-:func:`fused_bitplane_swiglu` runs it as one call of the CUDA kernel in
-``csrc/swiglu.cu`` (two launches: gate/up with the silu-mul epilogue and the
-row absmax, then the requantizing down projection). On a CPU tensor it runs
-:func:`swiglu_plain`, the same math in PyTorch with every op in the JAX
+and the reference-epilogue PReLU FFN over integer activations |X| <= 512::
+
+    h   = PReLU(X @ W1 + b1 / gamma1, alpha1)   (kept unscaled: the
+                                                 requantize is scale-free)
+    hq  = round(h / ((rowmax|h| + 1e-12) / 127))
+    y   = (hq @ W2) * (((rowmax|h| + 1e-12) / 127) * (gamma1 * gamma2)) + b2
+    [y  = PReLU(y, alpha2)]
+
+:func:`fused_bitplane_swiglu` runs the first as one call of the CUDA kernel
+in ``csrc/swiglu.cu``, :func:`fused_bitplane_ffn` the second as one call of
+``csrc/ffn.cu``; each makes two launches (the up-projection with its
+epilogue and the row absmax, then the requantizing down projection). On a
+CPU tensor each runs its plain version (:func:`swiglu_plain`,
+:func:`ffn_plain`), the same math in PyTorch with every op in the JAX
 order. silu is ``g * sigmoid(g)`` as ``jax.nn.silu`` writes it, with the
 sigmoid evaluated in f64 and rounded once to f32 (:func:`sigmoid_f32`), in
 the kernel as in the plain version, so that the card and the CPU give the
-same bits.
+same bits. Both blocks share JAX's geometry contract (:func:`ffn_geometry`).
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
 from ternary_spgemm_tpu_torch.ops import _build
+from ternary_spgemm_tpu_torch.ops.api import finish, to_i8
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     check_f32,
     check_plane,
@@ -32,6 +43,7 @@ from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     note_plain,
     stream_handle,
 )
+from ternary_spgemm_tpu_torch.utils import round_up
 
 #: requantization constants shared by every path (the JAX values)
 _RQ_ABSMAX = 127.0
@@ -41,6 +53,11 @@ KERNEL_NAME = "fused_bitplane_swiglu"
 #: the kernel's CUDA source, and the TPU kernel it replaces
 SOURCE = "ternary_spgemm_tpu_torch/csrc/swiglu.cu"
 REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:384"
+FFN_KERNEL_NAME = "fused_bitplane_ffn"
+FFN_SOURCE = "ternary_spgemm_tpu_torch/csrc/ffn.cu"
+FFN_REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:229"
+#: the PReLU FFN's serving-M contract (JAX's; the SwiGLU has no row limit)
+SERVING_M = 128
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -75,17 +92,38 @@ def requantize_rows(h: torch.Tensor, absmax: float = _RQ_ABSMAX,
     return torch.round(h / scale), scale
 
 
-def _check_geometry(fmt_gate: TiledBitplane, fmt_up: TiledBitplane,
-                    fmt_down: TiledBitplane) -> None:
+def ffn_geometry(fmt1: TiledBitplane, fmt2: TiledBitplane,
+                 name: str) -> None:
+    """JAX's ``_ffn_geometry`` contract (``ops/fused_ffn.py:194-226``
+    there): the OUTPUT container is one storage tile (gn == 1; the hidden
+    width may span several), it contracts over the hidden width, and its K
+    padding covers exactly the padded hidden width."""
+    gn2 = fmt2.plane.shape[1]
+    if gn2 != 1:
+        raise ValueError(
+            f"{name} needs a single-N-tile OUTPUT container (gn == 1), got "
+            f"gn2={gn2}; shard N2 across cards for wider outputs "
+            "(the hidden width may span multiple tiles)")
+    if fmt2.K != fmt1.N:
+        raise ValueError(
+            f"layer-2 container contracts over K={fmt2.K}, expected fmt1.N="
+            f"{fmt1.N}")
+    B2 = 8 * fmt2.tkb
+    nb2 = fmt2.plane.shape[0]
+    if nb2 * B2 != round_up(fmt1.N, B2):
+        raise ValueError(
+            f"{name}: layer-2 K padding ({nb2 * B2}) does not cover the "
+            f"hidden width {fmt1.N}")
+
+
+def _check_swiglu(fmt_gate: TiledBitplane, fmt_up: TiledBitplane,
+                  fmt_down: TiledBitplane) -> None:
     if (fmt_up.K, fmt_up.N, fmt_up.tkb, fmt_up.tile_n) != \
             (fmt_gate.K, fmt_gate.N, fmt_gate.tkb, fmt_gate.tile_n) \
             or fmt_up.plane.shape[:2] != fmt_gate.plane.shape[:2]:
         raise ValueError("gate and up projections must share (K, N, tkb, "
                          "tile_n)")
-    if fmt_down.K != fmt_gate.N:
-        raise ValueError(
-            f"down container contracts over K={fmt_down.K}, expected the "
-            f"hidden width {fmt_gate.N}")
+    ffn_geometry(fmt_gate, fmt_down, KERNEL_NAME)
 
 
 def swiglu_hidden_plain(xq, sx, fmt_gate, fmt_up, *, gamma_gate: float = 1.0,
@@ -104,7 +142,7 @@ def swiglu_plain(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     """The plain PyTorch version of the kernel (``unfused_reference_swiglu``'s
     math, ``ops/fused_ffn.py:464-481`` of the JAX package)."""
     note_plain(KERNEL_NAME, xq)
-    _check_geometry(fmt_gate, fmt_up, fmt_down)
+    _check_swiglu(fmt_gate, fmt_up, fmt_down)
     h = swiglu_hidden_plain(xq, sx, fmt_gate, fmt_up, gamma_gate=gamma_gate,
                             gamma_up=gamma_up)
     hq, scale = requantize_rows(h)
@@ -121,7 +159,7 @@ def swiglu_launch(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
                          f"take the plain version); got a tensor on {dev}")
-    _check_geometry(fmt_gate, fmt_up, fmt_down)
+    _check_swiglu(fmt_gate, fmt_up, fmt_down)
     if xq.dim() != 2:
         raise ValueError(f"xq must be 2-D (M, K), got {tuple(xq.shape)}")
     M, K = xq.shape[0], fmt_gate.K
@@ -154,7 +192,8 @@ def fused_bitplane_swiglu(xq, sx, fmt_gate: TiledBitplane,
                           gamma_down: float = 1.0) -> torch.Tensor:
     """Fused ternary SwiGLU FFN over int8-valued activations ``xq (M, K)``
     (f32, |xq| <= 127, e.g. from :func:`requantize_rows`) with row scales
-    ``sx (M, 1)``. ``fmt_down.K == fmt_gate.N == fmt_up.N``; the three
+    ``sx (M, 1)``. ``fmt_down.K == fmt_gate.N == fmt_up.N`` and the down
+    container is one storage tile (:func:`ffn_geometry`); the three
     projections are biasless. Any M: rows are independent."""
     kw = dict(gamma_gate=gamma_gate, gamma_up=gamma_up, gamma_down=gamma_down)
     if xq.device.type == "cpu":
@@ -179,3 +218,115 @@ def unfused_reference_swiglu(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     hq, scale = requantize_rows(h)
     y = ternary_spgemm(hq, fmt_down, zd, None, kernel=kernel)
     return y * (scale * gamma_down)
+
+
+# ---------------------------------------------------------------------------
+# The PReLU FFN block (fused_bitplane_ffn)
+# ---------------------------------------------------------------------------
+
+
+def _check_ffn(X, fmt1: TiledBitplane, fmt2: TiledBitplane) -> None:
+    M = X.shape[0]
+    if M > SERVING_M:
+        raise ValueError(
+            f"{FFN_KERNEL_NAME} is the serving-M path (M <= {SERVING_M}), got "
+            f"{M}; run the layers unfused at training M")
+    ffn_geometry(fmt1, fmt2, FFN_KERNEL_NAME)
+
+
+def _vec(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def ffn_hidden_plain(X, fmt1: TiledBitplane, b1, alpha1, *,
+                     gamma1: float = 1.0) -> torch.Tensor:
+    """``h = PReLU(i8(X) @ W1 + b1 / gamma1, alpha1)`` in f32, unscaled
+    (``_i8_epilogue`` with ``b1/gamma1``, ``ops/fused_ffn.py:168-175``)."""
+    return finish(matmul_plain(to_i8(X), fmt1),
+                  true_div(_vec(b1, X.device), gamma1), alpha1)
+
+
+def ffn_plain(X, fmt1: TiledBitplane, b1, alpha1, fmt2: TiledBitplane, b2,
+              alpha2=None, *, gamma1: float = 1.0,
+              gamma2: float = 1.0) -> torch.Tensor:
+    """The plain PyTorch version of the kernel (``unfused_reference_ffn``'s
+    math, ``ops/fused_ffn.py:484-501`` of the JAX package); ``gamma1 *
+    gamma2`` is one Python product, rounded once to f32 as JAX folds it."""
+    note_plain(FFN_KERNEL_NAME, X)
+    _check_ffn(X, fmt1, fmt2)
+    h = ffn_hidden_plain(X, fmt1, b1, alpha1, gamma1=gamma1)
+    hq, scale = requantize_rows(h)
+    y = matmul_plain(hq, fmt2) * (scale * (gamma1 * gamma2))
+    return finish(y, b2, alpha2)
+
+
+def ffn_launch(X, fmt1: TiledBitplane, b1, alpha1, fmt2: TiledBitplane, b2,
+               alpha2=None, *, gamma1: float = 1.0, gamma2: float = 1.0):
+    """Run the CUDA kernel -> ``(y (M, N2), h (M, N1), rmax (M,))``: the
+    output, the unscaled f32 hidden state and its per-row absmax (as f32),
+    so a caller can check the requantized hidden against the plain
+    version."""
+    dev = X.device
+    if dev.type != "cuda":
+        raise ValueError(f"{FFN_KERNEL_NAME} runs on CUDA tensors (CPU "
+                         f"tensors take the plain version); got a tensor on "
+                         f"{dev}")
+    if X.dim() != 2:
+        raise ValueError(f"X must be 2-D (M, K), got {tuple(X.shape)}")
+    _check_ffn(X, fmt1, fmt2)
+    M, K, N1, N2 = X.shape[0], fmt1.K, fmt1.N, fmt2.N
+    name = FFN_KERNEL_NAME
+    check_f32(X, (M, K), dev, f"{name}: X")
+    p1, p2 = check_plane(fmt1, dev), check_plane(fmt2, dev)
+    check_f32(b1, (N1,), dev, f"{name}: b1")
+    check_f32(b2, (N2,), dev, f"{name}: b2")
+    for a, n, what in ((alpha1, N1, "alpha1"), (alpha2, N2, "alpha2")):
+        if a is not None:
+            check_f32(a, (n,), dev, f"{name}: {what}")
+    b1g = true_div(b1, gamma1)
+    h = torch.empty((M, N1), dtype=torch.float32, device=dev)
+    rmax = torch.empty((M,), dtype=torch.int32, device=dev)
+    y = torch.empty((M, N2), dtype=torch.float32, device=dev)
+    if M == 0:
+        return y, h, rmax.view(torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    err = _build.load().ternary_prelu_ffn(
+        X.data_ptr(), M, K, p1.data_ptr(), p1.shape[0], p1.shape[1],
+        fmt1.tkb, fmt1.tile_n, N1, b1g.data_ptr(), ptr(alpha1),
+        p2.data_ptr(), p2.shape[0], p2.shape[1], fmt2.tkb, fmt2.tile_n, N2,
+        b2.data_ptr(), ptr(alpha2), float(gamma1 * gamma2), h.data_ptr(),
+        rmax.data_ptr(), y.data_ptr(), stream_handle(dev))
+    _build.check(err, "ternary_prelu_ffn")
+    launches[FFN_KERNEL_NAME] += 1
+    return y, h, rmax.view(torch.float32)
+
+
+def fused_bitplane_ffn(X, fmt1: TiledBitplane, b1, alpha1,
+                       fmt2: TiledBitplane, b2, alpha2=None, *,
+                       gamma1: float = 1.0,
+                       gamma2: float = 1.0) -> torch.Tensor:
+    """The fused PReLU FFN block (module docstring) over TiledBitplane
+    weights. Contract, JAX's: serving M (at most 128 rows), integer-valued
+    f32 ``X`` with ``|X| <= 512``, a single-N-tile OUTPUT container and
+    ``fmt2.K == fmt1.N`` (:func:`ffn_geometry`); ``alpha1``/``alpha2`` may
+    be None (no PReLU); ``gamma*`` are the exported absmean scales."""
+    kw = dict(gamma1=gamma1, gamma2=gamma2)
+    if X.device.type == "cpu":
+        return ffn_plain(X, fmt1, b1, alpha1, fmt2, b2, alpha2, **kw)
+    return ffn_launch(X, fmt1, b1, alpha1, fmt2, b2, alpha2, **kw)[0]
+
+
+def unfused_reference_ffn(X, fmt1, b1, alpha1, fmt2, b2, alpha2=None, *,
+                          gamma1: float = 1.0, gamma2: float = 1.0,
+                          kernel: str = None) -> torch.Tensor:
+    """The PReLU block as two registry SpMM calls + the shared requantize —
+    the unfused counterpart (``kernel=None``: default dispatch)."""
+    from ternary_spgemm_tpu_torch.ops.api import ternary_spgemm
+
+    X = X.to(torch.float32)
+    b1f = true_div(_vec(b1, X.device), gamma1)
+    h = ternary_spgemm(X, fmt1, b1f, alpha1, kernel=kernel)
+    hq, scale = requantize_rows(h)
+    zeros = torch.zeros((fmt2.N,), dtype=torch.float32, device=X.device)
+    y = ternary_spgemm(hq, fmt2, zeros, None, kernel=kernel)
+    return finish(y * (scale * (gamma1 * gamma2)), b2, alpha2)

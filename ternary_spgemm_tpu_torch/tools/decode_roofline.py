@@ -1,0 +1,230 @@
+"""Decode rate of the bitplane core, and the roofline with decode as a
+resource — counterpart of ``tools/decode_roofline.py``.
+
+The hand-written bitplane kernels decode every weight from its two plane
+bits before they multiply it (``csrc/bitplane_core.cuh``), and at the north
+star they run far above their bytes bound. This tool measures the decode
+rate pi directly: :func:`measure_decode_rate` runs ``csrc/decode_rate.cu``,
+``reps`` repetitions of the core's ``load_row`` + ``decode_half`` over a
+(2*tkb, tns) plane tile held in shared memory, every weight consumed by
+int32 multiply-adds into 8 rows of all-ones X. It reports the rate of all
+the card's SMs at one block each (132 on an H100 SXM; the SpMM grids are
+128 blocks, so this is the figure that bounds them) and of one SM. Then
+it measures the card's memory rate beta
+(``bench.instrument.measure_hbm_bandwidth``), times
+``CudaTiledBitplane_i8`` at the JAX tool's four configs through
+``bench.harness.run_config`` and writes the two-resource roofline rows::
+
+    t_bytes  = own_bytes / beta          (f32 X as the kernel reads it, the
+                                          container, f32 Y and bias)
+    t_decode = K * N / pi
+    t_dot    = 2 * M * K * N / 1979e12   (the H100's int8 tensor-core peak)
+    augmented  = (max(t_bytes, t_decode) + t_dot) / t
+    overlapped = max(t_bytes, t_decode, t_dot) / t
+
+Usage::
+
+    python -m ternary_spgemm_tpu_torch.tools.decode_roofline
+        [--configs MxKxNxs ...] [--device cuda|cpu] [--out PATH]
+
+On the CPU the rates are the plain versions' host-clock rates and no
+roofline fraction is given (there is no device rate to hold them to).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from ternary_spgemm_tpu_torch.bench import (
+    BenchConfig,
+    instrument,
+    measure_hbm_bandwidth,
+    run_config,
+)
+from ternary_spgemm_tpu_torch.bench.harness import device_name
+from ternary_spgemm_tpu_torch.bench.instrument import INT8_OPS_PER_S
+from ternary_spgemm_tpu_torch.formats import TiledBitplane
+from ternary_spgemm_tpu_torch.formats.bitplane import decode_planes
+from ternary_spgemm_tpu_torch.ops import _build, get_kernel
+from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
+    launches,
+    note_plain,
+    stream_handle,
+)
+from ternary_spgemm_tpu_torch.tools import emit, timer
+from ternary_spgemm_tpu_torch.utils.device import resolve_device, sm_count
+
+KERNEL_NAME = "decode_rate"
+SOURCE = "ternary_spgemm_tpu_torch/csrc/decode_rate.cu"
+REFERENCE = "tools/decode_roofline.py:32"
+FLAGSHIP = "CudaTiledBitplane_i8"
+#: the JAX tool's configs (``tools/decode_roofline.py:87-89``)
+DEFAULT_CONFIGS = ["32x1024x4096x4", "32x4096x4096x4", "32x11008x11008x4",
+                   "512x4096x4096x4"]
+ROWS = 8
+
+
+def decode_rate_plain(plane: torch.Tensor, x: torch.Tensor,
+                      reps: int) -> torch.Tensor:
+    """The plain version: ``sum_r x @ W_r`` -> (8, tns) int32, ``W_r`` the
+    tile perturbed as ``(plane + r) & 0xFF`` decoded by the bitplane row
+    map (sums in f64, exact for these sizes)."""
+    note_plain(KERNEL_NAME, plane)
+    tkb = plane.shape[0] // 2
+    acc = torch.zeros((ROWS, plane.shape[1]), dtype=torch.float64,
+                      device=plane.device)
+    xf = x.to(torch.float64)
+    p = plane.to(torch.int32)
+    for r in range(reps):
+        q = ((p + r) & 0xFF).to(torch.uint8)
+        acc += xf @ decode_planes(q[None, None], tkb).to(torch.float64)
+    return acc.to(torch.int32)
+
+
+def _check(plane, x):
+    if plane.dim() != 2 or plane.shape[0] % 2 or plane.dtype != torch.uint8 \
+            or not plane.is_contiguous():
+        raise ValueError("plane must be a contiguous (2*tkb, tns) uint8 "
+                         f"tensor, got {plane.dtype} {tuple(plane.shape)}")
+    B = 4 * plane.shape[0]
+    if tuple(x.shape) != (ROWS, B) or x.dtype != torch.int32 \
+            or not x.is_contiguous() or x.device != plane.device:
+        raise ValueError(f"x must be a contiguous ({ROWS}, {B}) int32 tensor "
+                         f"on {plane.device}")
+
+
+def decode_rate_launch(plane, x, reps: int, blocks: int) -> torch.Tensor:
+    """One launch of ``blocks`` blocks, each decoding the whole tile
+    ``reps`` times -> (8, tns) int32 (every block stores the same values)."""
+    _check(plane, x)
+    if not plane.is_cuda:
+        raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
+                         "take the plain version)")
+    out = torch.empty((ROWS, plane.shape[1]), dtype=torch.int32,
+                      device=plane.device)
+    err = _build.load().ternary_decode_rate(
+        plane.data_ptr(), plane.shape[0] // 2, plane.shape[1], x.data_ptr(),
+        reps, blocks, out.data_ptr(), stream_handle(plane.device))
+    _build.check(err, "ternary_decode_rate")
+    launches[KERNEL_NAME] += 1
+    return out
+
+
+def decode_rate(plane, x, reps: int, blocks: int = 1) -> torch.Tensor:
+    """The probe's function: the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
+    if plane.device.type == "cpu":
+        _check(plane, x)
+        return decode_rate_plain(plane, x, reps)
+    return decode_rate_launch(plane, x, reps, blocks)
+
+
+def probe_inputs(tkb: int, tns: int, dev, *, seed: int = 0):
+    """The probe's tile (random bytes from ``seed``) and all-ones X."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    plane = torch.randint(0, 256, (2 * tkb, tns), generator=g, device=dev,
+                          dtype=torch.uint8)
+    return plane, torch.ones((ROWS, 8 * tkb), dtype=torch.int32, device=dev)
+
+
+def measure_decode_rate(dev, tkb: int = 128, tns: int = 512,
+                        reps: int = 64) -> dict:
+    """Weights a second of the core's decode on a shared-memory-resident
+    tile: all SMs (one block each) and one SM."""
+    plane, x = probe_inputs(tkb, tns, dev)
+    weights = reps * 8 * tkb * tns
+    rec = {"tkb": tkb, "tns": tns, "reps": reps}
+    if dev.type == "cuda":
+        for key, blocks in (("all_sms", sm_count(dev)), ("one_sm", 1)):
+            t = timer(dev)(lambda p, xx: decode_rate_launch(p, xx, reps,
+                                                            blocks),
+                           plane, aux=(x,), min_seconds=0.3)
+            rec[key] = {"blocks": blocks, "seconds": t.seconds,
+                        "weights_per_s": blocks * weights / t.seconds}
+        rec["seconds"] = rec["all_sms"]["seconds"]
+        rec["weights_per_s"] = rec["all_sms"]["weights_per_s"]
+    else:
+        t = timer(dev)(lambda p, xx: decode_rate(p, xx, reps), plane,
+                       aux=(x,), min_seconds=0.3)
+        rec.update(seconds=t.seconds, weights_per_s=weights / t.seconds)
+    rec["note"] = ("includes the consuming 8-row int32 multiply-adds and a "
+                   "2-op per-byte perturbation each repetition: a "
+                   "conservative (low) rate")
+    return rec
+
+
+def roofline_row(config: str, seconds: float, own_bytes: float,
+                 beta: float, pi: float) -> dict:
+    """The two-resource roofline of one config from measured rates: bytes at
+    ``beta`` and decode at ``pi`` (serial with, or overlapping, the dot at
+    the int8 peak); fractions are None without ``beta``."""
+    M, K, N, _ = map(int, config.split("x"))
+    t_bytes = own_bytes / beta if beta else None
+    t_decode = K * N / pi
+    t_dot = 2 * M * K * N / INT8_OPS_PER_S
+    row = {"config": config, "seconds": seconds, "own_bytes": own_bytes,
+           "byte_ideal_s": t_bytes, "decode_ideal_s": t_decode,
+           "dot_ideal_s": t_dot, "own_bytes_fraction": None,
+           "augmented_roofline_fraction": None,
+           "overlapped_roofline_fraction": None}
+    if t_bytes is not None:
+        row.update(
+            own_bytes_fraction=t_bytes / seconds,
+            augmented_roofline_fraction=(max(t_bytes, t_decode) + t_dot)
+            / seconds,
+            overlapped_roofline_fraction=max(t_bytes, t_decode, t_dot)
+            / seconds)
+    return row
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m ternary_spgemm_tpu_torch.tools.decode_roofline")
+    p.add_argument("--configs", nargs="*", default=DEFAULT_CONFIGS)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    name = device_name(dev)
+    result = {"device": name, "decode_rate": measure_decode_rate(dev)}
+    print(json.dumps(result["decode_rate"]), flush=True)
+    beta = measure_hbm_bandwidth(device=dev) if dev.type == "cuda" else None
+    result["beta_measured_GBps"] = beta / 1e9 if beta else None
+    pi = result["decode_rate"]["weights_per_s"]
+    spec = get_kernel(FLAGSHIP)
+    rows = []
+    for cs in args.configs:
+        M, K, N, s = map(int, cs.split("x"))
+        cfg = BenchConfig(M=M, K=K, N=N, s=s, correctness=False,
+                          min_seconds=0.2, kernels=[FLAGSHIP],
+                          device=dev.type,
+                          timer="cuda_events" if dev.type == "cuda" else "wall")
+        r = run_config(cfg, bandwidth=beta)[0]
+        if r.error:
+            rows.append({"config": cs, "error": r.error})
+        else:
+            # own bytes depend on the container's shape, not its values
+            fmt = TiledBitplane.from_dense(
+                torch.zeros((K, N), dtype=torch.int8, device=dev))
+            own = instrument(M, fmt, x_bytes=spec.x_bytes).own_bytes
+            rows.append(roofline_row(cs, r.seconds, own, beta, pi))
+        print(json.dumps(rows[-1]), flush=True)
+    result["configs"] = rows
+    result["model"] = (
+        "two bounds from measured rates on the card: SERIAL ideal = "
+        "max(own_bytes/beta, K*N/pi_decode) + 2*M*K*N/int8_peak "
+        "(augmented_roofline_fraction; > 1 means the kernel overlaps better "
+        "than fully serial) and FULL-OVERLAP ideal = max(bytes, decode, "
+        "dot) (overlapped_roofline_fraction). pi_decode is the all-SM rate "
+        "of the core's decode at an 8-row M-tile; the int8 peak is the "
+        "H100's data-sheet 1,979 TOP/s.")
+    emit(result, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -281,3 +281,114 @@ def test_ell_deposit_large_caps(dev):
     want = ck.ell_deposit_i8_plain(X, fmt, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N1,N2,tile_n", [
+    (1, 100, 256, 128, 4096), (8, 128, 1152, 128, 4096),
+    (33, 96, 384, 96, 4096), (128, 384, 300, 256, 128),
+    (32, 1024, 4096, 1024, 4096)])
+@pytest.mark.parametrize("prelu2", [False, True])
+def test_prelu_ffn_kernel(dev, M, K, N1, N2, tile_n, prelu2):
+    """The fused PReLU FFN: the hidden state, its requantized values and
+    the output bitwise equal to the plain version's (the phase-2 epilogue
+    rounds its multiplies and adds as the plain version does)."""
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        ffn_hidden_plain, ffn_launch, ffn_plain)
+
+    f1 = TiledBitplane.from_dense(generate_ternary(K, N1, 4, seed=0),
+                                  tile_n=tile_n).to(dev)
+    f2 = TiledBitplane.from_dense(generate_ternary(N1, N2, 4, seed=1)).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=2)).to(dev)
+    b1 = torch.from_numpy(generate_bias(N1)).to(dev)
+    a1 = torch.from_numpy(generate_alpha(N1)).to(dev)
+    b2 = torch.from_numpy(generate_bias(N2)).to(dev)
+    a2 = torch.from_numpy(generate_alpha(N2)).to(dev) if prelu2 else None
+    kw = dict(gamma1=0.037, gamma2=1.9)
+    y, h, rmax = ffn_launch(X, f1, b1, a1, f2, b2, a2, **kw)
+    h_plain = ffn_hidden_plain(X, f1, b1, a1, gamma1=0.037)
+    want = ffn_plain(X, f1, b1, a1, f2, b2, a2, **kw)
+    hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
+    hq_plain, _ = requantize_rows(h_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_plain)
+    assert torch.equal(hq, hq_plain)
+    assert torch.equal(y, want)
+
+
+def test_prelu_ffn_contract_on_card(dev):
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import fused_bitplane_ffn
+
+    f1 = TiledBitplane.from_dense(generate_ternary(128, 256, 4, seed=0)).to(dev)
+    f2 = TiledBitplane.from_dense(generate_ternary(256, 128, 4, seed=1),
+                                  tile_n=64).to(dev)
+    b1, b2 = torch.zeros(256, device=dev), torch.zeros(128, device=dev)
+    with pytest.raises(ValueError, match="OUTPUT"):
+        fused_bitplane_ffn(torch.zeros((4, 128), device=dev), f1, b1, None,
+                           f2, b2)
+    f2 = TiledBitplane.from_dense(generate_ternary(256, 128, 4, seed=1)).to(dev)
+    with pytest.raises(ValueError, match="serving-M"):
+        fused_bitplane_ffn(torch.zeros((129, 128), device=dev), f1, b1, None,
+                           f2, b2)
+
+
+@pytest.mark.parametrize("layout,tk,tn,gk,gn", [
+    ("tiled4d", 256, 4096, 3, 2), ("tiled4d", 16, 256, 5, 7),
+    ("rowmajor", 256, 4096, 2, 3), ("rowmajor", 5, 8192, 3, 1),
+    ("rowmajor", 8, 12288, 2, 2)])
+def test_stream_kernel(dev, layout, tk, tn, gk, gn):
+    """The streaming probe's checksum bitwise equal to the plain version's,
+    for both layouts (the buckets depend on the bytes alone), with tiles
+    cut into several blocks' runs (runs that start inside a tile row at
+    12288-byte rows)."""
+    from ternary_spgemm_tpu_torch.tools import membench
+
+    arr = membench.make_array(gk, gn, tk, tn, layout, dev, seed=gk + tn)
+    x = torch.arange(1024, dtype=torch.int32, device=dev).reshape(8, 128)
+    got = membench.stream_checksum(arr, tk, tn, layout, x)
+    want = membench.stream_plain(arr, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    narrow = torch.zeros((4, 2048), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        membench.stream_checksum(narrow, 4, 2048, "rowmajor", x)
+
+
+@pytest.mark.parametrize("tkb,tns,reps,blocks", [
+    (128, 512, 4, 1), (128, 512, 3, 132), (16, 96, 5, 3)])
+def test_decode_rate_kernel(dev, tkb, tns, reps, blocks):
+    """The decode-rate probe bitwise equal to its plain version, on random
+    X (which checks the row map) and on the all-ones X the tool uses."""
+    from ternary_spgemm_tpu_torch.tools import decode_roofline as dr
+
+    plane, ones = dr.probe_inputs(tkb, tns, dev, seed=tkb + reps)
+    g = torch.Generator(device=dev).manual_seed(reps)
+    x = torch.randint(-127, 128, ones.shape, generator=g, device=dev,
+                      dtype=torch.int32)
+    for xx in (x, ones):
+        got = dr.decode_rate(plane, xx, reps, blocks)
+        want = dr.decode_rate_plain(plane, xx, reps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["full", "staticcap", "nogather", "noslots"])
+@pytest.mark.parametrize("M,K,N,s,tile_n", [
+    (5, 600, 300, 4, 128), (33, 1000, 520, 16, 256),
+    (32, 2048, 4096, 16, 4096), (32, 16384, 4096, 16, 4096),
+    (32, 4096, 16384, 16, 4096)])
+def test_deposit_variant_kernel(dev, mode, M, K, N, s, tile_n):
+    """Every rung of the deposit ladder bitwise equal to its plain version,
+    up to the deposit study's two large configs; full and staticcap equal
+    to the registered kernel too."""
+    from ternary_spgemm_tpu_torch.tools import deposit_study as ds
+
+    fmt = TiledEllDeposit.from_dense(generate_ternary(K, N, s, seed=K),
+                                     tile_n=tile_n).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=M)).to(dev)
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    got = ds.deposit_variant(X, fmt, b, mode=mode)
+    want = ds.deposit_variant_plain(X, fmt, b, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if mode in ("full", "staticcap"):
+        assert torch.equal(got, ck.cuda_ell_deposit_i8_kernel(X, fmt, b))

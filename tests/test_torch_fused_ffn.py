@@ -8,6 +8,8 @@ rtol=1e-5, atol=0.01): the integer sums are exact in both, only the f32
 epilogue order may differ by a few ULPs.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,3 +96,31 @@ def test_geometry_contracts():
     bad_down = tf.TiledBitplane.from_dense(jf.generate_ternary(384, 128, 4, seed=9))
     with pytest.raises(ValueError, match="contracts over"):
         tffn.fused_bitplane_swiglu(txq, tsx, tfmts[0], tfmts[1], bad_down)
+
+
+@pytest.mark.parametrize("fault", ["share", "OUTPUT", "contracts over",
+                                   "K padding"])
+def test_geometry_errors_match_jax(fault):
+    """The SwiGLU raises where JAX's raises, with its texts
+    (``tests/test_fused_ffn.py:107-119,165-169`` there): the shared FFN
+    geometry contract."""
+    jfmts, tfmts, (jxq, jsx), (txq, tsx) = _case(4, 128, 256, 128)
+    if fault == "share":
+        W = jf.generate_ternary(128, 384, 4, seed=3)
+        jfmts[1], tfmts[1] = (m.TiledBitplane.from_dense(W) for m in (jf, tf))
+    elif fault == "OUTPUT":
+        W = jf.generate_ternary(256, 128, 4, seed=2)
+        jfmts[2], tfmts[2] = (m.TiledBitplane.from_dense(W, tile_n=64)
+                              for m in (jf, tf))
+    elif fault == "contracts over":
+        W = jf.generate_ternary(384, 128, 4, seed=9)
+        jfmts[2], tfmts[2] = (m.TiledBitplane.from_dense(W) for m in (jf, tf))
+    else:
+        jp, tp = np.asarray(jfmts[2].plane), tfmts[2].plane
+        jfmts[2] = dataclasses.replace(
+            jfmts[2], plane=jnp.asarray(np.concatenate([jp, jp])))
+        tfmts[2] = dataclasses.replace(tfmts[2], plane=torch.cat([tp, tp]))
+    with pytest.raises(ValueError, match=fault):
+        jffn.fused_bitplane_swiglu(jxq, jsx, *jfmts, **GAMMAS)
+    with pytest.raises(ValueError, match=fault):
+        tffn.fused_bitplane_swiglu(txq, tsx, *tfmts, **GAMMAS)

@@ -31,7 +31,13 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.bench.headline",
                  "ternary_spgemm_tpu_torch.__main__",
                  "ternary_spgemm_tpu_torch.models.generate",
-                 "ternary_spgemm_tpu_torch.models.serving"):
+                 "ternary_spgemm_tpu_torch.models.serving",
+                 "ternary_spgemm_tpu_torch.utils.device",
+                 "ternary_spgemm_tpu_torch.tools",
+                 "ternary_spgemm_tpu_torch.tools.ffn_bench",
+                 "ternary_spgemm_tpu_torch.tools.membench",
+                 "ternary_spgemm_tpu_torch.tools.decode_roofline",
+                 "ternary_spgemm_tpu_torch.tools.deposit_study"):
         assert must in names
 
 

@@ -50,7 +50,8 @@ def models(request):
                           with_transpose=False)
     tcfg = BitTransformerConfig(n_kv_heads=request.param, **SHAPE)
     tlm = lm_from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params),
-                             a8=True, fused_qkv=True, fused_ffn=True)
+                             a8=True, fused_qkv=True, fused_ffn=True,
+                             device="cpu")
     prompt = np.random.default_rng(request.param).integers(
         0, SHAPE["vocab"], (2, 6)).astype(np.int32)
     return jlm, tlm, prompt
@@ -173,3 +174,34 @@ def test_serving_build_runs_the_kernel_path(monkeypatch):
     assert calls == {"x8": 2 * 3 * forwards, "swiglu": 3 * forwards}
     again = generate(lm, prompt, 4, cache_dtype=torch.int8, prefill=False)
     assert torch.equal(again, toks)
+
+
+@pytest.mark.parametrize("builder", ["build_serving_lm", "lm_from_jax_params"])
+def test_builders_default_to_the_card(monkeypatch, builder):
+    """Without ``device=`` the builders build on the card, and raise where
+    torch sees none; they never build on the CPU unasked."""
+    from ternary_spgemm_tpu_torch import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BitTransformerConfig(vocab=40, d_model=64, n_heads=4, d_ff=96,
+                               n_layers=1)
+    rng = np.random.default_rng(0)
+
+    def lin(K, N):
+        return {"w": rng.standard_normal((K, N)).astype(np.float32),
+                "b": np.zeros(N, np.float32)}
+
+    tree = {"embed": np.zeros((40, 64), np.float32),
+            "norm_out": np.ones(64, np.float32),
+            "blocks": [{"wq": lin(64, 64), "wk": lin(64, 64),
+                        "wv": lin(64, 64), "wo": lin(64, 64),
+                        "w_gate": lin(64, 96), "w_up": lin(64, 96),
+                        "w_down": lin(96, 64), "norm_attn": np.ones(64),
+                        "norm_ffn": np.ones(64)}]}
+    call = {"build_serving_lm": lambda **kw: models.build_serving_lm(cfg, **kw),
+            "lm_from_jax_params": lambda **kw: models.lm_from_jax_params(
+                cfg, tree, a8=True, fused_qkv=True, fused_ffn=True, **kw)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call[builder]()
+    lm = call[builder](device="cpu")
+    assert lm.embed.device.type == "cpu"
