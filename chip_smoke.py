@@ -30,8 +30,8 @@ result line if any fails, or if no GPU is visible):
    fused SwiGLU), and ``bound_ms``, the least time the card could take: the
    larger of the bytes (weights, f32 X and Y, bias; for an ELL container
    one byte a nonzero plus its cap tables) at 3.35 TB/s and the operations
-   (2*M*K*N, or 2*M*nnz for the ELL gathers) at 1,979 TOP/s, the int8
-   peak, with which of the two bounds it;
+   the product needs (2*M*nnz: a zero weight needs none) at 1,979 TOP/s,
+   the int8 peak, with which of the two bounds it;
 4. whole-model parity: a small model (2 layers, d=256, 4 heads, ff=512,
    vocab 64) from a numpy-seeded parameter tree in the shape of the JAX
    ``BitTransformerLM.init``, built once, one copy on the CPU (plain
@@ -75,15 +75,36 @@ result line if any fails, or if no GPU is visible):
    deposit ladder (each of deposit_study's three configs and a ragged
    shape) bitwise against their plain versions; then, counted,
    ``tools.membench`` over 16/64/256/512 MB x two tiles x both layouts (no
-   rate above 1.05 x 3.35 TB/s: the L2 flush holds at 16 MB),
-   ``tools.decode_roofline`` at its four configs and ``tools.deposit_study``
-   (bytes audit and ladder; full and staticcap exact), each in-process, no
-   plain version on a CUDA tensor.
+   config recorded as failed, no rate above 1.05 x 3.35 TB/s: the L2 flush
+   holds at 16 MB), ``tools.decode_roofline`` at its four configs and
+   ``tools.deposit_study`` (bytes audit and ladder; full and staticcap
+   exact), each in-process, no plain version on a CUDA tensor;
+10. the ragged probe: the scalar-deposit kernel's tile bitwise equal to its
+    plain version at 4096 entries (the probe's, seed 0) and 65,536, its
+    entries/s beside its bound (4096
+    dependent shared-memory read-modify-writes at one a clock, the SM clock
+    read under load); then, counted, ``tools.ragged_probe`` in-process: both
+    ``CudaTiledBitplane_i8`` and ``CudaEllDeposit_i8`` launched on each of
+    its six configs (M = 32, K = N in {4096, 11008}, s in {16, 32, 64}), no
+    row with an error, no plain version on a CUDA tensor;
+11. the ring all-gather SpMM: one cooperative launch for the whole ring at
+    ranks in {2, 4, 8}, at the JAX test's shape (K=64, NL=128, mc=8) and at
+    full width (M = 512, the serve's 4 x 128 prefill rows; K = 4096, N =
+    12288, BitNet-7B's merged QKV): bitwise equal to the plain schedule on
+    integer X from ``generate_x`` (every partial sum an integer below
+    2**24), within rtol=1e-5, atol=1e-3 on non-integer X, and the same Y
+    over 20 back-to-back launches, with a seeded integer bias that differs
+    from column to column; timed at full width beside ``library_ms`` and
+    ``bound_ms`` (2*M*nnz operations at the f32 rate, 67 TFLOP/s: the
+    products are f32); then, counted, the entry point
+    ``parallel.ring_allgather_spgemm`` at each ranks, one launch a call,
+    equal to ``X @ W + b``.
 
 The hand-written kernels, their CUDA sources and plain versions come from
 the registry (``KernelSpec.source``, ``KernelSpec.plain``), the fused FFNs'
-module (``ops/fused_ffn.py``) and the study tools' modules
-(``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``).
+module (``ops/fused_ffn.py``), the study tools' modules
+(``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``,
+``ragged_probe.py``) and ``parallel/ring_kernel.py``.
 
 The last lines are the headline JSON, the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -115,6 +136,14 @@ BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
 #: the H100 SXM's device-memory rate at its 700 W limit (NVIDIA's data
 #: sheet); its int8 peak is the port's ``bench.instrument.INT8_OPS_PER_S``
 HBM_BYTES_PER_S = 3.35e12
+#: the H100 SXM's f32 rate outside the tensor cores at 700 W (NVIDIA's data
+#: sheet): the peak for the ring's f32 products (phase 11)
+F32_FLOPS_PER_S = 67e12
+#: phase 11's ring sizes, at the JAX test's shape and at full width, and
+#: the full width (M, K, N): the serve's 4 x 128 prefill rows through
+#: BitNet-7B's merged QKV
+RING_RANKS = (2, 4, 8)
+RING_FULL = (512, 4096, 12288)
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -141,18 +170,20 @@ def weight_bytes(fmt) -> int:
 
 
 def spmm_ops(M: int, fmt) -> int:
-    """Operations of Y = X.W over ``fmt``: 2*M*K*N where every weight is
-    multiplied, 2*M*nnz for the ELL gathers (only the nonzeros' slots)."""
-    K, N = fmt.shape
-    return 2 * M * (fmt.nnz if _is_ell(fmt) else K * N)
+    """Operations that Y = X.W over ``fmt`` needs: a multiply-add for each
+    nonzero weight and row of X, 2*M*nnz (a zero weight needs none, whether
+    or not a kernel skips it)."""
+    return 2 * M * fmt.nnz
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = None):
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of ``nbytes`` at the memory rate and ``ops`` at the int8 peak."""
+    of ``nbytes`` at the memory rate and ``ops`` at ``ops_per_s`` (default
+    the int8 peak)."""
     from ternary_spgemm_tpu_torch.bench.instrument import INT8_OPS_PER_S
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (ops_per_s or INT8_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -354,7 +385,7 @@ def phase_prelu_ffn(dev, card: str, flush) -> dict:
         # no single PyTorch call computes the fused block
         bms, by = bound(weight_bytes(f1) + weight_bytes(f2)
                         + 4 * (M * K + M * N2 + 2 * N1 + N2),
-                        2 * M * (K * N1 + N1 * N2))
+                        spmm_ops(M, f1) + spmm_ops(M, f2))
         print(f"kernel fused_bitplane_ffn M={M} {K}->{N1}->{N2}: h, hq and y "
               f"bitwise equal (PReLU2 on/off); {ms:.4f} ms vs plain {pms:.4f} "
               f"ms, bound {bms:.4f} ms ({by}) [{card}]", flush=True)
@@ -802,6 +833,10 @@ def phase_probes(dev, card: str):
     recs = json.loads(out.splitlines()[-1])["records"]
     check(rc == 0 and len(recs) == 2 * len(SWEEP_TILES) * len(SWEEP_SIZES_MB),
           f"membench: exit {rc}")
+    # the tool records a failing config and sweeps on: a row with an error
+    # is a kernel that failed on the card
+    failed = [r for r in recs if "error" in r]
+    check(not failed, f"membench: configs failed: {failed}")
     top = max(r["gbps"] for r in recs)
     check(top <= 1.05 * HBM_BYTES_PER_S / 1e9,
           f"membench: {top:.1f} GB/s is above the card's memory rate")
@@ -827,6 +862,197 @@ def phase_probes(dev, card: str):
     for name in (membench.KERNEL_NAME, dr.KERNEL_NAME, ds.KERNEL_NAME):
         check(counts.get(name, 0) > 0, f"the study tools did not launch {name}")
     return stats, counts
+
+
+def sm_clock_under_load(dev) -> float:
+    """The SM clock in MHz, read by ``nvidia-smi`` while the card works
+    through a queue of f32 matmuls (an idle card drops its clock)."""
+    import torch
+
+    a = torch.randn((8192, 8192), device=dev)
+    for _ in range(64):
+        a = torch.matmul(a, a).clamp_(-1.0, 1.0)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return float(out)
+
+
+def phase_ragged(dev, card: str):
+    """Phase 10: the ragged probe's kernel bitwise against its plain version
+    (4096 entries, the probe's, and 65,536), timed beside its bound; then ``tools.ragged_probe``
+    in-process, counted, both SpMM kernels launched on each of its six
+    configs. Returns (stats, launch counts of the tool's run)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
+
+    for entries in (4096, 65536):
+        ents = torch.from_numpy(rp.scalar_entries(entries)).to(dev)
+        want = rp.scalar_deposit_plain(ents)
+        got = rp.scalar_deposit_launch(ents)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"scalar deposit, {entries} entries: tile != plain")
+    ents = torch.from_numpy(rp.scalar_entries(4096)).to(dev)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    ms = event_ms(lambda: rp.scalar_deposit_launch(ents), flush=flush)
+    pms = event_ms(lambda: rp.scalar_deposit_plain(ents), flush=flush)
+    del flush
+    mhz = sm_clock_under_load(dev)
+    # the entries read once and the tile written once; 4096 dependent
+    # shared-memory read-modify-writes, at best one a clock on one SM
+    bms, by = bound(ents.numel() * 4 + 8 * 128 * 4, ents.shape[0],
+                    mhz * 1e6)
+    stats = {rp.KERNEL_NAME: dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                  library_ms=None, bound_ms=bms, bound_by=by)}
+    print(f"kernel scalar_deposit_rate: tile bitwise equal (4096 and 65536 "
+          f"entries); 4096 entries {ms:.4f} ms = {4096 / ms * 1e3:.4g} "
+          f"entries/s; plain {pms:.4f} ms; bound {bms:.6f} ms ({by}, "
+          f"SM clock {mhz:.0f} MHz under load) [{card}]", flush=True)
+
+    ck.reset_counts()
+    per_config, run_config = [], rp.run_config
+
+    def counted(cfg, **kw):
+        before = dict(ck.launches)
+        out = run_config(cfg, **kw)
+        per_config.append({k: ck.launches[k] - before.get(k, 0)
+                           for k in rp.KERNELS})
+        return out
+
+    rp.run_config = counted
+    try:
+        rc, out = run_main(rp.main, [])
+    finally:
+        rp.run_config = run_config
+    counts, plain = dict(ck.launches), dict(ck.plain_on_cuda)
+    print(f"$ python -m ternary_spgemm_tpu_torch.tools.ragged_probe\n{out}",
+          end="", flush=True)
+    rec = json.loads(out.splitlines()[-1])
+    rows = rec["high_sparsity"]
+    check(rc == 0 and len(rows) == 12 and len(per_config) == 6,
+          f"ragged_probe: exit {rc}, {len(rows)} rows")
+    check(not any(r["error"] for r in rows),
+          f"ragged_probe: a kernel failed: {[r for r in rows if r['error']]}")
+    check(all(n > 0 for c in per_config for n in c.values()),
+          f"ragged_probe: a config did not launch both kernels: {per_config}")
+    check(all(v is not None and v > 0 for v in
+              rec["ragged_floor_analysis"]["floors_seconds"].values()),
+          "ragged_probe: a floor is missing")
+    print(f"ragged_probe launches: {counts} (by config: {per_config}); plain "
+          f"versions on CUDA: {plain}; entries_per_s "
+          f"{rec['scalar_deposit']['entries_per_s']:.6g} [{card}]", flush=True)
+    check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
+    check(counts.get(rp.KERNEL_NAME, 0) > 0, "the probe's kernel was not "
+          "launched")
+    return stats, counts
+
+
+def phase_ring(dev, card: str):
+    """Phase 11: the ring's one cooperative launch against the plain
+    schedule at ranks in {2, 4, 8}, at the JAX test's shape (K=64, NL=128,
+    mc=8) and at full width (M = 512, the serve's 4 x 128 prefill rows; K =
+    4096, N = 12288, BitNet-7B's merged QKV): bitwise on integer X, within
+    rtol=1e-5, atol=1e-3 on non-integer X, the same Y over 20 back-to-back
+    launches, the bias a seeded integer per column (a kernel that took the
+    wrong rank's bias columns would show); timed at full width. Then the entry point, counted. Returns
+    (stats, launch counts of the entry point's run)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import (
+        DenseTernary, generate_ternary, generate_x)
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel as rk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def column_bias(N):
+        # integers, so that integer X stays exact in f32
+        return torch.randint(-64, 65, (N,), generator=gen, device=dev).to(
+            torch.float32)
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    stat = {"max_abs_err": 0.0}
+    FM, FK, FN = RING_FULL
+    full = DenseTernary.from_dense(random_ternary(FK, FN, 2, gen, dev))
+    for shape in ("small", "full"):
+        for d in RING_RANKS:
+            if shape == "small":
+                M, K, N = 8 * d, 64, 128 * d
+                fmt = DenseTernary.from_dense(
+                    generate_ternary(K, N, 4, seed=3), device=dev)
+            else:
+                (M, K, N), fmt = RING_FULL, full
+            X = torch.from_numpy(generate_x(M, K, seed=4)).to(dev)
+            b = column_bias(N)
+            got, blocks = rk.ring_launch(X, fmt, b, ranks=d)
+            want = rk.ring_allgather_spgemm_plain(X, fmt, b, ranks=d)
+            again = [rk.ring_launch(X, fmt, b, ranks=d)[0] for _ in range(20)]
+            torch.cuda.synchronize()
+            what = f"ring {shape} ranks={d} {M}x{K}x{N}"
+            check(torch.equal(got, want),
+                  f"{what}: kernel != plain (max |diff| "
+                  f"{float((got - want).abs().max())})")
+            check(all(torch.equal(y, got) for y in again),
+                  f"{what}: 20 back-to-back launches differ")
+            del again
+            Xf = 4.0 * torch.rand((M, K), generator=gen, device=dev) - 2.0
+            gf = rk.ring_launch(Xf, fmt, b, ranks=d)[0]
+            wf = rk.ring_allgather_spgemm_plain(Xf, fmt, b, ranks=d)
+            torch.cuda.synchronize()
+            err = float((gf - wf).abs().max())
+            bad = (gf - wf).abs() > 1e-3 + 1e-5 * wf.abs()
+            check(not bool(bad.any()),
+                  f"{what}: {int(bad.sum())} outputs outside rtol=1e-5, "
+                  f"atol=1e-3 on non-integer X (max |diff| {err})")
+            stat["max_abs_err"] = max(stat["max_abs_err"], err)
+            line = (f"kernel ring_allgather_spgemm {shape} ranks={d} "
+                    f"{M}x{K}x{N} ({blocks} blocks a rank): bitwise equal on "
+                    f"integer X, 20 launches identical, non-integer X within "
+                    f"tolerance (max |diff| {err:.3g})")
+            if shape == "full":
+                ms = event_ms(lambda: rk.ring_launch(X, fmt, b, ranks=d),
+                              flush=flush)
+                pms = event_ms(lambda: rk.ring_allgather_spgemm_plain(
+                    X, fmt, b, ranks=d), flush=flush)
+                lms = library_ms(X, fmt, flush)
+                # X, W, bias read once and Y written once; a multiply-add
+                # a nonzero weight and row, at the f32 rate
+                bms, by = bound(4 * (M * K + N + M * N) + K * N,
+                                spmm_ops(M, fmt), F32_FLOPS_PER_S)
+                line += (f"; {ms:.4f} ms vs plain {pms:.4f} ms, library "
+                         f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+                if d == RING_RANKS[-1]:
+                    stat.update(ms=ms, plain_ms=pms, library_ms=lms,
+                                bound_ms=bms, bound_by=by)
+            print(f"{line} [{card}]", flush=True)
+    del flush
+
+    # the entry point, counted: one launch a ring call
+    ck.reset_counts()
+    X = torch.from_numpy(generate_x(FM, FK, seed=5)).to(dev)
+    b = column_bias(FN)
+    ys = [rk.ring_allgather_spgemm(X, full, b, ranks=d) for d in RING_RANKS]
+    torch.cuda.synchronize()
+    counts, plain = dict(ck.launches), dict(ck.plain_on_cuda)
+    want = torch.matmul(X, full.dense.to(torch.float32)) + b
+    for d, y in zip(RING_RANKS, ys):
+        check(tuple(y.shape) == (FM, FN) and bool(torch.isfinite(y).all())
+              and torch.equal(y, want),
+              f"ring entry point ranks={d}: not X @ W + b")
+    print(f"ring entry-point launches: {counts}; plain versions on CUDA: "
+          f"{plain} [{card}]", flush=True)
+    check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
+    check(counts.get(rk.KERNEL_NAME) == len(RING_RANKS),
+          f"ring launches {counts.get(rk.KERNEL_NAME)} != {len(RING_RANKS)}")
+    return {rk.KERNEL_NAME: stat}, counts
 
 
 def main() -> int:
@@ -863,15 +1089,17 @@ def main() -> int:
           f"{os.path.relpath(_build.last_build['path'], ROOT)})", flush=True)
 
     from ternary_spgemm_tpu_torch.ops import fused_ffn
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel
     from ternary_spgemm_tpu_torch.tools import (
-        decode_roofline, deposit_study, membench)
+        decode_roofline, deposit_study, membench, ragged_probe)
     #: every hand-written kernel: name -> (its CUDA source, the TPU kernel
     #: it replaces)
     sources = {n: (s.source, s.reference) for n, s in spmm_kernels().items()}
     sources[fused_ffn.KERNEL_NAME] = (fused_ffn.SOURCE, fused_ffn.REFERENCE)
     sources[fused_ffn.FFN_KERNEL_NAME] = (fused_ffn.FFN_SOURCE,
                                           fused_ffn.FFN_REFERENCE)
-    for mod in (membench, decode_roofline, deposit_study):
+    for mod in (membench, decode_roofline, deposit_study, ragged_probe,
+                ring_kernel):
         sources[mod.KERNEL_NAME] = (mod.SOURCE, mod.REFERENCE)
     for src, _ in sources.values():
         check(os.path.isfile(os.path.join(ROOT, src)), f"no source {src}")
@@ -883,9 +1111,14 @@ def main() -> int:
     ffn_counts = phase_ffn_bench(card)
     probe_stats, probe_counts = phase_probes(dev, card)
     stats.update(probe_stats)
+    ragged_stats, ragged_counts = phase_ragged(dev, card)
+    stats.update(ragged_stats)
+    ring_stats, ring_counts = phase_ring(dev, card)
+    stats.update(ring_stats)
     check("jax" not in sys.modules, "jax was imported")
 
-    runs = (serve_counts, bench_counts, ffn_counts, probe_counts)
+    runs = (serve_counts, bench_counts, ffn_counts, probe_counts,
+            ragged_counts, ring_counts)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),

@@ -73,6 +73,10 @@ class KernelResult:
     seconds_spread: float = 0.0   # relative spread of the independent estimates
     n_estimates: int = 1
     low_confidence: bool = False
+    #: the container's bytes (``Instrumentation.container_bytes``) and its
+    #: nonzeros, counted from the container (None after an error)
+    container_bytes: Optional[int] = None
+    nnz: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -186,7 +190,8 @@ def run_config(cfg: BenchConfig, *, bandwidth: Optional[float] = None,
                     own_roofline_fraction(inst, t.seconds, beta)),
                 correct=correct, max_abs_err=max_err,
                 seconds_spread=t.seconds_spread, n_estimates=t.n_estimates,
-                low_confidence=t.low_confidence))
+                low_confidence=t.low_confidence,
+                container_bytes=inst.container_bytes, nnz=inst.nnz))
         except Exception as e:  # record, keep sweeping
             results.append(KernelResult(
                 name=name, seconds=float("nan"), runs=0,

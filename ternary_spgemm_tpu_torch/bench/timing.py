@@ -9,6 +9,8 @@ so the default timer here (:func:`time_cuda_events`) takes the median of
 many such launches after a warm-up, with a 256 MB buffer overwritten before
 each one so that the weights come from device memory (the H100's L2 holds
 50 MB), and repeats that whole estimate ``repeats`` times for a spread.
+:func:`time_cuda_graph` times a callable of several ops the same way, from
+one CUDA graph replayed, so that the host's gaps between its ops stay out.
 :func:`time_wall` is the host clock around a loop of calls ending in a
 synchronize: what a caller that launches once per step sees.
 """
@@ -91,6 +93,32 @@ def time_cuda_events(fn: Callable, x: torch.Tensor, *, aux=(),
     estimates = [event_ms(lambda: fn(x, *aux), reps=runs, warmup=0,
                           flush=flush) / 1e3 for _ in range(max(1, repeats))]
     return _result(estimates, runs)
+
+
+def time_cuda_graph(fn: Callable, x: torch.Tensor, *, aux=(),
+                    min_seconds: float = MIN_SECONDS,
+                    repeats: int = 1) -> TimingResult:
+    """Device time of a multi-op ``fn(x, *aux)``: the call is captured once
+    into a CUDA graph and each timed launch replays the graph, timed as
+    :func:`time_cuda_events` times a launch. A replay runs the captured ops
+    back to back, so the host's gaps between ops (Python, dispatch) do not
+    land between the events, as they do around an eager multi-op call; this
+    is the counterpart of JAX timing one compiled program. ``fn`` must not
+    synchronise with the host."""
+    if not x.is_cuda:
+        raise ValueError(f"time_cuda_graph times CUDA tensors; got a tensor "
+                         f"on {x.device} (use the 'wall' timer)")
+    side = torch.cuda.Stream(device=x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):           # warm up off the capture
+        for _ in range(2):
+            fn(x, *aux)
+    torch.cuda.current_stream(x.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(x, *aux)
+    return time_cuda_events(lambda _x: graph.replay(), x,
+                            min_seconds=min_seconds, repeats=repeats)
 
 
 def time_wall(fn: Callable, x: torch.Tensor, *, aux=(),

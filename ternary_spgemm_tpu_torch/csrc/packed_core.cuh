@@ -10,7 +10,9 @@
 // block kb, tile g, column n is the byte
 //     w[((kb*gn + g)*tkq + kq)*tile_n + n]
 // and holds, in field f < F, the weight of dense row kb*B + f*tkq + kq:
-//   * DenseTernary (K, N) int8: F = 1, nb = gn = 1, tkq = K, tile_n = N;
+//   * DenseTernary (K, N) int8: F = 1, nb = gn = 1, tkq = K, tile_n = N
+//     (ring.cu's column shard of it: plane0 at the shard's first column,
+//     N the shard's width, tile_n the full row stride);
 //   * TiledDenseTernary (gk, gn, tile_k, tile_n) int8: F = 1, nb = gk,
 //     tkq = tile_k;
 //   * BlockPackedTernary (nb*tile_kq, N) uint8: gn = 1, tile_n = N;
@@ -87,15 +89,22 @@ __device__ __forceinline__ void decode_packed(unsigned p, int w[F]) {
   }
 }
 
-template <int MT, int STAGE, int F>
-__global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
+// One block's tile of Y: rows [m0, m0 + MT) and the kCols columns from
+// col0 (one a lane, kWarps warps), y[gm * ldy + col] = stage(X) . W + b
+// [PReLU] (col < a.N, gm < a.M). ``tid`` is the thread's index among the
+// tile's kThreads threads (lane tid % kCols, warp tid / kCols), ``xs`` the
+// shared stage of MT * PackedGeom<F>::XS elements and ``sync`` a barrier of
+// those threads: the whole block in packed_kernel, the compute warps beside
+// the copy warps in ring.cu. Every write to xs follows a sync, so
+// consecutive calls may share xs.
+template <int MT, int STAGE, int F, class Sync>
+__device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
+                                            size_t ldy, int tid,
+                                            Acc<STAGE>* xs, Sync sync) {
   using A = Acc<STAGE>;
   using G = PackedGeom<F>;
-  __shared__ __align__(16) A xs[MT * G::XS];
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * kCols + lane;
-  const int col = blockIdx.x * kCols + lane;
-  const int m0 = blockIdx.y * MT;
+  const int lane = tid % kCols, warp = tid / kCols;
+  const int col = col0 + lane;
   const bool col_ok = col < a.N;
   const int g = col_ok ? col / a.tile_n : 0;
   const int n = col_ok ? col - g * a.tile_n : 0;
@@ -111,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
         a.plane0 + ((size_t)kb * a.gn + g) * tkq * a.tile_n + n;
     for (int q0 = 0; q0 < tkq; q0 += G::KTQ) {
       const int tc = min(G::KTQ, tkq - q0);
-      __syncthreads();   // previous chunk consumed
+      sync();   // previous chunk consumed
       for (int i = tid; i < MT * G::CW; i += kThreads) {
         const int m = i / G::CW, c = i - m * G::CW;
         const int f = c / G::KTQ, q = c - f * G::KTQ;
@@ -122,7 +131,7 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
           v = stage_value<STAGE>(a.x[(size_t)gm * a.K + k], 1.0f);
         xs[i] = v;
       }
-      __syncthreads();
+      sync();
       if (col_ok) {
 #pragma unroll 2
         for (int q = 4 * warp; q < tc; q += 4 * kWarps) {
@@ -155,10 +164,10 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
   // apply _epilogue: float(acc) + b, then where(y > 0, y, alpha * y)
   constexpr int RPT = (MT + kWarps - 1) / kWarps;
   A* red = xs;
-  __syncthreads();
+  sync();
 #pragma unroll
   for (int m = 0; m < MT; ++m) red[(warp * MT + m) * kCols + lane] = acc[m];
-  __syncthreads();
+  sync();
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int m = warp + r * kWarps;
@@ -168,9 +177,17 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
       for (int w = 0; w < kWarps; ++w) s += red[(w * MT + m) * kCols + lane];
       float yv = (float)s + a.bias[col];
       if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
-      a.y[(size_t)gm * a.N + col] = yv;
+      a.y[(size_t)gm * ldy + col] = yv;
     }
   }
+}
+
+template <int MT, int STAGE, int F>
+__global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
+  __shared__ __align__(16) Acc<STAGE> xs[MT * PackedGeom<F>::XS];
+  packed_tile<MT, STAGE, F>(a, blockIdx.x * kCols, blockIdx.y * MT, a.N,
+                            threadIdx.y * kCols + threadIdx.x, xs,
+                            [] { __syncthreads(); });
 }
 
 // Y = stage(X) . W + b [PReLU] over a packed-row container (layout above),

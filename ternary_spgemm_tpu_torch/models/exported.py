@@ -17,7 +17,11 @@ from ternary_spgemm_tpu_torch.formats.base import (
     register_format_buffers,
 )
 from ternary_spgemm_tpu_torch.models.bitlinear import ternary_quantize
-from ternary_spgemm_tpu_torch.ops.api import all_kernels, ternary_spgemm
+from ternary_spgemm_tpu_torch.ops.api import (
+    all_kernels,
+    dispatch_rank,
+    ternary_spgemm,
+)
 from ternary_spgemm_tpu_torch.ops.fused_ffn import requantize_rows, true_div
 
 
@@ -33,13 +37,16 @@ def _requantize_a8(x: torch.Tensor):
 def _default_a8_kernel(fmt) -> Optional[str]:
     """The kernel for A8-requantized (integer, |x| <= 127) activations over
     ``fmt``: the int8-native (_x8) domain first, then any restricted-integer
-    (_i8) kernel. None -> the format has fully-exact kernels."""
+    (_i8) kernel; within a domain, default dispatch's order
+    (:func:`~ternary_spgemm_tpu_torch.ops.api.dispatch_rank`). None -> the
+    format has fully-exact kernels."""
     cands = [s for s in all_kernels().values()
              if isinstance(fmt, s.format_cls) and not s.approximate
              and s.x_absmax is not None]
     if not cands:
         return None
-    return min(cands, key=lambda s: (s.x_absmax != 127, s.name)).name
+    return min(cands, key=lambda s: (s.x_absmax != 127,
+                                     *dispatch_rank(s))).name
 
 
 class ExportedBitLinear(nn.Module):

@@ -132,6 +132,13 @@ def get_kernel(name: str) -> KernelSpec:
             f"unknown kernel {name!r}; registered: {sorted(_KERNEL_REGISTRY)}") from None
 
 
+def dispatch_rank(spec: KernelSpec) -> tuple:
+    """The order in which default dispatch takes equally good candidates: a
+    hand-written kernel (one with a CUDA ``source``) before a torch-op
+    formulation, as JAX takes Pallas on its accelerator; then the name."""
+    return (not spec.source, spec.name)
+
+
 def to_f32(X: torch.Tensor) -> torch.Tensor:
     """X as it is, in f32 (the exact f32 kernels)."""
     return X.to(torch.float32)
@@ -186,9 +193,7 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
     format has only restricted-domain kernels it takes the widest domain
     (_i8 over _x8) and warns that non-integer X is rounded — the JAX
     package's default dispatch (``ops/api.py:130-158`` there). Among the
-    candidates a hand-written kernel (one with a CUDA ``source``) comes
-    before a torch-op formulation, as JAX takes Pallas on its accelerator;
-    then the name decides."""
+    candidates :func:`dispatch_rank` decides."""
     if kernel is not None:
         spec = get_kernel(kernel)
         if not isinstance(fmt, spec.format_cls):
@@ -213,5 +218,5 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
                 stacklevel=3)
     if not candidates:
         raise TypeError(f"no registered kernel for format {type(fmt).__name__}")
-    spec = min(candidates, key=lambda s: (not s.source, s.name))
+    spec = min(candidates, key=dispatch_rank)
     return spec.fn(X, fmt, bias, alpha)

@@ -38,12 +38,16 @@ def write_json(path: str, obj) -> None:
         json.dump(obj, f, indent=1)
 
 
-def timer(dev: torch.device):
+def timer(dev: torch.device, *, graph: bool = False):
     """``bench.timing``'s timer for ``dev``: CUDA events with the L2
-    evicted before each launch on the card, the host clock on the CPU (a
-    CPU number, never a device one). Called as ``timer(dev)(fn, x,
-    aux=(...), repeats=...)``; it times ``fn(x, *aux)``."""
-    from ternary_spgemm_tpu_torch.bench.timing import TIMERS
+    evicted before each launch on the card (around one replay of a captured
+    CUDA graph with ``graph=True``, for a callable of several ops), the host
+    clock on the CPU (a CPU number, never a device one). Called as
+    ``timer(dev)(fn, x, aux=(...), repeats=...)``; it times ``fn(x,
+    *aux)``."""
+    from ternary_spgemm_tpu_torch.bench.timing import TIMERS, time_cuda_graph
+    if dev.type == "cuda" and graph:
+        return time_cuda_graph
     return TIMERS["cuda_events" if dev.type == "cuda" else "wall"]
 
 

@@ -10,7 +10,9 @@ shapes and seeds (M = 32, s = 4; PReLU K -> N1 -> N2 in {1024 -> 4096 ->
 4096, 2048 -> 4096, 3200 -> 8640, 4096 -> 11008}, seeds 21-24, gammas
 0.02/0.03/0.025): ``correct`` when the largest difference is below 1e-5 of
 the output's scale. Then it times fused and unfused two ways, medians of
-CUDA events with the L2 evicted before each launch:
+CUDA events around one replay of a captured CUDA graph (so that no host gap
+between the ops lands in the time), with the L2 evicted before each
+replay:
 
 * single — one block (median of 3 estimates, as the JAX tool's);
 * stacked marginal — ``(t(L=8) - t(L=2)) / 6`` over L blocks chained the
@@ -62,8 +64,13 @@ SWIGLU_GAMMAS = dict(gamma_gate=0.02, gamma_up=0.03, gamma_down=0.025)
 
 def _times(run, X, dev) -> dict:
     """single (median of 3 estimates, and their spread) and the stacked
-    marginal of ``run(X, L)``, in µs, as the JAX tool times them."""
-    t1, t2, t8 = (timer(dev)(run, X, aux=(L,), repeats=3) for L in (1, 2, 8))
+    marginal of ``run(X, L)``, in µs, as the JAX tool times them. Fused and
+    unfused alike are several ops (the unfused block a dozen), so on the
+    card each is timed from a replayed CUDA graph: the host's gaps between
+    the ops stay out of the time, as they stay out of JAX's compiled
+    loop."""
+    t1, t2, t8 = (timer(dev, graph=True)(run, X, aux=(L,), repeats=3)
+                  for L in (1, 2, 8))
     return {"single_us": t1.seconds * 1e6,
             "single_spread": t1.seconds_spread,
             "marginal_us": (t8.seconds - t2.seconds) / 6 * 1e6}

@@ -24,8 +24,9 @@ Usage::
         [--device cuda|cpu] [--out PATH]
 
 One JSON line per config, ``{"mb", "tile", "layout", "grid", "seconds",
-"gbps", "device"}`` (the JAX record's keys and the device); then one JSON
-object of all records.
+"gbps", "device"}`` (the JAX record's keys and the device), or ``{"mb",
+"tile", "layout", "error", "device"}`` for a config that failed (the sweep
+goes on, as JAX's does); then one JSON object of all records.
 """
 
 from __future__ import annotations
@@ -181,8 +182,12 @@ def main(argv=None) -> int:
     for layout in args.layouts.split(","):
         for tk, tn in tiles:
             for sz in sizes:
-                rec = dict(stream_rate(sz, tk, tn, layout, dev),
-                           device=name)
+                try:
+                    rec = stream_rate(sz, tk, tn, layout, dev)
+                except Exception as e:   # record, keep sweeping (as JAX)
+                    rec = {"mb": sz / 2**20, "tile": [tk, tn],
+                           "layout": layout, "error": repr(e)}
+                rec["device"] = name
                 print(json.dumps(rec), flush=True)
                 records.append(rec)
     emit({"device": name, "records": records}, args.out)

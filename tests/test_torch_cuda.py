@@ -392,3 +392,66 @@ def test_deposit_variant_kernel(dev, mode, M, K, N, s, tile_n):
     assert torch.equal(got, want)
     if mode in ("full", "staticcap"):
         assert torch.equal(got, ck.cuda_ell_deposit_i8_kernel(X, fmt, b))
+
+
+@pytest.mark.parametrize("entries", [0, 1, 4096, 4097, 65536])
+def test_scalar_deposit_kernel(dev, entries):
+    """The ragged probe's tile bitwise equal to its plain version, within
+    one staged chunk of entries and across several."""
+    from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
+
+    ents = torch.from_numpy(rp.scalar_entries(entries)).to(dev)
+    got = rp.scalar_deposit_launch(ents)
+    want = rp.scalar_deposit_plain(ents)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ranks,mc,K,NL", [
+    (1, 8, 64, 128), (2, 8, 64, 128), (3, 16, 100, 70), (4, 8, 64, 128),
+    (8, 8, 64, 128), (2, 72, 1000, 130), (8, 64, 4096, 192),
+    (2, 24, 999, 33)])
+def test_ring_kernel(dev, ranks, mc, K, NL):
+    """The ring's one cooperative launch bitwise equal to the plain schedule
+    on integer X (K not a multiple of the packed core's 4-row groups or
+    256-column chunk, NL not of its 32 columns, mc not of its 8-, 16- or
+    32-row tile), within rtol=1e-5, atol=1e-3 on non-integer X, and the
+    same Y on back-to-back launches (stale flags or slots would show)."""
+    from ternary_spgemm_tpu_torch.parallel import (
+        ring_allgather_spgemm_plain, ring_launch)
+
+    M, N = ranks * mc, ranks * NL
+    fmt = DenseTernary.from_dense(generate_ternary(K, N, 3, seed=K),
+                                  device=dev)
+    b = torch.from_numpy(np.linspace(-2, 2, N).astype(np.float32)).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=ranks)).to(dev)
+    got, blocks = ring_launch(X, fmt, b, ranks=ranks)
+    want = ring_allgather_spgemm_plain(X, fmt, b, ranks=ranks)
+    torch.cuda.synchronize()
+    assert blocks >= 1
+    assert torch.equal(got, want)
+    for _ in range(5):
+        assert torch.equal(ring_launch(X, fmt, b, ranks=ranks)[0], got)
+    Xf = 4.0 * torch.rand((M, K), device=dev) - 2.0
+    got = ring_launch(Xf, fmt, b, ranks=ranks)[0]
+    want = ring_allgather_spgemm_plain(Xf, fmt, b, ranks=ranks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+def test_cuda_graph_timer(dev):
+    """A multi-op callable timed from a replayed CUDA graph: a positive
+    device time, and no more than the eager events around the same ops,
+    whose host gaps land between the events."""
+    from ternary_spgemm_tpu_torch.bench import timing
+
+    x = torch.randn((256, 256), device=dev)
+
+    def ops(a):
+        for _ in range(20):
+            a = a * 1.0001 + 0.5
+        return a
+
+    g = timing.time_cuda_graph(ops, x, min_seconds=0.05)
+    e = timing.time_cuda_events(ops, x, min_seconds=0.05)
+    assert 0 < g.seconds <= e.seconds * 1.05

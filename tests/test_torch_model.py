@@ -83,6 +83,35 @@ def test_full_forward_parity(models):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def test_fused_ffn_block_parity_above_128_rows(models, monkeypatch):
+    """A block over 200 rows: JAX runs its fused SwiGLU in chunks of 128
+    rows (``ternary_spgemm_tpu/models/transformer.py:479-485``), the port in
+    one call (``models/transformer.py``, ``_ffn``). Rows are independent
+    (the requantize is per row), so the two blocks agree."""
+    from ternary_spgemm_tpu.ops import fused_ffn as jffn
+    from ternary_spgemm_tpu_torch.models import transformer as ttr
+
+    jlm, tlm, _ = models
+    rows = {"jax": [], "port": []}
+
+    def spy(side, fn):
+        def run(xq, *a, **kw):
+            rows[side].append(int(xq.shape[0]))
+            return fn(xq, *a, **kw)
+        return run
+
+    monkeypatch.setattr(jffn, "fused_bitplane_swiglu",
+                        spy("jax", jffn.fused_bitplane_swiglu))
+    monkeypatch.setattr(ttr, "fused_bitplane_swiglu",
+                        spy("port", ttr.fused_bitplane_swiglu))
+    x = np.random.default_rng(5).standard_normal(
+        (2, 100, SHAPE["d_model"])).astype(np.float32)
+    want = np.asarray(jlm.blocks[0](jnp.asarray(x)))
+    got = tlm.blocks[0](torch.from_numpy(x)).numpy()
+    assert rows == {"jax": [128, 72], "port": [200]}
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_prefill_and_decode_parity(models):
     jlm, tlm, prompt = models
     B, T0 = prompt.shape

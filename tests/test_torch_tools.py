@@ -210,7 +210,7 @@ def test_ffn_bench_main(capsys, tmp_path, monkeypatch):
     monkeypatch.setattr(ffn_bench, "PRELU_SHAPES", [(128, 256, 128)])
     monkeypatch.setattr(ffn_bench, "SWIGLU_SHAPES", [(128, 256)])
     # one short host-clock loop a time: 2 blocks x 2 x 3 times x 3 repeats
-    monkeypatch.setattr(ffn_bench, "timer", lambda dev: functools.partial(
+    monkeypatch.setattr(ffn_bench, "timer", lambda dev, **kw: functools.partial(
         timing.time_wall, min_seconds=0.0))
     path = tmp_path / "ffn.json"
     got = _run(ffn_bench.main, ["--device", "cpu", "--out", str(path)],
@@ -227,6 +227,30 @@ def test_ffn_bench_main(capsys, tmp_path, monkeypatch):
         assert row["fused"]["single_us"] > 0
 
 
+def test_ffn_bench_times_fused_and_unfused_alike(capsys, monkeypatch):
+    """Every time ffn_bench takes, fused and unfused, single and stacked,
+    is taken by the one timer the card would use for it: events around a
+    replayed CUDA graph (``timing.time_cuda_graph``), which keeps the host's
+    gaps between the unfused block's ops out of its time."""
+    monkeypatch.setattr(ffn_bench, "PRELU_SHAPES", [(128, 256, 128)])
+    monkeypatch.setattr(ffn_bench, "SWIGLU_SHAPES", [(128, 256)])
+    card_timers = []
+
+    def spy(dev, **kw):
+        card_timers.append(tools.timer(torch.device("cuda"), **kw))
+        return functools.partial(timing.time_wall, min_seconds=0.0)
+
+    monkeypatch.setattr(ffn_bench, "timer", spy)
+    got = _run(ffn_bench.main, ["--device", "cpu"], capsys)
+    # 2 blocks x (fused, unfused) x (L = 1, 2, 8)
+    assert len(card_timers) == 12 and len(got["blocks"]) == 2
+    assert all(t is timing.time_cuda_graph for t in card_timers)
+    assert tools.timer(torch.device("cuda")) is timing.time_cuda_events
+    assert tools.timer(CPU, graph=True) is timing.time_wall
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        timing.time_cuda_graph(lambda a: a, torch.ones(2))
+
+
 def test_membench_main(capsys):
     got = _run(membench.main, ["--device", "cpu", "--sizes-mb", "0.0625",
                                "--tiles", "4,4096", "--layouts",
@@ -237,6 +261,20 @@ def test_membench_main(capsys):
         assert set(rec) == jkeys | {"device"}
         assert rec["grid"] == [2, 2] and rec["mb"] == 0.0625
         assert rec["gbps"] > 0
+
+
+def test_membench_records_a_failing_config(capsys):
+    """A config the stream probe refuses (tk*tn not a multiple of 4096) is
+    recorded as JAX's ``{"mb", "tile", "layout", "error"}`` row (with the
+    device), and the sweep goes on (``tools/membench.py:149-153``)."""
+    got = _run(membench.main, ["--device", "cpu", "--sizes-mb", "0.0625",
+                               "--tiles", "4,1000;4,4096", "--layouts",
+                               "tiled4d"], capsys)
+    bad, ok = got["records"]
+    assert set(bad) == {"mb", "tile", "layout", "error", "device"}
+    assert bad["tile"] == [4, 1000] and bad["mb"] == 0.0625
+    assert "ValueError" in bad["error"] and "4096" in bad["error"]
+    assert "error" not in ok and ok["tile"] == [4, 4096] and ok["gbps"] > 0
 
 
 def test_decode_roofline_main(capsys):
