@@ -14,9 +14,13 @@ result line if any fails, or if no GPU is visible):
 3. every kernel of the path against its plain PyTorch version on the card,
    at the BitNet-7B path shapes (d=4096, ff=11008): the x8 kernel on the
    merged QKV (4096 -> 12288) and wo (4096 -> 4096) at M in {4, 256, 512}
-   (decode, and the serve's 4 x 128-token prefill), the i8 kernel at the
-   north star 32x1024x4096 and at 32x4096x11008 (gn=3), both bitwise equal
-   with PReLU on and off; the SwiGLU kernel at M in {4, 128, 512}
+   (decode, and the serve's 4 x 128-token prefill) and at M =
+   ``X8_MMA_MIN_M`` and one more row (the two sides of its split between
+   the decode and the tensor-core branch), the i8 kernel at the north star
+   32x1024x4096 and at 32x4096x11008 (gn=3), both bitwise equal with PReLU
+   on and off and a random bias and slope per column; the x8 kernel's
+   crossover: both branches, each bitwise, timed on the merged QKV at M in
+   {4, 8, 16, 32, 64, 128}; the SwiGLU kernel at M in {4, 128, 512}
    (at most 1e-4 of the requantized hidden values may flip, each by 1, and
    every row without a flip agrees within rtol=1e-5, atol=0.01); the PReLU
    FFN kernel at the ffn_bench blocks (M = 32, 1024 -> 4096 -> 1024 and
@@ -42,8 +46,10 @@ result line if any fails, or if no GPU is visible):
    random ternary weights from a seed, built on the card) serving 4
    requests of 128 prompt tokens each, greedy-decoding 32 new tokens each
    through ``generate`` with an int8 KV cache. The launch counters must
-   match the path (x8 twice and the SwiGLU once per layer per forward; i8
-   on the headline op) and no plain version may run on a CUDA tensor;
+   match the path (x8 twice and the SwiGLU once per layer per forward, the
+   x8 kernel's tensor-core branch twice per layer in the prefill and never
+   in decode; i8 on the headline op) and no plain version may run on a
+   CUDA tensor;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
    nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
    block-packed and tiled block-packed i8 at factor 4 and 5, stride-packed
@@ -106,8 +112,9 @@ module (``ops/fused_ffn.py``), the study tools' modules
 (``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``,
 ``ragged_probe.py``) and ``parallel/ring_kernel.py``.
 
-The last lines are the headline JSON, the kernels JSON, the card line, and
-``{"ok": true, "device": {...}}``.
+The last lines are the headline JSON, the kernels JSON (the x8 kernel's
+entry: its decode figures at M = 4 and a ``prefill`` object for the merged
+QKV at M = 512), the card line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,6 +146,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: the H100 SXM's f32 rate outside the tensor cores at 700 W (NVIDIA's data
 #: sheet): the peak for the ring's f32 products (phase 11)
 F32_FLOPS_PER_S = 67e12
+#: phase 3's x8 crossover: the M at which both branches are timed on the
+#: merged QKV
+X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
 #: phase 11's ring sizes, at the JAX test's shape and at full width, and
 #: the full width (M, K, N): the serve's 4 x 128 prefill rows through
 #: BitNet-7B's merged QKV
@@ -250,10 +260,12 @@ def phase_kernels(dev, card: str) -> dict:
     def fmt(K, N, s=2):
         return TiledBitplane.from_dense(random_ternary(K, N, s, gen, dev))
 
-    def spmm_case(name, kern, plain, stage, M, K, N, *, s, x, headline):
+    def spmm_case(name, kern, plain, stage, M, K, N, *, s, x, record=None):
         f = fmt(K, N, s)
-        b = torch.full((N,), 2.0, device=dev)
-        a = torch.full((N,), 0.1, device=dev)
+        # a bias and a PReLU slope per column, so that an epilogue that
+        # indexes them by the wrong column shows
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        a = 0.25 * torch.rand((N,), generator=gen, device=dev)
         for alpha in (None, a):
             got = kern(x, f, b, alpha)
             want = plain(x, f, b, alpha)
@@ -267,26 +279,35 @@ def phase_kernels(dev, card: str) -> dict:
         pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
         lms = library_ms(stage(x), f, flush)
         bms, by = spmm_bound(M, f)
-        print(f"kernel {name} {M}x{K}x{N}: bitwise equal (PReLU on/off); "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms, library {lms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}) [{card}]", flush=True)
-        if headline:
-            stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                               bound_ms=bms, bound_by=by)
+        branch = ""
+        if name == "CudaTiledBitplane_x8":
+            branch = (" (tensor-core branch)" if M > ck.X8_MMA_MIN_M
+                      else " (decode branch)")
+        print(f"kernel {name} {M}x{K}x{N}{branch}: bitwise equal (PReLU "
+              f"on/off); {ms:.4f} ms vs plain {pms:.4f} ms, library "
+              f"{lms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+        if record is not None:
+            record.update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                          bound_by=by)
 
-    for M in (4, 256, 512):
+    x8 = stats["CudaTiledBitplane_x8"]
+    x8["prefill"] = {}
+    split = ck.X8_MMA_MIN_M
+    for M in sorted({4, split, split + 1, 256, 512}):
         # A8 activations: floats that round and clamp to int8
         for K, N, what in ((4096, 12288, "qkv"), (4096, 4096, "wo")):
             x = 60.0 * torch.randn((M, K), generator=gen, device=dev)
+            rec = {(4, "qkv"): x8, (512, "qkv"): x8["prefill"]}.get((M, what))
             spmm_case("CudaTiledBitplane_x8", ck.cuda_tiled_bitplane_x8_kernel,
                       ck.bitplane_x8_plain, ck.to_x8, M, K, N, s=2, x=x,
-                      headline=(M == 4 and what == "qkv"))
+                      record=rec)
+    phase_x8_crossover(dev, card, gen, flush)
     for K, N, s in ((1024, 4096, 4), (4096, 11008, 2)):
         x = torch.randint(-512, 513, (32, K), generator=gen,
                           device=dev).to(torch.float32)
         spmm_case("CudaTiledBitplane_i8", ck.cuda_tiled_bitplane_i8_kernel,
                   ck.bitplane_i8_plain, ck.to_i8, 32, K, N, s=s, x=x,
-                  headline=(K == 1024))
+                  record=stats["CudaTiledBitplane_i8"] if K == 1024 else None)
 
     fg, fu, fd = fmt(4096, 11008), fmt(4096, 11008), fmt(11008, 4096)
     kw = dict(gamma_gate=0.03, gamma_up=0.03, gamma_down=0.03)
@@ -333,6 +354,38 @@ def phase_kernels(dev, card: str) -> dict:
     stats[FFN_KERNEL_NAME] = phase_prelu_ffn(dev, card, flush)
     del flush
     return stats
+
+
+def phase_x8_crossover(dev, card: str, gen, flush) -> None:
+    """Phase 3, the x8 kernel's split: both branches (the decode kernel and
+    the tensor-core kernel) bitwise against the plain version and timed on
+    the merged QKV at each ``X8_CROSSOVER_M``."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    K, N = 4096, 12288
+    f = TiledBitplane.from_dense(random_ternary(K, N, 2, gen, dev))
+    b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+    rows = []
+    for M in X8_CROSSOVER_M:
+        x = 60.0 * torch.randn((M, K), generator=gen, device=dev)
+        want = ck.bitplane_x8_plain(x, f, b)
+        times = {}
+        for branch, fn in (("decode", ck._bitplane_x8_lanes),
+                           ("mma", ck._bitplane_x8_mma)):
+            got = fn(x, f, b)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"x8 {branch} branch {M}x{K}x{N}: kernel != plain")
+            times[branch] = event_ms(lambda: fn(x, f, b), flush=flush)
+        rows.append(f"M={M} {times['decode']:.4f} vs {times['mma']:.4f} ms")
+    print("x8 crossover on the merged QKV, decode vs tensor-core branch, "
+          "both bitwise equal to plain: " + "; ".join(rows)
+          + f" (X8_MMA_MIN_M = {ck.X8_MMA_MIN_M}) [{card}]", flush=True)
 
 
 def phase_prelu_ffn(dev, card: str, flush) -> dict:
@@ -512,6 +565,14 @@ def phase_serve(dev, card: str) -> dict:
     check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
     check(counts.get("CudaTiledBitplane_x8") == 2 * L * F,
           f"x8 launches {counts.get('CudaTiledBitplane_x8')} != 2*{L}*{F}")
+    # the prefill's B*T0 rows take the tensor-core branch, decode's B rows
+    # the decode kernel
+    check(B * T0 > ck.X8_MMA_MIN_M >= B,
+          f"X8_MMA_MIN_M = {ck.X8_MMA_MIN_M} does not split prefill "
+          f"({B * T0} rows) from decode ({B})")
+    check(counts.get(ck.X8_MMA_COUNT, 0) == 2 * L,
+          f"x8 tensor-core launches {counts.get(ck.X8_MMA_COUNT, 0)} != "
+          f"2*{L} (the prefill's; none in decode)")
     check(counts.get("fused_bitplane_swiglu") == L * F,
           f"SwiGLU launches {counts.get('fused_bitplane_swiglu')} != {L}*{F}")
     check(counts.get("CudaTiledBitplane_i8") == 1,
@@ -659,7 +720,7 @@ def phase_entry_point(dev) -> dict:
     check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
     for name in spmm_kernels():
         check(counts.get(name, 0) > 0, f"{name} was not launched")
-    check(set(counts) <= set(spmm_kernels()),
+    check({n.split("/")[0] for n in counts} <= set(spmm_kernels()),
           f"launches counted for kernels that are not hand-written: {counts}")
 
     rc, out = run(headline.main, [])
@@ -1119,12 +1180,13 @@ def main() -> int:
 
     runs = (serve_counts, bench_counts, ffn_counts, probe_counts,
             ragged_counts, ring_counts)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),
-                **{k: stats[name][k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                **{k: stats[name][k] for k in ("max_abs_err", *keys)},
+                **({"prefill": {k: stats[name]["prefill"][k] for k in keys}}
+                   if "prefill" in stats[name] else {})}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,10 +1,13 @@
 // Y = X . W + b [PReLU] over the TiledBitplane container, for Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels of ternary_spgemm_tpu/ops/pallas_kernels.py:
-//   * ternary_bitplane_x8 <- pallas_tiled_bitplane_x8_kernel (:1552, body
-//     _tiled_bitplane_x8_kernel :1518): X rounded half-to-even and clamped
-//     to int8 +-127 (_to_x8, :1536), one int32 dot, f32 epilogue. The A8
-//     serving path's merged QKV and wo projections.
+//   * ternary_bitplane_x8 and ternary_bitplane_x8_mma <-
+//     pallas_tiled_bitplane_x8_kernel (:1552, body _tiled_bitplane_x8_kernel
+//     :1518): X rounded half-to-even and clamped to int8 +-127 (_to_x8,
+//     :1536), one int32 dot, f32 epilogue. The A8 serving path's merged QKV
+//     and wo projections. Two entry points split by M (the wrapper's
+//     X8_MMA_MIN_M): the decode kernel below for small M, the int8
+//     tensor-core kernel of bitplane_mma.cuh above it.
 //   * ternary_bitplane_i8 <- pallas_tiled_bitplane_i8_kernel (:1277, bodies
 //     _bitplane_i8fs/_i8fu/_i8s/_i8u_kernel :1172-1264): exact for integer
 //     |x| <= 512. The TPU splits x = 8a + r - 512 into two int8 operands for
@@ -28,6 +31,7 @@
 // anything but 0.
 
 #include "bitplane_core.cuh"
+#include "bitplane_mma.cuh"
 
 extern "C" int ternary_bitplane_x8(const float* x, int M, int K,
                                    const uint8_t* plane, int nb, int gn,
@@ -36,6 +40,18 @@ extern "C" int ternary_bitplane_x8(const float* x, int M, int K,
                                    float* y, void* stream) {
   return ternary::run_spmm<ternary::kStageX8, ternary::kWBitplane>(
       x, M, K, plane, nb, gn, tkb, tile_n, N, bias, alpha, y, stream);
+}
+
+// ``xq``: int8 scratch of M x (nb * 2 * round_up(4*tkb, 128)) bytes for
+// the rounded X (bitplane_mma.cuh, stage_x8)
+extern "C" int ternary_bitplane_x8_mma(const float* x, int M, int K,
+                                       const uint8_t* plane, int nb, int gn,
+                                       int tkb, int tile_n, int N,
+                                       const float* bias, const float* alpha,
+                                       float* y, void* stream, int8_t* xq) {
+  return ternary::mma8::run_x8_mma(x, M, K, plane, nb, gn, tkb, tile_n, N,
+                                   bias, alpha, y, xq,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ternary_bitplane_i8(const float* x, int M, int K,

@@ -44,6 +44,8 @@ _ELL = [_P, _I, _I, _P, _P, _P, _P, *[_I] * 9, _P, _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "ternary_bitplane_x8": _SPMM,
+    #: _SPMM, then the int8 scratch for the rounded X
+    "ternary_bitplane_x8_mma": [*_SPMM, _P],
     "ternary_bitplane_i8": _SPMM,
     "ternary_bitplane_bf16": _SPMM,
     "ternary_nibblepair_i8": _SPMM,

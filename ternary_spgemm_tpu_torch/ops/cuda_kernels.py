@@ -3,7 +3,9 @@
 
 Eighteen registered kernels, three cores (``csrc/bitplane_core.cuh`` for the
 bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
-and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers):
+and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), and the x8
+kernel's tensor-core branch (``csrc/bitplane_mma.cuh``), which it takes
+above :data:`X8_MMA_MIN_M` rows of X:
 
 =======================  ========================  ==================  =====
 kernel                   replaces (Pallas)         source              X rule
@@ -83,7 +85,7 @@ from ternary_spgemm_tpu_torch.ops.api import (  # noqa: F401  (X rules re-export
     to_i8,
     to_x8,
 )
-from ternary_spgemm_tpu_torch.utils import cdiv
+from ternary_spgemm_tpu_torch.utils import cdiv, round_up
 
 #: kernel launches by name (each wrapper counts where it launches)
 launches: collections.Counter = collections.Counter()
@@ -265,11 +267,14 @@ def stream_handle(device: torch.device) -> int:
 
 
 def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
-            bias, alpha) -> torch.Tensor:
+            bias, alpha, *, scratch_row_bytes: int = 0,
+            counts: tuple = ()) -> torch.Tensor:
     """Launch ``entry`` over ``fmt``: ``weights`` checks and returns the
     container's weight tensor (or a tuple of them, passed in order), ``geom``
     is the tuple of integers the entry point takes between the weight
-    pointers and N."""
+    pointers and N. With ``scratch_row_bytes``, an int8 scratch of that many
+    bytes a row of X is passed after the stream. A launch adds one to
+    ``name``'s count and to each of ``counts``."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors (CPU tensors take the "
@@ -287,28 +292,73 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
     if M == 0 or N == 0:
         return Y
     lib = _build.load()
+    extra = []
+    if scratch_row_bytes:   # held until the launch is queued
+        scratch = torch.empty(M * scratch_row_bytes, dtype=torch.int8,
+                              device=dev)
+        extra.append(scratch.data_ptr())
     err = getattr(lib, entry)(
         X.data_ptr(), M, K, *ptrs, *geom, N, bias.data_ptr(),
         None if alpha is None else alpha.data_ptr(), Y.data_ptr(),
-        stream_handle(dev))
+        stream_handle(dev), *extra)
     _build.check(err, entry)
-    launches[name] += 1
+    for n in (name, *counts):
+        launches[n] += 1
     return Y
+
+
+#: The x8 kernel's two branches split at M: up to this many rows of X the
+#: decode kernel (``ternary_bitplane_x8``, one lane a column), above it the
+#: int8 tensor-core kernel (``ternary_bitplane_x8_mma``,
+#: ``csrc/bitplane_mma.cuh``). The crossover, measured by ``chip_smoke.py``
+#: phase 3 on the merged QKV (M x 4096 x 12288; NVIDIA H100 80GB HBM3,
+#: 700 W), decode vs tensor-core ms: M=4 0.0580 vs 0.0706, M=8 0.0773 vs
+#: 0.0714, M=16 0.1682 vs 0.0727, M=32 0.3557 vs 0.0743, M=64 0.6525 vs
+#: 0.0767, M=128 1.2372 vs 0.0834. The tensor-core branch's ~0.07 ms floor
+#: is its serial walk over K (16 chunks of synchronous loads).
+X8_MMA_MIN_M = 4
+#: launches of the x8 kernel's tensor-core branch (also counted under the
+#: kernel's own name)
+X8_MMA_COUNT = "CudaTiledBitplane_x8/mma"
+
+
+def x8_mma_row_bytes(fmt: TiledBitplane) -> int:
+    """Bytes a row of the tensor-core branch's int8 scratch: each K-block's
+    two halves of ``4*tkb`` rounded activations, each padded to a multiple
+    of the 128 that one staged chunk holds (``kHalf`` of
+    ``csrc/bitplane_mma.cuh``)."""
+    return fmt.plane.shape[0] * 2 * round_up(4 * fmt.tkb, 128)
+
+
+def _bitplane_x8_lanes(X, fmt: TiledBitplane, bias, alpha=None):
+    """The decode branch of ``CudaTiledBitplane_x8`` at any M."""
+    return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8", X, fmt,
+                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha)
+
+
+def _bitplane_x8_mma(X, fmt: TiledBitplane, bias, alpha=None):
+    """The tensor-core branch of ``CudaTiledBitplane_x8`` at any M."""
+    return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8_mma", X, fmt,
+                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
+                   bias, alpha, scratch_row_bytes=x8_mma_row_bytes(fmt),
+                   counts=(X8_MMA_COUNT,))
 
 
 @register_kernel(
     "CudaTiledBitplane_x8", TiledBitplane,
-    description="split-sign bitplanes (2 bits/weight) decoded per lane, int8-"
-                "native activations (round + clamp +-127) accumulated in "
-                "int32; the A8 serving projections",
+    description="split-sign bitplanes (2 bits/weight), int8-native "
+                "activations (round + clamp +-127) accumulated in int32: "
+                "decoded per lane up to X8_MMA_MIN_M rows, on the int8 "
+                "tensor cores above; the A8 serving projections",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1552",
     x_absmax=127, source=_CSRC + "bitplane.cu", plain=bitplane_x8_plain)
 def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     if X.device.type == "cpu":
         return bitplane_x8_plain(X, fmt, bias, alpha)
-    return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8", X, fmt,
-                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
-                   bias, alpha)
+    if X.dim() == 2 and X.shape[0] > X8_MMA_MIN_M:
+        return _bitplane_x8_mma(X, fmt, bias, alpha)
+    return _bitplane_x8_lanes(X, fmt, bias, alpha)
 
 
 @register_kernel(

@@ -7,8 +7,10 @@ repository's conftest left out (it imports JAX)::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
-to the plain versions; so must the f32 and bf16 kernels (dense, stride-packed, ELL gathers) on
-integer X in their domains, where every value and f32 partial sum is exact. Off those
+to the plain versions (the x8 kernel on both of its branches, split at
+``X8_MMA_MIN_M``; ``-k x8`` runs its tests alone); so must the f32 and
+bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
+domains, where every value and f32 partial sum is exact. Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
 (rounded to bf16 identically where they round) and differ only in f32
 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
@@ -160,6 +162,71 @@ def test_bitplane_kernel_bitwise(dev, name, M, K, N, tile_n, prelu):
     want = plain(X, fmt, b, a)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _x8_case(dev, M, K, N, tile_n, tkb, prelu):
+    """A TiledBitplane and an X that needs rounding and clamping: 1.3 x
+    integers in +-127, and .5 added on every third column (ties that round
+    half to even)."""
+    fmt = TiledBitplane.from_dense(generate_ternary(K, N, 3, seed=K + N),
+                                   tkb=tkb, tile_n=tile_n).to(dev)
+    X = 1.3 * torch.from_numpy(generate_x(M, K, seed=M,
+                                          value_range=127)).to(dev)
+    X[:, ::3] = torch.round(X[:, ::3]) + 0.5
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    a = torch.from_numpy(generate_alpha(N)).to(dev) if prelu else None
+    return fmt, X, b, a
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 100, 300])
+@pytest.mark.parametrize("K,N,tile_n,tkb", [
+    (100, 77, 128, None), (999, 260, 96, None), (2048, 4100, 4096, None),
+    (999, 260, 128, 20), (2048, 77, 96, 20), (999, 300, 100, None)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_x8_mma_bitwise(dev, M, K, N, tile_n, tkb, prelu):
+    """The x8 kernel's tensor-core branch at any M, bitwise equal to the
+    plain version on ragged geometries: K, N off every tile, tile_n not a
+    multiple of its 128 columns (nor of 16: 100), tkb = 20 (not a multiple
+    of its 32 byte-rows a chunk); two launches give the same Y."""
+    fmt, X, b, a = _x8_case(dev, M, K, N, tile_n, tkb, prelu)
+    got = ck._bitplane_x8_mma(X, fmt, b, a)
+    again = ck._bitplane_x8_mma(X, fmt, b, a)
+    want = ck.bitplane_x8_plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("M", [5, 33])
+@pytest.mark.parametrize("K,N,tile_n,tkb", [(999, 260, 96, None),
+                                            (2048, 77, 96, 20)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_x8_decode_branch_bitwise(dev, M, K, N, tile_n, tkb, prelu):
+    """The x8 kernel's decode branch above the rows the wrapper gives it
+    (its 8- and 32-row tiles), bitwise equal to the plain version."""
+    fmt, X, b, a = _x8_case(dev, M, K, N, tile_n, tkb, prelu)
+    got = ck._bitplane_x8_lanes(X, fmt, b, a)
+    want = ck.bitplane_x8_plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("prelu", [False, True])
+def test_x8_dispatch_threshold(dev, prelu):
+    """Through the registered wrapper: M = X8_MMA_MIN_M takes the decode
+    branch and one more row the tensor-core branch; both bitwise equal to
+    the plain version, and each call counted under the kernel's name."""
+    for M, mma in ((ck.X8_MMA_MIN_M, 0), (ck.X8_MMA_MIN_M + 1, 1)):
+        fmt, X, b, a = _x8_case(dev, M, 2048, 520, 256, None, prelu)
+        before = dict(ck.launches)
+        got = ck.cuda_tiled_bitplane_x8_kernel(X, fmt, b, a)
+        want = ck.bitplane_x8_plain(X, fmt, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        name = "CudaTiledBitplane_x8"
+        assert ck.launches[name] == before.get(name, 0) + 1
+        assert ck.launches[ck.X8_MMA_COUNT] == \
+            before.get(ck.X8_MMA_COUNT, 0) + mma
 
 
 @pytest.mark.parametrize("M,K,N,tile_n", [(7, 1000, 260, 128),
