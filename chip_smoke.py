@@ -20,9 +20,16 @@ result line if any fails, or if no GPU is visible):
    32x1024x4096 and at 32x4096x11008 (gn=3), both bitwise equal with PReLU
    on and off and a random bias and slope per column; the x8 kernel's
    crossover: both branches, each bitwise, timed on the merged QKV at M in
-   {4, 8, 16, 32, 64, 128}; the SwiGLU kernel at M in {4, 128, 512}
-   (at most 1e-4 of the requantized hidden values may flip, each by 1, and
-   every row without a flip agrees within rtol=1e-5, atol=0.01); the PReLU
+   {4, 8, 16, 32, 64, 128}; the i8 kernel's two branches bitwise at every
+   phase-6 shape, PReLU on and off, on integer X with the +-512 edges and
+   on non-integer X, and its crossover: both timed, each bitwise, at the
+   north star and 32x4096x11008's K and N for M in {4, 8, 16, 32, 64, 128,
+   512}; the SwiGLU kernel at M in {4, 128, 512} (its two branches' y, h
+   and rmax bitwise equal; at most 1e-4 of the requantized hidden values
+   may flip against the plain version, each by 1, and every row without a
+   flip agrees within rtol=1e-5, atol=0.01) and its crossover: both
+   branches timed, bitwise equal to each other, at M in {4, 8, 16, 32, 64,
+   128}; the PReLU
    FFN kernel at the ffn_bench blocks (M = 32, 1024 -> 4096 -> 1024 and
    2048 -> 4096 -> 2048) and at M in {1, 33, 128}, PReLU2 off and on, with
    a random bias and slope per column, its hidden state, requantized
@@ -47,9 +54,10 @@ result line if any fails, or if no GPU is visible):
    requests of 128 prompt tokens each, greedy-decoding 32 new tokens each
    through ``generate`` with an int8 KV cache. The launch counters must
    match the path (x8 twice and the SwiGLU once per layer per forward, the
-   x8 kernel's tensor-core branch twice per layer in the prefill and never
-   in decode; i8 on the headline op) and no plain version may run on a
-   CUDA tensor;
+   x8 kernel's tensor-core branch twice and the SwiGLU's once per layer in
+   the prefill and never in decode; i8 on the headline op, on its
+   tensor-core branch when its 32 rows are above ``I8_MMA_MIN_M``) and no
+   plain version may run on a CUDA tensor;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
    nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
    block-packed and tiled block-packed i8 at factor 4 and 5, stride-packed
@@ -82,7 +90,8 @@ result line if any fails, or if no GPU is visible):
    shape) bitwise against their plain versions; then, counted,
    ``tools.membench`` over 16/64/256/512 MB x two tiles x both layouts (no
    config recorded as failed, no rate above 1.05 x 3.35 TB/s: the L2 flush
-   holds at 16 MB), ``tools.decode_roofline`` at its four configs and
+   holds at 16 MB), ``tools.decode_roofline`` at its four configs (both
+   branches of the i8 kernel, a roofline row each) and
    ``tools.deposit_study`` (bytes audit and ladder; full and staticcap
    exact), each in-process, no plain version on a CUDA tensor;
 10. the ragged probe: the scalar-deposit kernel's tile bitwise equal to its
@@ -114,7 +123,9 @@ module (``ops/fused_ffn.py``), the study tools' modules
 
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
-QKV at M = 512), the card line, and ``{"ok": true, "device": {...}}``.
+QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
+the i8 kernel's: the north star and a ``u`` object at 32x4096x11008), the
+card line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -149,6 +160,12 @@ F32_FLOPS_PER_S = 67e12
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
 X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
+#: phase 3's i8 crossover: the M at which both branches are timed at the
+#: north star (K = 1024) and the up-projection (K = 4096)
+I8_CROSSOVER_M = (4, 8, 16, 32, 64, 128, 512)
+#: phase 3's SwiGLU crossover: the M at which both branches are timed at
+#: 4096 -> 11008 -> 4096
+SWIGLU_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
 #: phase 11's ring sizes, at the JAX test's shape and at full width, and
 #: the full width (M, K, N): the serve's 4 x 128 prefill rows through
 #: BitNet-7B's merged QKV
@@ -247,9 +264,11 @@ def phase_kernels(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
-        FFN_KERNEL_NAME, KERNEL_NAME, requantize_rows, swiglu_hidden_plain,
-        swiglu_launch, swiglu_plain, true_div)
+        FFN_KERNEL_NAME, KERNEL_NAME, _swiglu_lanes, _swiglu_mma,
+        requantize_rows, swiglu_hidden_plain, swiglu_launch, swiglu_plain,
+        true_div)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -279,10 +298,10 @@ def phase_kernels(dev, card: str) -> dict:
         pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
         lms = library_ms(stage(x), f, flush)
         bms, by = spmm_bound(M, f)
-        branch = ""
-        if name == "CudaTiledBitplane_x8":
-            branch = (" (tensor-core branch)" if M > ck.X8_MMA_MIN_M
-                      else " (decode branch)")
+        split = (ck.X8_MMA_MIN_M if name == "CudaTiledBitplane_x8"
+                 else ck.I8_MMA_MIN_M)
+        branch = (" (tensor-core branch)" if M > split
+                  else " (decode branch)")
         print(f"kernel {name} {M}x{K}x{N}{branch}: bitwise equal (PReLU "
               f"on/off); {ms:.4f} ms vs plain {pms:.4f} ms, library "
               f"{lms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]", flush=True)
@@ -302,18 +321,29 @@ def phase_kernels(dev, card: str) -> dict:
                       ck.bitplane_x8_plain, ck.to_x8, M, K, N, s=2, x=x,
                       record=rec)
     phase_x8_crossover(dev, card, gen, flush)
+    i8 = stats["CudaTiledBitplane_i8"]
+    i8["u"] = {}
     for K, N, s in ((1024, 4096, 4), (4096, 11008, 2)):
         x = torch.randint(-512, 513, (32, K), generator=gen,
                           device=dev).to(torch.float32)
         spmm_case("CudaTiledBitplane_i8", ck.cuda_tiled_bitplane_i8_kernel,
                   ck.bitplane_i8_plain, ck.to_i8, 32, K, N, s=s, x=x,
-                  record=stats["CudaTiledBitplane_i8"] if K == 1024 else None)
+                  record=i8 if K == 1024 else i8["u"])
+    phase_i8_branches(dev, card, gen, flush)
 
     fg, fu, fd = fmt(4096, 11008), fmt(4096, 11008), fmt(11008, 4096)
     kw = dict(gamma_gate=0.03, gamma_up=0.03, gamma_down=0.03)
     for M in (4, 128, 512):
         x = torch.randn((M, 4096), generator=gen, device=dev)
         xq, sx = requantize_rows(x)
+        # the two branches give the same bits (exact sums, one epilogue)
+        lanes = _swiglu_lanes(xq, sx, fg, fu, fd, **kw)
+        mma = _swiglu_mma(xq, sx, fg, fu, fd, **kw)
+        torch.cuda.synchronize()
+        for got, want, what in zip(mma, lanes, ("y", "h", "rmax")):
+            check(torch.equal(got, want),
+                  f"SwiGLU M={M}: the branches' {what} differ")
+        del lanes, mma
         y, h, rmax = swiglu_launch(xq, sx, fg, fu, fd, **kw)
         want = swiglu_plain(xq, sx, fg, fu, fd, **kw)
         hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
@@ -338,19 +368,26 @@ def phase_kernels(dev, card: str) -> dict:
                       flush=flush)
         pms = event_ms(lambda: swiglu_plain(xq, sx, fg, fu, fd, **kw),
                        flush=flush)
-        print(f"kernel fused_bitplane_swiglu M={M} 4096->11008->4096: "
-              f"{flips} of {diff.numel()} hq flips, max |err| {err:.3g} in "
-              f"{int(clean.sum())}/{M} clean rows; {ms:.4f} ms vs plain "
-              f"{pms:.4f} ms [{card}]", flush=True)
+        branch = ("tensor-core" if M > fused_ffn.SWIGLU_MMA_MIN_M
+                  else "decode")
+        print(f"kernel fused_bitplane_swiglu M={M} 4096->11008->4096 "
+              f"({branch} branch; y, h and rmax of both branches bitwise "
+              f"equal): {flips} of {diff.numel()} hq flips, max |err| "
+              f"{err:.3g} in {int(clean.sum())}/{M} clean rows; {ms:.4f} ms "
+              f"vs plain {pms:.4f} ms [{card}]", flush=True)
         # three planes, xq and y (M, 4096) f32, sx; gate, up and down
         # products; no single PyTorch call computes the fused FFN
         bms, by = bound(sum(weight_bytes(t) for t in (fg, fu, fd))
                         + 4 * (2 * M * 4096 + M),
                         sum(spmm_ops(M, t) for t in (fg, fu, fd)))
         print(f"  SwiGLU M={M} bound {bms:.4f} ms ({by})", flush=True)
+        rec = dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                   bound_by=by)
         if M == 4:
-            stats[KERNEL_NAME].update(ms=ms, plain_ms=pms, library_ms=None,
-                                      bound_ms=bms, bound_by=by)
+            stats[KERNEL_NAME].update(rec)
+        elif M == 512:
+            stats[KERNEL_NAME]["prefill"] = rec
+    phase_swiglu_crossover(card, fg, fu, fd, kw, gen, flush)
     stats[FFN_KERNEL_NAME] = phase_prelu_ffn(dev, card, flush)
     del flush
     return stats
@@ -386,6 +423,97 @@ def phase_x8_crossover(dev, card: str, gen, flush) -> None:
     print("x8 crossover on the merged QKV, decode vs tensor-core branch, "
           "both bitwise equal to plain: " + "; ".join(rows)
           + f" (X8_MMA_MIN_M = {ck.X8_MMA_MIN_M}) [{card}]", flush=True)
+
+
+def phase_i8_branches(dev, card: str, gen, flush) -> None:
+    """Phase 3, the i8 kernel's split: both branches (the decode kernel and
+    the tensor-core kernel) bitwise against the plain version at every
+    ``BENCH_SHAPES`` shape, PReLU on and off, on integer X in +-512 (its
+    edges on every seventh column) and on non-integer X (floored); then
+    both timed, each bitwise, at the north star and the up-projection at
+    each ``I8_CROSSOVER_M``."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    branches = (("decode", ck._bitplane_i8_lanes),
+                ("mma", ck._bitplane_i8_mma))
+    fmts = {}
+    for M, K, N, s in BENCH_SHAPES:
+        f = fmts.setdefault((K, N), TiledBitplane.from_dense(
+            random_ternary(K, N, s, gen, dev)))
+        x = torch.randint(-512, 513, (M, K), generator=gen,
+                          device=dev).to(torch.float32)
+        x[:, ::7], x[:, 3::7] = 512.0, -512.0
+        xf = 1024.0 * torch.rand((M, K), generator=gen, device=dev) - 512.0
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        a = 0.25 * torch.rand((N,), generator=gen, device=dev)
+        for xx, what in ((x, "integer"), (xf, "non-integer")):
+            for alpha in (None, a):
+                want = ck.bitplane_i8_plain(xx, f, b, alpha)
+                for branch, fn in branches:
+                    got = fn(xx, f, b, alpha)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"i8 {branch} branch {M}x{K}x{N} {what} X prelu="
+                          f"{alpha is not None}: kernel != plain")
+    print(f"i8 branches: decode and tensor-core bitwise equal to plain at "
+          f"{', '.join('x'.join(map(str, sh[:3])) for sh in BENCH_SHAPES)} "
+          f"(integer X with the +-512 edges and non-integer X, PReLU "
+          f"on/off) [{card}]", flush=True)
+    for K, N in ((1024, 4096), (4096, 11008)):
+        f, rows = fmts[(K, N)], []
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        for M in I8_CROSSOVER_M:
+            x = torch.randint(-512, 513, (M, K), generator=gen,
+                              device=dev).to(torch.float32)
+            want = ck.bitplane_i8_plain(x, f, b)
+            times = {}
+            for branch, fn in branches:
+                got = fn(x, f, b)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"i8 {branch} branch {M}x{K}x{N}: kernel != plain")
+                times[branch] = event_ms(lambda: fn(x, f, b), flush=flush)
+            rows.append(f"M={M} {times['decode']:.4f} vs {times['mma']:.4f} "
+                        "ms")
+        print(f"i8 crossover at Mx{K}x{N}, decode vs tensor-core branch, both "
+              f"bitwise equal to plain: " + "; ".join(rows)
+              + f" (I8_MMA_MIN_M = {ck.I8_MMA_MIN_M}) [{card}]", flush=True)
+
+
+def phase_swiglu_crossover(card: str, fg, fu, fd, kw, gen, flush) -> None:
+    """Phase 3, the SwiGLU's split: both branches timed at each
+    ``SWIGLU_CROSSOVER_M`` over the 4096 -> 11008 -> 4096 block, their y, h
+    and rmax bitwise equal to each other."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    rows = []
+    for M in SWIGLU_CROSSOVER_M:
+        x = torch.randn((M, fg.K), generator=gen, device=fg.plane.device)
+        xq, sx = fused_ffn.requantize_rows(x)
+        times, outs = {}, {}
+        for branch, fn in (("decode", fused_ffn._swiglu_lanes),
+                           ("mma", fused_ffn._swiglu_mma)):
+            outs[branch] = fn(xq, sx, fg, fu, fd, **kw)
+            times[branch] = event_ms(lambda: fn(xq, sx, fg, fu, fd, **kw),
+                                     flush=flush)
+        torch.cuda.synchronize()
+        for got, want, what in zip(outs["mma"], outs["decode"],
+                                   ("y", "h", "rmax")):
+            check(torch.equal(got, want),
+                  f"SwiGLU M={M}: the branches' {what} differ")
+        rows.append(f"M={M} {times['decode']:.4f} vs {times['mma']:.4f} ms")
+    print("SwiGLU crossover at 4096->11008->4096, decode vs tensor-core "
+          "branch, y, h and rmax bitwise equal: " + "; ".join(rows)
+          + f" (SWIGLU_MMA_MIN_M = {fused_ffn.SWIGLU_MMA_MIN_M}) [{card}]",
+          flush=True)
 
 
 def phase_prelu_ffn(dev, card: str, flush) -> dict:
@@ -527,7 +655,7 @@ def phase_serve(dev, card: str) -> dict:
         BitTransformerConfig, build_serving_lm, generate, init_cache)
     from ternary_spgemm_tpu_torch.models.serving import PRESETS, random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
-    from ternary_spgemm_tpu_torch.ops import ternary_spgemm
+    from ternary_spgemm_tpu_torch.ops import fused_ffn, ternary_spgemm
 
     B, T0, n_new = 4, 128, 32
     cfg = BitTransformerConfig(**PRESETS["bitnet7b"])
@@ -575,8 +703,20 @@ def phase_serve(dev, card: str) -> dict:
           f"2*{L} (the prefill's; none in decode)")
     check(counts.get("fused_bitplane_swiglu") == L * F,
           f"SwiGLU launches {counts.get('fused_bitplane_swiglu')} != {L}*{F}")
+    check(B * T0 > fused_ffn.SWIGLU_MMA_MIN_M >= B,
+          f"SWIGLU_MMA_MIN_M = {fused_ffn.SWIGLU_MMA_MIN_M} does not split "
+          f"prefill ({B * T0} rows) from decode ({B})")
+    check(counts.get(fused_ffn.SWIGLU_MMA_COUNT, 0) == L,
+          f"SwiGLU tensor-core launches "
+          f"{counts.get(fused_ffn.SWIGLU_MMA_COUNT, 0)} != {L} (the "
+          f"prefill's; none in decode)")
     check(counts.get("CudaTiledBitplane_i8") == 1,
           f"i8 launches {counts.get('CudaTiledBitplane_i8')} != 1")
+    # the headline op's 32 rows: the tensor-core branch above I8_MMA_MIN_M
+    i8_mma = int(x_ns.shape[0] > ck.I8_MMA_MIN_M)
+    check(counts.get(ck.I8_MMA_COUNT, 0) == i8_mma,
+          f"i8 tensor-core launches {counts.get(ck.I8_MMA_COUNT, 0)} != "
+          f"{i8_mma} (32 rows, I8_MMA_MIN_M = {ck.I8_MMA_MIN_M})")
     check(tuple(toks.shape) == (B, T0 + n_new), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
     check(torch.equal(toks[:, :T0], prompt), "prompt not kept")
@@ -905,9 +1045,10 @@ def phase_probes(dev, card: str):
     print(f"$ python -m ternary_spgemm_tpu_torch.tools.decode_roofline\n"
           f"{out}", end="", flush=True)
     rec = json.loads(out.splitlines()[-1])
-    check(rc == 0 and len(rec["configs"]) == 4
-          and not any("error" in r for r in rec["configs"]),
-          f"decode_roofline: exit {rc} or a config failed")
+    check(rc == 0 and not any("error" in r for r in rec["configs"])
+          and [(r["config"], r["branch"]) for r in rec["configs"]]
+          == [(c, b) for c in dr.DEFAULT_CONFIGS for b in dr.BRANCHES],
+          f"decode_roofline: exit {rc}, or a config or branch failed")
     rc, out = run_main(ds.main, [])
     print(f"$ python -m ternary_spgemm_tpu_torch.tools.deposit_study\n"
           f"{out}", end="", flush=True)
@@ -1185,8 +1326,8 @@ def main() -> int:
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),
                 **{k: stats[name][k] for k in ("max_abs_err", *keys)},
-                **({"prefill": {k: stats[name]["prefill"][k] for k in keys}}
-                   if "prefill" in stats[name] else {})}
+                **{extra: {k: stats[name][extra][k] for k in keys}
+                   for extra in ("prefill", "u") if extra in stats[name]}}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -145,6 +145,40 @@ __device__ __forceinline__ void decode_half(uint2 r, int h, int w[4]) {
   }
 }
 
+// The epilogues' per-element expressions, shared with the tensor-core core
+// (bitplane_mma.cuh) so that both branches of a kernel give the same bits:
+// multiplies or one add, nothing that contracts into an FMA.
+
+// _epilogue: float(acc) + b, then where(y > 0, y, alpha * y)
+__device__ __forceinline__ float epi_bias(float acc, const float* bias,
+                                          const float* alpha, int col) {
+  float v = acc + bias[col];
+  if (alpha != nullptr) v = v > 0.0f ? v : alpha[col] * v;
+  return v;
+}
+
+// ops/fused_ffn.py:362-366: g = gg * (sx * acc_g), u = gu * (sx * acc_u),
+// h = (g * sigmoid(g)) * u; sigmoid = 1 / (1 + exp(-g)) evaluated in f64 and
+// rounded once to f32, as the plain version does (sigmoid_f32)
+__device__ __forceinline__ float epi_swiglu(float acc_g, float acc_u, float sx,
+                                            float gamma_g, float gamma_u) {
+  const float gv = gamma_g * (sx * acc_g);
+  const float uv = gamma_u * (sx * acc_u);
+  const float sig = (float)(1.0 / (1.0 + exp(-(double)gv)));
+  return (gv * sig) * uv;
+}
+
+// _phase2_scale: acc * (((rmax + eps) / 127) * gamma_down)
+__device__ __forceinline__ float epi_scale(float acc, float rs, float gamma) {
+  return acc * (rs * gamma);
+}
+
+// The int bits of |v|, which order like the floats (|v| >= 0): the running
+// row absmax folds them with atomicMax
+__device__ __forceinline__ int abs_bits(float v) {
+  return __float_as_int(fabsf(v));
+}
+
 template <int MT, int STAGE, int NP, int EPI, int WFMT>
 __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
   using A = Acc<STAGE>;
@@ -245,36 +279,26 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
     const bool ok = row_ok && col_ok;
     const size_t o = (size_t)gm * a.N + col;
     if (EPI == kEpiBias || EPI == kEpiBiasRmax) {
-      // _epilogue: float(acc) + b, then where(y > 0, y, alpha * y)
       float yv = 0.0f;
       if (ok) {
-        yv = (float)s0[r] + a.bias[col];
-        if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
+        yv = epi_bias((float)s0[r], a.bias, a.alpha, col);
         a.y[o] = yv;
       }
       if (EPI == kEpiBiasRmax) {   // the running row absmax, as kEpiSwiglu
-        const int bits = __reduce_max_sync(0xffffffffu, __float_as_int(fabsf(yv)));
+        const int bits = __reduce_max_sync(0xffffffffu, abs_bits(yv));
         if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
       }
     } else if (EPI == kEpiSwiglu) {
-      // ops/fused_ffn.py:362-366: g = gg * (sx * acc_g), u = gu * (sx * acc_u),
-      // h = (g * sigmoid(g)) * u; sigmoid = 1 / (1 + exp(-g)) evaluated in
-      // f64 and rounded once to f32, as the plain version does (sigmoid_f32)
       float hv = 0.0f;
       if (ok) {
-        const float sxm = a.sx[gm];
-        const float gv = a.gamma0 * (sxm * (float)s0[r]);
-        const float uv = a.gamma1 * (sxm * (float)s1[r]);
-        const float sig = (float)(1.0 / (1.0 + exp(-(double)gv)));
-        hv = (gv * sig) * uv;
+        hv = epi_swiglu((float)s0[r], (float)s1[r], a.sx[gm], a.gamma0,
+                        a.gamma1);
         a.y[o] = hv;
       }
-      // running row absmax: |h| >= 0, so its int bits order like the floats
-      const int bits = __reduce_max_sync(0xffffffffu, __float_as_int(fabsf(hv)));
+      const int bits = __reduce_max_sync(0xffffffffu, abs_bits(hv));
       if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
     } else if (EPI == kEpiScale) {
-      // _phase2_scale: acc * (((rmax + eps) / 127) * gamma_down)
-      if (ok) a.y[o] = (float)s0[r] * (rs[m] * a.gamma0);
+      if (ok) a.y[o] = epi_scale((float)s0[r], rs[m], a.gamma0);
     } else {
       // ops/fused_ffn.py:189-191: acc * (((rmax + eps) / 127) * gamma) + b,
       // then PReLU; rounded products and sums, never one FMA, so that the
@@ -307,21 +331,29 @@ int launch_bitplane(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Y = stage(X) . W + b [PReLU] over one weight container: the entry point of
-// every SpMM kernel. ``w`` is the container's weight tensor, (nb, gn, ...)
-// its first two dimensions, ``tkb`` its byte-rows per K-block.
-template <int STAGE, int WFMT>
-int run_spmm(const float* x, int M, int K, const void* w, int nb, int gn,
-             int tkb, int tile_n, int N, const float* bias,
-             const float* alpha, float* y, void* stream) {
+// The arguments of one SpMM, Y = stage(X) . W + b [PReLU], over one weight
+// container: ``w`` is the container's weight tensor, (nb, gn, ...) its first
+// two dimensions, ``tkb`` its byte-rows per K-block.
+inline Args spmm_args(const float* x, int M, int K, const void* w, int nb,
+                      int gn, int tkb, int tile_n, int N, const float* bias,
+                      const float* alpha, float* y) {
   Args a{};
   a.x = x; a.M = M; a.K = K;
   a.plane0 = static_cast<const uint8_t*>(w); a.plane1 = nullptr;
   a.nb = nb; a.gn = gn; a.tkb = tkb; a.tile_n = tile_n; a.N = N;
   a.bias = bias; a.alpha = alpha;
   a.y = y;
+  return a;
+}
+
+// The entry point of every SpMM kernel on this core.
+template <int STAGE, int WFMT>
+int run_spmm(const float* x, int M, int K, const void* w, int nb, int gn,
+             int tkb, int tile_n, int N, const float* bias,
+             const float* alpha, float* y, void* stream) {
   return launch_bitplane<STAGE, 1, kEpiBias, WFMT>(
-      a, static_cast<cudaStream_t>(stream));
+      spmm_args(x, M, K, w, nb, gn, tkb, tile_n, N, bias, alpha, y),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace ternary

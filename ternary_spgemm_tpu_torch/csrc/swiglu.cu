@@ -21,6 +21,18 @@
 //     ((rmax + 1e-12) / 127) * gamma_down (:116-118, :378-381).
 // Rows are independent, so there is no M <= 128 limit.
 //
+// Two entry points split by M (the wrapper's SWIGLU_MMA_MIN_M), with the
+// same contract and the same bits: ternary_swiglu, the decode kernel of
+// bitplane_core.cuh, for small M; ternary_swiglu_mma, the int8 tensor-core
+// core of bitplane_mma.cuh, above it. The latter makes four launches on one
+// stream: the memset of rmax; the truncating pre-pass of xq into an int8
+// scratch and the gate-and-up product (two accumulator sets) with the
+// silu-mul epilogue; the requantizing pre-pass of h into a second int8
+// scratch (it reads the rmax the product left); the down product with the
+// scale epilogue. Its integer sums are exact and its epilogues are the
+// decode kernel's expressions, so y, h and rmax are bitwise equal between
+// the two.
+//
 // What bounds it: see bitplane_core.cuh; phase 1 decodes two planes per
 // staged activation, and the hidden round trip through L2 costs 8 bytes per
 // hidden element against ~1.3 KB of plane bytes per hidden column.
@@ -28,6 +40,37 @@
 // Returns cudaGetLastError(); the Python wrapper raises on anything but 0.
 
 #include "bitplane_core.cuh"
+#include "bitplane_mma.cuh"
+
+namespace {
+
+// Both entry points' two products: gate and up over xq into h, with the row
+// absmax into rmax (p1); down over h requantized by rmax into y (p2).
+void swiglu_args(const float* xq, const float* sx, int M, int K,
+                 const uint8_t* plane_gate, const uint8_t* plane_up, int nb1,
+                 int gn1, int tkb1, int tile_n1, int N1,
+                 const uint8_t* plane_down, int nb2, int gn2, int tkb2,
+                 int tile_n2, int N2, float gamma_gate, float gamma_up,
+                 float gamma_down, float* h, int* rmax, float* y,
+                 ternary::Args* p1, ternary::Args* p2) {
+  *p1 = ternary::Args{};
+  p1->x = xq; p1->M = M; p1->K = K;
+  p1->plane0 = plane_gate; p1->plane1 = plane_up;
+  p1->nb = nb1; p1->gn = gn1; p1->tkb = tkb1; p1->tile_n = tile_n1; p1->N = N1;
+  p1->sx = sx; p1->rmax_out = rmax;
+  p1->gamma0 = gamma_gate; p1->gamma1 = gamma_up;
+  p1->y = h;
+
+  *p2 = ternary::Args{};
+  p2->x = h; p2->M = M; p2->K = N1;
+  p2->plane0 = plane_down; p2->plane1 = nullptr;
+  p2->nb = nb2; p2->gn = gn2; p2->tkb = tkb2; p2->tile_n = tile_n2; p2->N = N2;
+  p2->rmax_in = rmax;
+  p2->gamma0 = gamma_down;
+  p2->y = y;
+}
+
+}  // namespace
 
 extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
                               const uint8_t* plane_gate,
@@ -41,23 +84,39 @@ extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = (int)cudaMemsetAsync(rmax, 0, sizeof(int) * (size_t)M, s);
   if (err != 0) return err;
-
-  ternary::Args p1{};
-  p1.x = xq; p1.M = M; p1.K = K;
-  p1.plane0 = plane_gate; p1.plane1 = plane_up;
-  p1.nb = nb1; p1.gn = gn1; p1.tkb = tkb1; p1.tile_n = tile_n1; p1.N = N1;
-  p1.sx = sx; p1.rmax_out = rmax;
-  p1.gamma0 = gamma_gate; p1.gamma1 = gamma_up;
-  p1.y = h;
+  ternary::Args p1, p2;
+  swiglu_args(xq, sx, M, K, plane_gate, plane_up, nb1, gn1, tkb1, tile_n1, N1,
+              plane_down, nb2, gn2, tkb2, tile_n2, N2, gamma_gate, gamma_up,
+              gamma_down, h, rmax, y, &p1, &p2);
   err = ternary::launch_bitplane<ternary::kStageTrunc, 2, ternary::kEpiSwiglu>(p1, s);
   if (err != 0) return err;
-
-  ternary::Args p2{};
-  p2.x = h; p2.M = M; p2.K = N1;
-  p2.plane0 = plane_down; p2.plane1 = nullptr;
-  p2.nb = nb2; p2.gn = gn2; p2.tkb = tkb2; p2.tile_n = tile_n2; p2.N = N2;
-  p2.rmax_in = rmax;
-  p2.gamma0 = gamma_down;
-  p2.y = y;
   return ternary::launch_bitplane<ternary::kStageRequant, 1, ternary::kEpiScale>(p2, s);
+}
+
+// ``xq8``: int8 scratch of M x (nb1 * 2 * round_up(4*tkb1, 128)) bytes for
+// the truncated xq; ``hq8``: M x (nb2 * 2 * round_up(4*tkb2, 128)) bytes for
+// the requantized h (bitplane_mma.cuh, stage_kernel)
+extern "C" int ternary_swiglu_mma(const float* xq, const float* sx, int M,
+                                  int K, const uint8_t* plane_gate,
+                                  const uint8_t* plane_up, int nb1, int gn1,
+                                  int tkb1, int tile_n1, int N1,
+                                  const uint8_t* plane_down, int nb2, int gn2,
+                                  int tkb2, int tile_n2, int N2,
+                                  float gamma_gate, float gamma_up,
+                                  float gamma_down, float* h, int* rmax,
+                                  float* y, void* stream, int8_t* xq8,
+                                  int8_t* hq8) {
+  namespace mma8 = ternary::mma8;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = (int)cudaMemsetAsync(rmax, 0, sizeof(int) * (size_t)M, s);
+  if (err != 0) return err;
+  ternary::Args p1, p2;
+  swiglu_args(xq, sx, M, K, plane_gate, plane_up, nb1, gn1, tkb1, tile_n1, N1,
+              plane_down, nb2, gn2, tkb2, tile_n2, N2, gamma_gate, gamma_up,
+              gamma_down, h, rmax, y, &p1, &p2);
+  err = mma8::run<ternary::kStageTrunc, mma8::TileGateUp, ternary::kEpiSwiglu>(
+      p1, xq8, s);
+  if (err != 0) return err;
+  return mma8::run<ternary::kStageRequant, mma8::TileX8, ternary::kEpiScale>(
+      p2, hq8, s);
 }

@@ -41,12 +41,18 @@ _PACKED = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 #: (x, M, K, pos, neg, cap_pos, cap_neg, nb, gn, rows_pos, rows_neg, slab_n,
 #: cap_tile, ncaps, block_k, N, bias, alpha, y, stream)
 _ELL = [_P, _I, _I, _P, _P, _P, _P, *[_I] * 9, _P, _P, _P, _P]
+#: (xq, sx, M, K, gate, up, nb1, gn1, tkb1, tile_n1, N1, down, nb2, gn2,
+#: tkb2, tile_n2, N2, gamma_gate, gamma_up, gamma_down, h, rmax, y, stream)
+_SWIGLU = [_P, _P, _I, _I, _P, _P, *[_I] * 5, _P, *[_I] * 5, _F, _F, _F, _P,
+           _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "ternary_bitplane_x8": _SPMM,
     #: _SPMM, then the int8 scratch for the rounded X
     "ternary_bitplane_x8_mma": [*_SPMM, _P],
     "ternary_bitplane_i8": _SPMM,
+    #: _SPMM, then the int8 scratch for the hi and lo planes of X
+    "ternary_bitplane_i8_mma": [*_SPMM, _P],
     "ternary_bitplane_bf16": _SPMM,
     "ternary_nibblepair_i8": _SPMM,
     "ternary_tiled_dense_i8": _SPMM,
@@ -59,8 +65,9 @@ SIGNATURES = {
     "ternary_tiled_ell_f32": _ELL,
     "ternary_ell_deposit_i8": _ELL,
     "ternary_blocked_ell_f32": _ELL,
-    "ternary_swiglu": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                       _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "ternary_swiglu": _SWIGLU,
+    #: _SWIGLU, then the int8 scratches for xq and for the requantized h
+    "ternary_swiglu_mma": [*_SWIGLU, _P, _P],
     #: (x, M, K, plane1, nb1, gn1, tkb1, tile_n1, N1, b1/gamma1, alpha1,
     #: plane2, nb2, gn2, tkb2, tile_n2, N2, b2, alpha2, gamma1*gamma2, h,
     #: rmax, y, stream)

@@ -3,9 +3,10 @@
 
 Eighteen registered kernels, three cores (``csrc/bitplane_core.cuh`` for the
 bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
-and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), and the x8
-kernel's tensor-core branch (``csrc/bitplane_mma.cuh``), which it takes
-above :data:`X8_MMA_MIN_M` rows of X:
+and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), and the int8
+tensor-core core (``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels'
+prefill branches, which they take above :data:`X8_MMA_MIN_M` and
+:data:`I8_MMA_MIN_M` rows of X:
 
 =======================  ========================  ==================  =====
 kernel                   replaces (Pallas)         source              X rule
@@ -320,29 +321,81 @@ X8_MMA_MIN_M = 4
 #: launches of the x8 kernel's tensor-core branch (also counted under the
 #: kernel's own name)
 X8_MMA_COUNT = "CudaTiledBitplane_x8/mma"
+#: The i8 kernel's two branches split at M: up to this many rows of X the
+#: decode kernel (``ternary_bitplane_i8``), above it the int8 tensor-core
+#: kernel (``ternary_bitplane_i8_mma``, X split as 32*hi + lo). The
+#: crossover, measured by ``chip_smoke.py`` phase 3 (NVIDIA H100 80GB HBM3,
+#: 700 W), decode vs tensor-core ms: at the north star's K = 1024 (N = 4096)
+#: M=4 0.0177 vs 0.0318, M=8 0.0210 vs 0.0323, M=16 0.0268 vs 0.0323, M=32
+#: 0.0391 vs 0.0331, M=64 0.0663 vs 0.0351, M=128 0.1167 vs 0.0391, M=512
+#: 0.4125 vs 0.0445; at K = 4096 (N = 11008) M=4 0.0576 vs 0.0958, M=8
+#: 0.0771 vs 0.0978, M=16 0.1653 vs 0.0976, M=32 0.3477 vs 0.0993, M=64
+#: 0.6284 vs 0.1042, M=128 1.1339 vs 0.1162, M=512 4.1748 vs 0.2465. The
+#: tensor-core branch's floor grows with K (the chunks each block walks in
+#: series), the decode kernel's time with M * K, so at K = 4096 the split
+#: would fall at 8; no shape that runs has 9 to 16 rows.
+I8_MMA_MIN_M = 16
+#: launches of the i8 kernel's tensor-core branch (also counted under the
+#: kernel's own name)
+I8_MMA_COUNT = "CudaTiledBitplane_i8/mma"
 
 
-def x8_mma_row_bytes(fmt: TiledBitplane) -> int:
-    """Bytes a row of the tensor-core branch's int8 scratch: each K-block's
-    two halves of ``4*tkb`` rounded activations, each padded to a multiple
-    of the 128 that one staged chunk holds (``kHalf`` of
-    ``csrc/bitplane_mma.cuh``)."""
+def i8_branch(M: int, device) -> str:
+    """The branch ``CudaTiledBitplane_i8`` takes on ``M`` rows of X on
+    ``device``: ``"plain"`` on the CPU, ``"decode"`` up to
+    :data:`I8_MMA_MIN_M` rows, ``"mma"`` above."""
+    if torch.device(device).type == "cpu":
+        return "plain"
+    return "mma" if M > I8_MMA_MIN_M else "decode"
+
+
+def mma_row_bytes(fmt: TiledBitplane) -> int:
+    """Bytes a row of one int8 plane of X in the tensor-core branches'
+    scratch (``csrc/bitplane_mma.cuh``, ``stage_kernel``): each K-block's
+    two halves of ``4*tkb`` staged activations, each padded to a multiple
+    of the 128 that one staged chunk holds (``kHalf``). The x8 branch
+    stages one plane, the i8 branch two (hi and lo)."""
     return fmt.plane.shape[0] * 2 * round_up(4 * fmt.tkb, 128)
+
+
+def _bitplane_lanes(name, entry, X, fmt: TiledBitplane, bias, alpha):
+    return _launch(name, entry, X, fmt, check_plane,
+                   (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n), bias, alpha)
+
+
+def _bitplane_mma(name, entry, planes, X, fmt: TiledBitplane, bias, alpha):
+    return _launch(name, entry, X, fmt, check_plane,
+                   (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n), bias, alpha,
+                   scratch_row_bytes=planes * mma_row_bytes(fmt),
+                   counts=(f"{name}/mma",))
 
 
 def _bitplane_x8_lanes(X, fmt: TiledBitplane, bias, alpha=None):
     """The decode branch of ``CudaTiledBitplane_x8`` at any M."""
-    return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8", X, fmt,
-                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
-                   bias, alpha)
+    return _bitplane_lanes("CudaTiledBitplane_x8", "ternary_bitplane_x8", X,
+                           fmt, bias, alpha)
 
 
 def _bitplane_x8_mma(X, fmt: TiledBitplane, bias, alpha=None):
     """The tensor-core branch of ``CudaTiledBitplane_x8`` at any M."""
-    return _launch("CudaTiledBitplane_x8", "ternary_bitplane_x8_mma", X, fmt,
-                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
-                   bias, alpha, scratch_row_bytes=x8_mma_row_bytes(fmt),
-                   counts=(X8_MMA_COUNT,))
+    return _bitplane_mma("CudaTiledBitplane_x8", "ternary_bitplane_x8_mma", 1,
+                         X, fmt, bias, alpha)
+
+
+def _bitplane_i8_lanes(X, fmt: TiledBitplane, bias, alpha=None):
+    """The decode branch of ``CudaTiledBitplane_i8`` at any M."""
+    return _bitplane_lanes("CudaTiledBitplane_i8", "ternary_bitplane_i8", X,
+                           fmt, bias, alpha)
+
+
+def _bitplane_i8_mma(X, fmt: TiledBitplane, bias, alpha=None):
+    """The tensor-core branch of ``CudaTiledBitplane_i8`` at any M: exact
+    on the kernel's domain (integer |x| <= 512, non-integer X floored) and
+    on to ``floor(x + 512) - 512`` in [-4096, 4095]; beyond that the hi
+    byte of the split wraps, and the branch computes with
+    ``32 * int8(v >> 5) + (v & 31)``, a multiple of 8192 off ``v``."""
+    return _bitplane_mma("CudaTiledBitplane_i8", "ternary_bitplane_i8_mma", 2,
+                         X, fmt, bias, alpha)
 
 
 @register_kernel(
@@ -363,17 +416,18 @@ def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
 
 @register_kernel(
     "CudaTiledBitplane_i8", TiledBitplane,
-    description="split-sign bitplanes (2 bits/weight) decoded per lane, "
-                "integer activations |x| <= 512 (non-integer X floored) "
-                "accumulated in int32; the headline SpMM",
+    description="split-sign bitplanes (2 bits/weight), integer activations "
+                "|x| <= 512 (non-integer X floored) accumulated in int32: "
+                "decoded per lane up to I8_MMA_MIN_M rows, on the int8 "
+                "tensor cores above (X as 32*hi + lo); the headline SpMM",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1277",
     x_absmax=512, source=_CSRC + "bitplane.cu", plain=bitplane_i8_plain)
 def cuda_tiled_bitplane_i8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     if X.device.type == "cpu":
         return bitplane_i8_plain(X, fmt, bias, alpha)
-    return _launch("CudaTiledBitplane_i8", "ternary_bitplane_i8", X, fmt,
-                   check_plane, (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n),
-                   bias, alpha)
+    if X.dim() == 2 and X.shape[0] > I8_MMA_MIN_M:
+        return _bitplane_i8_mma(X, fmt, bias, alpha)
+    return _bitplane_i8_lanes(X, fmt, bias, alpha)
 
 
 @register_kernel(

@@ -19,7 +19,9 @@ and the reference-epilogue PReLU FFN over integer activations |X| <= 512::
 :func:`fused_bitplane_swiglu` runs the first as one call of the CUDA kernel
 in ``csrc/swiglu.cu``, :func:`fused_bitplane_ffn` the second as one call of
 ``csrc/ffn.cu``; each makes two launches (the up-projection with its
-epilogue and the row absmax, then the requantizing down projection). On a
+epilogue and the row absmax, then the requantizing down projection; the
+SwiGLU above :data:`SWIGLU_MMA_MIN_M` rows on the int8 tensor cores, with a
+pre-pass before each product). On a
 CPU tensor each runs its plain version (:func:`swiglu_plain`,
 :func:`ffn_plain`), the same math in PyTorch with every op in the JAX
 order. silu is ``g * sigmoid(g)`` as ``jax.nn.silu`` writes it, with the
@@ -40,6 +42,7 @@ from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     check_plane,
     launches,
     matmul_plain,
+    mma_row_bytes,
     note_plain,
     stream_handle,
 )
@@ -58,6 +61,18 @@ FFN_SOURCE = "ternary_spgemm_tpu_torch/csrc/ffn.cu"
 FFN_REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:229"
 #: the PReLU FFN's serving-M contract (JAX's; the SwiGLU has no row limit)
 SERVING_M = 128
+#: The SwiGLU's two branches split at M: up to this many rows of xq the
+#: decode kernel (``ternary_swiglu``, ``csrc/bitplane_core.cuh``), above it
+#: the int8 tensor-core kernel (``ternary_swiglu_mma``,
+#: ``csrc/bitplane_mma.cuh``). The crossover, measured by ``chip_smoke.py``
+#: phase 3 at 4096 -> 11008 -> 4096 (NVIDIA H100 80GB HBM3, 700 W), decode
+#: vs tensor-core ms: M=4 0.2177 vs 0.2604, M=8 0.3394 vs 0.2617, M=16
+#: 0.5915 vs 0.2660, M=32 0.9615 vs 0.2710, M=64 2.0033 vs 0.2787, M=128
+#: 3.6313 vs 0.2982. So decode's M = 4 keeps the decode kernel.
+SWIGLU_MMA_MIN_M = 4
+#: launches of the SwiGLU's tensor-core branch (also counted under
+#: :data:`KERNEL_NAME`)
+SWIGLU_MMA_COUNT = f"{KERNEL_NAME}/mma"
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -149,12 +164,19 @@ def swiglu_plain(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     return matmul_plain(hq, fmt_down) * (scale * gamma_down)
 
 
-def swiglu_launch(xq, sx, fmt_gate, fmt_up, fmt_down, *,
-                  gamma_gate: float = 1.0, gamma_up: float = 1.0,
-                  gamma_down: float = 1.0):
-    """Run the CUDA kernel -> ``(y (M, N2), h (M, N1), rmax (M,))``: the
-    output, the f32 hidden state and its per-row absmax (as f32), so a
-    caller can check the requantized hidden against the plain version."""
+def swiglu_mma_row_bytes(fmt_gate: TiledBitplane,
+                         fmt_down: TiledBitplane) -> tuple:
+    """Bytes a row of the tensor-core branch's two int8 scratches: xq staged
+    for the gate and up containers, the requantized h for the down one
+    (``ops.cuda_kernels.mma_row_bytes`` of each)."""
+    return mma_row_bytes(fmt_gate), mma_row_bytes(fmt_down)
+
+
+def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
+                gamma_gate: float = 1.0, gamma_up: float = 1.0,
+                gamma_down: float = 1.0):
+    """One call of the decode (``mma`` False) or the tensor-core branch ->
+    ``(y, h, rmax)``, as :func:`swiglu_launch`."""
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
@@ -173,17 +195,45 @@ def swiglu_launch(xq, sx, fmt_gate, fmt_up, fmt_down, *,
     y = torch.empty((M, N2), dtype=torch.float32, device=dev)
     if M == 0:
         return y, h, rmax.view(torch.float32)
-    err = _build.load().ternary_swiglu(
+    entry, scratch = "ternary_swiglu", []
+    if mma:   # held until the launches are queued
+        entry = "ternary_swiglu_mma"
+        scratch = [torch.empty(M * n, dtype=torch.int8, device=dev)
+                   for n in swiglu_mma_row_bytes(fmt_gate, fmt_down)]
+    err = getattr(_build.load(), entry)(
         xq.data_ptr(), sx.data_ptr(), M, K,
         pg.data_ptr(), pu.data_ptr(), pg.shape[0], pg.shape[1],
         fmt_gate.tkb, fmt_gate.tile_n, N1,
         pd.data_ptr(), pd.shape[0], pd.shape[1], fmt_down.tkb,
         fmt_down.tile_n, N2,
         float(gamma_gate), float(gamma_up), float(gamma_down),
-        h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream_handle(dev))
-    _build.check(err, "ternary_swiglu")
+        h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream_handle(dev),
+        *(t.data_ptr() for t in scratch))
+    _build.check(err, entry)
     launches[KERNEL_NAME] += 1
+    if mma:
+        launches[SWIGLU_MMA_COUNT] += 1
     return y, h, rmax.view(torch.float32)
+
+
+def _swiglu_lanes(xq, sx, fmt_gate, fmt_up, fmt_down, **gammas):
+    """The decode branch of the SwiGLU kernel at any M."""
+    return _swiglu_run(False, xq, sx, fmt_gate, fmt_up, fmt_down, **gammas)
+
+
+def _swiglu_mma(xq, sx, fmt_gate, fmt_up, fmt_down, **gammas):
+    """The tensor-core branch of the SwiGLU kernel at any M."""
+    return _swiglu_run(True, xq, sx, fmt_gate, fmt_up, fmt_down, **gammas)
+
+
+def swiglu_launch(xq, sx, fmt_gate, fmt_up, fmt_down, **gammas):
+    """Run the CUDA kernel -> ``(y (M, N2), h (M, N1), rmax (M,))``: the
+    output, the f32 hidden state and its per-row absmax (as f32), so a
+    caller can check the requantized hidden against the plain version.
+    Above :data:`SWIGLU_MMA_MIN_M` rows the tensor-core branch runs, up to
+    it the decode branch; the two give the same bits."""
+    mma = xq.dim() == 2 and xq.shape[0] > SWIGLU_MMA_MIN_M
+    return _swiglu_run(mma, xq, sx, fmt_gate, fmt_up, fmt_down, **gammas)
 
 
 def fused_bitplane_swiglu(xq, sx, fmt_gate: TiledBitplane,

@@ -6,6 +6,7 @@ int``::
     python -m ternary_spgemm_tpu_torch.tools.membench         [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.decode_roofline  [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.deposit_study    [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.serve_trace      [--device cpu]
 
 Each runs on the card by default (and raises without one); ``--device
 cpu`` runs the plain versions, with host-clock times. Each prints its rows

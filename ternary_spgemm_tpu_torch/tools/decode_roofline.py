@@ -11,16 +11,26 @@ int32 multiply-adds into 8 rows of all-ones X. It reports the rate of all
 the card's SMs at one block each (132 on an H100 SXM; the SpMM grids are
 128 blocks, so this is the figure that bounds them) and of one SM. Then
 it measures the card's memory rate beta
-(``bench.instrument.measure_hbm_bandwidth``), times
-``CudaTiledBitplane_i8`` at the JAX tool's four configs through
-``bench.harness.run_config`` and writes the two-resource roofline rows::
+(``bench.instrument.measure_hbm_bandwidth``), times both branches of
+``CudaTiledBitplane_i8`` at the JAX tool's four configs (on the inputs
+``bench.harness.run_config`` makes) and writes a roofline row for each::
 
     t_bytes  = own_bytes / beta          (f32 X as the kernel reads it, the
                                           container, f32 Y and bias)
-    t_decode = K * N / pi
-    t_dot    = 2 * M * K * N / 1979e12   (the H100's int8 tensor-core peak)
+    decode branch (the core's decode, then int32 multiply-adds):
+      t_decode = K * N / pi
+      t_dot    = 2 * M * K * N / 1979e12 (the H100's int8 tensor-core peak)
+    mma branch (the plane bytes decode straight into mma fragments, so no
+    decode-rate bound; X as 32*hi + lo, two int8 mma a k-step):
+      t_decode = None
+      t_dot    = 2 * 2 * M * K * N / 1979e12
     augmented  = (max(t_bytes, t_decode) + t_dot) / t
     overlapped = max(t_bytes, t_decode, t_dot) / t
+
+The registered kernel takes the decode branch up to
+``ops.cuda_kernels.I8_MMA_MIN_M`` rows and the mma branch above; each row
+names its ``branch``. On the CPU the one row is the plain version's
+(``branch`` "plain").
 
 Usage::
 
@@ -39,18 +49,20 @@ import sys
 
 import torch
 
-from ternary_spgemm_tpu_torch.bench import (
-    BenchConfig,
-    instrument,
-    measure_hbm_bandwidth,
-    run_config,
-)
+from ternary_spgemm_tpu_torch.bench import instrument, measure_hbm_bandwidth
 from ternary_spgemm_tpu_torch.bench.harness import device_name
 from ternary_spgemm_tpu_torch.bench.instrument import INT8_OPS_PER_S
-from ternary_spgemm_tpu_torch.formats import TiledBitplane
+from ternary_spgemm_tpu_torch.formats import (
+    TiledBitplane,
+    generate_bias,
+    generate_ternary,
+    generate_x,
+)
 from ternary_spgemm_tpu_torch.formats.bitplane import decode_planes
 from ternary_spgemm_tpu_torch.ops import _build, get_kernel
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
+    _bitplane_i8_lanes,
+    _bitplane_i8_mma,
     launches,
     note_plain,
     stream_handle,
@@ -66,6 +78,8 @@ FLAGSHIP = "CudaTiledBitplane_i8"
 DEFAULT_CONFIGS = ["32x1024x4096x4", "32x4096x4096x4", "32x11008x11008x4",
                    "512x4096x4096x4"]
 ROWS = 8
+#: the flagship's branches on the card, each timed at every config
+BRANCHES = {"decode": _bitplane_i8_lanes, "mma": _bitplane_i8_mma}
 
 
 def decode_rate_plain(plane: torch.Tensor, x: torch.Tensor,
@@ -158,27 +172,44 @@ def measure_decode_rate(dev, tkb: int = 128, tns: int = 512,
 
 
 def roofline_row(config: str, seconds: float, own_bytes: float,
-                 beta: float, pi: float) -> dict:
-    """The two-resource roofline of one config from measured rates: bytes at
-    ``beta`` and decode at ``pi`` (serial with, or overlapping, the dot at
-    the int8 peak); fractions are None without ``beta``."""
+                 beta: float, pi: float, branch: str = "decode") -> dict:
+    """The roofline of one config and branch from measured rates: bytes at
+    ``beta``, and for the decode branch (and the plain version) decode at
+    ``pi``, serial with, or overlapping, the dot at the int8 peak; the mma
+    branch has no decode bound and twice the dot's operations (hi and lo).
+    Fractions are None without ``beta``."""
     M, K, N, _ = map(int, config.split("x"))
     t_bytes = own_bytes / beta if beta else None
-    t_decode = K * N / pi
-    t_dot = 2 * M * K * N / INT8_OPS_PER_S
-    row = {"config": config, "seconds": seconds, "own_bytes": own_bytes,
-           "byte_ideal_s": t_bytes, "decode_ideal_s": t_decode,
-           "dot_ideal_s": t_dot, "own_bytes_fraction": None,
-           "augmented_roofline_fraction": None,
+    t_decode = None if branch == "mma" else K * N / pi
+    t_dot = (4 if branch == "mma" else 2) * M * K * N / INT8_OPS_PER_S
+    row = {"config": config, "branch": branch, "seconds": seconds,
+           "own_bytes": own_bytes, "byte_ideal_s": t_bytes,
+           "decode_ideal_s": t_decode, "dot_ideal_s": t_dot,
+           "own_bytes_fraction": None, "augmented_roofline_fraction": None,
            "overlapped_roofline_fraction": None}
     if t_bytes is not None:
+        t_mem = max(t_bytes, t_decode or 0.0)
         row.update(
             own_bytes_fraction=t_bytes / seconds,
-            augmented_roofline_fraction=(max(t_bytes, t_decode) + t_dot)
-            / seconds,
-            overlapped_roofline_fraction=max(t_bytes, t_decode, t_dot)
-            / seconds)
+            augmented_roofline_fraction=(t_mem + t_dot) / seconds,
+            overlapped_roofline_fraction=max(t_mem, t_dot) / seconds)
     return row
+
+
+def time_branches(config: str, dev, *, min_seconds: float = 0.2) -> dict:
+    """Seconds a call of each branch of the flagship at ``config``
+    (``MxKxNxs``) on ``run_config``'s inputs (W, X and bias from seeds 0, 1
+    and the bias rule); on the CPU the plain version's host time."""
+    M, K, N, s = map(int, config.split("x"))
+    W = torch.from_numpy(generate_ternary(K, N, s, seed=0)).to(dev)
+    X = torch.from_numpy(generate_x(M, K, seed=1)).to(dev)
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    fmt = TiledBitplane.from_dense(W).prepare(M)
+    fns = (BRANCHES if dev.type == "cuda"
+           else {"plain": get_kernel(FLAGSHIP).fn})
+    return {branch: timer(dev)(lambda x, f, fn=fn: fn(x, f, b), X,
+                               aux=(fmt,), min_seconds=min_seconds).seconds
+            for branch, fn in fns.items()}
 
 
 def main(argv=None) -> int:
@@ -198,30 +229,30 @@ def main(argv=None) -> int:
     spec = get_kernel(FLAGSHIP)
     rows = []
     for cs in args.configs:
-        M, K, N, s = map(int, cs.split("x"))
-        cfg = BenchConfig(M=M, K=K, N=N, s=s, correctness=False,
-                          min_seconds=0.2, kernels=[FLAGSHIP],
-                          device=dev.type,
-                          timer="cuda_events" if dev.type == "cuda" else "wall")
-        r = run_config(cfg, bandwidth=beta)[0]
-        if r.error:
-            rows.append({"config": cs, "error": r.error})
-        else:
-            # own bytes depend on the container's shape, not its values
-            fmt = TiledBitplane.from_dense(
-                torch.zeros((K, N), dtype=torch.int8, device=dev))
-            own = instrument(M, fmt, x_bytes=spec.x_bytes).own_bytes
-            rows.append(roofline_row(cs, r.seconds, own, beta, pi))
-        print(json.dumps(rows[-1]), flush=True)
+        M, K, N, _ = map(int, cs.split("x"))
+        try:
+            times = time_branches(cs, dev)
+        except Exception as e:  # record, keep sweeping
+            rows.append({"config": cs, "error": f"{type(e).__name__}: {e}"})
+            print(json.dumps(rows[-1]), flush=True)
+            continue
+        # own bytes depend on the container's shape, not its values
+        fmt = TiledBitplane.from_dense(
+            torch.zeros((K, N), dtype=torch.int8, device=dev))
+        own = instrument(M, fmt, x_bytes=spec.x_bytes).own_bytes
+        for branch, seconds in times.items():
+            rows.append(roofline_row(cs, seconds, own, beta, pi, branch))
+            print(json.dumps(rows[-1]), flush=True)
     result["configs"] = rows
     result["model"] = (
-        "two bounds from measured rates on the card: SERIAL ideal = "
-        "max(own_bytes/beta, K*N/pi_decode) + 2*M*K*N/int8_peak "
-        "(augmented_roofline_fraction; > 1 means the kernel overlaps better "
-        "than fully serial) and FULL-OVERLAP ideal = max(bytes, decode, "
-        "dot) (overlapped_roofline_fraction). pi_decode is the all-SM rate "
-        "of the core's decode at an 8-row M-tile; the int8 peak is the "
-        "H100's data-sheet 1,979 TOP/s.")
+        "bounds from measured rates on the card, a row for each branch of "
+        "the flagship: SERIAL ideal = max(own_bytes/beta, K*N/pi_decode) + "
+        "2*M*K*N/int8_peak (augmented_roofline_fraction; > 1 means the "
+        "kernel overlaps better than fully serial) and FULL-OVERLAP ideal = "
+        "max(bytes, decode, dot) (overlapped_roofline_fraction). pi_decode "
+        "is the all-SM rate of the core's decode at an 8-row M-tile; the "
+        "mma branch has no decode term and 4*M*K*N operations (X as "
+        "32*hi + lo). The int8 peak is the H100's data-sheet 1,979 TOP/s.")
     emit(result, args.out)
     return 0
 

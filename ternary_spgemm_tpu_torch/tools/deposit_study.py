@@ -29,7 +29,10 @@ against ``reference.dense_gemm``. The attribution modes compute, for column
               [+ the sum of the slot bytes the loops walk, nogather]  + b[c]
 
 The flagship ``CudaTiledBitplane_i8`` on the same matrix anchors each
-config. Bytes a second come from the card's measured memory rate.
+config, as a user calls it: at the ladder's M = 32 its tensor-core branch
+(above ``ops.cuda_kernels.I8_MMA_MIN_M`` rows), which each row names
+(``flagship_branch``). Bytes a second come from the card's measured memory
+rate.
 
 Usage::
 
@@ -64,6 +67,7 @@ from ternary_spgemm_tpu_torch.ops.api import finish, matmul_plain, to_i8
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     check_ell_deposit,
     check_f32,
+    i8_branch,
     launches,
     note_plain,
     stream_handle,
@@ -217,6 +221,7 @@ def time_ladder(configs, dev, *, repeats: int = 3, beta: float = None):
         row = {"M": M, "K": K, "N": N, "s": s,
                "deposit_bytes": dep.size_bytes(),
                "flagship_bytes": bpf.size_bytes(),
+               "flagship_branch": i8_branch(M, dev),
                "deposit_dma_ideal_us": None, "flagship_dma_ideal_us": None,
                "stands_in_for": dict(MODES), "times_us": {}, "correct": {}}
         if beta:

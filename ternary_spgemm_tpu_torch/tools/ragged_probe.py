@@ -15,7 +15,10 @@ column picks. The tool measures what settles the question:
 2. **High-sparsity kernel times**: ``CudaTiledBitplane_i8`` (2 bits a
    weight, positional) against ``CudaEllDeposit_i8`` (cap-padded ELL)
    through ``bench.run_config`` at M = 32, K = N in {4096, 11008}, s in
-   {16, 32, 64}, the two designs that bracket the ragged stream.
+   {16, 32, 64}, the two designs that bracket the ragged stream, each as a
+   user calls it: at M = 32 the bitplane kernel takes its tensor-core
+   branch (above ``ops.cuda_kernels.I8_MMA_MIN_M`` rows), which its rows
+   name (``branch``; None for the ELL kernel).
 3. **The ragged floor**: ``nnz / entries_per_s`` a config, the deposit time
    alone of a ragged stream over the same W. nnz is counted from the
    container (about K * N / s: ``generate_ternary`` places ``2 * ((N // s)
@@ -45,6 +48,7 @@ from ternary_spgemm_tpu_torch.bench import BenchConfig, run_config
 from ternary_spgemm_tpu_torch.bench.harness import device_name
 from ternary_spgemm_tpu_torch.ops import _build
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
+    i8_branch,
     launches,
     note_plain,
     stream_handle,
@@ -143,6 +147,8 @@ def high_sparsity_rows(kns, s_values, M: int, dev: torch.device):
             print(f"K=N={kn} s={s}", flush=True)
             for r in run_config(cfg, verbose=True):
                 rows.append({"K": kn, "N": kn, "s": s, "kernel": r.name,
+                             "branch": (i8_branch(M, dev)
+                                        if r.name == KERNELS[0] else None),
                              "seconds": r.seconds, "error": r.error,
                              "container_bytes": r.container_bytes})
                 if r.nnz is not None:

@@ -7,8 +7,9 @@ repository's conftest left out (it imports JAX)::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
-to the plain versions (the x8 kernel on both of its branches, split at
-``X8_MMA_MIN_M``; ``-k x8`` runs its tests alone); so must the f32 and
+to the plain versions (each on both of its branches, split at
+``X8_MMA_MIN_M`` and ``I8_MMA_MIN_M``; ``-k x8`` and ``-k i8_`` run their
+tests alone); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact. Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
@@ -18,7 +19,9 @@ an f64 sigmoid to f32, which agree but for inputs on an f32 rounding
 midpoint; a difference there can move a requantized hidden value by one at
 an exact .5 boundary. Such flips must be rare (<= 1e-4 of the elements,
 each by 1), and every row without a flip must agree within the fused-FFN
-tolerance of the JAX tests (rtol=1e-5, atol=0.01).
+tolerance of the JAX tests (rtol=1e-5, atol=0.01). The SwiGLU's two
+branches (split at ``SWIGLU_MMA_MIN_M``; ``-k swiglu``) must give the same
+bits as each other.
 """
 
 import dataclasses
@@ -44,7 +47,7 @@ from ternary_spgemm_tpu_torch.formats import (
     generate_ternary,
     generate_x,
 )
-from ternary_spgemm_tpu_torch.ops import cuda_kernels
+from ternary_spgemm_tpu_torch.ops import cuda_kernels, fused_ffn
 from ternary_spgemm_tpu_torch.ops.fused_ffn import (
     requantize_rows,
     swiglu_hidden_plain,
@@ -229,6 +232,75 @@ def test_x8_dispatch_threshold(dev, prelu):
             before.get(ck.X8_MMA_COUNT, 0) + mma
 
 
+#: the i8 kernel's path shapes: the north star, the BitNet-7B
+#: up-projection (three N-tiles), the large-M shape, a ragged one
+I8_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2), (512, 4096, 4096, 2),
+             (7, 999, 1000, 3)]
+
+
+@pytest.mark.parametrize("M,K,N,s", I8_SHAPES)
+@pytest.mark.parametrize("prelu", [False, True])
+def test_i8_branches_bitwise(dev, M, K, N, s, prelu):
+    """Both branches of the i8 kernel at any M, bitwise equal to the plain
+    version on integer X at the +-512 edges and on non-integer X (floored),
+    with a bias and a PReLU slope that differ per column."""
+    fmt = TiledBitplane.from_dense(generate_ternary(K, N, s, seed=K + N)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    X = torch.randint(-512, 513, (M, K), generator=g, device=dev).to(
+        torch.float32)
+    X[:, ::7] = 512.0
+    X[:, 3::7] = -512.0
+    Xf = 1024.0 * torch.rand((M, K), generator=g, device=dev) - 512.0
+    b = 4.0 * torch.rand((N,), generator=g, device=dev) - 2.0
+    a = 0.25 * torch.rand((N,), generator=g, device=dev) if prelu else None
+    for x in (X, Xf):
+        want = ck.bitplane_i8_plain(x, fmt, b, a)
+        for fn in (ck._bitplane_i8_lanes, ck._bitplane_i8_mma):
+            got = fn(x, fmt, b, a)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), fn.__name__
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("K,N,tile_n,tkb", [
+    (100, 77, 128, None), (999, 260, 96, None), (999, 260, 128, 20),
+    (999, 300, 100, None)])
+def test_i8_mma_ragged(dev, M, K, N, tile_n, tkb):
+    """The i8 kernel's tensor-core branch on ragged geometries (K, N off
+    every tile, tile_n not a multiple of 16, tkb = 20), bitwise; X beyond
+    the +-512 domain up to +-4000, where the split is still exact."""
+    fmt = TiledBitplane.from_dense(generate_ternary(K, N, 3, seed=K + N),
+                                   tkb=tkb, tile_n=tile_n).to(dev)
+    g = torch.Generator(device=dev).manual_seed(M)
+    X = 8000.0 * torch.rand((M, K), generator=g, device=dev) - 4000.0
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    got = ck._bitplane_i8_mma(X, fmt, b)
+    want = ck.bitplane_i8_plain(X, fmt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K", [2048, 4096])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_i8_dispatch_threshold(dev, K, prelu):
+    """Through the registered wrapper: M = I8_MMA_MIN_M takes the decode
+    branch and one more row the tensor-core branch, each counted, at any K;
+    ``i8_branch`` names the branch taken."""
+    split = ck.I8_MMA_MIN_M
+    for M, mma in ((split, 0), (split + 1, 1)):
+        assert ck.i8_branch(M, dev) == ("mma" if mma else "decode")
+        kern, plain, fmt, X, b, a = _case(dev, "i8", M, K, 520, 256, prelu)
+        before = dict(ck.launches)
+        got = kern(X, fmt, b, a)
+        want = plain(X, fmt, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        name = "CudaTiledBitplane_i8"
+        assert ck.launches[name] == before.get(name, 0) + 1
+        assert ck.launches[ck.I8_MMA_COUNT] == \
+            before.get(ck.I8_MMA_COUNT, 0) + mma
+
+
 @pytest.mark.parametrize("M,K,N,tile_n", [(7, 1000, 260, 128),
                                           (33, 2048, 520, 256)])
 @pytest.mark.parametrize("prelu", [False, True])
@@ -314,6 +386,38 @@ def test_swiglu_kernel(dev, M, K, N1, N2, tile_n):
     clean = ~(diff > 0).any(dim=1)
     np.testing.assert_allclose(y[clean].cpu().numpy(),
                                want[clean].cpu().numpy(), rtol=1e-5, atol=0.01)
+
+
+def _swiglu_case(dev, M, K, N1, N2, tile_n, s=2):
+    fg, fu = (TiledBitplane.from_dense(generate_ternary(K, N1, s, seed=sd),
+                                       tile_n=tile_n).to(dev)
+              for sd in (1, 2))
+    fd = TiledBitplane.from_dense(generate_ternary(N1, N2, s, seed=3)).to(dev)
+    x = torch.from_numpy(generate_x(M, K, seed=4)).to(dev)
+    xq, sx = requantize_rows(x)
+    return xq, sx, fg, fu, fd
+
+
+@pytest.mark.parametrize("M,K,N1,N2,tile_n", [
+    (fused_ffn.SWIGLU_MMA_MIN_M + 1, 4096, 11008, 4096, 4096),
+    (128, 4096, 11008, 4096, 4096), (200, 4096, 11008, 4096, 4096),
+    (512, 4096, 11008, 4096, 4096),
+    (fused_ffn.SWIGLU_MMA_MIN_M + 1, 200, 300, 96, 128),
+    (130, 200, 300, 96, 128)])
+def test_swiglu_branches_bitwise(dev, M, K, N1, N2, tile_n):
+    """The SwiGLU's decode and tensor-core branches give the same y, h and
+    rmax bit for bit (exact integer sums, the same epilogue expressions),
+    at BitNet-7B width and at odd widths (gn1 = 3, N2 = 96); the wrapper
+    takes the tensor-core branch there, counted."""
+    xq, sx, fg, fu, fd = _swiglu_case(dev, M, K, N1, N2, tile_n)
+    kw = dict(gamma_gate=0.021, gamma_up=0.034, gamma_down=1.7)
+    lanes = fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, **kw)
+    before = ck.launches[fused_ffn.SWIGLU_MMA_COUNT]
+    mma = swiglu_launch(xq, sx, fg, fu, fd, **kw)
+    torch.cuda.synchronize()
+    assert ck.launches[fused_ffn.SWIGLU_MMA_COUNT] == before + 1
+    for got, want, what in zip(mma, lanes, ("y", "h", "rmax")):
+        assert torch.equal(got, want), what
 
 
 @pytest.mark.parametrize("M,K,N,tile_n,block_k", [

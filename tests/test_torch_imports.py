@@ -39,6 +39,7 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.tools.decode_roofline",
                  "ternary_spgemm_tpu_torch.tools.deposit_study",
                  "ternary_spgemm_tpu_torch.tools.ragged_probe",
+                 "ternary_spgemm_tpu_torch.tools.serve_trace",
                  "ternary_spgemm_tpu_torch.parallel",
                  "ternary_spgemm_tpu_torch.parallel.ring_kernel"):
         assert must in names

@@ -106,7 +106,10 @@ def test_record_has_the_jax_keys(record):
     assert [(r["s"], r["kernel"]) for r in rows] == [
         (s, k) for s in (16, 32) for k in rp.KERNELS]
     for row in rows:
-        assert set(row) == set(jrec["high_sparsity"][0])
+        # and the branch the bitplane kernel took: the plain version here
+        assert set(row) == set(jrec["high_sparsity"][0]) | {"branch"}
+        assert row["branch"] == ("plain" if row["kernel"] == rp.KERNELS[0]
+                                 else None)
         assert row["error"] is None and row["seconds"] > 0
     assert set(record["ragged_floor_analysis"]) == {"note", "floors_seconds"}
 

@@ -26,6 +26,7 @@ from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
 from ternary_spgemm_tpu_torch.tools import decode_roofline as dr
 from ternary_spgemm_tpu_torch.tools import deposit_study as ds
 from ternary_spgemm_tpu_torch.tools import ffn_bench, membench
+from ternary_spgemm_tpu_torch.tools import serve_trace as st
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -126,6 +127,23 @@ def test_roofline_arithmetic_on_injected_times():
     cpu = dr.roofline_row("32x1024x4096x4", 40e-6, 3.35e6, None, 1e12)
     assert cpu["byte_ideal_s"] is None and cpu["own_bytes_fraction"] is None
     assert set(cpu) == set(row)
+
+
+def test_roofline_of_the_mma_branch():
+    """The tensor-core branch decodes into its mma fragments (no decode-rate
+    term) and issues two int8 mma a k-step (hi and lo): 4*M*K*N operations."""
+    row = dr.roofline_row("32x1024x4096x4", 40e-6, 3.35e6, 3.35e12, 1e12,
+                          "mma")
+    dot = 4 * 32 * 1024 * 4096 / 1979e12
+    assert row["branch"] == "mma" and row["decode_ideal_s"] is None
+    assert row["dot_ideal_s"] == pytest.approx(dot)
+    assert row["augmented_roofline_fraction"] == pytest.approx(
+        (1e-6 + dot) / 40e-6)
+    assert row["overlapped_roofline_fraction"] == pytest.approx(
+        max(1e-6, dot) / 40e-6)
+    assert set(row) == set(dr.roofline_row("32x1024x4096x4", 40e-6, 3.35e6,
+                                           3.35e12, 1e12))
+    assert set(dr.BRANCHES) == {"decode", "mma"}
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +301,9 @@ def test_decode_roofline_main(capsys):
     want = _jax_record("decode_roofline.json")
     assert set(got) == set(want) | {"device"}
     assert set(got["decode_rate"]) >= set(want["decode_rate"])
-    assert set(got["configs"][0]) == set(want["configs"][0])
+    # one row, the plain version's (each branch has a row on the card)
+    assert [r["branch"] for r in got["configs"]] == ["plain"]
+    assert set(got["configs"][0]) == set(want["configs"][0]) | {"branch"}
     assert got["beta_measured_GBps"] is None        # no device rate on a CPU
     assert got["configs"][0]["own_bytes"] == 4 * (4 * 128 + 4 * 256 + 256) \
         + tf.TiledBitplane.from_dense(np.zeros((128, 256), np.int8)
@@ -297,16 +317,17 @@ def test_deposit_study_main(capsys, monkeypatch):
     want = _jax_record("deposit_study.json")
     assert set(got["bytes_audit"][0]) == set(want["bytes_audit"][0])
     row, jrow = got["ladder"][0], want["ladder"][0]
-    assert set(row) == set(jrow) | {"stands_in_for"}
+    assert set(row) == set(jrow) | {"stands_in_for", "flagship_branch"}
+    assert row["flagship_branch"] == "plain"
     assert {row["stands_in_for"][m] for m in ds.MODES} | {"flagship"} == \
         set(jrow["times_us"])
     assert row["correct"] == {"full": True, "staticcap": True}
 
 
 @pytest.mark.parametrize("main", [ffn_bench.main, membench.main, dr.main,
-                                  ds.main],
+                                  ds.main, st.main],
                          ids=["ffn_bench", "membench", "decode_roofline",
-                              "deposit_study"])
+                              "deposit_study", "serve_trace"])
 def test_tools_default_to_the_card(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -319,3 +340,55 @@ def test_no_tool_writes_the_tpu_records(tmp_path):
                          {})
     tools.write_json(str(tmp_path / "x.json"), {"a": 1})
     assert json.loads((tmp_path / "x.json").read_text()) == {"a": 1}
+
+
+# ---------------------------------------------------------------------------
+# the serve trace
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0), ([(0, 2)], 2.0), ([(0, 2), (1, 3)], 3.0),
+    ([(5, 6), (0, 2), (1, 1.5)], 3.0), ([(0, 4), (1, 2), (3, 5)], 5.0)])
+def test_busy_union(intervals, want):
+    assert st.busy_union(intervals) == want
+
+
+def test_trace_summary_on_injected_events():
+    """Busy time is the union of the device intervals (kernels, memsets,
+    memcpys), kernel time their sum; the port's kernels are those in the
+    ``ternary::`` namespace; host ops are the cpu_op events."""
+    ev = [{"ph": "X", "cat": "kernel", "name": "void ternary::mma8::k<1>()",
+           "ts": 0.0, "dur": 400.0},
+          {"ph": "X", "cat": "kernel", "name": "ampere_sgemm", "ts": 200.0,
+           "dur": 400.0},
+          {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 900.0,
+           "dur": 100.0},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0,
+           "dur": 5.0},
+          {"ph": "i", "cat": "kernel", "name": "marker", "ts": 0.0}]
+    got = st.summarize(ev, 2e-3, True)
+    assert got["wall_ms"] == pytest.approx(2.0)
+    assert got["device_busy_ms"] == pytest.approx(0.7)
+    assert got["device_busy_share"] == pytest.approx(0.35)
+    assert got["kernel_ms"] == pytest.approx(0.8)
+    assert got["ternary_ms"] == pytest.approx(0.4)
+    assert got["kernels"] == 2 and got["host_ops"] == 1
+    assert [t["name"] for t in got["top"]] == ["void ternary::mma8::k<1>()",
+                                               "ampere_sgemm"]
+    cpu = st.summarize(ev, 2e-3, False)
+    assert cpu["device_busy_ms"] is None and cpu["device_busy_share"] is None
+
+
+def test_serve_trace_main(capsys, monkeypatch):
+    """A traced prefill and decode step of a tiny preset on the CPU: the
+    plain versions, host ops counted, no device figures."""
+    monkeypatch.setitem(st.serving.PRESETS, "tiny", dict(
+        d_model=64, n_heads=4, d_ff=128, n_layers=2, vocab=64))
+    got = _run(st.main, ["--device", "cpu", "--preset", "tiny"], capsys)
+    assert got["device"] == "cpu" and got["layers"] == 2
+    assert (got["batch"], got["prompt"]) == (st.BATCH, st.PROMPT)
+    for call in ("prefill", "decode_step"):
+        r = got[call]
+        assert r["wall_ms"] > 0 and r["host_ops"] > 0
+        assert r["device_busy_ms"] is None and r["kernels"] == 0

@@ -61,4 +61,4 @@ def test_x8_mma_scratch_row_bytes(K, tkb, row_bytes):
     to a multiple of the 128 that one staged chunk of 32 byte-rows holds."""
     fmt = tf.TiledBitplane.from_dense(jf.generate_ternary(K, 64, 2, seed=1),
                                       tkb=tkb)
-    assert ck.x8_mma_row_bytes(fmt) == row_bytes
+    assert ck.mma_row_bytes(fmt) == row_bytes
