@@ -70,7 +70,8 @@ result line if any fails, or if no GPU is visible):
    with PReLU on and off, and on non-integer X (uniform in +-2) within
    rtol=1e-5, atol=1e-3 (the x8 and i8 rules round or floor it as the plain
    versions do; the f32 and bf16 kernels sum it in another order than the
-   plain matmul); the yardsticks of phase 3 at the north star;
+   plain matmul); the yardsticks of phase 3 at the north star, and for
+   the three ELL kernels at 32x4096x11008 too;
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
    (in-process, ``__main__.main``): every registered kernel correct (the
@@ -124,7 +125,8 @@ module (``ops/fused_ffn.py``), the study tools' modules
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
 QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
-the i8 kernel's: the north star and a ``u`` object at 32x4096x11008), the
+the i8 kernel's and the three ELL kernels': the north star and a ``u``
+object at 32x4096x11008), the
 card line, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -811,6 +813,13 @@ def phase_bench_kernels(dev, card: str) -> dict:
                     lms = library_ms(x, f, flush)
                     stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                        bound_ms=bms, bound_by=by)
+                    extra = f", library {lms:.4f} ms"
+                elif (M, K, N) == BENCH_SHAPES[1][:3] and _is_ell(f):
+                    # the ELL kernels' yardsticks at the up-projection too
+                    lms = library_ms(x, f, flush)
+                    stats[name]["u"] = dict(ms=ms, plain_ms=pms,
+                                            library_ms=lms, bound_ms=bms,
+                                            bound_by=by)
                     extra = f", library {lms:.4f} ms"
                 print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "

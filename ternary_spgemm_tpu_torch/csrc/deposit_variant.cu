@@ -8,19 +8,24 @@
 // (CudaEllDeposit_i8) deposits no bits: it gathers staged X at each slot's
 // offset. So its ladder removes what it does instead (EllVariant in
 // ell_core.cuh):
-//   mode 0 full       the registered kernel's work (dynamic per-tile caps);
-//   mode 1 staticcap  loops to the global cap_p_max / cap_n_max; sentinel
-//                     slots add 0 (stands in for JAX's staticcap);
-//   mode 2 nogather   slot bytes loaded and consumed, X read lane-
-//                     contiguously: no random-offset bank conflicts (stands
+//   mode 0 full       the registered kernel's work (per-tile caps, each
+//                     warp stopping at the first slot row that is the
+//                     sentinel in all its lanes);
+//   mode 1 staticcap  loops to the global cap_p_max / cap_n_max, no early
+//                     exit; sentinel slots add 0 (stands in for JAX's
+//                     staticcap);
+//   mode 2 nogather   slot bytes staged and consumed, X read lane-
+//                     contiguously: no random-offset bank conflicts; loops
+//                     to the per-tile caps without the early exit (stands
 //                     in for nodeposit);
-//   mode 3 noslots    no slot loads; X staging and the adds only (stands in
-//                     for nodecode).
-// full - nogather is then the cost of gathering at random offsets (bank
-// conflicts and the load-to-address dependency), nogather - noslots that of
-// the slot bytes' loads, noslots the staging and the adds. The functions
-// modes 2 and 3 compute are defined in deposit_study.py, beside their plain
-// versions.
+//   mode 3 noslots    no slot copies or loads; X staging and the adds to
+//                     the per-tile caps only (stands in for nodecode).
+// staticcap - full is then what the per-tile caps and the early exit save,
+// nogather - noslots the cost of the slot bytes' copies and loads, noslots
+// the staging and the adds of the cap walk; full - nogather is the gather
+// at random offsets (bank conflicts, the load-to-address dependency) less
+// what the early exit saves over the cap walk. The functions modes 2 and 3
+// compute are defined in deposit_study.py, beside their plain versions.
 //
 // What bounds it: as ell_core.cuh; no PReLU. Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for an unknown mode); the Python wrapper raises on

@@ -10,8 +10,9 @@
 //     _ell_deposit_kernel :1634): on the TPU each offset is deposited as a
 //     bit, the words decoded as bitplanes and fed to one int8-split MXU dot
 //     a 248-row superblock; here the same offsets are gathered directly,
-//     X staged as floor(x + 512) - 512 (the value of the int8 split) and
-//     summed in int32: exact for integer |x| <= 512, non-integer X floored.
+//     X staged as floor(x + 512) - 512 (the value of the int8 split) in
+//     int16 and summed in int32: exact for integer |x| <= 512, non-integer
+//     X floored.
 //     The deposit-then-dot chain, the (a; r) stacking, the -512*wsum
 //     correction and the row permutation are TPU plumbing and not ported;
 //     wsum is not read;

@@ -13,12 +13,15 @@ card (``csrc/deposit_variant.cu``, the variants of ``csrc/ell_core.cuh``).
 no bits, so the ladder removes what the H100 kernel does (each mode names
 the JAX mode it stands in for, :data:`MODES`):
 
-* ``full`` — the registered kernel's work, loops to the per-tile caps;
-* ``staticcap`` — loops to the global ``cap_p_max`` / ``cap_n_max``, the
-  extra sentinel slots adding 0;
-* ``nogather`` — slot bytes loaded and consumed, X read lane-contiguously:
-  no random-offset bank conflicts;
-* ``noslots`` — no slot loads, only the staging of X and the adds.
+* ``full`` — the registered kernel's work, loops to the per-tile caps,
+  each warp stopping once all its lanes read the sentinel;
+* ``staticcap`` — loops to the global ``cap_p_max`` / ``cap_n_max`` with
+  no early exit, the extra sentinel slots adding 0;
+* ``nogather`` — slot bytes copied, loaded and consumed, X read
+  lane-contiguously: no random-offset bank conflicts; loops to the
+  per-tile caps with no early exit;
+* ``noslots`` — no slot copies or loads, only the staging of X and the
+  adds of the walk to the per-tile caps.
 
 ``full`` and ``staticcap`` compute ``Y = i8(X) . W + b`` and must be exact
 against ``reference.dense_gemm``. The attribution modes compute, for column

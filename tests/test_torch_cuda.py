@@ -454,6 +454,85 @@ def test_ell_deposit_large_caps(dev):
     assert torch.equal(got, want)
 
 
+#: the three ELL layouts of csrc/ell_core.cuh: name -> (kernel, plain
+#: version, packer, whether the X rule floors); tile_n 128 gives a tile of
+#: its own to the dense column below
+ELL_LAYOUTS = {
+    "deposit": (ck.cuda_ell_deposit_i8_kernel, ck.ell_deposit_i8_plain,
+                lambda W: TiledEllDeposit.from_dense(W, tile_n=128), True),
+    "tiled": (ck.cuda_tiled_ell_kernel, ck.tiled_ell_plain,
+              lambda W: TiledEllTCSC.from_dense(W, tile_n=128), False),
+    "blocked": (ck.cuda_ell_gather_kernel, ck.ell_gather_plain,
+                BlockedEllTCSC.from_dense, False),
+}
+
+
+def _ell_weights(K, N, s):
+    """A ternary W with, among sparse columns, one dense column (its tile's
+    cap reaches the block, the early exit's worst case for its warps), a
+    run of empty columns and a column empty in its first half (sections
+    with no nonzeros in some columns)."""
+    W = generate_ternary(K, N, s, seed=K + N + s)
+    W[:, 5] = np.where(np.arange(K) % 3 == 0, -1, 1)
+    W[:, 40:45] = 0
+    W[:K // 2, 70] = 0
+    return W
+
+
+@pytest.mark.parametrize("layout", sorted(ELL_LAYOUTS))
+@pytest.mark.parametrize("M", [1, 4, 5, 17, 32, 33, 512])
+@pytest.mark.parametrize("K,N,s", [(999, 300, 16), (1000, 4100, 3)])
+def test_ell_walk_bitwise(dev, layout, M, K, N, s):
+    """The ELL kernels' early-exit walk over the three layouts, bitwise
+    equal to the plain versions on integer X at the +-512 edges (PReLU off
+    and on, a bias and slope that differ per column); on non-integer X the
+    deposit floors (bitwise), the f32 gathers agree within rtol=1e-5,
+    atol=1e-3. K is off every block (248, 127, 128) and a multiple of 4 or
+    not (the 4- and 16-byte X copies); N is off 32."""
+    kern, plain, pack, floors = ELL_LAYOUTS[layout]
+    fmt = pack(_ell_weights(K, N, s)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    X = torch.randint(-512, 513, (M, K), generator=g, device=dev).to(
+        torch.float32)
+    X[:, ::7] = 512.0
+    X[:, 3::7] = -512.0
+    Xf = (1024.0 * torch.rand((M, K), generator=g, device=dev) - 512.0
+          if floors else 4.0 * torch.rand((M, K), generator=g, device=dev)
+          - 2.0)
+    b = 4.0 * torch.rand((N,), generator=g, device=dev) - 2.0
+    a = 0.25 * torch.rand((N,), generator=g, device=dev)
+    for alpha in (None, a):
+        got = kern(X, fmt, b, alpha)
+        want = plain(X, fmt, b, alpha)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        got = kern(Xf, fmt, b, alpha)
+        want = plain(Xf, fmt, b, alpha)
+        torch.cuda.synchronize()
+        if floors:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("layout", sorted(ELL_LAYOUTS))
+def test_ell_x_off_16_bytes(dev, layout):
+    """X whose rows are not on 16-byte boundaries (a contiguous view 4
+    bytes into its buffer, K a multiple of 4) takes the 4-byte copies;
+    bitwise equal to the plain version."""
+    kern, plain, pack, _ = ELL_LAYOUTS[layout]
+    M, K, N = 9, 1000, 300
+    fmt = pack(_ell_weights(K, N, 4)).to(dev)
+    buf = torch.from_numpy(generate_x(1, M * K + 1, seed=3)).to(dev)
+    X = buf.view(-1)[1:].view(M, K)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    b = torch.from_numpy(generate_bias(N)).to(dev)
+    got = kern(X, fmt, b)
+    want = plain(X, fmt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("M,K,N1,N2,tile_n", [
     (1, 100, 256, 128, 4096), (8, 128, 1152, 128, 4096),
     (33, 96, 384, 96, 4096), (128, 384, 300, 256, 128),
