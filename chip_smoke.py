@@ -70,8 +70,13 @@ result line if any fails, or if no GPU is visible):
    with PReLU on and off, and on non-integer X (uniform in +-2) within
    rtol=1e-5, atol=1e-3 (the x8 and i8 rules round or floor it as the plain
    versions do; the f32 and bf16 kernels sum it in another order than the
-   plain matmul); the yardsticks of phase 3 at the north star, and for
-   the three ELL kernels at 32x4096x11008 too;
+   plain matmul; each shape's max |diff| there is printed); the
+   yardsticks of phase 3 at the north star, for the three ELL kernels at
+   32x4096x11008 too, and for the dense f32 and bf16 kernels at
+   32x4096x11008 and 512x4096x4096 too; then the dense f32 and bf16
+   kernels timed, each bitwise on integer X, at M in ``DENSE_ROWS`` at the
+   north star's K and N (``phase_dense_rows``, which also runs against a
+   parent tree's package to time the body it replaced);
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
    (in-process, ``__main__.main``): every registered kernel correct (the
@@ -111,8 +116,9 @@ result line if any fails, or if no GPU is visible):
     2**24), within rtol=1e-5, atol=1e-3 on non-integer X, and the same Y
     over 20 back-to-back launches, with a seeded integer bias that differs
     from column to column; timed at full width beside ``library_ms`` and
-    ``bound_ms`` (2*M*nnz operations at the f32 rate, 67 TFLOP/s: the
-    products are f32); then, counted, the entry point
+    ``bound_ms`` (the card's route to an exact f32 product of ternary
+    weights: three bf16 tensor-core passes, 6*M*nnz operations at 989
+    TFLOP/s); then, counted, the entry point
     ``parallel.ring_allgather_spgemm`` at each ranks, one launch a call,
     equal to ``X @ W + b``.
 
@@ -126,7 +132,8 @@ The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
 QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
 the i8 kernel's and the three ELL kernels': the north star and a ``u``
-object at 32x4096x11008), the
+object at 32x4096x11008; the dense f32 and bf16 kernels': the north star,
+``u`` and an ``l`` object at 512x4096x4096), the
 card line, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -157,8 +164,21 @@ BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
 #: sheet); its int8 peak is the port's ``bench.instrument.INT8_OPS_PER_S``
 HBM_BYTES_PER_S = 3.35e12
 #: the H100 SXM's f32 rate outside the tensor cores at 700 W (NVIDIA's data
-#: sheet): the peak for the ring's f32 products (phase 11)
+#: sheet): phase 11 prints the ring's bound at it too (2*M*nnz), the bound
+#: of its CUDA-core products before they went to the tensor cores
 F32_FLOPS_PER_S = 67e12
+#: the H100 SXM's dense bf16 tensor-core rate at 700 W (NVIDIA's data
+#: sheet): the card's route to an exact f32 product of ternary weights is
+#: three bf16 passes (f32 X split into three exact bf16 pieces), so the
+#: ring's bound (phase 11) counts 6*M*nnz operations at this rate
+BF16_FLOPS_PER_S = 989e12
+#: bf16 passes of an exact f32 product (``ops.cuda_kernels.split_bf16``)
+F32_BF16_PASSES = 3
+#: phase 6's dense rows: the M at which CudaDense and CudaDense_bf16 are
+#: timed at the north star's K and N
+DENSE_ROWS = (1, 4, 7, 16, 32, 512)
+#: the kernels phase 6 gives their yardsticks at every shape
+DENSE_KERNELS = ("CudaDense", "CudaDense_bf16")
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
 X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
@@ -765,6 +785,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
     kernels = {n: s for n, s in spmm_kernels().items()
                if n not in SERVE_KERNELS}
     stats = {name: {"max_abs_err": 0.0} for name in kernels}
+    extras = {BENCH_SHAPES[1][:3]: "u", BENCH_SHAPES[2][:3]: "l"}
     for M, K, N, s in BENCH_SHAPES:
         W = random_ternary(K, N, s, gen, dev)
         fmts = {}
@@ -784,6 +805,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
                 if key not in fmts:
                     fmts[key] = spec.format_cls.from_dense(W, **kw)
                 f = fmts[key]
+                shape_err = 0.0     # this shape's max |diff|, non-integer X
                 for i, x in enumerate(xs):
                     for alpha in (None, a):
                         got = kern(x, f, b, alpha)
@@ -802,6 +824,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
                             check(not bool(bad.any()),
                                   f"{what}: {int(bad.sum())} outputs outside "
                                   f"rtol=1e-5, atol=1e-3 (max |diff| {err})")
+                            shape_err = max(shape_err, err)
                         stats[name]["max_abs_err"] = max(
                             stats[name]["max_abs_err"], err)
                 x = xs[0]      # integer, in the domain: every X rule keeps it
@@ -814,21 +837,61 @@ def phase_bench_kernels(dev, card: str) -> dict:
                     stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                        bound_ms=bms, bound_by=by)
                     extra = f", library {lms:.4f} ms"
-                elif (M, K, N) == BENCH_SHAPES[1][:3] and _is_ell(f):
-                    # the ELL kernels' yardsticks at the up-projection too
+                elif (M, K, N) in extras and (
+                        _is_ell(f) and extras[(M, K, N)] == "u"
+                        or name in DENSE_KERNELS):
+                    # the ELL kernels' yardsticks at the up-projection too,
+                    # the dense f32 and bf16 kernels' at every shape
                     lms = library_ms(x, f, flush)
-                    stats[name]["u"] = dict(ms=ms, plain_ms=pms,
-                                            library_ms=lms, bound_ms=bms,
-                                            bound_by=by)
+                    stats[name][extras[(M, K, N)]] = dict(
+                        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                        bound_by=by)
                     extra = f", library {lms:.4f} ms"
                 print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
-                      f"on/off), non-integer X within tolerance; {ms:.4f} ms "
-                      f"vs plain {pms:.4f} ms{extra}, bound {bms:.4f} ms "
-                      f"({by}) [{card}]", flush=True)
+                      f"on/off), non-integer X within tolerance (max |diff| "
+                      f"{shape_err:.3g}); {ms:.4f} ms vs plain {pms:.4f} ms"
+                      f"{extra}, bound {bms:.4f} ms ({by}) [{card}]",
+                      flush=True)
         del W, fmts
     del flush
+    phase_dense_rows(dev, card)
     return stats
+
+
+def phase_dense_rows(dev, card: str) -> None:
+    """Phase 6's row sweep: CudaDense and CudaDense_bf16 timed at M in
+    ``DENSE_ROWS`` at the north star's K and N (s=4), each bitwise equal to
+    its plain version on integer X first. It calls the kernels through the
+    registry only, so that a copy of this script runs it against another
+    tree's package too (the body the tile replaced)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import DenseTernary
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    _, K, N, s = BENCH_SHAPES[0]
+    f = DenseTernary.from_dense(random_ternary(K, N, s, gen, dev))
+    b = torch.full((N,), 2.0, device=dev)
+    for M in DENSE_ROWS:
+        x = torch.randint(-256, 257, (M, K), generator=gen,
+                          device=dev).to(torch.float32)
+        times = []
+        for name in DENSE_KERNELS:
+            spec = all_kernels()[name]
+            got, want = spec.fn(x, f, b), spec.plain(x, f, b)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} M={M}x{K}x{N}: kernel "
+                  f"!= plain (max |diff| {float((got - want).abs().max())})")
+            times.append(f"{name} {event_ms(lambda: spec.fn(x, f, b), flush=flush):.4f} ms")
+        print(f"dense rows M={M}x{K}x{N} s={s}: {', '.join(times)} "
+              f"(bitwise on integer X) [{card}]", flush=True)
+    del flush
 
 
 def run_main(main, argv):
@@ -1235,11 +1298,15 @@ def phase_ring(dev, card: str):
                     X, fmt, b, ranks=d), flush=flush)
                 lms = library_ms(X, fmt, flush)
                 # X, W, bias read once and Y written once; a multiply-add
-                # a nonzero weight and row, at the f32 rate
+                # a nonzero weight and row, as three bf16 passes
                 bms, by = bound(4 * (M * K + N + M * N) + K * N,
-                                spmm_ops(M, fmt), F32_FLOPS_PER_S)
+                                F32_BF16_PASSES * spmm_ops(M, fmt),
+                                BF16_FLOPS_PER_S)
+                # the bound before the products went to the tensor cores
+                f32ms, _ = bound(0, spmm_ops(M, fmt), F32_FLOPS_PER_S)
                 line += (f"; {ms:.4f} ms vs plain {pms:.4f} ms, library "
-                         f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+                         f"{lms:.4f} ms, bound {bms:.4f} ms ({by}; at the "
+                         f"f32 rate {f32ms:.4f} ms)")
                 if d == RING_RANKS[-1]:
                     stat.update(ms=ms, plain_ms=pms, library_ms=lms,
                                 bound_ms=bms, bound_by=by)
@@ -1336,7 +1403,7 @@ def main() -> int:
                 "launches": sum(c.get(name, 0) for c in runs),
                 **{k: stats[name][k] for k in ("max_abs_err", *keys)},
                 **{extra: {k: stats[name][extra][k] for k in keys}
-                   for extra in ("prefill", "u") if extra in stats[name]}}
+                   for extra in ("prefill", "u", "l") if extra in stats[name]}}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -3,48 +3,53 @@
 //
 // Replaces three Pallas TPU kernels of ternary_spgemm_tpu/ops/pallas_kernels.py:
 //   * ternary_dense_f32 <- pallas_dense_kernel (:173, body _dense_kernel
-//     :113): an exact f32 dot (the TPU runs it at precision HIGHEST); here
-//     f32 X as it is, products with w in {-1, 0, +1} (exact) summed in f32
-//     in a fixed order, so the kernel is deterministic, and bitwise the plain
-//     version's on integer X (every partial sum an exact f32 integer);
+//     :113): an exact f32 dot, which the TPU runs at precision HIGHEST as
+//     multi-pass bf16 products. So does this kernel: dense_mma.cuh splits f32
+//     X into three bf16 pieces as it stages it and runs the three passes on
+//     the bf16 tensor cores (mma.sync m16n8k16), every product exact and the
+//     sums in f32 in a fixed order, so the kernel is deterministic and
+//     bitwise the plain version's on integer X (every partial sum an exact
+//     f32 integer);
 //   * ternary_dense_bf16 <- pallas_dense_bf16_kernel (:181, the same body
-//     with bf16=True): X rounded to bf16 (nearest even) and widened back,
-//     f32 sums; X is neither floored nor clamped;
+//     with bf16=True): X rounded to bf16 (nearest even), one pass of the
+//     same tile, f32 sums; X is neither floored nor clamped;
 //   * ternary_dense_i8 <- pallas_dense_i8_kernel (:420, _dense_i8(s)_kernel
 //     :310-343): X staged as floor(x + 512) - 512, the value of the TPU's
 //     int8 split x = 8a + r - 512, and accumulated in int32 directly (no
-//     split, no wsum correction); exact for integer |x| <= 512.
-// One templated body serves all three (packed_core.cuh, F = 1).
+//     split, no wsum correction); exact for integer |x| <= 512. It runs on
+//     the CUDA-core packed-row core (packed_core.cuh, F = 1).
 //
 // DenseTernary is unpadded: dense is exactly (K, N) int8, one weight a byte,
-// rows in order. The kernel reads it as one block of tkq = K packed rows of
-// one field, a row stride of N bytes, and masks both ragged edges itself
-// (packed_core.cuh); the wrapper passes nb = gn = 1, tkq = K, tile_n = N.
+// rows in order. The kernels mask both ragged edges themselves; the wrapper
+// makes no padded copy.
 //
-// What bounds it: 8 bits a weight of device memory and the issue bound of
-// packed_core.cuh; the f32 / bf16 / int8 tensor cores are the later design.
+// What bounds them: f32 and bf16, the tensor-core passes at large M and the
+// W bytes under the chunks' latency at small M (dense_mma.cuh); i8, 8 bits a
+// weight of device memory and the issue bound of packed_core.cuh (an int8
+// tensor-core tile is later work).
 //
 // Every entry point returns cudaGetLastError(); the Python wrapper raises on
 // anything but 0.
 
+#include "dense_mma.cuh"
 #include "packed_core.cuh"
 
+// x (M, K) f32, dense (K, N) int8, bias and alpha (N,) f32 (alpha may be
+// null), y (M, N) f32
 extern "C" int ternary_dense_f32(const float* x, int M, int K,
-                                 const int8_t* dense, int nb, int gn,
-                                 int tkq, int tile_n, int N,
+                                 const int8_t* dense, int N,
                                  const float* bias, const float* alpha,
                                  float* y, void* stream) {
-  return ternary::run_packed<ternary::kStageF32, 1>(
-      x, M, K, dense, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
+  return ternary::dmma::run_dense<ternary::dmma::kF32Pieces>(
+      x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ternary_dense_bf16(const float* x, int M, int K,
-                                  const int8_t* dense, int nb, int gn,
-                                  int tkq, int tile_n, int N,
+                                  const int8_t* dense, int N,
                                   const float* bias, const float* alpha,
                                   float* y, void* stream) {
-  return ternary::run_packed<ternary::kStageBf16, 1>(
-      x, M, K, dense, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
+  return ternary::dmma::run_dense<ternary::dmma::kBf16Pieces>(
+      x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ternary_dense_i8(const float* x, int M, int K,

@@ -56,16 +56,19 @@
 //   * a column at or past N is not written.
 //
 // What bounds it on an H100: not the bytes (one slot byte a nonzero, X and
-// Y: ~1.6 MB at 32x1024x4096 s=4, 0.5 us at 3.35 TB/s) but the shared-memory
-// gather: each slot a lane walks reads MT staged values from a random
-// entry, 64 bytes at MT = 32 in int16, 128 in f32, through the SM's 128
-// bytes a clock, with the bank conflicts of random offsets (a wavefront
-// serves the lanes whose entries fall on distinct quads), and the MT (f32)
-// or MT/2 (packed int16) adds it feeds. The walk visits about
-// 1.5-2x the nonzeros (the sentinels up to the warp's longest column). The
-// staging of X, L2 traffic of M*K*4 bytes for every 32 columns, is hidden
-// behind the previous K-block's gather; at N = 4096 the grid is only
-// N/32 = 128 blocks, one on each SM.
+// Y: ~1.6 MB at 32x1024x4096 s=4, 0.5 us at 3.35 TB/s) but the per-K-block
+// staging of X: L2 traffic of M*K*4 bytes for every 32 columns, the copies'
+// latency, the transposes into the offset-major stage and two barriers a
+// K-block, which the copy one K-block ahead does not hide. The deposit
+// ladder (tools/deposit_study.py) measured it on an H100: its "noslots"
+// rung, which stages X and walks to the caps without gathering, takes
+// 85-94% of the time of the full kernel. The shared-memory gather comes
+// second: each slot a lane walks reads MT staged values from a random
+// entry, 64 bytes at MT = 32 in int16, 128 in f32, with the bank conflicts
+// of random offsets, and the MT (f32) or MT/2 (packed int16) adds it
+// feeds; the walk visits about 1.5-2x the nonzeros (the sentinels up to
+// the warp's longest column). At N = 4096 the grid is only N/32 = 128
+// blocks, one on each SM.
 #pragma once
 
 #include "bitplane_core.cuh"

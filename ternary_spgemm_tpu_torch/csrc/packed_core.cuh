@@ -11,8 +11,8 @@
 //     w[((kb*gn + g)*tkq + kq)*tile_n + n]
 // and holds, in field f < F, the weight of dense row kb*B + f*tkq + kq:
 //   * DenseTernary (K, N) int8: F = 1, nb = gn = 1, tkq = K, tile_n = N
-//     (ring.cu's column shard of it: plane0 at the shard's first column,
-//     N the shard's width, tile_n the full row stride);
+//     (CudaDense_i8 only: the f32 and bf16 dense kernels and the ring's
+//     products run on dense_mma.cuh's bf16 tensor-core tile);
 //   * TiledDenseTernary (gk, gn, tile_k, tile_n) int8: F = 1, nb = gk,
 //     tkq = tile_k;
 //   * BlockPackedTernary (nb*tile_kq, N) uint8: gn = 1, tile_n = N;
@@ -51,7 +51,8 @@
 // bits a weight for the int8 containers, 2 or 1.6 for the codes) at
 // 3.35 TB/s, but like the bitplane core it issues, per weight and lane, MT
 // multiply-adds and MT/4 shared loads plus the decode, far above that
-// floor; at N = 4096 its grid is also only N/32 = 128 blocks. Tensor cores,
+// floor; at N = 4096 its grid is also only N/32 = 128 blocks. Tensor cores
+// (as dense_mma.cuh's tile now does for f32 and bf16 X over DenseTernary),
 // more blocks and a pipelined weight stream are the later, faster design.
 #pragma once
 
@@ -89,22 +90,18 @@ __device__ __forceinline__ void decode_packed(unsigned p, int w[F]) {
   }
 }
 
-// One block's tile of Y: rows [m0, m0 + MT) and the kCols columns from
-// col0 (one a lane, kWarps warps), y[gm * ldy + col] = stage(X) . W + b
-// [PReLU] (col < a.N, gm < a.M). ``tid`` is the thread's index among the
-// tile's kThreads threads (lane tid % kCols, warp tid / kCols), ``xs`` the
-// shared stage of MT * PackedGeom<F>::XS elements and ``sync`` a barrier of
-// those threads: the whole block in packed_kernel, the compute warps beside
-// the copy warps in ring.cu. Every write to xs follows a sync, so
-// consecutive calls may share xs.
-template <int MT, int STAGE, int F, class Sync>
-__device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
-                                            size_t ldy, int tid,
-                                            Acc<STAGE>* xs, Sync sync) {
+// One block's tile of Y: rows [m0, m0 + MT), m0 = blockIdx.y * MT, and the
+// kCols columns from blockIdx.x * kCols (one a lane, kWarps warps),
+// y[gm * N + col] = stage(X) . W + b [PReLU] (col < a.N, gm < a.M).
+template <int MT, int STAGE, int F>
+__global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
   using A = Acc<STAGE>;
   using G = PackedGeom<F>;
-  const int lane = tid % kCols, warp = tid / kCols;
-  const int col = col0 + lane;
+  __shared__ __align__(16) A xs[MT * G::XS];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kCols + lane;
+  const int col = blockIdx.x * kCols + lane;
+  const int m0 = blockIdx.y * MT;
   const bool col_ok = col < a.N;
   const int g = col_ok ? col / a.tile_n : 0;
   const int n = col_ok ? col - g * a.tile_n : 0;
@@ -120,7 +117,7 @@ __device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
         a.plane0 + ((size_t)kb * a.gn + g) * tkq * a.tile_n + n;
     for (int q0 = 0; q0 < tkq; q0 += G::KTQ) {
       const int tc = min(G::KTQ, tkq - q0);
-      sync();   // previous chunk consumed
+      __syncthreads();   // previous chunk consumed
       for (int i = tid; i < MT * G::CW; i += kThreads) {
         const int m = i / G::CW, c = i - m * G::CW;
         const int f = c / G::KTQ, q = c - f * G::KTQ;
@@ -131,7 +128,7 @@ __device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
           v = stage_value<STAGE>(a.x[(size_t)gm * a.K + k], 1.0f);
         xs[i] = v;
       }
-      sync();
+      __syncthreads();
       if (col_ok) {
 #pragma unroll 2
         for (int q = 4 * warp; q < tc; q += 4 * kWarps) {
@@ -164,10 +161,10 @@ __device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
   // apply _epilogue: float(acc) + b, then where(y > 0, y, alpha * y)
   constexpr int RPT = (MT + kWarps - 1) / kWarps;
   A* red = xs;
-  sync();
+  __syncthreads();
 #pragma unroll
   for (int m = 0; m < MT; ++m) red[(warp * MT + m) * kCols + lane] = acc[m];
-  sync();
+  __syncthreads();
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int m = warp + r * kWarps;
@@ -177,17 +174,9 @@ __device__ __forceinline__ void packed_tile(const Args& a, int col0, int m0,
       for (int w = 0; w < kWarps; ++w) s += red[(w * MT + m) * kCols + lane];
       float yv = (float)s + a.bias[col];
       if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
-      a.y[(size_t)gm * ldy + col] = yv;
+      a.y[(size_t)gm * a.N + col] = yv;
     }
   }
-}
-
-template <int MT, int STAGE, int F>
-__global__ void __launch_bounds__(kThreads) packed_kernel(const Args a) {
-  __shared__ __align__(16) Acc<STAGE> xs[MT * PackedGeom<F>::XS];
-  packed_tile<MT, STAGE, F>(a, blockIdx.x * kCols, blockIdx.y * MT, a.N,
-                            threadIdx.y * kCols + threadIdx.x, xs,
-                            [] { __syncthreads(); });
 }
 
 // Y = stage(X) . W + b [PReLU] over a packed-row container (layout above),

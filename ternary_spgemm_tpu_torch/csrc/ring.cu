@@ -46,30 +46,33 @@
 // blocks cannot all be resident, and B comes from the occupancy API, so it
 // never deadlocks on a block that was not scheduled.
 //
-// The product is packed_core.cuh's (the body CudaDense runs, f32 X as it
-// is, kStageF32, F = 1) on the rank's column shard of W: the compute warps
-// call packed_tile on the held slot, one 32-column x MT-row tile of Y at a
-// time, with their own named barrier. f32 products of the f32 X chunk and
-// the int8 weights, summed in f32 in a fixed order (the TPU kernel's dot at
-// Precision.HIGHEST); on integer X every partial sum is an integer below
-// 2**24, so any order is exact. The slot is read with plain loads: the
-// reader's acquire at gpu scope and the block barrier after it order them
-// after the writer's release (the pattern of a grid-wide barrier).
+// The product is dense_mma.cuh's tile (the one CudaDense runs, f32 X split
+// into three bf16 pieces, kF32Pieces) on the rank's column shard of W: the
+// compute warps call dense_tile on the held slot, splitting it as they stage
+// it, one tile of Y at a time (Narrow, 32 x 32, for mc <= 32; Wide, 64 x
+// 128, above), with their own named barrier and the tile's dynamic shared
+// memory. Every product is exact and the sums are f32 in a fixed order (the
+// TPU kernel's dot at Precision.HIGHEST, itself multi-pass bf16); on
+// integer X every partial sum is an integer below 2**24, so any order is
+// exact. The slot is read with plain loads: the reader's acquire at gpu
+// scope and the block barrier after it order them after the writer's
+// release (the pattern of a grid-wide barrier).
 //
-// What bounds it on an H100: the products on the CUDA cores (2*M*nnz f32
-// operations at 67 TFLOP/s; the packed core multiplies every weight, zeros
-// too, so 2*M*K*N in fact; no tensor cores yet); the copies (M*K*4 bytes a
-// step, in L2) and W (K*N bytes a step) are far below.
+// What bounds it on an H100: the products, 2*M*nnz operations of f32 work,
+// which the tile runs as three bf16 tensor-core passes (6*M*nnz at the 989
+// TFLOP/s bf16 peak; the tile multiplies zeros too, so 6*M*K*N in fact);
+// the copies (M*K*4 bytes a step, in L2) and W (K*N bytes a step) are far
+// below.
 //
-// Returns the launch's cudaError_t (or that of the flag reset); the Python
-// wrapper raises on anything but 0.
+// Returns the launch's cudaError_t (or that of the flag reset or the
+// shared-memory limit); the Python wrapper raises on anything but 0.
 
-#include "packed_core.cuh"
+#include "dense_mma.cuh"
 
 namespace {
 
-using ternary::kCols;
-constexpr int kComputeThreads = ternary::kThreads;   // packed_tile's 8 warps
+namespace dmma = ternary::dmma;
+constexpr int kComputeThreads = dmma::kThreads;      // dense_tile's 8 warps
 constexpr int kCopyThreads = 64;                     // 2 warps
 constexpr int kThreads = kComputeThreads + kCopyThreads;
 constexpr unsigned long long kSpinLimitNs = 5000000000ull;
@@ -114,17 +117,18 @@ __device__ __forceinline__ void slice(size_t n, int bi, int B, size_t* lo,
   *hi = n * (bi + 1) / B;
 }
 
-// MT: the row tile of packed_tile (the smallest of 8, 16, 32 that holds mc).
-// Two blocks an SM, as packed_kernel's f32 body runs (92 registers alone):
-// left free, the compiler gives MT = 32 139 registers and one block an SM,
-// and the product, bound by load latency, ran ~1.3x slower on an H100 (it
-// spills ~70 bytes a thread under the cap instead).
-template <int MT>
-__global__ void __launch_bounds__(kThreads, 2)
+// T: the tile of dense_mma.cuh (Narrow for mc <= 32, Wide above). One
+// block an SM: beside the copy warps the compute warps want 168 (Wide) and
+// 162 (Narrow) registers, none spilled; capped at two blocks an SM (96) they
+// spilled 188 and 112 bytes, and at 512x4096x12288 on an H100
+// (chip_smoke.py phase 11, each cap) the ring ran 0.70 / 0.93 / 0.94 ms at
+// ranks 2 / 4 / 8 under this cap against 0.83 / 0.82 / 1.18 under that one.
+template <class T>
+__global__ void __launch_bounds__(kThreads, 1)
 ring_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ bias, float* __restrict__ y,
             float* buf, int* flags, int d, int B, int mc, int K, int N) {
-  __shared__ __align__(16) float xs[MT * ternary::PackedGeom<1>::XS];
+  extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x;
   const int r = blockIdx.x / B;
   const int bi = blockIdx.x % B;
@@ -161,8 +165,8 @@ ring_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   // share a few column strips of W, so W comes from device memory about
   // once a step and from L2 for the other row tiles (in row order, the
   // full width ran ~10% slower on an H100)
-  const int tilesM = ternary::cdiv(mc, MT);
-  const int tiles = tilesM * ternary::cdiv(NL, kCols);
+  const int tilesM = ternary::cdiv(mc, T::BM);
+  const int tiles = tilesM * ternary::cdiv(NL, T::BN);
   for (int t = 0; t < d; ++t) {
     const int slot = t & 1;
     const float* held = mine + (size_t)slot * chunk;
@@ -192,17 +196,19 @@ ring_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       }
     } else {
       // compute warps: rows owner*mc of Y's columns [r*NL, (r+1)*NL)
-      ternary::Args a{};
+      dmma::Args a{};
       a.x = held; a.M = mc; a.K = K;
-      a.plane0 = reinterpret_cast<const uint8_t*>(w) + (size_t)r * NL;
-      a.nb = 1; a.gn = 1; a.tkb = K; a.tile_n = N; a.N = NL;
+      a.w = w + (size_t)r * NL; a.ldw = N; a.N = NL;
       a.bias = bias + (size_t)r * NL;
       a.alpha = nullptr;
       a.y = y + (size_t)((r - t + d) % d) * mc * N + (size_t)r * NL;
+      a.ldy = N;
+      a.xvec = dmma::x_vec(held, K);
+      a.wvec = dmma::w_vec(a.w, N, NL);
       for (int tile = bi; tile < tiles; tile += B)
-        ternary::packed_tile<MT, ternary::kStageF32, 1>(
-            a, (tile / tilesM) * kCols, (tile % tilesM) * MT, (size_t)N, tid,
-            xs, [] { compute_sync(); });
+        dmma::dense_tile<T, dmma::kF32Pieces>(
+            a, (tile % tilesM) * T::BM, (tile / tilesM) * T::BN, tid, smem,
+            [] { compute_sync(); });
     }
     __syncthreads();                    // the block is done with the slot
     if (t <= d - 3 && tid == 0) {
@@ -212,19 +218,23 @@ ring_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// One cooperative launch of ring_kernel<MT> (see ternary_ring_spgemm).
-template <int MT>
+// One cooperative launch of ring_kernel<T> (see ternary_ring_spgemm); the
+// same dynamic shared memory for the limit, the occupancy and the launch.
+template <class T>
 int launch_ring(const float* x, const int8_t* w, const float* bias, float* y,
                 float* buf, int* flags, int d, int mc, int K, int N,
                 int* blocks_out, cudaStream_t s) {
+  const int smem = T::smem(dmma::kF32Pieces);
   int dev = 0, sms = 0, per_sm = 0;
   int err = (int)cudaGetDevice(&dev);
   if (!err) err = (int)cudaDeviceGetAttribute(
       &sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!err) err = (int)cudaFuncSetAttribute(
+      ring_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_kernel<MT>, kThreads, 0);
+      &per_sm, ring_kernel<T>, kThreads, smem);
   if (err) return err;
-  const int tiles = ternary::cdiv(mc, MT) * ternary::cdiv(N / d, kCols);
+  const int tiles = ternary::cdiv(mc, T::BM) * ternary::cdiv(N / d, T::BN);
   int B = per_sm * sms / d;
   if (B > tiles) B = tiles;
   if (B < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -232,9 +242,9 @@ int launch_ring(const float* x, const int8_t* w, const float* bias, float* y,
   err = (int)cudaMemsetAsync(flags, 0, sizeof(int) * 5 * (size_t)d, s);
   if (err) return err;
   void* args[] = {&x, &w, &bias, &y, &buf, &flags, &d, &B, &mc, &K, &N};
-  err = (int)cudaLaunchCooperativeKernel((const void*)ring_kernel<MT>,
-                                         dim3(d * B), dim3(kThreads), args, 0,
-                                         s);
+  err = (int)cudaLaunchCooperativeKernel((const void*)ring_kernel<T>,
+                                         dim3(d * B), dim3(kThreads), args,
+                                         smem, s);
   if (err) return err;
   return (int)cudaGetLastError();
 }
@@ -251,9 +261,9 @@ extern "C" int ternary_ring_spgemm(const float* x, const int8_t* w,
   if (d < 1 || mc < 8 || mc % 8 || K < 1 || N < d || N % d)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mc <= 8)
-    return launch_ring<8>(x, w, bias, y, buf, flags, d, mc, K, N, blocks_out, s);
-  if (mc <= 16)
-    return launch_ring<16>(x, w, bias, y, buf, flags, d, mc, K, N, blocks_out, s);
-  return launch_ring<32>(x, w, bias, y, buf, flags, d, mc, K, N, blocks_out, s);
+  if (mc <= dmma::kNarrowMaxM)
+    return launch_ring<dmma::Narrow>(x, w, bias, y, buf, flags, d, mc, K, N,
+                                     blocks_out, s);
+  return launch_ring<dmma::Wide>(x, w, bias, y, buf, flags, d, mc, K, N,
+                                 blocks_out, s);
 }

@@ -35,6 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: (x, M, K, weights, nb, gn, rows a K-block (the bitplane core's byte-rows
 #: tkb, the packed core's rows tkq), tile_n, N, bias, alpha, y, stream)
 _SPMM = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#: (x, M, K, dense, N, bias, alpha, y, stream): the DenseTernary (K, N) plane
+_DENSE = [_P, _I, _I, _P, _I, _P, _P, _P, _P]
 #: (x, M, K, weights, nb, gn, tile_kq, tile_n, factor, N, bias, alpha, y,
 #: stream)
 _PACKED = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
@@ -57,8 +59,8 @@ SIGNATURES = {
     "ternary_nibblepair_i8": _SPMM,
     "ternary_tiled_dense_i8": _SPMM,
     "ternary_tiled_dense_x8": _SPMM,
-    "ternary_dense_f32": _SPMM,
-    "ternary_dense_bf16": _SPMM,
+    "ternary_dense_f32": _DENSE,
+    "ternary_dense_bf16": _DENSE,
     "ternary_dense_i8": _SPMM,
     "ternary_blockpacked_i8": _PACKED,
     "ternary_packed_f32": _PACKED,

@@ -3,10 +3,12 @@
 
 Eighteen registered kernels, three cores (``csrc/bitplane_core.cuh`` for the
 bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
-and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), and the int8
+and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), the int8
 tensor-core core (``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels'
 prefill branches, which they take above :data:`X8_MMA_MIN_M` and
-:data:`I8_MMA_MIN_M` rows of X:
+:data:`I8_MMA_MIN_M` rows of X, and the bf16 tensor-core tile
+(``csrc/dense_mma.cuh``) of ``CudaDense`` and ``CudaDense_bf16`` (f32 X as
+three bf16 pieces, :func:`split_bf16`; bf16 X as one) at every M:
 
 =======================  ========================  ==================  =====
 kernel                   replaces (Pallas)         source              X rule
@@ -36,7 +38,8 @@ X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
 ``floor(x + 512) - 512``, the value of the TPU's int8 split (exact for
 integer |x| <= 512, non-integer X floored), int32 accumulation; *bf16*
 rounds X to bf16 (nearest even) and sums in f32 (exact for integer
-|x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order.
+|x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order
+(``CudaDense``: three exact bf16 passes, :func:`split_bf16`).
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to :data:`launches`. On a CPU tensor, and only
@@ -134,6 +137,33 @@ packed53_i8_plain = _plain("CudaPacked53_i8", to_i8)
 ell_deposit_i8_plain = _plain("CudaEllDeposit_i8", to_i8)
 tiled_ell_plain = _plain("CudaTiledEllGather", to_f32)
 ell_gather_plain = _plain("CudaEllGather", to_f32)
+
+
+def split_bf16(x: torch.Tensor, pieces: int = 3) -> list:
+    """The bf16 pieces that ``csrc/dense_mma.cuh`` splits f32 X into: the
+    first ``bf16(x)`` (round to nearest even), each next one ``bf16`` of the
+    remainder ``x - (the pieces so far)``, every remainder exact in f32. Where
+    the first piece is not finite (x inf or NaN, or rounding to inf) the
+    others are 0, so that ``inf * 0`` makes the plain f32 product's NaN.
+
+    Three pieces sum back to x exactly (3 x 8 significant bits cover f32's
+    24) for every x with ``2**-110 <= |x| < 0x1.FFp127``, and for 0. Below
+    2**-110 the last piece may drop bits under bf16's smallest subnormal
+    (2**-133); from 0x1.FFp127 on (the bf16 overflow threshold, under
+    f32's largest 0x1.FFFFFEp127) the first piece is inf. One piece is X
+    rounded to bf16 (``CudaDense_bf16``, :func:`to_bf16`); two leave the
+    last 8 bits of a general f32 out."""
+    if not 1 <= pieces <= 3:
+        raise ValueError(f"pieces must be 1, 2 or 3, got {pieces}")
+    rest = x.to(torch.float32)
+    out = [rest.to(torch.bfloat16)]
+    first = out[0].to(torch.float32)
+    rest = torch.where(torch.isfinite(first), rest - first,
+                       torch.zeros_like(rest))
+    for _ in range(pieces - 1):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].to(torch.float32)
+    return out
 
 
 def _check_weights(t: torch.Tensor, what: str, dtype: torch.dtype,
@@ -495,29 +525,30 @@ def cuda_tiled_dense_x8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
 
 @register_kernel(
     "CudaDense", DenseTernary,
-    description="unpadded int8 plane (8 bits/weight), f32 activations as "
-                "they are, f32 sums in a fixed order (exact f32 SpMM)",
+    description="unpadded int8 plane (8 bits/weight), f32 activations "
+                "split into three exact bf16 pieces, three bf16 tensor-core "
+                "passes summed in f32 in a fixed order (exact f32 SpMM)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:173",
     source=_CSRC + "dense.cu", plain=dense_plain)
 def cuda_dense_kernel(X, fmt: DenseTernary, bias, alpha=None):
     if X.device.type == "cpu":
         return dense_plain(X, fmt, bias, alpha)
-    # one block of K one-field rows, one N-tile
     return _launch("CudaDense", "ternary_dense_f32", X, fmt, check_dense,
-                   (1, 1, fmt.K, fmt.N), bias, alpha)
+                   (), bias, alpha)
 
 
 @register_kernel(
     "CudaDense_bf16", DenseTernary,
-    description="unpadded int8 plane (8 bits/weight), X rounded to bf16 and "
-                "summed in f32 (inexact for |x| > 256)",
+    description="unpadded int8 plane (8 bits/weight), X rounded to bf16, "
+                "one bf16 tensor-core pass summed in f32 (inexact for "
+                "|x| > 256)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:181",
     approximate=True, source=_CSRC + "dense.cu", plain=dense_bf16_plain)
 def cuda_dense_bf16_kernel(X, fmt: DenseTernary, bias, alpha=None):
     if X.device.type == "cpu":
         return dense_bf16_plain(X, fmt, bias, alpha)
     return _launch("CudaDense_bf16", "ternary_dense_bf16", X, fmt,
-                   check_dense, (1, 1, fmt.K, fmt.N), bias, alpha)
+                   check_dense, (), bias, alpha)
 
 
 @register_kernel(

@@ -11,7 +11,9 @@ to the plain versions (each on both of its branches, split at
 ``X8_MMA_MIN_M`` and ``I8_MMA_MIN_M``; ``-k x8`` and ``-k i8_`` run their
 tests alone); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
-domains, where every value and f32 partial sum is exact. Off those
+domains, where every value and f32 partial sum is exact (``-k
+dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
+kernels alone, and ``-k ring`` the ring on the same tile). Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
 (rounded to bf16 identically where they round) and differ only in f32
 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
@@ -332,6 +334,121 @@ def test_dense_float_kernels_off_integer_domain(dev, name, M, K, N, prelu):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-3)
     assert torch.equal(got, again)
+
+
+#: the two stages of csrc/dense_mma.cuh: name -> (kernel, plain version,
+#: integer |x| range in which every value and partial sum is exact)
+DENSE_MMA = {"f32": (ck.cuda_dense_kernel, ck.dense_plain, 512),
+             "bf16": (ck.cuda_dense_bf16_kernel, ck.dense_bf16_plain, 256)}
+_DENSE_W = {}
+
+
+def _dense_mma_case(dev, K, N, prelu):
+    """A seeded (K, N) DenseTernary of density 1/3 (cached), a bias and a
+    PReLU slope that differ from column to column."""
+    if (K, N) not in _DENSE_W:
+        _DENSE_W[(K, N)] = DenseTernary.from_dense(
+            generate_ternary(K, N, 3, seed=K + 7 * N), device=dev)
+    rng = np.random.default_rng(N)
+    b = torch.from_numpy(rng.uniform(-4, 4, N).astype(np.float32)).to(dev)
+    a = (torch.from_numpy(rng.uniform(0.01, 0.5, N).astype(np.float32))
+         .to(dev) if prelu else None)
+    return _DENSE_W[(K, N)], b, a
+
+
+@pytest.mark.parametrize("stage", sorted(DENSE_MMA))
+@pytest.mark.parametrize("M", [1, 7, 15, 16, 17, 32, 33, 512])
+@pytest.mark.parametrize("K,N", [(K, N) for K in (15, 999, 1024, 4096)
+                                 for N in (33, 1000, 4096)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_dense_mma_tile(dev, stage, M, K, N, prelu):
+    """The bf16 tensor-core tile of CudaDense (three pieces) and
+    CudaDense_bf16 (one): bitwise equal to the plain version on integer X
+    with the domain's edges (every fragment map, both tiles: M <= 32 the
+    split-K one, above the 64 x 128 one; K past the last k16 step; N past
+    the last n8 fragment and not a multiple of 16, so byte-staged W), and
+    within rtol=1e-5, atol=1e-3 on non-integer X uniform in +-2, as
+    chip_smoke.py's phase 6 holds them (the tensor cores sum in another
+    order than the plain matmul)."""
+    kern, plain, vr = DENSE_MMA[stage]
+    fmt, b, a = _dense_mma_case(dev, K, N, prelu)
+    rng = np.random.default_rng(M * K + N)
+    X = rng.integers(-vr, vr + 1, size=(M, K)).astype(np.float32)
+    X[0, :: max(1, K // 7)] = vr
+    X[-1, 1:: max(1, K // 5)] = -vr
+    X = torch.from_numpy(X).to(dev)
+    got, want = kern(X, fmt, b, a), plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    Xf = torch.from_numpy(rng.uniform(-2, 2, (M, K)).astype(np.float32))
+    Xf = Xf.to(dev)
+    got, want = kern(Xf, fmt, b, a), plain(Xf, fmt, b, a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("stage", sorted(DENSE_MMA))
+def test_dense_mma_error_against_f64(dev, stage):
+    """At 512 x 4096 x 4096 with X = 1.7 x U(-256, 256) + 0.37 (past the
+    bf16 stage's exact range; partial sums up to ~1e4, where two f32
+    summation orders differ by more than atol=1e-3), each output against
+    the f64 product of the same staged X: the tile's f32 sums (the tensor
+    cores' within a group of k-steps, round to nearest across groups) are
+    at most twice as far from it as the plain version's f32 matmul."""
+    kern, plain, _ = DENSE_MMA[stage]
+    M, K, N = 512, 4096, 4096
+    fmt, b, _ = _dense_mma_case(dev, K, N, False)
+    g = torch.Generator(device=dev).manual_seed(K)
+    X = 1.7 * (512.0 * torch.rand((M, K), generator=g, device=dev) - 256.0) \
+        + 0.37
+    xs = X if stage == "f32" else X.to(torch.bfloat16).to(torch.float32)
+    ref = xs.double() @ fmt.dense.double() + b.double()
+    got, want = kern(X, fmt, b), plain(X, fmt, b)
+    torch.cuda.synchronize()
+    err_kernel = float((got.double() - ref).abs().max())
+    err_plain = float((want.double() - ref).abs().max())
+    assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
+
+
+@pytest.mark.parametrize("stage", sorted(DENSE_MMA))
+@pytest.mark.parametrize("M", [7, 33])
+def test_dense_mma_non_finite(dev, stage, M):
+    """inf, -inf and NaN in X give the plain version's non-finite cells
+    (inf * 0 is NaN in both: the pieces after an infinite one are 0) and
+    leave the other rows bitwise equal."""
+    kern, plain, vr = DENSE_MMA[stage]
+    K, N = 999, 1000
+    fmt, b, _ = _dense_mma_case(dev, K, N, False)
+    X = torch.from_numpy(generate_x(M, K, seed=M, value_range=vr)).to(dev)
+    X[0, 5] = float("inf")
+    X[1, 900] = float("-inf")
+    X[2, 17] = float("nan")
+    X[3, 3] = float("inf")
+    X[3, 4] = float("-inf")
+    got, want = kern(X, fmt, b), plain(X, fmt, b)
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    assert bool(torch.isnan(want[2]).all())
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(got[4:], want[4:])
+
+
+@pytest.mark.parametrize("stage", sorted(DENSE_MMA))
+@pytest.mark.parametrize("M,K,N", [(32, 1024, 4096), (512, 1024, 1000)])
+def test_dense_mma_deterministic(dev, stage, M, K, N):
+    """20 back-to-back launches on non-integer X give the same bits: every
+    sum of the tile (the fragments, the chunks, the split-K's warps) has a
+    fixed order."""
+    kern = DENSE_MMA[stage][0]
+    fmt, b, a = _dense_mma_case(dev, K, N, True)
+    g = torch.Generator(device=dev).manual_seed(M)
+    X = 4.0 * torch.rand((M, K), generator=g, device=dev) - 2.0
+    first = kern(X, fmt, b, a)
+    again = [kern(X, fmt, b, a) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, first) for y in again)
 
 
 def test_blockpacked_rejects_bad_factor(dev):
@@ -660,13 +777,15 @@ def test_scalar_deposit_kernel(dev, entries):
 @pytest.mark.parametrize("ranks,mc,K,NL", [
     (1, 8, 64, 128), (2, 8, 64, 128), (3, 16, 100, 70), (4, 8, 64, 128),
     (8, 8, 64, 128), (2, 72, 1000, 130), (8, 64, 4096, 192),
-    (2, 24, 999, 33)])
+    (2, 24, 999, 33), (2, 256, 4096, 512)])
 def test_ring_kernel(dev, ranks, mc, K, NL):
     """The ring's one cooperative launch bitwise equal to the plain schedule
-    on integer X (K not a multiple of the packed core's 4-row groups or
-    256-column chunk, NL not of its 32 columns, mc not of its 8-, 16- or
-    32-row tile), within rtol=1e-5, atol=1e-3 on non-integer X, and the
-    same Y on back-to-back launches (stale flags or slots would show)."""
+    on integer X (K not a multiple of the tile's k16 steps or its chunk, NL
+    not of its 32 or 128 columns nor of 16, so byte-staged W, mc not of its
+    32- or 64-row tile; mc = 256 at K = 4096, where the Wide tile's dynamic
+    shared memory and the cooperative launch's occupancy meet), within
+    rtol=1e-5, atol=1e-3 on non-integer X, and the same Y on back-to-back
+    launches (stale flags or slots would show)."""
     from ternary_spgemm_tpu_torch.parallel import (
         ring_allgather_spgemm_plain, ring_launch)
 
