@@ -72,11 +72,13 @@ result line if any fails, or if no GPU is visible):
    versions do; the f32 and bf16 kernels sum it in another order than the
    plain matmul; each shape's max |diff| there is printed); the
    yardsticks of phase 3 at the north star, for the three ELL kernels at
-   32x4096x11008 too, and for the dense f32 and bf16 kernels at
-   32x4096x11008 and 512x4096x4096 too; then the dense f32 and bf16
+   32x4096x11008 too, and for the kernels on ``csrc/dense_mma.cuh``'s bf16
+   tensor-core tile (``DENSE_KERNELS``: dense f32 and bf16, and the
+   int8-X tiled-dense, dense, block-packed, tiled block-packed and
+   stride-packed ones) at 32x4096x11008 and 512x4096x4096 too; then those
    kernels timed, each bitwise on integer X, at M in ``DENSE_ROWS`` at the
    north star's K and N (``phase_dense_rows``, which also runs against a
-   parent tree's package to time the body it replaced);
+   parent tree's package to time the bodies the tile replaced);
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
    (in-process, ``__main__.main``): every registered kernel correct (the
@@ -132,9 +134,9 @@ The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
 QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
 the i8 kernel's and the three ELL kernels': the north star and a ``u``
-object at 32x4096x11008; the dense f32 and bf16 kernels': the north star,
-``u`` and an ``l`` object at 512x4096x4096), the
-card line, and ``{"ok": true, "device": {...}}``.
+object at 32x4096x11008; those of ``DENSE_KERNELS``: the north star,
+``u`` and an ``l`` object at 512x4096x4096, the block-packed ones at
+factor 4), the card line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,11 +176,17 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 #: bf16 passes of an exact f32 product (``ops.cuda_kernels.split_bf16``)
 F32_BF16_PASSES = 3
-#: phase 6's dense rows: the M at which CudaDense and CudaDense_bf16 are
-#: timed at the north star's K and N
+#: phase 6's dense rows: the M at which the kernels on dense_mma.cuh's
+#: tile (``DENSE_KERNELS``) are timed at the north star's K and N
 DENSE_ROWS = (1, 4, 7, 16, 32, 512)
-#: the kernels phase 6 gives their yardsticks at every shape
-DENSE_KERNELS = ("CudaDense", "CudaDense_bf16")
+#: the kernels on dense_mma.cuh's bf16 tensor-core tile, which phase 6
+#: gives their yardsticks at every shape and times at ``DENSE_ROWS``: the
+#: dense f32 and bf16 kernels and the int8-X kernels over the packed-row
+#: containers (the block-packed ones at factor 4 and 5)
+DENSE_KERNELS = ("CudaDense", "CudaDense_bf16", "CudaTiledDense_i8",
+                 "CudaTiledDense_x8", "CudaDense_i8", "CudaBlockPacked_i8",
+                 "CudaTiledBlockPacked_i8", "CudaPacked2Bit_i8",
+                 "CudaPacked53_i8")
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
 X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
@@ -207,15 +215,25 @@ def _is_ell(fmt) -> bool:
 
 
 def weight_bytes(fmt) -> int:
-    """The weight bytes a kernel over ``fmt`` must read once: the weight
-    array of a dense or packed container (its first array); for an ELL
-    container one byte a nonzero plus the cap tables (the slots the
-    nonzeros need, not the cap padding)."""
+    """The weight bytes a kernel over ``fmt`` must read once, for the K x N
+    weights alone: a container's padding of K to its blocks and of N to its
+    tiles is never read. For an ELL container one byte a nonzero plus the
+    cap tables (the slots the nonzeros need, not the cap padding); for the
+    others each column's K rows at the container's density: one byte a row
+    (the int8 containers), one byte a group of ``factor`` rows (the packed
+    codes), and for each group of 8 rows two bytes (the bit planes) or four
+    (the nibble-pair words)."""
+    from ternary_spgemm_tpu_torch.formats import (
+        TiledBitplane, TiledNibblePair)
+
     if _is_ell(fmt):
         return fmt.nnz + sum(4 * t.numel() for n, t in fmt.arrays().items()
                              if "cap" in n)
-    t = fmt.arrays()[fmt.ARRAY_FIELDS[0]]
-    return t.numel() * t.element_size()
+    K, N = fmt.shape
+    if isinstance(fmt, (TiledBitplane, TiledNibblePair)):
+        return (2 if isinstance(fmt, TiledBitplane) else 4) * -(-K // 8) * N
+    rows = getattr(fmt, "factor", None) or getattr(fmt, "FACTOR", 1)
+    return -(-K // rows) * N
 
 
 def spmm_ops(M: int, fmt) -> int:
@@ -264,6 +282,14 @@ def spmm_kernels() -> dict:
     from ternary_spgemm_tpu_torch.ops import all_kernels
 
     return {n: s for n, s in all_kernels().items() if s.source}
+
+
+def factor_variants(spec) -> list:
+    """The packer arguments phase 6 holds a kernel at: the block-packed
+    containers at factor 4 and 5, every other container as it is."""
+    if "factor" in spec.format_cls.__dataclass_fields__:
+        return [{"factor": 4}, {"factor": 5}]
+    return [{}]
 
 
 def check(cond, msg: str) -> None:
@@ -797,9 +823,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
             xs = [torch.randint(-vr, vr + 1, (M, K), generator=gen,
                                 device=dev).to(torch.float32),
                   4.0 * torch.rand((M, K), generator=gen, device=dev) - 2.0]
-            variants = ([{"factor": 4}, {"factor": 5}]
-                        if "factor" in spec.format_cls.__dataclass_fields__
-                        else [{}])
+            variants = factor_variants(spec)
             for kw in variants:
                 key = (spec.format_cls, tuple(kw.items()))
                 if key not in fmts:
@@ -832,21 +856,22 @@ def phase_bench_kernels(dev, card: str) -> dict:
                 pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
                 bms, by = spmm_bound(M, f)
                 extra = ""
-                if (M, K, N) == BENCH_SHAPES[0][:3] and kw == variants[0]:
+                if (M, K, N) == BENCH_SHAPES[0][:3] or (
+                        (M, K, N) in extras
+                        and (_is_ell(f) and extras[(M, K, N)] == "u"
+                             or name in DENSE_KERNELS)):
+                    # every kernel's yardsticks at the north star, the ELL
+                    # kernels' at the up-projection too, the kernels on
+                    # dense_mma.cuh's tile at every shape; the kernels line
+                    # keeps the first factor's
                     lms = library_ms(x, f, flush)
-                    stats[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                       bound_ms=bms, bound_by=by)
                     extra = f", library {lms:.4f} ms"
-                elif (M, K, N) in extras and (
-                        _is_ell(f) and extras[(M, K, N)] == "u"
-                        or name in DENSE_KERNELS):
-                    # the ELL kernels' yardsticks at the up-projection too,
-                    # the dense f32 and bf16 kernels' at every shape
-                    lms = library_ms(x, f, flush)
-                    stats[name][extras[(M, K, N)]] = dict(
-                        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                        bound_by=by)
-                    extra = f", library {lms:.4f} ms"
+                    rec = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by)
+                    if kw == variants[0] and (M, K, N) in extras:
+                        stats[name][extras[(M, K, N)]] = rec
+                    elif kw == variants[0]:
+                        stats[name].update(rec)
                 print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
                       f"on/off), non-integer X within tolerance (max |diff| "
@@ -860,15 +885,15 @@ def phase_bench_kernels(dev, card: str) -> dict:
 
 
 def phase_dense_rows(dev, card: str) -> None:
-    """Phase 6's row sweep: CudaDense and CudaDense_bf16 timed at M in
-    ``DENSE_ROWS`` at the north star's K and N (s=4), each bitwise equal to
-    its plain version on integer X first. It calls the kernels through the
-    registry only, so that a copy of this script runs it against another
-    tree's package too (the body the tile replaced)."""
+    """Phase 6's row sweep: the kernels of ``DENSE_KERNELS`` (the
+    block-packed ones at factor 4 and 5) timed at M in ``DENSE_ROWS`` at
+    the north star's K and N (s=4), each bitwise equal to its plain version
+    on integer X first. It calls the kernels through the registry only, so
+    that a copy of this script runs it against another tree's package too
+    (the bodies the tile replaced)."""
     import torch
 
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
-    from ternary_spgemm_tpu_torch.formats import DenseTernary
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import all_kernels
 
@@ -876,19 +901,24 @@ def phase_dense_rows(dev, card: str) -> None:
     gen.manual_seed(99)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     _, K, N, s = BENCH_SHAPES[0]
-    f = DenseTernary.from_dense(random_ternary(K, N, s, gen, dev))
+    W = random_ternary(K, N, s, gen, dev)
     b = torch.full((N,), 2.0, device=dev)
+    cases = []      # (label, spec, container)
+    for name in DENSE_KERNELS:
+        spec = all_kernels()[name]
+        for kw in factor_variants(spec):
+            label = name + "".join(f" {k}={v}" for k, v in kw.items())
+            cases.append((label, spec, spec.format_cls.from_dense(W, **kw)))
     for M in DENSE_ROWS:
         x = torch.randint(-256, 257, (M, K), generator=gen,
                           device=dev).to(torch.float32)
         times = []
-        for name in DENSE_KERNELS:
-            spec = all_kernels()[name]
+        for label, spec, f in cases:
             got, want = spec.fn(x, f, b), spec.plain(x, f, b)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"{name} M={M}x{K}x{N}: kernel "
+            check(torch.equal(got, want), f"{label} M={M}x{K}x{N}: kernel "
                   f"!= plain (max |diff| {float((got - want).abs().max())})")
-            times.append(f"{name} {event_ms(lambda: spec.fn(x, f, b), flush=flush):.4f} ms")
+            times.append(f"{label} {event_ms(lambda: spec.fn(x, f, b), flush=flush):.4f} ms")
         print(f"dense rows M={M}x{K}x{N} s={s}: {', '.join(times)} "
               f"(bitwise on integer X) [{card}]", flush=True)
     del flush

@@ -313,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
   }
 }
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Launch with the smallest M-tile that holds M (more row tiles above 32).
 template <int STAGE, int NP, int EPI, int WFMT = kWBitplane>

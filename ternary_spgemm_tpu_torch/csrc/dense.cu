@@ -15,24 +15,24 @@
 //     same tile, f32 sums; X is neither floored nor clamped;
 //   * ternary_dense_i8 <- pallas_dense_i8_kernel (:420, _dense_i8(s)_kernel
 //     :310-343): X staged as floor(x + 512) - 512, the value of the TPU's
-//     int8 split x = 8a + r - 512, and accumulated in int32 directly (no
-//     split, no wsum correction); exact for integer |x| <= 512. It runs on
-//     the CUDA-core packed-row core (packed_core.cuh, F = 1).
+//     int8 split x = 8a + r - 512, as two exact bf16 pieces (no wsum
+//     correction); exact for integer |x| <= 512. DenseTernary is the slab
+//     layout with one slab (Slabs<1>, nb = gn = 1, tkq = K, tile_n = N), so
+//     this is the instantiation that ternary_tiled_dense_i8 runs
+//     (tiled_dense.cu).
 //
 // DenseTernary is unpadded: dense is exactly (K, N) int8, one weight a byte,
 // rows in order. The kernels mask both ragged edges themselves; the wrapper
 // makes no padded copy.
 //
-// What bounds them: f32 and bf16, the tensor-core passes at large M and the
-// W bytes under the chunks' latency at small M (dense_mma.cuh); i8, 8 bits a
-// weight of device memory and the issue bound of packed_core.cuh (an int8
-// tensor-core tile is later work).
+// What bounds them: the tensor-core passes (three for f32, two for i8, one
+// for bf16) at large M and the W bytes under the chunks' latency at small
+// M (dense_mma.cuh).
 //
 // Every entry point returns cudaGetLastError(); the Python wrapper raises on
 // anything but 0.
 
 #include "dense_mma.cuh"
-#include "packed_core.cuh"
 
 // x (M, K) f32, dense (K, N) int8, bias and alpha (N,) f32 (alpha may be
 // null), y (M, N) f32
@@ -40,7 +40,7 @@ extern "C" int ternary_dense_f32(const float* x, int M, int K,
                                  const int8_t* dense, int N,
                                  const float* bias, const float* alpha,
                                  float* y, void* stream) {
-  return ternary::dmma::run_dense<ternary::dmma::kF32Pieces>(
+  return ternary::dmma::run_dense<ternary::kStageF32>(
       x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
@@ -48,7 +48,7 @@ extern "C" int ternary_dense_bf16(const float* x, int M, int K,
                                   const int8_t* dense, int N,
                                   const float* bias, const float* alpha,
                                   float* y, void* stream) {
-  return ternary::dmma::run_dense<ternary::dmma::kBf16Pieces>(
+  return ternary::dmma::run_dense<ternary::kStageBf16>(
       x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
@@ -56,6 +56,6 @@ extern "C" int ternary_dense_i8(const float* x, int M, int K,
                                 const int8_t* dense, int nb, int gn, int tkq,
                                 int tile_n, int N, const float* bias,
                                 const float* alpha, float* y, void* stream) {
-  return ternary::run_packed<ternary::kStageI8, 1>(
+  return ternary::dmma::run_slabs<ternary::kStageI8, 1>(
       x, M, K, dense, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
 }

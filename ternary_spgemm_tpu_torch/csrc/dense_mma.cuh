@@ -1,76 +1,150 @@
-// Y = stage(X) . W + b [PReLU] over the unpadded (K, N) int8 DenseTernary
-// plane on Hopper's bf16 tensor cores (mma.sync m16n8k16, bf16 x bf16 ->
-// f32): one tile, used by
-//   * CudaDense (dense.cu, ternary_dense_f32): kF32Pieces, f32 X exact;
-//   * CudaDense_bf16 (dense.cu, ternary_dense_bf16): kBf16Pieces;
+// Y = stage(X) . W + b [PReLU] over ternary weights held as bytes, on
+// Hopper's bf16 tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32): one
+// tile, used by
+//   * CudaDense (dense.cu, ternary_dense_f32): kStageF32, f32 X exact;
+//   * CudaDense_bf16 (dense.cu, ternary_dense_bf16): kStageBf16;
 //   * the ring all-gather SpMM's compute warps (ring.cu), f32 X exact, on
-//     the slot they hold and the rank's column shard of W.
+//     the slot they hold and the rank's column shard of W;
+// those three over the row-major (K, N) int8 plane (RowMajor), and
+//   * CudaTiledDense_i8 / _x8 (tiled_dense.cu) and CudaDense_i8 (dense.cu,
+//     ternary_dense_i8): kStageI8 / kStageX8 over one-byte weights in slabs
+//     (Slabs<1>: TiledDenseTernary, DenseTernary as its one slab);
+//   * CudaBlockPacked_i8, CudaTiledBlockPacked_i8, CudaPacked2Bit_i8 and
+//     CudaPacked53_i8 (blockpacked.cu, ternary_blockpacked_i8): kStageI8
+//     over 2-bit (F = 4) or base-3 (F = 5) codes (Slabs<4>, Slabs<5>).
 //
-// Replaces the product of ternary_spgemm_tpu/ops/pallas_kernels.py
+// Replaces the products of ternary_spgemm_tpu/ops/pallas_kernels.py
 // _dense_kernel (:113; launched by pallas_dense_kernel :173 and
-// pallas_dense_bf16_kernel :181) and of ternary_spgemm_tpu/parallel/
-// ring_kernel.py::_ring_kernel (:42). Both take the TPU's own route to an
-// exact f32 product: "the TPU MXU computes f32 dots via multi-pass bf16
-// products" (Precision.HIGHEST, pallas_kernels.py:124-131). Here:
+// pallas_dense_bf16_kernel :181), of ternary_spgemm_tpu/parallel/
+// ring_kernel.py::_ring_kernel (:42), of pallas_tiled_dense_i8_kernel
+// (:777), pallas_tiled_dense_x8_kernel (:821), pallas_dense_i8_kernel
+// (:420), pallas_blockpacked_i8_kernel (:596), pallas_tiled_blockpacked_
+// i8_kernel (:886) and pallas_packed2/53_i8_kernel (:502, :513). The f32
+// ones take the TPU's own route to an exact f32 product: "the TPU MXU
+// computes f32 dots via multi-pass bf16 products" (Precision.HIGHEST,
+// pallas_kernels.py:124-131); the int8 ones issue int8 dots into int32
+// accumulators, exact on their domain. Here:
 //   * a ternary weight is exact in bf16 (0, 0x3F80 or 0xBF80; the
-//     container holds no other byte, and another would decode wrongly);
-//   * a finite f32 x splits into three bf16 pieces, hi = bf16(x), mid =
-//     bf16(x - hi), lo = bf16(x - hi - mid) (round to nearest even; each
-//     remainder exact in f32), and x == hi + mid + lo exactly for every x
-//     with 2**-110 <= |x| < 0x1.FFp127 (3 x 8 significant bits cover f32's
-//     24; below 2**-110 lo may lose bits under bf16's smallest subnormal,
-//     2**-133; from 0x1.FFp127 on hi rounds to inf). hi not finite (x inf or NaN, or
-//     rounding to inf) gives mid = lo = 0, so inf * 0 makes the NaN that
-//     the plain f32 product makes (ops/cuda_kernels.py split_bf16 is the
-//     Python twin);
-//   * X.W = hi.W + mid.W + lo.W: every product exact, the sums in f32 by the
-//     tensor cores. kBf16Pieces takes hi only: X rounded to bf16 as
-//     _dense_kernel's bf16=True branch (:119-122) and ops/api.py to_bf16;
-//   * on integer X every partial sum is an integer below 2**24, so the
-//     result is exact whatever the order or the accumulator's rounding, and
-//     bitwise the plain version's. Off the integers the tensor cores' f32
+//     int8 containers hold no other byte, and another would decode
+//     wrongly; the codes decode to those bytes first, below);
+//   * X is staged by its rule (stage_x, the plain versions' ops/api.py
+//     to_x8 / to_i8, in f32): kStageX8 rounds half to even and clamps to
+//     +-127, kStageI8 takes floor(x + 512) - 512 (the value of the TPU's
+//     int8 split), f32 and bf16 take x as it is;
+//   * the staged value v splits into NP bf16 pieces, hi = bf16(v), mid =
+//     bf16(v - hi), lo = bf16(v - hi - mid) (round to nearest even; each
+//     remainder exact in f32); hi not finite (v inf or NaN, or rounding to
+//     inf) gives mid = lo = 0, so inf * 0 makes the NaN that the plain f32
+//     product makes (ops/cuda_kernels.py split_bf16 is the Python twin):
+//       - kStageF32, three pieces: v == hi + mid + lo exactly for every v
+//         with 2**-110 <= |v| < 0x1.FFp127 (3 x 8 significant bits cover
+//         f32's 24; below 2**-110 lo may lose bits under bf16's smallest
+//         subnormal, 2**-133; from 0x1.FFp127 on hi rounds to inf);
+//       - kStageBf16, one piece: X rounded to bf16 as _dense_kernel's
+//         bf16=True branch (:119-122) and ops/api.py to_bf16;
+//       - kStageX8, one piece: every integer |v| <= 127 is exact in bf16;
+//       - kStageI8, two pieces: v is an integer; hi = bf16(v) keeps 8
+//         significant bits and v - hi is an integer below half of hi's
+//         spacing, so two pieces hold every integer |v| < 2**17 exactly
+//         (the domain, |x| <= 512, gives |v| <= 512 and v - hi in {-1, 0,
+//         1}); from 2**17 on (|x| > 130560) the remainder may need more
+//         than 8 bits and v - hi - (v - hi)' is dropped;
+//   * X.W = sum over the pieces: every product exact, the sums in f32 by
+//     the tensor cores. On integer staged values (x8, i8 always; f32 and
+//     bf16 on integer X) every partial sum is an integer, exact while it
+//     stays below 2**24: K * max|v| < 2**24, at the domain's |v| <= 512
+//     for every K < 32768 (K <= 4096 in every shape that runs). Then the
+//     result is exact whatever the order or the accumulator's rounding,
+//     and bitwise the plain version's; from K * |v| >= 2**24 on (|v| >=
+//     4096 at K = 4096) sums may round, in another order than the plain
+//     matmul's. Off the integers (f32 and bf16 only) the tensor cores' f32
 //     accumulation need not round as a CUDA-core add does; each group of
-//     kSumSteps k-steps (64 rows of K) is summed into a zeroed fragment (its
-//     error at the group's magnitude), and the groups are added into an
-//     f32 accumulator on the CUDA cores (round to nearest). Every sum has a
-//     fixed order, so the kernels are deterministic.
+//     kSumSteps k-steps (64 rows of K) is summed into a zeroed fragment
+//     (its error at the group's magnitude), and the groups are added into
+//     an f32 accumulator on the CUDA cores (round to nearest); the exact
+//     rules take all of a warp's k-steps of a chunk as one group. Every sum
+//     has a fixed order, so the kernels are deterministic.
 //
-// What bounds it on an H100: at M = 512 (L: 512 x 4096 x 4096) the three
-// passes are 51.5 G bf16 operations, 52 us at the 989 TFLOP/s peak, and the
-// bytes ~14 us: the operations. At M <= 32 (the north star, 32 x 1024 x
-// 4096) the W bytes, 1.25 us at 3.35 TB/s, under the latency of the
-// chunks each block walks in series. The CUDA-core body it replaces
-// (packed_core.cuh) spent MT f32 multiply-adds and MT/4 shared loads a
-// weight and lane, zeros included: 0.26 ms at L even at the 67 TFLOP/s f32
-// peak, against 0.45 ms for one f32 torch.matmul; only the tensor cores
-// can take it under that. This first tile still pays each chunk's round
-// trip to memory in series, and its staging (X split again for every tile
-// of N) does not overlap its mma: a cp.async or TMA pipeline and wgmma are
-// what would take it toward the passes' bound (PERF.md).
+// The weight layouts (a trait, the B operand's bytes). The walk over K is
+// a walk over nb K-blocks, each of tkq packed rows of F fields: packed row
+// q of block kb holds, in field f < F, the weight of dense row
+// kb*F*tkq + f*tkq + q (ternary_spgemm_tpu_torch/formats/packed.py,
+// tiled.py):
+//   * RowMajor: the (K, N) int8 plane, row stride ldw (F = 1, one block of
+//     tkq = K rows): DenseTernary for f32 and bf16 X, the ring's shard.
+//     Slabs<1> with nb = gn = 1 covers the same bytes, but its per-k-step
+//     checks cost these kernels 4-25% at M >= 32 and the ring 4-5% on an
+//     H100 (PERF.md), so they keep this walk;
+//   * Slabs<F>: bytes (nb, gn, tkq, tile_n), slab (kb, g) holding columns
+//     [g*tile_n, (g+1)*tile_n) of block kb; packed row q, column n of
+//     slab (kb, g) is w[((kb*gn + g)*tkq + q)*tile_n + n]:
+//       - F = 1 TiledDenseTernary (nb = gk, tkq = tile_k) and DenseTernary
+//         for i8 X (nb = gn = 1, tkq = K, tile_n = N);
+//       - F = 4 / 5 TiledBlockPacked, BlockPackedTernary (gn = 1, tile_n =
+//         N) and the stride-packed PackedTernary2Bit / PackedTernary53
+//         (nb = gn = 1, tkq = Kq = ceil(K / F), tile_n = N).
+//     A block's columns lie in one slab (tile_n a multiple of the tile's
+//     width where gn > 1). A chunk is KQ packed rows of one K-block: it
+//     stages F runs of KQ columns of X, field-major, and decodes the F
+//     fields of its packed rows into F runs of KQ int8 rows of W, so a
+//     k-step (16 staged columns) pairs the X of one field with that
+//     field's weights; each run is masked at tkq and at K (tkq % 16 != 0,
+//     K not a multiple of F or of a block), and a k-step whose rows all
+//     lie past either is skipped.
+// Decoding (exact for every byte the packers emit, ops/pallas_kernels.py
+// _decode_block :530; ops/cuda_kernels.py swar_decode is the Python twin),
+// four bytes at a time: d is a byte's code or digit, and its weight byte
+// is (d & 1) | 0xFF * ((d >> 1) & 1), so 1 -> +1 and 2 or 3 -> -1:
+//   * F = 4: d = (word >> 2j) & 0x03030303, codes {0, 1, 3} -> {0, 1, -1};
+//   * F = 5: the bytes in two 16-bit lanes each of two words (even and odd
+//     bytes), qn = (q*171) >> 9 (= q / 3 for q < 512, below 2**16 for
+//     every byte), d = q - 3*qn, q = qn, field by field.
+//
+// What bounds it on an H100: at M = 512 (L: 512 x 4096 x 4096) the NP
+// passes are NP x 17.2 G bf16 operations, 17-52 us at the 989 TFLOP/s
+// peak, and the bytes ~14 us: the operations. At M <= 32 (the north star,
+// 32 x 1024 x 4096) the W bytes (8, 2 or 1.6 bits a weight; 1.25 us at
+// 3.35 TB/s for one byte a weight), under the latency of the chunks each
+// block walks in series. A CUDA-core body (packed_core.cuh, the f32
+// stride-packed kernels) spends MT multiply-adds and MT/4 shared loads a
+// weight and lane, zeros included: only the tensor cores take the product
+// under one f32 torch.matmul. This
+// first tile still pays each chunk's round trip to memory in series, and
+// its staging (X split again for every tile of N) does not overlap its
+// mma: a cp.async or TMA pipeline and wgmma are what would take it toward
+// the passes' bound (PERF.md).
 //
 // Design, simple first (no cp.async or TMA pipeline, no wgmma: later work):
 //   * 8 warps, each a 32 x 32 tile of Y (2 m16 x 4 n8 fragments); two
 //     geometries: Narrow, 32 x 32 a block with the 8 warps splitting each
 //     chunk's k-steps (a split-K inside the block, reduced in shared memory
 //     in warp order): N/32 blocks, 128 at the north star, for M <= 32;
-//     Wide, 64 x 128 a block (2 x 4 warps) above;
-//   * a chunk of KC rows of K at a time: X staged from f32 (16-byte loads
-//     where K allows), split into its pieces as it is staged, one bf16
-//     plane a piece; W staged raw with 16-byte loads (byte loads where N or
-//     the row stride is not a multiple of 16); all of a chunk's loads in
-//     flight before its first store to shared memory. A fragments by
-//     ldmatrix, each feeding four n8 fragments;
-//   * B fragments decoded from the int8 bytes: a B register holds two
-//     consecutive k of one column, two bytes a row stride apart. A lane
-//     reads four 32-bit words (rows 2t, 2t+1, 2t+8, 2t+9 of the k-step,
-//     columns 4g..4g+3) and interleaves them into the registers of four n8
+//     Wide, 64 x 128 a block (2 x 4 warps) above; over slabs a third,
+//     Narrow16 (16 x 32, one m16 fragment a warp) for M <= 16;
+//   * the exact rules (x8, i8) sum straight into the accumulators, which
+//     saves the zeroed fragments' 32 registers a thread; a k-step whose
+//     rows all lie past tkq or K is skipped (Slabs);
+//   * a chunk of KC rows of K (KC / 4 packed rows for the codes) at a time:
+//     X staged from f32 (16-byte loads where K, tkq and the address allow),
+//     its rule applied and split into its pieces as it is staged, one bf16
+//     plane a piece; W staged with 16-byte loads (8-byte ones for the
+//     codes' Narrow chunks, so that every thread decodes; byte loads where
+//     N or the row stride is not a multiple of 16), the codes decoded as
+//     they are stored; all of a chunk's loads in flight before its first
+//     store to shared memory. A fragments by ldmatrix, each feeding four n8
+//     fragments;
+//   * B fragments from the int8 bytes: a B register holds two consecutive
+//     k of one column, two bytes a row stride apart. A lane reads four
+//     32-bit words (rows 2t, 2t+1, 2t+8, 2t+9 of the k-step, columns
+//     4g..4g+3) and interleaves them into the registers of four n8
 //     fragments, so n8 fragment f holds the tile columns 4j + f (j < 8):
 //     14 integer instructions for 16 weights, reused for every m-fragment
 //     and every piece; lane (g, t)'s accumulators then cover columns 8t to
 //     8t + 7 of its rows;
-//   * the ragged edges are masked here: rows of X past M and columns of K
-//     past K stage as 0, rows of W past K and columns past N as 0, the
-//     epilogue writes only inside (M, N). The wrapper makes no padded copy;
+//   * the ragged edges are masked here: rows of X past M and columns past
+//     K (or past a field's tkq) stage as 0, rows of W past tkq and columns
+//     past N as 0, the epilogue writes only inside (M, N). The wrapper
+//     makes no padded copy;
 //   * the epilogue goes through shared memory (the split-K's reduction):
 //     float(acc) + b[col], then y > 0 ? y : alpha[col] * y (epi_bias, in
 //     ops/api.py finish's order; nothing that contracts into an FMA),
@@ -87,8 +161,13 @@ namespace ternary {
 namespace dmma {
 
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kF32Pieces = 3;   // f32 X: hi, mid, lo
-constexpr int kBf16Pieces = 1;  // X rounded to bf16
+// bf16 pieces of a staged value, by X rule (the file's note)
+template <int STAGE>
+constexpr int kPieces = STAGE == kStageF32 ? 3 : STAGE == kStageI8 ? 2 : 1;
+// the rules whose staged values are integers (every partial sum exact on
+// the domain, in any grouping)
+template <int STAGE>
+constexpr bool kExact = STAGE == kStageI8 || STAGE == kStageX8;
 // k-steps (16 rows of K each) whose passes the tensor cores sum into one
 // zeroed fragment: their f32 sums need not round as a CUDA-core add does
 // (one accumulator across all of K = 4096 missed rtol=1e-5, atol=1e-3 at
@@ -98,40 +177,33 @@ constexpr int kBf16Pieces = 1;  // X rounded to bf16
 constexpr int kSumSteps = 4;
 
 // A block's geometry: WM x WN warps over the output tile, the other
-// 8 / (WM*WN) warps splitting each chunk's k-steps; KC rows of K a chunk.
-template <int WM_, int WN_, int KC_>
+// 8 / (WM*WN) warps splitting each chunk's k-steps; KC rows of K a chunk
+// (one byte a weight).
+template <int WM_, int WN_, int KC_, int MF_ = 2>
 struct Tile {
   static constexpr int WM = WM_, WN = WN_, KC = KC_;
   static constexpr int WK = 8 / (WM * WN);
-  static constexpr int MF = 2, NF = 4;        // a warp: 32 x 32
-  static constexpr int BM = 32 * WM, BN = 32 * WN;
-  static constexpr int KS = KC / 16;          // k-steps a chunk
-  static_assert(WM * WN * WK == 8 && KS % WK == 0, "8 warps, whole k-steps");
-  // a warp's k-steps a zeroed fragment sums before it is added into the
-  // f32 accumulator (kSumSteps, or all of the warp's steps of a chunk)
-  static constexpr int PS = KS / WK < kSumSteps ? KS / WK : kSumSteps;
-  static_assert(KS / WK % PS == 0, "whole groups of k-steps");
-  static constexpr int kAS = KC + 8;          // X piece row stride, bf16
+  static constexpr int MF = MF_, NF = 4;      // a warp: 16*MF x 32
+  static constexpr int BM = 16 * MF * WM, BN = 32 * WN;
+  static_assert(WM * WN * WK == 8, "8 warps");
   static constexpr int kWS = BN + 16;         // W row stride, bytes
   static constexpr int kRS = BN + 1;          // reduction row stride, floats
-  // the NP X pieces and the W rows of a chunk, then (reusing them) the WK
-  // partial tiles of the reduction
-  static constexpr int smem(int np) {
-    const int stage = np * BM * kAS * 2 + KC * kWS;
-    const int red = WK * BM * kRS * 4;
-    return stage > red ? stage : red;
-  }
 };
-using Narrow = Tile<1, 1, 256>;   // 32 x 32, the 8 warps split K
-using Wide = Tile<2, 4, 128>;     // 64 x 128
-// the largest M the Narrow tile takes
+using Narrow = Tile<1, 1, 256>;         // 32 x 32, the 8 warps split K
+using Wide = Tile<2, 4, 128>;           // 64 x 128
+using Narrow16 = Tile<1, 1, 256, 1>;    // 16 x 32, the 8 warps split K
+// the largest M the Narrow tile takes, and the Narrow16 tile (Slabs only:
+// at M <= 16 it halves the staging and the passes of the 32-row tile,
+// PERF.md)
 constexpr int kNarrowMaxM = 32;
+constexpr int kNarrow16MaxM = 16;
 
 struct Args {
   const float* x;        // (M, K) f32, row stride K
   int M, K;
-  const int8_t* w;       // (K, N) int8, row stride ldw
-  int ldw, N;
+  const int8_t* w;       // the weight bytes (layout by the trait)
+  int ldw, N;            // bytes from one row of W to the next; Y's columns
+  int nb, gn, tkq;       // Slabs: K-blocks, N-slabs, packed rows a block
   const float* bias;     // (N,)
   const float* alpha;    // (N,) PReLU slopes, or null
   float* y;              // (M, N) f32, row stride ldy
@@ -139,17 +211,114 @@ struct Args {
   bool xvec, wvec;       // 16-byte loads of X rows / W rows are aligned
 };
 
-// The NP bf16 pieces of x (the file's note; ops/cuda_kernels.py split_bf16).
-template <int NP>
-__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16 p[NP]) {
-  p[0] = __float2bfloat16_rn(x);
-  if constexpr (NP == kF32Pieces) {
-    const float h = __bfloat162float(p[0]);
-    const float r1 = isfinite(h) ? __fsub_rn(x, h) : 0.0f;
-    p[1] = __float2bfloat16_rn(r1);
-    p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
+// The weight layouts (the file's note): F fields a byte, the K-blocks, the
+// packed rows a block, and the bytes of block kb from the tile's first
+// column n0 (rows ldw apart).
+struct RowMajor {
+  static constexpr int F = 1;
+  static constexpr bool kSlabs = false;
+  __device__ static int blocks(const Args&) { return 1; }
+  __device__ static int rows(const Args& a) { return a.K; }
+  __device__ static const int8_t* block(const Args& a, int, int n0) {
+    return a.w + n0;
+  }
+};
+template <int F_>
+struct Slabs {
+  static constexpr int F = F_;
+  static constexpr bool kSlabs = true;
+  static_assert(F == 1 || F == 4 || F == 5, "factor 1, 4 or 5");
+  __device__ static int blocks(const Args& a) { return a.nb; }
+  __device__ static int rows(const Args& a) { return a.tkq; }
+  __device__ static const int8_t* block(const Args& a, int kb, int n0) {
+    const int g = n0 / a.ldw;
+    return a.w + ((size_t)kb * a.gn + g) * a.tkq * a.ldw + (n0 - g * a.ldw);
+  }
+};
+
+// A chunk of the walk for tile T, rule STAGE and layout L: KQ packed rows,
+// CW staged columns of X (F runs of KQ) and decoded rows of W, KS k-steps
+// split over the WK warps NJ at a time (the last may lie past KS), PS of
+// them summed into one zeroed fragment; the exact rules sum straight into
+// the accumulators. W is staged in groups of GB bytes a thread:
+// 16, or 8 where 16 would leave threads without a group (the codes'
+// Narrow chunk), so that the decode is spread over all of them.
+template <class T, int STAGE, class L>
+struct Chunk {
+  static constexpr int NP = kPieces<STAGE>;
+  static constexpr int KQ = L::F == 1 ? T::KC : T::KC / 4;
+  static constexpr int CW = L::F * KQ;
+  static constexpr int KS = CW / 16;
+  static constexpr int NJ = cdiv(KS, T::WK);
+  static constexpr int PS = kExact<STAGE> || NJ < kSumSteps ? NJ : kSumSteps;
+  static constexpr int GB = KQ * T::BN / 16 >= kThreads ? 16 : 8;
+  static_assert(KQ % 16 == 0 && NJ % PS == 0, "whole k-steps and groups");
+  static_assert(KS % T::WK == 0 || kExact<STAGE>,
+                "a ragged split of the k-steps only where every sum is exact");
+  static constexpr int kAS = CW + 8;          // X piece row stride, bf16
+  // the NP X pieces and the W rows of a chunk, then (reusing them) the WK
+  // partial tiles of the reduction
+  static constexpr int smem() {
+    const int stage = NP * T::BM * kAS * 2 + CW * T::kWS;
+    const int red = T::WK * T::BM * T::kRS * 4;
+    return stage > red ? stage : red;
+  }
+};
+
+// X staged by its rule, in f32 (ops/api.py to_x8, to_i8; the clamp keeps a
+// NaN, as torch.clamp does).
+template <int STAGE>
+__device__ __forceinline__ float stage_x(float x) {
+  if constexpr (STAGE == kStageX8) {
+    const float v = rintf(x);
+    return v < -127.0f ? -127.0f : (v > 127.0f ? 127.0f : v);
+  } else if constexpr (STAGE == kStageI8) {
+    return __fsub_rn(floorf(__fadd_rn(x, 512.0f)), 512.0f);
   } else {
-    static_assert(NP == kBf16Pieces, "one or three pieces");
+    static_assert(STAGE == kStageF32 || STAGE == kStageBf16, "an X rule");
+    return x;
+  }
+}
+
+// The NP bf16 pieces of v (the file's note; ops/cuda_kernels.py split_bf16).
+template <int NP>
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16 p[NP]) {
+  static_assert(NP >= 1 && NP <= 3, "one to three pieces");
+  p[0] = __float2bfloat16_rn(v);
+  if constexpr (NP > 1) {
+    const float h = __bfloat162float(p[0]);
+    const float r1 = isfinite(h) ? __fsub_rn(v, h) : 0.0f;
+    p[1] = __float2bfloat16_rn(r1);
+    if constexpr (NP == 3)
+      p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
+  }
+}
+
+// Four codes or digits d (one a byte) -> their weight bytes: 1 -> 0x01,
+// 2 or 3 -> 0xFF, 0 -> 0.
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t d) {
+  return (d & 0x01010101u) | (((d >> 1) & 0x01010101u) * 0xFFu);
+}
+
+// The F fields of the four packed bytes of ``word``: out[f] holds, byte for
+// byte, the int8 weight of field f (the file's note; ops/cuda_kernels.py
+// swar_decode).
+template <int F>
+__device__ __forceinline__ void decode_word(uint32_t word, uint32_t out[F]) {
+  if constexpr (F == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = sign_bytes((word >> (2 * j)) & 0x03030303u);
+  } else {
+    static_assert(F == 5, "factor 4 or 5");
+    uint32_t e = word & 0x00FF00FFu, o = (word >> 8) & 0x00FF00FFu;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const uint32_t en = ((e * 171u) >> 9) & 0x007F007Fu;
+      const uint32_t on = ((o * 171u) >> 9) & 0x007F007Fu;
+      out[j] = sign_bytes((e - 3u * en) | ((o - 3u * on) << 8));
+      e = en;
+      o = on;
+    }
   }
 }
 
@@ -188,69 +357,125 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stage rows [k0, k0 + KC) of X (split into NP planes) and of W for the
-// block's tile at (m0, n0). Every load of the chunk is issued before the
-// first store to shared memory, so the chunk waits for one round trip to
-// device memory, not one a load.
-template <class T, int NP>
+// Whether k-step ``ks`` (its first staged column) of the chunk whose field
+// 0 starts at dense row ``k00`` and packed row ``q0`` holds a row inside
+// the block's tkq packed rows and inside K: the k-steps that fail stage
+// zeros and are skipped.
+template <class C>
+__device__ __forceinline__ bool live_step(const Args& a, int tkq, int k00,
+                                          int q0, int ks) {
+  const int q = ks % C::KQ;
+  return q0 + q < tkq && k00 + (ks / C::KQ) * tkq + q < a.K;
+}
+
+// Store the GW words ``w`` (GW = 4 or 2) at ``p`` as one 16- or 8-byte
+// store.
+template <int GW>
+__device__ __forceinline__ void store_words(uint8_t* p, const uint32_t w[GW]) {
+  if constexpr (GW == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+// Stage the chunk of packed rows [q0, q0 + KQ) of K-block kb for the
+// block's tile at (m0, n0): X by its rule, split into NP planes, its F
+// field runs side by side; W, each field decoded into its run of rows. Every load of the chunk is
+// issued before the first store to shared memory, so the chunk waits for
+// one round trip to device memory, not one a load.
+template <class T, int STAGE, class L>
 __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
-                                            int k0, int tid,
+                                            int kb, int q0, int tid,
                                             __nv_bfloat16* xs, uint8_t* ws) {
-  constexpr int Q = T::KC / 4;                  // 4-column groups a row
+  using C = Chunk<T, STAGE, L>;
+  constexpr int NP = C::NP;
+  constexpr int Q = C::CW / 4;                  // 4-column groups a row
   constexpr int XL = T::BM * Q / kThreads;      // X groups a thread
-  constexpr int G = T::BN / 16;                 // 16-column groups a row
-  constexpr int WL = T::KC * G / kThreads;      // W groups a thread
-  static_assert(T::BM * Q % kThreads == 0 && T::KC * G % kThreads == 0,
-                "whole groups a thread");
+  constexpr int GW = C::GB / 4;                 // W words a group
+  constexpr int G = T::BN / C::GB;              // W groups a row
+  constexpr int WT = C::KQ * G;                 // W groups a chunk
+  constexpr int WL = cdiv(WT, kThreads);        // W groups a thread
+  static_assert(T::BM * Q % kThreads == 0, "whole X groups a thread");
+  const int tkq = L::rows(a);
+  const int k00 = kb * L::F * tkq + q0;         // dense row of field 0
   float4 v[XL];
 #pragma unroll
   for (int j = 0; j < XL; ++j) {
-    const int i = tid + j * kThreads, r = i / Q, k = k0 + 4 * (i % Q);
+    const int i = tid + j * kThreads, r = i / Q, c = 4 * (i % Q);
+    const int q = c % C::KQ;                    // packed row q0 + q
+    const int k = k00 + (c / C::KQ) * tkq + q;
+    // RowMajor: tkq is K, so a row inside K is inside the block
+    const int left = L::kSlabs ? min(tkq - q0 - q, a.K - k) : a.K - k;
     v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (m0 + r < a.M && k < a.K) {
+    if (m0 + r < a.M && left > 0) {
       const float* src = a.x + (size_t)(m0 + r) * a.K + k;
       if (a.xvec) {
         v[j] = *reinterpret_cast<const float4*>(src);
       } else {
         v[j].x = src[0];
-        if (k + 1 < a.K) v[j].y = src[1];
-        if (k + 2 < a.K) v[j].z = src[2];
-        if (k + 3 < a.K) v[j].w = src[3];
+        if (left > 1) v[j].y = src[1];
+        if (left > 2) v[j].z = src[2];
+        if (left > 3) v[j].w = src[3];
       }
     }
   }
-  // W: 16 columns of one row a group, one 16-byte load where aligned, 16
-  // byte loads (each column masked) elsewhere
-  uint4 u[WL];
+  // W: GB columns of one packed row a group, one 16- or 8-byte load where
+  // aligned, GB byte loads (each column masked) elsewhere
+  const int8_t* wb = L::block(a, kb, n0);
+  uint32_t u[WL][GW];
 #pragma unroll
   for (int j = 0; j < WL; ++j) {
-    const int i = tid + j * kThreads, k = k0 + i / G, c = n0 + 16 * (i % G);
-    u[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (k < a.K && c < a.N) {
-      const int8_t* src = a.w + (size_t)k * a.ldw + c;
+    const int i = tid + j * kThreads, r = i / G, c = C::GB * (i % G);
+#pragma unroll
+    for (int e = 0; e < GW; ++e) u[j][e] = 0u;
+    if ((WT % kThreads == 0 || i < WT) && q0 + r < tkq && n0 + c < a.N) {
+      const int8_t* src = wb + (size_t)(q0 + r) * a.ldw + c;
       if (a.wvec) {
-        u[j] = *reinterpret_cast<const uint4*>(src);
+        if constexpr (GW == 4) {
+          const uint4 t = *reinterpret_cast<const uint4*>(src);
+          u[j][0] = t.x; u[j][1] = t.y; u[j][2] = t.z; u[j][3] = t.w;
+        } else {
+          const uint2 t = *reinterpret_cast<const uint2*>(src);
+          u[j][0] = t.x; u[j][1] = t.y;
+        }
       } else {
-        uint32_t wd[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int e = 0; e < 16; ++e)
-          if (c + e < a.N) wd[e / 4] |= (uint32_t)(uint8_t)src[e] << (8 * (e % 4));
-        u[j] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        for (int e = 0; e < C::GB; ++e)
+          if (n0 + c + e < a.N)
+            u[j][e / 4] |= (uint32_t)(uint8_t)src[e] << (8 * (e % 4));
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < WL; ++j) {
-    const int i = tid + j * kThreads;
-    *reinterpret_cast<uint4*>(ws + (i / G) * T::kWS + 16 * (i % G)) = u[j];
+    const int i = tid + j * kThreads, r = i / G, c = C::GB * (i % G);
+    if (WT % kThreads == 0 || i < WT) {
+      if constexpr (L::F == 1) {
+        store_words<GW>(ws + r * T::kWS + c, u[j]);
+      } else {
+        uint32_t d[L::F][GW];
+#pragma unroll
+        for (int e = 0; e < GW; ++e) {
+          uint32_t fields[L::F];
+          decode_word<L::F>(u[j][e], fields);
+#pragma unroll
+          for (int f = 0; f < L::F; ++f) d[f][e] = fields[f];
+        }
+#pragma unroll
+        for (int f = 0; f < L::F; ++f)
+          store_words<GW>(ws + (f * C::KQ + r) * T::kWS + c, d[f]);
+      }
+    }
   }
 #pragma unroll
   for (int j = 0; j < XL; ++j) {
     const int i = tid + j * kThreads, r = i / Q, c = 4 * (i % Q);
+    // rows past M, and columns past K or past a field's tkq, stage as the
+    // zeros loaded above
     const float f[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
     __nv_bfloat16 p[4][NP];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_bf16<NP>(f[e], p[e]);
+    for (int e = 0; e < 4; ++e) split_bf16<NP>(stage_x<STAGE>(f[e]), p[e]);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       __nv_bfloat162 lo2, hi2;
@@ -259,7 +484,7 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
       uint2 w2;
       w2.x = *reinterpret_cast<const uint32_t*>(&lo2);
       w2.y = *reinterpret_cast<const uint32_t*>(&hi2);
-      *reinterpret_cast<uint2*>(xs + (q * T::BM + r) * T::kAS + c) = w2;
+      *reinterpret_cast<uint2*>(xs + (q * T::BM + r) * C::kAS + c) = w2;
     }
   }
 }
@@ -267,19 +492,21 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
 // One block's tile of Y: rows [m0, m0 + BM) and columns [n0, n0 + BN),
 // y[gm * ldy + col] = stage(X) . W + b [PReLU] inside (M, N). ``tid`` is the
 // thread's index among the tile's kThreads threads, ``smem`` the
-// T::smem(NP) bytes of dynamic shared memory and ``sync`` a barrier of those
-// threads: the whole block in dense_kernel, the compute warps beside the
-// copy warps in ring.cu. Every write to smem follows a sync, so
-// consecutive calls may share it.
-template <class T, int NP, class Sync>
+// Chunk<T, STAGE, L>::smem() bytes of dynamic shared memory and ``sync`` a
+// barrier of those threads: the whole block in dense_kernel, the compute
+// warps beside the copy warps in ring.cu. Every write to smem follows a
+// sync, so consecutive calls may share it.
+template <class T, int STAGE, class L, class Sync>
 __device__ __forceinline__ void dense_tile(const Args& a, int m0, int n0,
                                            int tid, uint8_t* smem, Sync sync) {
+  using C = Chunk<T, STAGE, L>;
+  constexpr int NP = C::NP;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint8_t* ws = smem + NP * T::BM * T::kAS * 2;
+  uint8_t* ws = smem + NP * T::BM * C::kAS * 2;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wk = warp / (T::WM * T::WN), wmn = warp % (T::WM * T::WN);
-  const int wm = 32 * (wmn / T::WN), wn = 32 * (wmn % T::WN);
+  const int wm = 16 * T::MF * (wmn / T::WN), wn = 32 * (wmn % T::WN);
 
   float acc[T::MF][T::NF][4];
 #pragma unroll
@@ -289,51 +516,64 @@ __device__ __forceinline__ void dense_tile(const Args& a, int m0, int n0,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][f][r] = 0.0f;
 
-  for (int k0 = 0; k0 < a.K; k0 += T::KC) {
-    sync();   // the previous chunk (or tile) is consumed
-    stage_chunk<T, NP>(a, m0, n0, k0, tid, xs, ws);
-    sync();
-    // the warp's k-steps of the chunk, kSumSteps at a time: each group's
-    // passes summed into the zeroed fragments ``part``, then added into acc
+  const int nb = L::blocks(a), tkq = L::rows(a);
+  for (int kb = 0; kb < nb; ++kb) {
+    for (int q0 = 0; q0 < tkq; q0 += C::KQ) {
+      const int k00 = kb * L::F * tkq + q0;     // dense row of field 0
+      sync();   // the previous chunk (or tile) is consumed
+      stage_chunk<T, STAGE, L>(a, m0, n0, kb, q0, tid, xs, ws);
+      sync();
+      // the warp's k-steps of the chunk, PS at a time: each group's passes
+      // summed into the zeroed fragments ``part``, then added into acc (the
+      // exact rules: straight into acc). Slabs: the k-steps that are not
+      // live are skipped; every m16 fragment is computed, rows past M too
 #pragma unroll
-    for (int s0 = 0; s0 < T::KS / T::WK; s0 += T::PS) {
-      float part[T::MF][T::NF][4];
+      for (int s0 = 0; s0 < C::NJ; s0 += C::PS) {
+        float part[T::MF][T::NF][4];
+        if constexpr (!kExact<STAGE>) {
 #pragma unroll
-      for (int i = 0; i < T::MF; ++i)
+          for (int i = 0; i < T::MF; ++i)
 #pragma unroll
-        for (int f = 0; f < T::NF; ++f)
+            for (int f = 0; f < T::NF; ++f)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) part[i][f][r] = 0.0f;
+              for (int r = 0; r < 4; ++r) part[i][f][r] = 0.0f;
+        }
 #pragma unroll
-      for (int s = s0; s < s0 + T::PS; ++s) {
-        const int ks = 16 * (wk + s * T::WK);
-        const uint8_t* wp = ws + (ks + 2 * t) * T::kWS + wn + 4 * g;
-        uint32_t b[2][4];   // [k half][n8 fragment]
-        b_pairs(*reinterpret_cast<const uint32_t*>(wp),
-                *reinterpret_cast<const uint32_t*>(wp + T::kWS), b[0]);
-        b_pairs(*reinterpret_cast<const uint32_t*>(wp + 8 * T::kWS),
-                *reinterpret_cast<const uint32_t*>(wp + 9 * T::kWS), b[1]);
+        for (int s = s0; s < s0 + C::PS; ++s) {
+          const int ks = 16 * (wk + s * T::WK);
+          if (C::KS % T::WK != 0 && ks >= C::CW) continue;
+          if (L::kSlabs && !live_step<C>(a, tkq, k00, q0, ks)) continue;
+          const uint8_t* wp = ws + (ks + 2 * t) * T::kWS + wn + 4 * g;
+          uint32_t b[2][4];   // [k half][n8 fragment]
+          b_pairs(*reinterpret_cast<const uint32_t*>(wp),
+                  *reinterpret_cast<const uint32_t*>(wp + T::kWS), b[0]);
+          b_pairs(*reinterpret_cast<const uint32_t*>(wp + 8 * T::kWS),
+                  *reinterpret_cast<const uint32_t*>(wp + 9 * T::kWS), b[1]);
 #pragma unroll
-        for (int i = 0; i < T::MF; ++i)
+          for (int i = 0; i < T::MF; ++i) {
 #pragma unroll
-          for (int q = 0; q < NP; ++q) {
-            uint32_t af[4];
-            ldmatrix_x4(af, xs + (q * T::BM + wm + 16 * i + (lane & 15)) *
-                                     T::kAS + ks + 8 * (lane >> 4));
+            for (int q = 0; q < NP; ++q) {
+              uint32_t af[4];
+              ldmatrix_x4(af, xs + (q * T::BM + wm + 16 * i + (lane & 15)) *
+                                       C::kAS + ks + 8 * (lane >> 4));
 #pragma unroll
-            for (int f = 0; f < T::NF; ++f) {
-              const uint32_t bf[2] = {b[0][f], b[1][f]};
-              mma_bf16(part[i][f], af, bf);
+              for (int f = 0; f < T::NF; ++f) {
+                const uint32_t bf[2] = {b[0][f], b[1][f]};
+                mma_bf16(kExact<STAGE> ? acc[i][f] : part[i][f], af, bf);
+              }
             }
           }
+        }
+        if constexpr (!kExact<STAGE>) {
+#pragma unroll
+          for (int i = 0; i < T::MF; ++i)
+#pragma unroll
+            for (int f = 0; f < T::NF; ++f)
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+                acc[i][f][r] = __fadd_rn(acc[i][f][r], part[i][f][r]);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < T::MF; ++i)
-#pragma unroll
-        for (int f = 0; f < T::NF; ++f)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[i][f][r] = __fadd_rn(acc[i][f][r], part[i][f][r]);
     }
   }
 
@@ -363,15 +603,16 @@ __device__ __forceinline__ void dense_tile(const Args& a, int m0, int n0,
   }
 }
 
-template <class T, int NP>
+template <class T, int STAGE, class L>
 __global__ void __launch_bounds__(kThreads, 2) dense_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  dense_tile<T, NP>(a, blockIdx.y * T::BM, blockIdx.x * T::BN, threadIdx.x,
-                    smem, [] { __syncthreads(); });
+  dense_tile<T, STAGE, L>(a, blockIdx.y * T::BM, blockIdx.x * T::BN,
+                          threadIdx.x, smem, [] { __syncthreads(); });
 }
 
-// Whether 16-byte loads of X (row stride K) and of W (row stride ldw,
-// ``cols`` columns from ``w``) stay aligned.
+// Whether 16-byte loads of X (row stride K; and, in slabs, runs of tkq
+// columns) and of W (row stride ldw, ``cols`` columns from ``w``) stay
+// aligned.
 __host__ __device__ inline bool x_vec(const float* x, int K) {
   return K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
@@ -380,25 +621,62 @@ __host__ __device__ inline bool w_vec(const int8_t* w, int ldw, int cols) {
          reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
 
-template <class T, int NP>
+template <class T, int STAGE, class L>
 int launch(const Args& a, cudaStream_t s) {
-  const int bytes = T::smem(NP);
+  const int bytes = Chunk<T, STAGE, L>::smem();
   cudaError_t err = cudaFuncSetAttribute(
-      dense_kernel<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      dense_kernel<T, STAGE, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
-  dense_kernel<T, NP><<<dim3(cdiv(a.N, T::BN), cdiv(a.M, T::BM)), kThreads,
-                        bytes, s>>>(a);
+  dense_kernel<T, STAGE, L><<<dim3(cdiv(a.N, T::BN), cdiv(a.M, T::BM)),
+                              kThreads, bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Y = stage(X) . W + b [PReLU] over a DenseTernary (K, N) int8 plane of
-// row stride ldw: the Narrow tile up to kNarrowMaxM rows of X, Wide above.
-template <int NP>
+// row stride ldw (RowMajor): the Narrow tile up to kNarrowMaxM rows of X,
+// Wide above.
+template <int STAGE>
 int run_dense(const float* x, int M, int K, const int8_t* w, int ldw, int N,
               const float* bias, const float* alpha, float* y,
               cudaStream_t s) {
-  Args a{x, M, K, w, ldw, N, bias, alpha, y, N, x_vec(x, K), w_vec(w, ldw, N)};
-  return M <= kNarrowMaxM ? launch<Narrow, NP>(a, s) : launch<Wide, NP>(a, s);
+  Args a{};
+  a.x = x; a.M = M; a.K = K;
+  a.w = w; a.ldw = ldw; a.N = N;
+  a.bias = bias; a.alpha = alpha;
+  a.y = y; a.ldy = N;
+  a.xvec = x_vec(x, K);
+  a.wvec = w_vec(w, ldw, N);
+  return M <= kNarrowMaxM ? launch<Narrow, STAGE, RowMajor>(a, s)
+                          : launch<Wide, STAGE, RowMajor>(a, s);
+}
+
+// Y = stage(X) . W + b [PReLU] over bytes in slabs (nb, gn, tkq, tile_n) of
+// F fields a byte (Slabs<F>, the file's note): the Narrow16 tile up to
+// kNarrow16MaxM rows of X, Narrow up to kNarrowMaxM, Wide above.
+// cudaErrorInvalidValue for a geometry that does not hold K and N, or
+// slabs narrower than the tile's columns.
+template <int STAGE, int F>
+int run_slabs(const float* x, int M, int K, const void* w, int nb, int gn,
+              int tkq, int tile_n, int N, const float* bias,
+              const float* alpha, float* y, void* stream) {
+  const int bn = M <= kNarrowMaxM ? Narrow::BN : Wide::BN;
+  if (nb < 1 || gn < 1 || tkq < 1 || tile_n < 1 ||
+      (long long)nb * F * tkq < K || (long long)gn * tile_n < N ||
+      (gn > 1 && tile_n % bn != 0))
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.x = x; a.M = M; a.K = K;
+  a.w = static_cast<const int8_t*>(w); a.ldw = tile_n; a.N = N;
+  a.nb = nb; a.gn = gn; a.tkq = tkq;
+  a.bias = bias; a.alpha = alpha;
+  a.y = y; a.ldy = N;
+  a.xvec = x_vec(x, K) && tkq % 4 == 0;
+  a.wvec = w_vec(a.w, tile_n, N);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= kNarrow16MaxM) return launch<Narrow16, STAGE, Slabs<F>>(a, s);
+  return M <= kNarrowMaxM ? launch<Narrow, STAGE, Slabs<F>>(a, s)
+                          : launch<Wide, STAGE, Slabs<F>>(a, s);
 }
 
 }  // namespace dmma

@@ -32,10 +32,10 @@ extern "C" int ternary_packed_f32(const float* x, int M, int K,
                                   const float* bias, const float* alpha,
                                   float* y, void* stream) {
   if (factor == 4)
-    return ternary::run_packed<ternary::kStageF32, 4>(
+    return ternary::run_packed<4>(
         x, M, K, packed, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
   if (factor == 5)
-    return ternary::run_packed<ternary::kStageF32, 5>(
+    return ternary::run_packed<5>(
         x, M, K, packed, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
   return (int)cudaErrorInvalidValue;
 }

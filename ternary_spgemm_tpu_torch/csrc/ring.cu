@@ -47,11 +47,11 @@
 // never deadlocks on a block that was not scheduled.
 //
 // The product is dense_mma.cuh's tile (the one CudaDense runs, f32 X split
-// into three bf16 pieces, kF32Pieces) on the rank's column shard of W: the
-// compute warps call dense_tile on the held slot, splitting it as they stage
-// it, one tile of Y at a time (Narrow, 32 x 32, for mc <= 32; Wide, 64 x
-// 128, above), with their own named barrier and the tile's dynamic shared
-// memory. Every product is exact and the sums are f32 in a fixed order (the
+// into three bf16 pieces, kStageF32 over RowMajor) on the rank's column
+// shard of W: the compute warps call dense_tile on the held slot, splitting
+// it as they stage it, one tile of Y at a time (Narrow, 32 x 32, for mc <=
+// 32; Wide, 64 x 128, above), with their own named barrier and the tile's
+// dynamic shared memory. Every product is exact and the sums are f32 in a fixed order (the
 // TPU kernel's dot at Precision.HIGHEST, itself multi-pass bf16); on
 // integer X every partial sum is an integer below 2**24, so any order is
 // exact. The slot is read with plain loads: the reader's acquire at gpu
@@ -206,7 +206,7 @@ ring_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       a.xvec = dmma::x_vec(held, K);
       a.wvec = dmma::w_vec(a.w, N, NL);
       for (int tile = bi; tile < tiles; tile += B)
-        dmma::dense_tile<T, dmma::kF32Pieces>(
+        dmma::dense_tile<T, ternary::kStageF32, dmma::RowMajor>(
             a, (tile % tilesM) * T::BM, (tile / tilesM) * T::BN, tid, smem,
             [] { compute_sync(); });
     }
@@ -224,7 +224,7 @@ template <class T>
 int launch_ring(const float* x, const int8_t* w, const float* bias, float* y,
                 float* buf, int* flags, int d, int mc, int K, int N,
                 int* blocks_out, cudaStream_t s) {
-  const int smem = T::smem(dmma::kF32Pieces);
+  const int smem = dmma::Chunk<T, ternary::kStageF32, dmma::RowMajor>::smem();
   int dev = 0, sms = 0, per_sm = 0;
   int err = (int)cudaGetDevice(&dev);
   if (!err) err = (int)cudaDeviceGetAttribute(

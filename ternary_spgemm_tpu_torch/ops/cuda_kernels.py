@@ -1,14 +1,18 @@
 """CUDA SpMM kernels — counterpart of the SpMM kernels of
 ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Eighteen registered kernels, three cores (``csrc/bitplane_core.cuh`` for the
-bitplane and nibble-pair containers, ``csrc/packed_core.cuh`` for the int8
-and packed ones, ``csrc/ell_core.cuh`` for the ELL gathers), the int8
-tensor-core core (``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels'
-prefill branches, which they take above :data:`X8_MMA_MIN_M` and
-:data:`I8_MMA_MIN_M` rows of X, and the bf16 tensor-core tile
-(``csrc/dense_mma.cuh``) of ``CudaDense`` and ``CudaDense_bf16`` (f32 X as
-three bf16 pieces, :func:`split_bf16`; bf16 X as one) at every M:
+Eighteen registered kernels on four cores: ``csrc/bitplane_core.cuh`` for
+the bitplane and nibble-pair containers, with the int8 tensor-core core
+(``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels' prefill branches,
+which they take above :data:`X8_MMA_MIN_M` and :data:`I8_MMA_MIN_M` rows
+of X; the bf16 tensor-core tile (``csrc/dense_mma.cuh``) at every M for
+``CudaDense`` and ``CudaDense_bf16`` (f32 X as three bf16 pieces,
+:func:`split_bf16`; bf16 X as one) and for the int8-X kernels over the
+packed-row containers, the tiled-dense i8 and x8, dense i8, block-packed,
+tiled block-packed and stride-packed i8 ones (X staged by its rule, i8 as
+two exact pieces, x8 as one; the 2-bit and base-3 codes decoded as they
+are staged, :func:`swar_decode`); ``csrc/packed_core.cuh`` for the f32
+stride-packed kernels; ``csrc/ell_core.cuh`` for the ELL gathers:
 
 =======================  ========================  ==================  =====
 kernel                   replaces (Pallas)         source              X rule
@@ -34,9 +38,10 @@ CudaEllGather            PallasEllGather           ell.cu              f32
 =======================  ========================  ==================  =====
 
 X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
-(``_to_x8``), int32 accumulation — exact on any float; *i8* stages
-``floor(x + 512) - 512``, the value of the TPU's int8 split (exact for
-integer |x| <= 512, non-integer X floored), int32 accumulation; *bf16*
+(``_to_x8``) — exact on any float; *i8* stages ``floor(x + 512) - 512``,
+the value of the TPU's int8 split (exact for integer |x| <= 512,
+non-integer X floored); both accumulate in int32 on the bitplane cores and
+as exact integer f32 sums on the bf16 tile; *bf16*
 rounds X to bf16 (nearest even) and sums in f32 (exact for integer
 |x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order
 (``CudaDense``: three exact bf16 passes, :func:`split_bf16`).
@@ -139,23 +144,44 @@ tiled_ell_plain = _plain("CudaTiledEllGather", to_f32)
 ell_gather_plain = _plain("CudaEllGather", to_f32)
 
 
-def split_bf16(x: torch.Tensor, pieces: int = 3) -> list:
-    """The bf16 pieces that ``csrc/dense_mma.cuh`` splits f32 X into: the
-    first ``bf16(x)`` (round to nearest even), each next one ``bf16`` of the
-    remainder ``x - (the pieces so far)``, every remainder exact in f32. Where
-    the first piece is not finite (x inf or NaN, or rounding to inf) the
-    others are 0, so that ``inf * 0`` makes the plain f32 product's NaN.
+#: the X rules of ``csrc/dense_mma.cuh`` -> (the rule, ops/api.py; the bf16
+#: pieces its staged values take)
+STAGES = {"f32": (to_f32, 3), "bf16": (to_f32, 1), "x8": (to_x8, 1),
+          "i8": (to_i8, 2)}
 
-    Three pieces sum back to x exactly (3 x 8 significant bits cover f32's
-    24) for every x with ``2**-110 <= |x| < 0x1.FFp127``, and for 0. Below
-    2**-110 the last piece may drop bits under bf16's smallest subnormal
-    (2**-133); from 0x1.FFp127 on (the bf16 overflow threshold, under
-    f32's largest 0x1.FFFFFEp127) the first piece is inf. One piece is X
-    rounded to bf16 (``CudaDense_bf16``, :func:`to_bf16`); two leave the
-    last 8 bits of a general f32 out."""
+
+def split_bf16(x: torch.Tensor, pieces: int = None, *,
+               stage: str = "f32") -> list:
+    """The bf16 pieces that ``csrc/dense_mma.cuh`` splits X into: X staged
+    by ``stage``'s rule (:data:`STAGES`: f32 and bf16 as it is, x8
+    :func:`to_x8`, i8 :func:`to_i8`), then the first piece ``bf16(v)``
+    (round to nearest even), each next one ``bf16`` of the remainder ``v -
+    (the pieces so far)``, every remainder exact in f32; ``pieces``
+    defaults to the stage's count. Where the first piece is not finite (v
+    inf or NaN, or rounding to inf) the others are 0, so that ``inf * 0``
+    makes the plain f32 product's NaN.
+
+    Three pieces (f32) sum back to v exactly (3 x 8 significant bits cover
+    f32's 24) for every v with ``2**-110 <= |v| < 0x1.FFp127``, and for 0.
+    Below 2**-110 the last piece may drop bits under bf16's smallest
+    subnormal (2**-133); from 0x1.FFp127 on (the bf16 overflow threshold,
+    under f32's largest 0x1.FFFFFEp127) the first piece is inf. One piece
+    is X rounded to bf16 (``CudaDense_bf16``, :func:`to_bf16`); two leave
+    the last 8 bits of a general f32 out. The x8 rule's values, integers in
+    [-127, 127], are exact in one piece. The i8 rule's are integers, and
+    two pieces hold every integer |v| < 2**17 exactly (the first keeps 8
+    significant bits, the remainder is an integer below half its spacing;
+    the domain |x| <= 512 gives |v| <= 512 and a remainder in {-1, 0, 1});
+    from 2**17 on a remainder may need 9 bits (2**17 + 257 splits into
+    2**17 and 256)."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {sorted(STAGES)}, got "
+                         f"{stage!r}")
+    rule, default = STAGES[stage]
+    pieces = default if pieces is None else pieces
     if not 1 <= pieces <= 3:
         raise ValueError(f"pieces must be 1, 2 or 3, got {pieces}")
-    rest = x.to(torch.float32)
+    rest = rule(x)
     out = [rest.to(torch.bfloat16)]
     first = out[0].to(torch.float32)
     rest = torch.where(torch.isfinite(first), rest - first,
@@ -163,6 +189,36 @@ def split_bf16(x: torch.Tensor, pieces: int = 3) -> list:
     for _ in range(pieces - 1):
         out.append(rest.to(torch.bfloat16))
         rest = rest - out[-1].to(torch.float32)
+    return out
+
+
+def swar_decode(words: torch.Tensor, factor: int) -> list:
+    """The Python twin of ``csrc/dense_mma.cuh``'s ``decode_word``: the
+    ``factor`` fields of four packed bytes at a time. ``words`` holds 32-bit
+    words (any integer dtype, the low 32 bits; byte j little-endian is
+    packed byte j); returns ``factor`` int64 tensors of words whose byte j
+    is the int8 weight of that field of byte j (0x00, 0x01 or 0xFF). A code
+    or digit d becomes ``(d & 1) | 0xFF * ((d >> 1) & 1)``: for factor 4
+    ``d = (word >> 2f) & 0x03030303``; for factor 5 the even and odd bytes
+    go to two 16-bit lanes each and ``qn = (q*171) >> 9``, ``d = q - 3*qn``,
+    ``q = qn`` field by field. Equal to ``formats.packed.decode_fields``
+    (and the TPU's ``_decode_block``) on every byte the packers emit (codes
+    {0, 1, 3}; bytes up to 242 of base-3 digits {0, 1, 2})."""
+    check_factor(factor)
+    w = words.to(torch.int64) & 0xFFFFFFFF
+
+    def sign_bytes(d):
+        return (d & 0x01010101) | (((d >> 1) & 0x01010101) * 0xFF)
+
+    if factor == 4:
+        return [sign_bytes((w >> (2 * j)) & 0x03030303) for j in range(4)]
+    e, o = w & 0x00FF00FF, (w >> 8) & 0x00FF00FF
+    out = []
+    for _ in range(5):
+        en = ((e * 171) >> 9) & 0x007F007F
+        on = ((o * 171) >> 9) & 0x007F007F
+        out.append(sign_bytes((e - 3 * en) | ((o - 3 * on) << 8)))
+        e, o = en, on
     return out
 
 
@@ -495,8 +551,8 @@ def cuda_tiled_nibblepair_i8_kernel(X, fmt: TiledNibblePair, bias,
 @register_kernel(
     "CudaTiledDense_i8", TiledDenseTernary,
     description="tile-contiguous int8 plane (8 bits/weight), integer "
-                "activations |x| <= 512 (non-integer X floored) accumulated "
-                "in int32",
+                "activations |x| <= 512 (non-integer X floored) as two "
+                "exact bf16 pieces on the bf16 tensor cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:777",
     x_absmax=512, source=_CSRC + "tiled_dense.cu", plain=tiled_dense_i8_plain)
 def cuda_tiled_dense_i8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
@@ -511,7 +567,8 @@ def cuda_tiled_dense_i8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
 @register_kernel(
     "CudaTiledDense_x8", TiledDenseTernary,
     description="tile-contiguous int8 plane (8 bits/weight), int8-native "
-                "activations (round + clamp +-127) accumulated in int32",
+                "activations (round + clamp +-127) as one exact bf16 piece "
+                "on the bf16 tensor cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:821",
     x_absmax=127, source=_CSRC + "tiled_dense.cu", plain=tiled_dense_x8_plain)
 def cuda_tiled_dense_x8_kernel(X, fmt: TiledDenseTernary, bias, alpha=None):
@@ -554,7 +611,8 @@ def cuda_dense_bf16_kernel(X, fmt: DenseTernary, bias, alpha=None):
 @register_kernel(
     "CudaDense_i8", DenseTernary,
     description="unpadded int8 plane (8 bits/weight), integer activations "
-                "|x| <= 512 (non-integer X floored) accumulated in int32",
+                "|x| <= 512 (non-integer X floored) as two exact bf16 "
+                "pieces on the bf16 tensor cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:420",
     x_absmax=512, source=_CSRC + "dense.cu", plain=dense_i8_plain)
 def cuda_dense_i8_kernel(X, fmt: DenseTernary, bias, alpha=None):
@@ -567,8 +625,9 @@ def cuda_dense_i8_kernel(X, fmt: DenseTernary, bias, alpha=None):
 @register_kernel(
     "CudaBlockPacked_i8", BlockPackedTernary,
     description="block-local 2-bit or base-3 codes (2 / 1.6 bits/weight) "
-                "decoded per lane, integer activations |x| <= 512 "
-                "(non-integer X floored) accumulated in int32",
+                "decoded as they are staged, integer activations |x| <= 512 "
+                "(non-integer X floored) on the bf16 tensor cores, exact "
+                "sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:596",
     x_absmax=512, source=_CSRC + "blockpacked.cu", plain=blockpacked_i8_plain)
 def cuda_blockpacked_i8_kernel(X, fmt: BlockPackedTernary, bias, alpha=None):
@@ -583,8 +642,9 @@ def cuda_blockpacked_i8_kernel(X, fmt: BlockPackedTernary, bias, alpha=None):
 @register_kernel(
     "CudaTiledBlockPacked_i8", TiledBlockPacked,
     description="tile-contiguous block-local 2-bit or base-3 codes (2 / 1.6 "
-                "bits/weight) decoded per lane, integer activations "
-                "|x| <= 512 (non-integer X floored) accumulated in int32",
+                "bits/weight) decoded as they are staged, integer "
+                "activations |x| <= 512 (non-integer X floored) on the bf16 "
+                "tensor cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:886",
     x_absmax=512, source=_CSRC + "blockpacked.cu",
     plain=tiled_blockpacked_i8_plain)
@@ -633,9 +693,9 @@ def cuda_packed53_kernel(X, fmt: PackedTernary53, bias, alpha=None):
 
 @register_kernel(
     "CudaPacked2Bit_i8", PackedTernary2Bit,
-    description="stride-packed 2-bit codes (2 bits/weight) decoded per lane, "
-                "integer activations |x| <= 512 (non-integer X floored) "
-                "accumulated in int32",
+    description="stride-packed 2-bit codes (2 bits/weight) decoded as they "
+                "are staged, integer activations |x| <= 512 (non-integer X "
+                "floored) on the bf16 tensor cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:502",
     x_absmax=512, source=_CSRC + "blockpacked.cu", plain=packed2_i8_plain)
 def cuda_packed2_i8_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
@@ -649,9 +709,10 @@ def cuda_packed2_i8_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
 
 @register_kernel(
     "CudaPacked53_i8", PackedTernary53,
-    description="stride-packed base-3 codes (1.6 bits/weight) decoded per "
-                "lane, integer activations |x| <= 512 (non-integer X "
-                "floored) accumulated in int32",
+    description="stride-packed base-3 codes (1.6 bits/weight) decoded as "
+                "they are staged, integer activations |x| <= 512 "
+                "(non-integer X floored) on the bf16 tensor cores, exact "
+                "sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:513",
     x_absmax=512, source=_CSRC + "blockpacked.cu", plain=packed53_i8_plain)
 def cuda_packed53_i8_kernel(X, fmt: PackedTernary53, bias, alpha=None):

@@ -13,7 +13,8 @@ tests alone); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact (``-k
 dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
-kernels alone, and ``-k ring`` the ring on the same tile). Off those
+kernels alone, ``-k ring`` the ring on the same tile, and ``-k
+packed_mma`` the int8-X kernels over the packed-row containers on it). Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
 (rounded to bf16 identically where they round) and differ only in f32
 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
@@ -449,6 +450,111 @@ def test_dense_mma_deterministic(dev, stage, M, K, N):
     again = [kern(X, fmt, b, a) for _ in range(20)]
     torch.cuda.synchronize()
     assert all(torch.equal(y, first) for y in again)
+
+
+#: the int8-X kernels on csrc/dense_mma.cuh's tile over the slab layout:
+#: name -> (kernel, plain version, container class, packer arguments,
+#: |x| domain); the tiled containers with tile_n = 256, so that gn > 1
+PACKED_MMA = {
+    "tiled_dense_i8": (ck.cuda_tiled_dense_i8_kernel,
+                       ck.tiled_dense_i8_plain, TiledDenseTernary,
+                       {"tile_n": 256}, 512),
+    "tiled_dense_x8": (ck.cuda_tiled_dense_x8_kernel,
+                       ck.tiled_dense_x8_plain, TiledDenseTernary,
+                       {"tile_n": 256}, 127),
+    "dense_i8": (ck.cuda_dense_i8_kernel, ck.dense_i8_plain, DenseTernary,
+                 {}, 512),
+    "blockpacked_i8_f4": (ck.cuda_blockpacked_i8_kernel,
+                          ck.blockpacked_i8_plain, BlockPackedTernary,
+                          {"factor": 4}, 512),
+    "blockpacked_i8_f5": (ck.cuda_blockpacked_i8_kernel,
+                          ck.blockpacked_i8_plain, BlockPackedTernary,
+                          {"factor": 5}, 512),
+    "tiled_blockpacked_i8_f4": (ck.cuda_tiled_blockpacked_i8_kernel,
+                                ck.tiled_blockpacked_i8_plain,
+                                TiledBlockPacked,
+                                {"factor": 4, "tile_n": 256}, 512),
+    "tiled_blockpacked_i8_f5": (ck.cuda_tiled_blockpacked_i8_kernel,
+                                ck.tiled_blockpacked_i8_plain,
+                                TiledBlockPacked,
+                                {"factor": 5, "tile_n": 256}, 512),
+    "packed2_i8": (ck.cuda_packed2_i8_kernel, ck.packed2_i8_plain,
+                   PackedTernary2Bit, {}, 512),
+    "packed53_i8": (ck.cuda_packed53_i8_kernel, ck.packed53_i8_plain,
+                    PackedTernary53, {}, 512),
+}
+_PACKED_W = {}
+
+
+def _packed_mma_case(dev, name, M, K, N, prelu):
+    """The kernel, its plain version, the container of a seeded (K, N)
+    ternary W of density 1/3 (cached), integer X with the domain's edges,
+    non-integer X (x8: past its clamp), a bias and a PReLU slope that
+    differ from column to column."""
+    kern, plain, cls, kw, vr = PACKED_MMA[name]
+    key = (name, K, N)
+    if key not in _PACKED_W:
+        _PACKED_W[key] = cls.from_dense(
+            generate_ternary(K, N, 3, seed=K + 7 * N), **kw).to(dev)
+    rng = np.random.default_rng(M * K + N)
+    X = rng.integers(-vr, vr + 1, size=(M, K)).astype(np.float32)
+    X[0, :: max(1, K // 7)] = vr
+    X[-1, 1:: max(1, K // 5)] = -vr
+    hi = 1.3 * vr if vr == 127 else vr - 0.01
+    Xf = rng.uniform(-hi, hi, (M, K)).astype(np.float32)
+    b = torch.from_numpy(rng.uniform(-4, 4, N).astype(np.float32)).to(dev)
+    a = (torch.from_numpy(rng.uniform(0.01, 0.5, N).astype(np.float32))
+         .to(dev) if prelu else None)
+    return (kern, plain, _PACKED_W[key], torch.from_numpy(X).to(dev),
+            torch.from_numpy(Xf).to(dev), b, a)
+
+
+@pytest.mark.parametrize("name", sorted(PACKED_MMA))
+@pytest.mark.parametrize("M", [1, 7, 16, 17, 32, 33, 512])
+@pytest.mark.parametrize("K,N", [(100, 1000), (999, 1000), (1024, 4096),
+                                 (4096, 520)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_packed_mma_tile(dev, name, M, K, N, prelu):
+    """The int8-X kernels on the bf16 tensor-core tile, bitwise equal to the
+    plain version on integer X with the domain's edges and on non-integer X
+    (the rules round or floor it to integers), in every geometry (the
+    split-K ones, 16 x 32 up to M = 16 and 32 x 32 up to 32, the 64 x 128
+    one above), on the ragged edges: TiledDense
+    at K = 100 (tile_k = 128, under the Narrow tile's 256-row chunk), the
+    stride-packed fields at K = 999 (tkq = 250 and 200, not multiples of
+    16), BlockPacked at N = 1000 (byte-staged W), several slabs (gn > 1)."""
+    kern, plain, fmt, X, Xf, b, a = _packed_mma_case(dev, name, M, K, N,
+                                                     prelu)
+    for x in (X, Xf):
+        got, want = kern(x, fmt, b, a), plain(x, fmt, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["tiled_dense_i8", "tiled_dense_x8",
+                                  "packed53_i8"])
+@pytest.mark.parametrize("M", [7, 33])
+def test_packed_mma_non_finite(dev, name, M):
+    """inf, -inf and NaN in X give the plain version's cells: x8 clamps
+    the infinities (NaN stays NaN, as torch.clamp keeps it); i8 keeps them,
+    and inf * 0 is NaN in both (the second piece of an infinite one is
+    0); the other rows stay bitwise equal."""
+    kern, plain, fmt, X, _, b, _ = _packed_mma_case(dev, name, M, 999, 1000,
+                                                    False)
+    X = X.clone()
+    X[0, 5] = float("inf")
+    X[1, 900] = float("-inf")
+    X[2, 17] = float("nan")
+    X[3, 3] = float("inf")
+    X[3, 4] = float("-inf")
+    got, want = kern(X, fmt, b), plain(X, fmt, b)
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    assert bool(torch.isnan(want[2]).all())
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(got[4:], want[4:])
 
 
 def test_blockpacked_rejects_bad_factor(dev):

@@ -30,13 +30,16 @@ from ternary_spgemm_tpu_torch.ops import xla_kernels
 K, N = 300, 260
 
 #: container key -> (container class, packer arguments); tile_n = 128 so
-#: that gn = 3, block-packed tile_kq of 16 and 32 and ELL block_k of 31 and
-#: 32 so that nb > 1 and K is not a multiple of the block (nor of 4, 5 or
-#: the deposit's 248-row superblock)
+#: that gn = 3, a tile_k of 128 (under the 256-row chunk of the CUDA
+#: kernels' Narrow tile), block-packed tile_kq of 16 and 32 and ELL block_k
+#: of 31 and 32 so that nb > 1 and K is not a multiple of the block (nor of
+#: 4, 5 or the deposit's 248-row superblock)
 CONTAINERS = {
     "TiledBitplane": ("TiledBitplane", {"tile_n": 128}),
     "TiledNibblePair": ("TiledNibblePair", {"tile_n": 128}),
     "TiledDenseTernary": ("TiledDenseTernary", {"tile_n": 128}),
+    "TiledDenseTernary128": ("TiledDenseTernary",
+                             {"tile_k": 128, "tile_n": 128}),
     "DenseTernary": ("DenseTernary", {}),
     "BlockPacked4": ("BlockPackedTernary", {"factor": 4, "tile_kq": 16}),
     "BlockPacked5": ("BlockPackedTernary", {"factor": 5, "tile_kq": 32}),
@@ -65,6 +68,10 @@ KINDS = {
                        "TiledDenseTernary", 512),
     "dense_x8": ("CudaTiledDense_x8", "PallasTiledDense_x8",
                  "TiledDenseTernary", 127),
+    "tiled_dense_i8_tk128": ("CudaTiledDense_i8", "PallasTiledDense_i8",
+                             "TiledDenseTernary128", 512),
+    "dense_x8_tk128": ("CudaTiledDense_x8", "PallasTiledDense_x8",
+                       "TiledDenseTernary128", 127),
     "dense": ("CudaDense", "PallasDense", "DenseTernary", 512),
     "dense_bf16": ("CudaDense_bf16", "PallasDense_bf16", "DenseTernary", 256),
     "dense_i8": ("CudaDense_i8", "PallasDense_i8", "DenseTernary", 512),

@@ -1,0 +1,322 @@
+"""The int8-X kernels over the packed-row containers on the bf16
+tensor-core tile of ``csrc/dense_mma.cuh`` (``CudaTiledDense_i8`` /
+``_x8``, ``CudaDense_i8``, ``CudaBlockPacked_i8``,
+``CudaTiledBlockPacked_i8``, ``CudaPacked2Bit_i8``, ``CudaPacked53_i8``),
+on the CPU.
+
+* ``ops.cuda_kernels.split_bf16`` under the i8 and x8 rules: two pieces
+  (i8) and one (x8) sum back to the staged value bitwise over the whole
+  domain, and where the i8 split stops being exact.
+* ``ops.cuda_kernels.swar_decode``, the Python twin of the tile's decode
+  of four packed bytes at a time, against ``formats.packed.decode_fields``
+  for every byte the packers emit.
+* A numpy emulation of the tile's lanes over the slab layout — the
+  (K-block, chunk of packed rows) walk, X staged field-major by its rule
+  and split, the masks at a field's ``tkq`` and at K, the skipped k-steps,
+  the codes decoded into int8 rows of W, the B registers ``b_pairs``
+  interleaves, ``mma.sync`` m16n8k16 and the epilogue's column map — gives
+  ``rule(X) @ W`` exactly for DenseTernary, TiledDenseTernary (K = 100,
+  where ``tile_k`` = 128 is under the Narrow tile's 256-row chunk),
+  BlockPackedTernary, TiledBlockPacked and the stride-packed containers
+  (``tkq`` = 250 and 200, not multiples of 16), in both geometries, on
+  integer and non-integer X.
+
+The plain versions against the JAX Pallas kernels (interpret mode) are
+``tests/test_torch_kernels.py``'s ``test_plain_equals_pallas`` and
+``test_i8_kernels_floor_non_integer_x``. The tile itself runs only on the
+card (``tests/test_torch_cuda.py``, ``-k packed_mma``)."""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_dense_mma import G, T4, b_pairs, mma
+from ternary_spgemm_tpu_torch import formats as tf
+from ternary_spgemm_tpu_torch.formats.packed import decode_fields
+from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+from ternary_spgemm_tpu_torch.ops.api import to_i8, to_x8
+
+
+# -- the split under the integer rules -------------------------------------
+
+def _pieces_sum(x: torch.Tensor, stage: str) -> torch.Tensor:
+    out = torch.zeros_like(x)
+    for p in ck.split_bf16(x, stage=stage):
+        out = out + p.to(torch.float32)
+    return out
+
+
+def test_stage_piece_counts():
+    """i8 takes two pieces, x8 and bf16 one, f32 three; an unknown rule
+    is refused."""
+    x = torch.tensor([3.7, -300.2])
+    assert {s: len(ck.split_bf16(x, stage=s)) for s in ck.STAGES} == \
+        {"f32": 3, "bf16": 1, "x8": 1, "i8": 2}
+    with pytest.raises(ValueError, match="stage"):
+        ck.split_bf16(x, stage="i4")
+
+
+@pytest.mark.parametrize("offset", [0.0, 0.25, 0.5, 0.999])
+def test_i8_two_pieces_sum_back(offset):
+    """Every x in [-512, 512] (integers, and each plus a fraction, which
+    the rule floors): hi + lo == floor(x + 512) - 512 bitwise, lo in
+    {-1, 0, 1}."""
+    x = torch.arange(-512, 513, dtype=torch.float32) + offset
+    x = x[x <= 512]
+    hi, lo = (p.to(torch.float32) for p in ck.split_bf16(x, stage="i8"))
+    assert torch.equal(hi + lo, to_i8(x))
+    assert set(lo.unique().tolist()) <= {-1.0, 0.0, 1.0}
+
+
+def test_i8_two_pieces_beyond_the_domain():
+    """Past the domain the two pieces stay exact for every integer
+    |v| < 2**17; from there on a remainder may need 9 bits: 2**17 + 257
+    splits into 2**17 and 256 (257 rounds to even), one short."""
+    v = torch.arange(-2 ** 17 + 1, 2 ** 17, dtype=torch.float32)
+    assert torch.equal(_pieces_sum(v, "i8"), to_i8(v))
+    x = torch.tensor([2.0 ** 17 + 257])
+    assert [float(p) for p in ck.split_bf16(x, stage="i8")] == \
+        [2.0 ** 17, 256.0]
+    assert float(_pieces_sum(x, "i8")) == float(x) - 1
+
+
+def test_x8_one_piece_sums_back():
+    """Every x in [-127, 127] and past it (the rule clamps), integer or
+    not: the one piece is the staged value."""
+    x = torch.cat([torch.arange(-127, 128, dtype=torch.float32),
+                   torch.linspace(-600.0, 600.0, 4001)])
+    (piece,) = ck.split_bf16(x, stage="x8")
+    assert torch.equal(piece.to(torch.float32), to_x8(x))
+
+
+# -- the decode of the packed codes ----------------------------------------
+
+def _emitted_bytes(factor: int) -> torch.Tensor:
+    """Every byte the packers emit: codes {0, 1, 3} in each of four 2-bit
+    fields, or five base-3 digits (0..242)."""
+    if factor == 4:
+        vals = [sum(c << (2 * j) for j, c in enumerate(cs))
+                for cs in itertools.product((0, 1, 3), repeat=4)]
+    else:
+        vals = range(3 ** 5)
+    return torch.tensor(list(vals), dtype=torch.uint8)
+
+
+def _word_bytes(word: torch.Tensor, j: int) -> torch.Tensor:
+    return ((word >> (8 * j)) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+@pytest.mark.parametrize("factor", [4, 5])
+@pytest.mark.parametrize("position", [0, 1, 2, 3])
+def test_swar_decode_every_emitted_byte(factor, position):
+    """Each emitted byte, at each of a word's four byte positions (the
+    others holding other emitted bytes), decodes to decode_fields' fields."""
+    b = _emitted_bytes(factor)
+    others = [b.roll(7 * (j + 1)) for j in range(4)]
+    others[position] = b
+    words = sum(o.to(torch.int64) << (8 * j) for j, o in enumerate(others))
+    got = ck.swar_decode(words, factor)
+    for f, want in enumerate(decode_fields(b, factor)):
+        assert torch.equal(_word_bytes(got[f], position), want), f
+
+
+@pytest.mark.parametrize("cls,kw", [
+    ("BlockPackedTernary", {"factor": 4, "tile_kq": 40}),
+    ("BlockPackedTernary", {"factor": 5, "tile_kq": 24}),
+    ("PackedTernary2Bit", {}), ("PackedTernary53", {})])
+def test_swar_decode_packed_container(cls, kw):
+    """The words of a packed container decode to its dense weights."""
+    W = tf.generate_ternary(300, 64, 3, seed=5)
+    fmt = getattr(tf, cls).from_dense(W, **kw)
+    F = kw.get("factor") or fmt.FACTOR
+    packed = fmt.packed
+    words = packed.view(torch.int32).to(torch.int64)     # (rows, N / 4)
+    fields = [torch.stack([_word_bytes(w, j) for j in range(4)], -1)
+              .reshape(packed.shape) for w in ck.swar_decode(words, F)]
+    rows = fmt.tile_kq if "tile_kq" in kw else packed.shape[0]
+    nb = packed.shape[0] // rows
+    dense = torch.stack([f.view(nb, rows, -1) for f in fields], 1)
+    assert torch.equal(dense.reshape(nb * F * rows, -1)[:300],
+                       torch.from_numpy(W))
+
+
+# -- the tile's lanes over the slab layout ----------------------------------
+
+#: dense_mma.cuh's geometries over the slabs: (WM, WN, KC, MF); a warp
+#: 16 * MF x 32, 8 warps, the 8 / (WM * WN) warps left over splitting each
+#: chunk's k-steps; Narrow16 up to 16 rows of X, Narrow up to 32, Wide above
+TILES = {"narrow16": (1, 1, 256, 1), "narrow": (1, 1, 256, 2),
+         "wide": (2, 4, 128, 2)}
+
+def _slabs(fmt):
+    """(bytes, nb, gn, tkq, tile_n, F) as the wrappers pass them."""
+    if isinstance(fmt, tf.DenseTernary):
+        return fmt.dense.view(torch.uint8), 1, 1, fmt.K, fmt.N, 1
+    if isinstance(fmt, tf.TiledDenseTernary):
+        gk, gn = fmt.tiles.shape[:2]
+        return fmt.tiles.view(torch.uint8), gk, gn, fmt.tile_k, fmt.tile_n, 1
+    if isinstance(fmt, tf.BlockPackedTernary):
+        return (fmt.packed, fmt.packed.shape[0] // fmt.tile_kq, 1,
+                fmt.tile_kq, fmt.N, fmt.factor)
+    if isinstance(fmt, tf.TiledBlockPacked):
+        nb, gn = fmt.tiles.shape[:2]
+        return fmt.tiles, nb, gn, fmt.tile_kq, fmt.tile_n, fmt.factor
+    return fmt.packed, 1, 1, fmt.packed.shape[0], fmt.N, fmt.FACTOR
+
+
+def _words(rows: np.ndarray) -> np.ndarray:
+    """(R, C) bytes -> (R, C / 4) little-endian 32-bit words."""
+    return (rows.reshape(rows.shape[0], -1, 4) <<
+            (8 * np.arange(4))).sum(-1)
+
+
+def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
+    """stage(X) (M, K) times the container's W as the tile's lanes compute
+    it (``csrc/dense_mma.cuh``: ``stage_chunk``, ``dense_tile``)."""
+    WM, WN, KC, MF = TILES[tile]
+    WK, BM, BN = 8 // (WM * WN), 16 * MF * WM, 32 * WN
+    data, nb, gn, tkq, tile_n, F = _slabs(fmt)
+    flat = data.reshape(-1).numpy().astype(np.int64)
+    KQ = KC if F == 1 else KC // 4       # packed rows a chunk
+    CW = F * KQ                          # staged columns, decoded W rows
+    KS, NJ = CW // 16, -(-CW // 16 // WK)
+    M, (K, N) = X.shape[0], fmt.shape
+    pieces = [p.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+              for p in ck.split_bf16(torch.from_numpy(X), stage=stage)]
+    NP = len(pieces)
+
+    def live(kb, q0, ks):
+        """dense_mma.cuh live_step: k-step ks holds a row inside tkq and K."""
+        f, q = divmod(ks, KQ)
+        return q0 + q < tkq and kb * F * tkq + f * tkq + q0 + q < K
+
+    Y = np.zeros((M, N))
+    for m0 in range(0, M, BM):
+        rows = min(BM, M - m0)
+        for n0 in range(0, N, BN):
+            g = n0 // tile_n
+            cols = min(BN, N - n0)
+            acc = np.zeros((8, MF, 4, 4, 32))  # warp, i, f, r, lane
+            for kb in range(nb):
+                base = (kb * gn + g) * tkq * tile_n + n0 - g * tile_n
+                for q0 in range(0, tkq, KQ):
+                    xs = np.zeros((NP, BM, CW), np.int64)
+                    for c in range(CW):
+                        f, q = divmod(c, KQ)
+                        k = kb * F * tkq + f * tkq + q0 + q
+                        if q0 + q < tkq and k < K:
+                            for p in range(NP):
+                                xs[p, :rows, c] = pieces[p][m0:m0 + rows, k]
+                    raw = np.zeros((KQ, BN), np.int64)
+                    for r in range(min(KQ, tkq - q0)):
+                        at = base + (q0 + r) * tile_n
+                        raw[r, :cols] = flat[at:at + cols]
+                    if F == 1:
+                        ws = raw
+                    else:
+                        dec = ck.swar_decode(torch.from_numpy(_words(raw)), F)
+                        ws = np.concatenate([
+                            ((d.numpy()[..., None] >> (8 * np.arange(4)))
+                             & 0xFF).reshape(KQ, BN) for d in dec])
+                    for warp in range(8):
+                        wk, wmn = warp // (WM * WN), warp % (WM * WN)
+                        wm, wn = 16 * MF * (wmn // WN), 32 * (wmn % WN)
+                        for j in range(NJ):
+                            ks = 16 * (wk + j * WK)
+                            if ks >= CW or not live(kb, q0, ks):
+                                continue
+
+                            def word(row):
+                                c4 = wn + 4 * G[:, None] + np.arange(4)
+                                return (ws[row[:, None], c4] <<
+                                        (8 * np.arange(4))).sum(1)
+
+                            b0 = b_pairs(word(ks + 2 * T4),
+                                         word(ks + 2 * T4 + 1))
+                            b1 = b_pairs(word(ks + 2 * T4 + 8),
+                                         word(ks + 2 * T4 + 9))
+                            for i in range(MF):
+                                for p in range(NP):
+                                    a = []
+                                    for ro, co in [(0, 0), (8, 0), (0, 8),
+                                                   (8, 8)]:
+                                        row = wm + 16 * i + ro + G
+                                        col = ks + co + 2 * T4
+                                        a.append(xs[p, row, col] |
+                                                 xs[p, row, col + 1] << 16)
+                                    for f8 in range(4):
+                                        mma(acc[warp, i, f8], a,
+                                            (b0[f8], b1[f8]))
+            red = np.zeros((WK, BM, BN))
+            for warp in range(8):
+                wk, wmn = warp // (WM * WN), warp % (WM * WN)
+                wm, wn = 16 * MF * (wmn // WN), 32 * (wmn % WN)
+                for i in range(MF):
+                    for f8 in range(4):
+                        for r in range(4):
+                            red[wk, wm + 16 * i + G + 8 * (r >> 1),
+                                wn + 8 * T4 + 4 * (r & 1) + f8] = \
+                                acc[warp, i, f8, r]
+            Y[m0:m0 + rows, n0:n0 + cols] = red.sum(0)[:rows, :cols]
+    return Y
+
+
+#: layout -> (container class, K, N, packer arguments, X rules of its
+#: kernels): every slab layout the wrappers launch, each with a ragged
+#: edge (K = 100 under the Narrow chunk; a field's tkq not a multiple of
+#: 16: 40, 24, and the stride-packed 250 and 200 at K = 999; gn = 2)
+LAYOUTS = {
+    "dense": ("DenseTernary", 300, 40, {}, ("i8",)),
+    "tiled_k100": ("TiledDenseTernary", 100, 200, {"tile_n": 128},
+                   ("i8", "x8")),
+    "tiled": ("TiledDenseTernary", 300, 130, {"tile_n": 128}, ("i8", "x8")),
+    "blockpacked_f4": ("BlockPackedTernary", 300, 40,
+                       {"factor": 4, "tile_kq": 40}, ("i8",)),
+    "blockpacked_f5": ("BlockPackedTernary", 300, 40,
+                       {"factor": 5, "tile_kq": 24}, ("i8",)),
+    "tiled_blockpacked_f4": ("TiledBlockPacked", 300, 200,
+                             {"factor": 4, "tile_kq": 40, "tile_n": 128},
+                             ("i8",)),
+    "tiled_blockpacked_f5": ("TiledBlockPacked", 300, 200,
+                             {"factor": 5, "tile_kq": 24, "tile_n": 128},
+                             ("i8",)),
+    "packed2": ("PackedTernary2Bit", 999, 40, {}, ("i8",)),
+    "packed53": ("PackedTernary53", 999, 40, {}, ("i8",)),
+}
+CASES = [(layout, stage) for layout, spec in sorted(LAYOUTS.items())
+         for stage in spec[4]]
+
+
+def test_layouts_are_ragged():
+    """The tkq and tile_k of the cases above are what the docstring says."""
+    tk = {n: _slabs(getattr(tf, c).from_dense(
+        tf.generate_ternary(K, N, 3, seed=0), **kw))[3]
+          for n, (c, K, N, kw, _) in LAYOUTS.items()}
+    assert tk["tiled_k100"] == 128 and tk["packed2"] == 250 \
+        and tk["packed53"] == 200
+    assert all(t % 16 for n, t in tk.items() if "packed" in n)
+
+
+@pytest.mark.parametrize("layout,stage", CASES)
+@pytest.mark.parametrize("tile,M", [("narrow16", 7), ("narrow", 20),
+                                    ("wide", 40)])
+@pytest.mark.parametrize("kind", ["integer", "non-integer"])
+def test_tile_lanes_give_rule_x_w(layout, stage, tile, M, kind):
+    """The emulated lanes give rule(X) @ W exactly, integer X with the
+    domain's edges or not (the rules round or floor it to integers)."""
+    cls, K, N, kw, _ = LAYOUTS[layout]
+    W = tf.generate_ternary(K, N, 3, seed=K + N)
+    fmt = getattr(tf, cls).from_dense(W, **kw)
+    vr = 127 if stage == "x8" else 512
+    rng = np.random.default_rng(M * K)
+    if kind == "integer":
+        X = rng.integers(-vr, vr + 1, (M, K)).astype(np.float32)
+        X[:, ::5], X[:, 2::5] = vr, -vr
+    else:   # x8 past its clamp, i8 inside its domain
+        hi = 1.3 * vr if stage == "x8" else vr - 0.01
+        X = rng.uniform(-hi, hi, (M, K)).astype(np.float32)
+    rule = to_x8 if stage == "x8" else to_i8
+    want = rule(torch.from_numpy(X)).double().numpy() @ W.astype(np.float64)
+    np.testing.assert_array_equal(emulate_slabs(X, fmt, stage, tile), want)
