@@ -71,12 +71,12 @@ result line if any fails, or if no GPU is visible):
    rtol=1e-5, atol=1e-3 (the x8 and i8 rules round or floor it as the plain
    versions do; the f32 and bf16 kernels sum it in another order than the
    plain matmul; each shape's max |diff| there is printed); the
-   yardsticks of phase 3 at the north star, for the three ELL kernels at
-   32x4096x11008 too, and for the kernels on ``csrc/dense_mma.cuh``'s bf16
-   tensor-core tile (``DENSE_KERNELS``: dense f32 and bf16, and the
-   int8-X tiled-dense, dense, block-packed, tiled block-packed and
-   stride-packed ones) at 32x4096x11008 and 512x4096x4096 too; then those
-   kernels timed, each bitwise on integer X, at M in ``DENSE_ROWS`` at the
+   yardsticks of phase 3 for every kernel at every shape; then the
+   kernels on ``csrc/dense_mma.cuh``'s bf16 tensor-core tile
+   (``DENSE_KERNELS``: dense f32 and bf16, the int8-X tiled-dense, dense,
+   block-packed, tiled block-packed and stride-packed ones, the f32
+   stride-packed ones and the bf16 bitplane one) timed, each bitwise on
+   integer X, at M in ``DENSE_ROWS`` at the
    north star's K and N (``phase_dense_rows``, which also runs against a
    parent tree's package to time the bodies the tile replaced);
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
@@ -133,10 +133,10 @@ module (``ops/fused_ffn.py``), the study tools' modules
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
 QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
-the i8 kernel's and the three ELL kernels': the north star and a ``u``
-object at 32x4096x11008; those of ``DENSE_KERNELS``: the north star,
-``u`` and an ``l`` object at 512x4096x4096, the block-packed ones at
-factor 4), the card line, and ``{"ok": true, "device": {...}}``.
+the i8 kernel's: the north star and a ``u`` object at 32x4096x11008;
+phase 6's: the north star, ``u`` and an ``l`` object at 512x4096x4096, the
+block-packed ones at factor 4), the card line, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -180,13 +180,14 @@ F32_BF16_PASSES = 3
 #: tile (``DENSE_KERNELS``) are timed at the north star's K and N
 DENSE_ROWS = (1, 4, 7, 16, 32, 512)
 #: the kernels on dense_mma.cuh's bf16 tensor-core tile, which phase 6
-#: gives their yardsticks at every shape and times at ``DENSE_ROWS``: the
-#: dense f32 and bf16 kernels and the int8-X kernels over the packed-row
-#: containers (the block-packed ones at factor 4 and 5)
+#: times at ``DENSE_ROWS``: the dense f32 and bf16 kernels, the int8-X
+#: kernels over the packed-row containers (the block-packed ones at factor
+#: 4 and 5), the f32 stride-packed ones and the bf16 bitplane one
 DENSE_KERNELS = ("CudaDense", "CudaDense_bf16", "CudaTiledDense_i8",
                  "CudaTiledDense_x8", "CudaDense_i8", "CudaBlockPacked_i8",
                  "CudaTiledBlockPacked_i8", "CudaPacked2Bit_i8",
-                 "CudaPacked53_i8")
+                 "CudaPacked53_i8", "CudaPacked2Bit", "CudaPacked53",
+                 "CudaTiledBitplane_bf16")
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
 X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
@@ -855,29 +856,21 @@ def phase_bench_kernels(dev, card: str) -> dict:
                 ms = event_ms(lambda: kern(x, f, b, None), flush=flush)
                 pms = event_ms(lambda: plain(x, f, b, None), flush=flush)
                 bms, by = spmm_bound(M, f)
-                extra = ""
-                if (M, K, N) == BENCH_SHAPES[0][:3] or (
-                        (M, K, N) in extras
-                        and (_is_ell(f) and extras[(M, K, N)] == "u"
-                             or name in DENSE_KERNELS)):
-                    # every kernel's yardsticks at the north star, the ELL
-                    # kernels' at the up-projection too, the kernels on
-                    # dense_mma.cuh's tile at every shape; the kernels line
-                    # keeps the first factor's
-                    lms = library_ms(x, f, flush)
-                    extra = f", library {lms:.4f} ms"
-                    rec = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                               bound_ms=bms, bound_by=by)
-                    if kw == variants[0] and (M, K, N) in extras:
-                        stats[name][extras[(M, K, N)]] = rec
-                    elif kw == variants[0]:
-                        stats[name].update(rec)
+                # the yardsticks at every shape; the kernels line keeps the
+                # first factor's at the north star, U and L
+                lms = library_ms(x, f, flush)
+                rec = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                           bound_ms=bms, bound_by=by)
+                if kw == variants[0] and (M, K, N) in extras:
+                    stats[name][extras[(M, K, N)]] = rec
+                elif kw == variants[0] and (M, K, N) == BENCH_SHAPES[0][:3]:
+                    stats[name].update(rec)
                 print(f"kernel {name}{''.join(f' {k}={v}' for k, v in kw.items())} "
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
                       f"on/off), non-integer X within tolerance (max |diff| "
                       f"{shape_err:.3g}); {ms:.4f} ms vs plain {pms:.4f} ms"
-                      f"{extra}, bound {bms:.4f} ms ({by}) [{card}]",
-                      flush=True)
+                      f", library {lms:.4f} ms, bound {bms:.4f} ms ({by}) "
+                      f"[{card}]", flush=True)
         del W, fmts
     del flush
     phase_dense_rows(dev, card)

@@ -1,6 +1,10 @@
-// Shared core of the tiled SpMM kernels: one templated kernel that decodes
-// the ternary weights straight from the container bytes and accumulates the
-// dot products (exact int32 for the integer activation rules, f32 for bf16).
+// Shared core of the CUDA-core SpMM kernels over the bit-plane and
+// nibble-pair containers: one templated kernel that decodes the ternary
+// weights straight from the container bytes and accumulates the dot
+// products in exact int32 (every rule it runs stages integers). Its users:
+// the x8 and i8 bitplane kernels up to their tensor-core splits
+// (bitplane.cu), CudaTiledNibblePair_i8 (nibblepair.cu), the fused FFNs'
+// decode branches (ffn.cu, swiglu.cu).
 //
 // Containers (ternary_spgemm_tpu_torch/formats/), all tile-contiguous, a
 // K-block of B = 8*tkb dense rows by a storage tile of tile_n columns per
@@ -16,21 +20,20 @@
 //     two's-complement nibbles; little-endian byte j of word row t holds
 //     dense row 4t + j in its low nibble and 4*tkb + 4t + j in its high one
 //     (formats/bitplane.py:176-180, 208-214 of the JAX package).
-// The int8 and block-packed containers have a core of their own
-// (packed_core.cuh).
+// The int8, packed-code and bf16 bitplane kernels run dense_mma.cuh's bf16
+// tensor-core tile instead.
 //
 // Design, simple first:
 //   * one output column per lane: a warp reads 32 neighbouring elements of
 //     a slab row (one 32-byte sector for the byte formats), coalesced;
 //   * a block is 32 columns x 8 warps; the 8 warps split each staged chunk's
 //     byte-rows and their partial sums are added in shared memory at the end
-//     (in a fixed warp order, so the f32 sums are deterministic too);
+//     (in a fixed warp order);
 //   * an M-tile of MT <= 32 rows of activations is staged per chunk of 32
 //     byte-rows in shared memory, already converted by the STAGE rule (x8
-//     round+clamp, i8 floor, truncation, the per-row requantize, or bf16
-//     round-to-nearest-even widened back to f32); the four dense rows of one
-//     half of a byte-row are adjacent, so one 16-byte shared load feeds four
-//     multiply-adds per row;
+//     round+clamp, i8 floor, truncation, or the per-row requantize); the
+//     four dense rows of one half of a byte-row are adjacent, so one 16-byte
+//     shared load feeds four multiply-adds per row;
 //   * each lane loads a byte-row's bits once (load_row), decodes each half
 //     into four w in {-1, 0, +1} (decode_half) and reuses them for all MT
 //     rows; w * x is one multiply-add.
@@ -43,7 +46,6 @@
 // are the later, faster design.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,13 +73,10 @@ enum EpiMode { kEpiBias = 0, kEpiSwiglu = 1, kEpiScale = 2, kEpiBiasRmax = 3,
                kEpiScaleBias = 4 };
 enum WeightFmt { kWBitplane = 0, kWNibble = 1 };
 
-// bf16 and f32 activations sum in f32; every other rule stages exact integers
+// The ELL core's sums by X rule (ell_core.cuh): f32 X in f32, the integer
+// rules in int
 template <int STAGE>
-constexpr bool kFloatAcc = STAGE == kStageBf16 || STAGE == kStageF32;
-template <int STAGE>
-using Acc = typename std::conditional<kFloatAcc<STAGE>, float, int>::type;
-template <int STAGE>
-using Acc4 = typename std::conditional<kFloatAcc<STAGE>, float4, int4>::type;
+using Acc = typename std::conditional<STAGE == kStageF32, float, int>::type;
 
 struct Args {
   const float* x;           // (M, K) f32 activations, row-major
@@ -100,20 +99,20 @@ __device__ __forceinline__ float requant_scale(const int* rmax, int m) {
   return (__int_as_float(rmax[m]) + kRqEps) / kRqAbsmax;
 }
 
+// The staged value of one activation by this core's rules (the float
+// rules, kStageBf16 and kStageF32, are dense_mma.cuh's and ell_core.cuh's).
 template <int STAGE>
-__device__ __forceinline__ Acc<STAGE> stage_value(float v, float scale) {
+__device__ __forceinline__ int stage_value(float v, float scale) {
   if constexpr (STAGE == kStageX8)       // _to_x8: round half to even, clamp
     return (int)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
   else if constexpr (STAGE == kStageI8)  // the 8a + r - 512 split's value
     return (int)floorf(v + 512.0f) - 512;
   else if constexpr (STAGE == kStageTrunc)   // astype(int8) of integer floats
     return (int)v;
-  else if constexpr (STAGE == kStageRequant)
+  else {
+    static_assert(STAGE == kStageRequant, "an integer X rule");
     return (int)rintf(v / scale);
-  else if constexpr (STAGE == kStageF32)  // f32 X as it is
-    return v;
-  else                                   // jnp.asarray(X, bfloat16), widened
-    return __bfloat162float(__float2bfloat16_rn(v));
+  }
 }
 
 // The raw bits of one byte-row, read once per lane from element ``off``:
@@ -181,7 +180,7 @@ __device__ __forceinline__ int abs_bits(float v) {
 
 template <int MT, int STAGE, int NP, int EPI, int WFMT>
 __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
-  using A = Acc<STAGE>;
+  using A = int;
   __shared__ __align__(16) A xs[MT * kCW];
   __shared__ float rs[MT];
   const int lane = threadIdx.x, warp = threadIdx.y;
@@ -238,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
             if constexpr (NP == 2) decode_half<WFMT>(r1, h, w1);
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
-              const Acc4<STAGE> xv = *reinterpret_cast<const Acc4<STAGE>*>(
+              const int4 xv = *reinterpret_cast<const int4*>(
                   &xs[m * kCW + h * kHalf + 4 * tl]);
               acc0[m] += w0[0] * xv.x + w0[1] * xv.y + w0[2] * xv.z + w0[3] * xv.w;
               if constexpr (NP == 2)

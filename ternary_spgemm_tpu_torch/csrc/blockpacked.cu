@@ -33,6 +33,8 @@
 
 #include "dense_mma.cuh"
 
+namespace dmma = ternary::dmma;
+
 extern "C" int ternary_blockpacked_i8(const float* x, int M, int K,
                                       const uint8_t* packed, int nb, int gn,
                                       int tile_kq, int tile_n, int factor,
@@ -40,10 +42,10 @@ extern "C" int ternary_blockpacked_i8(const float* x, int M, int K,
                                       const float* alpha, float* y,
                                       void* stream) {
   if (factor == 4)
-    return ternary::dmma::run_slabs<ternary::kStageI8, 4>(
+    return dmma::run_slabs<ternary::kStageI8, dmma::Slabs<4>>(
         x, M, K, packed, nb, gn, tile_kq, tile_n, N, bias, alpha, y, stream);
   if (factor == 5)
-    return ternary::dmma::run_slabs<ternary::kStageI8, 5>(
+    return dmma::run_slabs<ternary::kStageI8, dmma::Slabs<5>>(
         x, M, K, packed, nb, gn, tile_kq, tile_n, N, bias, alpha, y, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,13 +34,15 @@
 
 #include "dense_mma.cuh"
 
+namespace dmma = ternary::dmma;
+
 // x (M, K) f32, dense (K, N) int8, bias and alpha (N,) f32 (alpha may be
 // null), y (M, N) f32
 extern "C" int ternary_dense_f32(const float* x, int M, int K,
                                  const int8_t* dense, int N,
                                  const float* bias, const float* alpha,
                                  float* y, void* stream) {
-  return ternary::dmma::run_dense<ternary::kStageF32>(
+  return dmma::run_dense<ternary::kStageF32>(
       x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
@@ -48,7 +50,7 @@ extern "C" int ternary_dense_bf16(const float* x, int M, int K,
                                   const int8_t* dense, int N,
                                   const float* bias, const float* alpha,
                                   float* y, void* stream) {
-  return ternary::dmma::run_dense<ternary::kStageBf16>(
+  return dmma::run_dense<ternary::kStageBf16>(
       x, M, K, dense, N, N, bias, alpha, y, static_cast<cudaStream_t>(stream));
 }
 
@@ -56,6 +58,6 @@ extern "C" int ternary_dense_i8(const float* x, int M, int K,
                                 const int8_t* dense, int nb, int gn, int tkq,
                                 int tile_n, int N, const float* bias,
                                 const float* alpha, float* y, void* stream) {
-  return ternary::dmma::run_slabs<ternary::kStageI8, 1>(
+  return dmma::run_slabs<ternary::kStageI8, dmma::Slabs<1>>(
       x, M, K, dense, nb, gn, tkq, tile_n, N, bias, alpha, y, stream);
 }

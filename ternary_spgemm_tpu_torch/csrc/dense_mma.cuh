@@ -1,6 +1,6 @@
-// Y = stage(X) . W + b [PReLU] over ternary weights held as bytes, on
-// Hopper's bf16 tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32): one
-// tile, used by
+// Y = stage(X) . W + b [PReLU] over ternary weights held as bytes or bits,
+// on Hopper's bf16 tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32):
+// one tile, used by
 //   * CudaDense (dense.cu, ternary_dense_f32): kStageF32, f32 X exact;
 //   * CudaDense_bf16 (dense.cu, ternary_dense_bf16): kStageBf16;
 //   * the ring all-gather SpMM's compute warps (ring.cu), f32 X exact, on
@@ -11,7 +11,11 @@
 //     (Slabs<1>: TiledDenseTernary, DenseTernary as its one slab);
 //   * CudaBlockPacked_i8, CudaTiledBlockPacked_i8, CudaPacked2Bit_i8 and
 //     CudaPacked53_i8 (blockpacked.cu, ternary_blockpacked_i8): kStageI8
-//     over 2-bit (F = 4) or base-3 (F = 5) codes (Slabs<4>, Slabs<5>).
+//     over 2-bit (F = 4) or base-3 (F = 5) codes (Slabs<4>, Slabs<5>);
+//   * CudaPacked2Bit and CudaPacked53 (packed.cu, ternary_packed_f32):
+//     kStageF32 over the same codes, the stride-packed containers;
+//   * CudaTiledBitplane_bf16 (bitplane_bf16.cu, ternary_bitplane_bf16):
+//     kStageBf16 over TiledBitplane's pos and neg bit planes (Bitplane).
 //
 // Replaces the products of ternary_spgemm_tpu/ops/pallas_kernels.py
 // _dense_kernel (:113; launched by pallas_dense_kernel :173 and
@@ -19,8 +23,9 @@
 // ring_kernel.py::_ring_kernel (:42), of pallas_tiled_dense_i8_kernel
 // (:777), pallas_tiled_dense_x8_kernel (:821), pallas_dense_i8_kernel
 // (:420), pallas_blockpacked_i8_kernel (:596), pallas_tiled_blockpacked_
-// i8_kernel (:886) and pallas_packed2/53_i8_kernel (:502, :513). The f32
-// ones take the TPU's own route to an exact f32 product: "the TPU MXU
+// i8_kernel (:886), pallas_packed2/53_i8_kernel (:502, :513),
+// pallas_packed2/53_kernel (:264, :275) and pallas_tiled_bitplane_bf16_
+// kernel (:1602). The f32 ones take the TPU's own route to an exact f32 product: "the TPU MXU
 // computes f32 dots via multi-pass bf16 products" (Precision.HIGHEST,
 // pallas_kernels.py:124-131); the int8 ones issue int8 dots into int32
 // accumulators, exact on their domain. Here:
@@ -66,31 +71,37 @@
 //     has a fixed order, so the kernels are deterministic.
 //
 // The weight layouts (a trait, the B operand's bytes). The walk over K is
-// a walk over nb K-blocks, each of tkq packed rows of F fields: packed row
-// q of block kb holds, in field f < F, the weight of dense row
-// kb*F*tkq + f*tkq + q (ternary_spgemm_tpu_torch/formats/packed.py,
-// tiled.py):
-//   * RowMajor: the (K, N) int8 plane, row stride ldw (F = 1, one block of
-//     tkq = K rows): DenseTernary for f32 and bf16 X, the ring's shard.
+// a walk over nb K-blocks, each of tkq packed rows, each block's dense rows
+// cut into R runs of D*tkq rows: packed row q of block kb holds D dense
+// rows of each run r < R, kb*R*D*tkq + r*D*tkq + D*q + j for j < D
+// (ternary_spgemm_tpu_torch/formats/packed.py, tiled.py, bitplane.py):
+//   * RowMajor: the (K, N) int8 plane, row stride ldw (R = D = 1, one block
+//     of tkq = K rows): DenseTernary for f32 and bf16 X, the ring's shard.
 //     Slabs<1> with nb = gn = 1 covers the same bytes, but its per-k-step
 //     checks cost these kernels 4-25% at M >= 32 and the ring 4-5% on an
 //     H100 (PERF.md), so they keep this walk;
-//   * Slabs<F>: bytes (nb, gn, tkq, tile_n), slab (kb, g) holding columns
-//     [g*tile_n, (g+1)*tile_n) of block kb; packed row q, column n of
-//     slab (kb, g) is w[((kb*gn + g)*tkq + q)*tile_n + n]:
+//   * Slabs<F>: bytes (nb, gn, tkq, tile_n) of F fields (R = F runs, D =
+//     1), slab (kb, g) holding columns [g*tile_n, (g+1)*tile_n) of block
+//     kb; packed row q, column n of slab (kb, g) is
+//     w[((kb*gn + g)*tkq + q)*tile_n + n]:
 //       - F = 1 TiledDenseTernary (nb = gk, tkq = tile_k) and DenseTernary
 //         for i8 X (nb = gn = 1, tkq = K, tile_n = N);
 //       - F = 4 / 5 TiledBlockPacked, BlockPackedTernary (gn = 1, tile_n =
 //         N) and the stride-packed PackedTernary2Bit / PackedTernary53
-//         (nb = gn = 1, tkq = Kq = ceil(K / F), tile_n = N).
+//         (nb = gn = 1, tkq = Kq = ceil(K / F), tile_n = N);
+//   * Bitplane: TiledBitplane's plane (nb, gn, 2*tkb, tile_n) uint8, tkq =
+//     tkb byte-rows a block (R = 2 halves, D = 4): in slab (kb, g) pos
+//     byte-row t < tkb and neg byte-row tkb + t hold, in bit 4h + j, the
+//     +1 and -1 flags of dense row kb*8*tkb + h*4*tkb + 4t + j.
 //     A block's columns lie in one slab (tile_n a multiple of the tile's
 //     width where gn > 1). A chunk is KQ packed rows of one K-block: it
-//     stages F runs of KQ columns of X, field-major, and decodes the F
-//     fields of its packed rows into F runs of KQ int8 rows of W, so a
-//     k-step (16 staged columns) pairs the X of one field with that
-//     field's weights; each run is masked at tkq and at K (tkq % 16 != 0,
-//     K not a multiple of F or of a block), and a k-step whose rows all
-//     lie past either is skipped.
+//     stages R runs of D*KQ columns of X side by side (a field's, or a
+//     half's), and decodes its packed rows into R runs of D*KQ int8 rows
+//     of W, so a k-step (16 staged columns) pairs the X of one run with
+//     that run's weights; each run is masked at D*tkq and at K (tkq % 16
+//     != 0, K not a multiple of F or of a block, tkb = 16 under the Narrow
+//     chunk's 32 byte-rows), and a k-step whose rows all lie past either
+//     is skipped.
 // Decoding (exact for every byte the packers emit, ops/pallas_kernels.py
 // _decode_block :530; ops/cuda_kernels.py swar_decode is the Python twin),
 // four bytes at a time: d is a byte's code or digit, and its weight byte
@@ -98,17 +109,20 @@
 //   * F = 4: d = (word >> 2j) & 0x03030303, codes {0, 1, 3} -> {0, 1, -1};
 //   * F = 5: the bytes in two 16-bit lanes each of two words (even and odd
 //     bytes), qn = (q*171) >> 9 (= q / 3 for q < 512, below 2**16 for
-//     every byte), d = q - 3*qn, q = qn, field by field.
+//     every byte), d = q - 3*qn, q = qn, field by field;
+//   * bit planes: the words of four columns of a pos and a neg byte-row,
+//     bit o of each byte -> pbit | 0xFF * nbit (the planes never share a
+//     bit), eight words of weight bytes.
 //
 // What bounds it on an H100: at M = 512 (L: 512 x 4096 x 4096) the NP
 // passes are NP x 17.2 G bf16 operations, 17-52 us at the 989 TFLOP/s
 // peak, and the bytes ~14 us: the operations. At M <= 32 (the north star,
 // 32 x 1024 x 4096) the W bytes (8, 2 or 1.6 bits a weight; 1.25 us at
 // 3.35 TB/s for one byte a weight), under the latency of the chunks each
-// block walks in series. A CUDA-core body (packed_core.cuh, the f32
-// stride-packed kernels) spends MT multiply-adds and MT/4 shared loads a
-// weight and lane, zeros included: only the tensor cores take the product
-// under one f32 torch.matmul. This
+// block walks in series. A CUDA-core body (bitplane_core.cuh's, which the
+// nibble-pair kernel and the small-M branches still run) spends MT
+// multiply-adds and MT/4 shared loads a weight and lane, zeros included:
+// only the tensor cores take the product under one f32 torch.matmul. This
 // first tile still pays each chunk's round trip to memory in series, and
 // its staging (X split again for every tile of N) does not overlap its
 // mma: a cp.async or TMA pipeline and wgmma are what would take it toward
@@ -123,16 +137,17 @@
 //     Narrow16 (16 x 32, one m16 fragment a warp) for M <= 16;
 //   * the exact rules (x8, i8) sum straight into the accumulators, which
 //     saves the zeroed fragments' 32 registers a thread; a k-step whose
-//     rows all lie past tkq or K is skipped (Slabs);
-//   * a chunk of KC rows of K (KC / 4 packed rows for the codes) at a time:
-//     X staged from f32 (16-byte loads where K, tkq and the address allow),
-//     its rule applied and split into its pieces as it is staged, one bf16
-//     plane a piece; W staged with 16-byte loads (8-byte ones for the
-//     codes' Narrow chunks, so that every thread decodes; byte loads where
-//     N or the row stride is not a multiple of 16), the codes decoded as
-//     they are stored; all of a chunk's loads in flight before its first
-//     store to shared memory. A fragments by ldmatrix, each feeding four n8
-//     fragments;
+//     rows all lie past tkq or K is skipped (Slabs, Bitplane);
+//   * a chunk of KC rows of K (KC / 4 packed rows for the codes, KC / 8
+//     byte-rows for the bit planes) at a time: X staged from f32 (16-byte
+//     loads where K, tkq and the address allow), its rule applied and
+//     split into its pieces as it is staged, one bf16 plane a piece; W
+//     staged with 16-byte loads (8- or 4-byte ones for the codes' and the
+//     bit planes' smaller chunks, so that every thread decodes; byte loads
+//     where N or the row stride is not a multiple of 16), the codes and
+//     bits decoded as they are stored; all of a chunk's loads in flight
+//     before its first store to shared memory. A fragments by ldmatrix,
+//     each feeding four n8 fragments;
 //   * B fragments from the int8 bytes: a B register holds two consecutive
 //     k of one column, two bytes a row stride apart. A lane reads four
 //     32-bit words (rows 2t, 2t+1, 2t+8, 2t+9 of the k-step, columns
@@ -142,7 +157,7 @@
 //     and every piece; lane (g, t)'s accumulators then cover columns 8t to
 //     8t + 7 of its rows;
 //   * the ragged edges are masked here: rows of X past M and columns past
-//     K (or past a field's tkq) stage as 0, rows of W past tkq and columns
+//     K (or past their run's end) stage as 0, rows of W past tkq and columns
 //     past N as 0, the epilogue writes only inside (M, N). The wrapper
 //     makes no padded copy;
 //   * the epilogue goes through shared memory (the split-K's reduction):
@@ -192,7 +207,7 @@ struct Tile {
 using Narrow = Tile<1, 1, 256>;         // 32 x 32, the 8 warps split K
 using Wide = Tile<2, 4, 128>;           // 64 x 128
 using Narrow16 = Tile<1, 1, 256, 1>;    // 16 x 32, the 8 warps split K
-// the largest M the Narrow tile takes, and the Narrow16 tile (Slabs only:
+// the largest M the Narrow tile takes, and the Narrow16 tile (slabs only:
 // at M <= 16 it halves the staging and the passes of the 32-row tile,
 // PERF.md)
 constexpr int kNarrowMaxM = 32;
@@ -203,7 +218,7 @@ struct Args {
   int M, K;
   const int8_t* w;       // the weight bytes (layout by the trait)
   int ldw, N;            // bytes from one row of W to the next; Y's columns
-  int nb, gn, tkq;       // Slabs: K-blocks, N-slabs, packed rows a block
+  int nb, gn, tkq;       // slabs: K-blocks, N-slabs, packed rows a block
   const float* bias;     // (N,)
   const float* alpha;    // (N,) PReLU slopes, or null
   float* y;              // (M, N) f32, row stride ldy
@@ -211,11 +226,43 @@ struct Args {
   bool xvec, wvec;       // 16-byte loads of X rows / W rows are aligned
 };
 
-// The weight layouts (the file's note): F fields a byte, the K-blocks, the
-// packed rows a block, and the bytes of block kb from the tile's first
-// column n0 (rows ldw apart).
+// Four codes or digits d (one a byte) -> their weight bytes: 1 -> 0x01,
+// 2 or 3 -> 0xFF, 0 -> 0.
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t d) {
+  return (d & 0x01010101u) | (((d >> 1) & 0x01010101u) * 0xFFu);
+}
+
+// The F fields of the four packed bytes of ``word``: out[f] holds, byte for
+// byte, the int8 weight of field f (the file's note; ops/cuda_kernels.py
+// swar_decode).
+template <int F>
+__device__ __forceinline__ void decode_word(uint32_t word, uint32_t out[F]) {
+  if constexpr (F == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = sign_bytes((word >> (2 * j)) & 0x03030303u);
+  } else {
+    static_assert(F == 5, "factor 4 or 5");
+    uint32_t e = word & 0x00FF00FFu, o = (word >> 8) & 0x00FF00FFu;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const uint32_t en = ((e * 171u) >> 9) & 0x007F007Fu;
+      const uint32_t on = ((o * 171u) >> 9) & 0x007F007Fu;
+      out[j] = sign_bytes((e - 3u * en) | ((o - 3u * on) << 8));
+      e = en;
+      o = on;
+    }
+  }
+}
+
+// The weight layouts (the file's note): R runs of D*KQ staged columns a
+// chunk of KQ = KC / KDIV packed rows, each packed row holding D dense rows
+// of each run in NW planes of bytes; the K-blocks, the packed rows a block,
+// and the bytes of block kb from the tile's first column n0 (rows ldw
+// apart; a second plane tkq rows on). ``decode`` turns a packed row's NW
+// words (four columns each) into its R*D words of weight bytes, output o
+// holding dense row D*q + o % D of run o / D.
 struct RowMajor {
-  static constexpr int F = 1;
+  static constexpr int R = 1, D = 1, KDIV = 1, NW = 1;
   static constexpr bool kSlabs = false;
   __device__ static int blocks(const Args&) { return 1; }
   __device__ static int rows(const Args& a) { return a.K; }
@@ -223,38 +270,71 @@ struct RowMajor {
     return a.w + n0;
   }
 };
-template <int F_>
+template <int F>
 struct Slabs {
-  static constexpr int F = F_;
-  static constexpr bool kSlabs = true;
   static_assert(F == 1 || F == 4 || F == 5, "factor 1, 4 or 5");
+  static constexpr int R = F, D = 1, KDIV = F == 1 ? 1 : 4, NW = 1;
+  static constexpr bool kSlabs = true;
   __device__ static int blocks(const Args& a) { return a.nb; }
   __device__ static int rows(const Args& a) { return a.tkq; }
   __device__ static const int8_t* block(const Args& a, int kb, int n0) {
     const int g = n0 / a.ldw;
     return a.w + ((size_t)kb * a.gn + g) * a.tkq * a.ldw + (n0 - g * a.ldw);
   }
+  __device__ static void decode(const uint32_t w[1], uint32_t out[F]) {
+    decode_word<F>(w[0], out);
+  }
+};
+struct Bitplane {
+  static constexpr int R = 2, D = 4, KDIV = 8, NW = 2;
+  static constexpr bool kSlabs = true;
+  __device__ static int blocks(const Args& a) { return a.nb; }
+  __device__ static int rows(const Args& a) { return a.tkq; }
+  __device__ static const int8_t* block(const Args& a, int kb, int n0) {
+    const int g = n0 / a.ldw;
+    return a.w + ((size_t)kb * a.gn + g) * 2 * a.tkq * a.ldw +
+           (n0 - g * a.ldw);
+  }
+  // bit o = 4h + j of the pos byte w[0] and the neg byte w[1] -> output o,
+  // dense row 4q + j of run h: pbit | 0xFF * nbit (the two never share a
+  // bit, so 1 -> 0x01, -1 -> 0xFF, 0 -> 0)
+  __device__ static void decode(const uint32_t w[2], uint32_t out[8]) {
+#pragma unroll
+    for (int o = 0; o < 8; ++o)
+      out[o] = ((w[0] >> o) & 0x01010101u) |
+               (((w[1] >> o) & 0x01010101u) * 0xFFu);
+  }
 };
 
 // A chunk of the walk for tile T, rule STAGE and layout L: KQ packed rows,
-// CW staged columns of X (F runs of KQ) and decoded rows of W, KS k-steps
-// split over the WK warps NJ at a time (the last may lie past KS), PS of
-// them summed into one zeroed fragment; the exact rules sum straight into
-// the accumulators. W is staged in groups of GB bytes a thread:
-// 16, or 8 where 16 would leave threads without a group (the codes'
-// Narrow chunk), so that the decode is spread over all of them.
+// CW staged columns of X (R runs of RL) and decoded rows of W, KS k-steps
+// split over the WK warps NJ at a time, PS of them summed into one zeroed
+// fragment (the exact rules: all NJ straight into the accumulators). A
+// ragged split (KS not a multiple of WK: the codes' 20 k-steps at F = 5 for
+// the Narrow tiles' 8 warps) and a ragged last group (NJ not a multiple of
+// PS: F = 5's 10 on the Wide tile, groups of 4, 4 and 2) are harmless for
+// every rule: a k-step past KS or NJ is skipped and adds nothing, and which
+// k-steps a warp takes, in which group, is fixed at compile time, so every
+// sum keeps one order and a group never holds more than kSumSteps k-steps.
+// (The alternative, a chunk of whole k-steps a warp, doubles the Narrow f32
+// F = 5 chunk to ~155 KB of shared memory, one block an SM: CudaPacked53
+// took 0.0282 ms against 0.0209 at 32 x 1024 x 4096 on an H100, PERF.md.)
+// W is staged in groups of GB bytes a thread: 16, or 8 or 4 where more
+// would leave threads without a group (the codes' and the bit planes'
+// Narrow chunks, the bit planes' Wide one), so that the decode is spread
+// over all of them.
 template <class T, int STAGE, class L>
 struct Chunk {
   static constexpr int NP = kPieces<STAGE>;
-  static constexpr int KQ = L::F == 1 ? T::KC : T::KC / 4;
-  static constexpr int CW = L::F * KQ;
+  static constexpr int KQ = T::KC / L::KDIV;
+  static constexpr int RL = L::D * KQ;
+  static constexpr int CW = L::R * RL;
   static constexpr int KS = CW / 16;
   static constexpr int NJ = cdiv(KS, T::WK);
   static constexpr int PS = kExact<STAGE> || NJ < kSumSteps ? NJ : kSumSteps;
-  static constexpr int GB = KQ * T::BN / 16 >= kThreads ? 16 : 8;
-  static_assert(KQ % 16 == 0 && NJ % PS == 0, "whole k-steps and groups");
-  static_assert(KS % T::WK == 0 || kExact<STAGE>,
-                "a ragged split of the k-steps only where every sum is exact");
+  static constexpr int GB = KQ * T::BN / 16 >= kThreads ? 16
+                            : KQ * T::BN / 8 >= kThreads ? 8 : 4;
+  static_assert(RL % 16 == 0, "whole k-steps a run");
   static constexpr int kAS = CW + 8;          // X piece row stride, bf16
   // the NP X pieces and the W rows of a chunk, then (reusing them) the WK
   // partial tiles of the reduction
@@ -294,34 +374,6 @@ __device__ __forceinline__ void split_bf16(float v, __nv_bfloat16 p[NP]) {
   }
 }
 
-// Four codes or digits d (one a byte) -> their weight bytes: 1 -> 0x01,
-// 2 or 3 -> 0xFF, 0 -> 0.
-__device__ __forceinline__ uint32_t sign_bytes(uint32_t d) {
-  return (d & 0x01010101u) | (((d >> 1) & 0x01010101u) * 0xFFu);
-}
-
-// The F fields of the four packed bytes of ``word``: out[f] holds, byte for
-// byte, the int8 weight of field f (the file's note; ops/cuda_kernels.py
-// swar_decode).
-template <int F>
-__device__ __forceinline__ void decode_word(uint32_t word, uint32_t out[F]) {
-  if constexpr (F == 4) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = sign_bytes((word >> (2 * j)) & 0x03030303u);
-  } else {
-    static_assert(F == 5, "factor 4 or 5");
-    uint32_t e = word & 0x00FF00FFu, o = (word >> 8) & 0x00FF00FFu;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      const uint32_t en = ((e * 171u) >> 9) & 0x007F007Fu;
-      const uint32_t on = ((o * 171u) >> 9) & 0x007F007Fu;
-      out[j] = sign_bytes((e - 3u * en) | ((o - 3u * on) << 8));
-      e = en;
-      o = on;
-    }
-  }
-}
-
 // The B registers of four n8 fragments from two rows of W: ``ra`` (row k)
 // and ``rb`` (row k + 1) each hold columns 4g..4g+3 as bytes 0..3; out[f]
 // is bf16(ra.f) | bf16(rb.f) << 16. A byte w in {0, 1, -1} has the bf16
@@ -357,32 +409,34 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Whether k-step ``ks`` (its first staged column) of the chunk whose field
-// 0 starts at dense row ``k00`` and packed row ``q0`` holds a row inside
-// the block's tkq packed rows and inside K: the k-steps that fail stage
-// zeros and are skipped.
+// Whether k-step ``ks`` (its first staged column) of the chunk whose run 0
+// starts at dense row ``k00``, ``r0`` rows into the block's runs of ``rs``
+// rows, holds a row inside its run and inside K: the k-steps that fail
+// stage zeros and are skipped.
 template <class C>
-__device__ __forceinline__ bool live_step(const Args& a, int tkq, int k00,
-                                          int q0, int ks) {
-  const int q = ks % C::KQ;
-  return q0 + q < tkq && k00 + (ks / C::KQ) * tkq + q < a.K;
+__device__ __forceinline__ bool live_step(const Args& a, int rs, int k00,
+                                          int r0, int ks) {
+  const int q = ks % C::RL;
+  return r0 + q < rs && k00 + (ks / C::RL) * rs + q < a.K;
 }
 
-// Store the GW words ``w`` (GW = 4 or 2) at ``p`` as one 16- or 8-byte
-// store.
+// Store the GW words ``w`` (GW = 4, 2 or 1) at ``p`` as one 16-, 8- or
+// 4-byte store.
 template <int GW>
 __device__ __forceinline__ void store_words(uint8_t* p, const uint32_t w[GW]) {
   if constexpr (GW == 4)
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  else
+  else if constexpr (GW == 2)
     *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(p) = w[0];
 }
 
 // Stage the chunk of packed rows [q0, q0 + KQ) of K-block kb for the
-// block's tile at (m0, n0): X by its rule, split into NP planes, its F
-// field runs side by side; W, each field decoded into its run of rows. Every load of the chunk is
-// issued before the first store to shared memory, so the chunk waits for
-// one round trip to device memory, not one a load.
+// block's tile at (m0, n0): X by its rule, split into NP planes, its R runs
+// side by side; W, each packed row decoded into its rows of each run. Every
+// load of the chunk is issued before the first store to shared memory, so
+// the chunk waits for one round trip to device memory, not one a load.
 template <class T, int STAGE, class L>
 __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
                                             int kb, int q0, int tid,
@@ -397,15 +451,16 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
   constexpr int WL = cdiv(WT, kThreads);        // W groups a thread
   static_assert(T::BM * Q % kThreads == 0, "whole X groups a thread");
   const int tkq = L::rows(a);
-  const int k00 = kb * L::F * tkq + q0;         // dense row of field 0
+  const int rs = L::D * tkq;                    // dense rows a run
+  const int k00 = kb * L::R * rs + L::D * q0;   // dense row of run 0
   float4 v[XL];
 #pragma unroll
   for (int j = 0; j < XL; ++j) {
     const int i = tid + j * kThreads, r = i / Q, c = 4 * (i % Q);
-    const int q = c % C::KQ;                    // packed row q0 + q
-    const int k = k00 + (c / C::KQ) * tkq + q;
+    const int q = c % C::RL;                    // row D*q0 + q of its run
+    const int k = k00 + (c / C::RL) * rs + q;
     // RowMajor: tkq is K, so a row inside K is inside the block
-    const int left = L::kSlabs ? min(tkq - q0 - q, a.K - k) : a.K - k;
+    const int left = L::kSlabs ? min(rs - L::D * q0 - q, a.K - k) : a.K - k;
     v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (m0 + r < a.M && left > 0) {
       const float* src = a.x + (size_t)(m0 + r) * a.K + k;
@@ -419,30 +474,39 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
       }
     }
   }
-  // W: GB columns of one packed row a group, one 16- or 8-byte load where
-  // aligned, GB byte loads (each column masked) elsewhere
+  // W: GB columns of one packed row a group (of each of its NW planes), one
+  // 16-, 8- or 4-byte load where aligned, GB byte loads (each column
+  // masked) elsewhere
   const int8_t* wb = L::block(a, kb, n0);
-  uint32_t u[WL][GW];
+  uint32_t u[WL][L::NW][GW];
 #pragma unroll
   for (int j = 0; j < WL; ++j) {
     const int i = tid + j * kThreads, r = i / G, c = C::GB * (i % G);
 #pragma unroll
-    for (int e = 0; e < GW; ++e) u[j][e] = 0u;
-    if ((WT % kThreads == 0 || i < WT) && q0 + r < tkq && n0 + c < a.N) {
-      const int8_t* src = wb + (size_t)(q0 + r) * a.ldw + c;
-      if (a.wvec) {
-        if constexpr (GW == 4) {
-          const uint4 t = *reinterpret_cast<const uint4*>(src);
-          u[j][0] = t.x; u[j][1] = t.y; u[j][2] = t.z; u[j][3] = t.w;
-        } else {
-          const uint2 t = *reinterpret_cast<const uint2*>(src);
-          u[j][0] = t.x; u[j][1] = t.y;
-        }
-      } else {
+    for (int p = 0; p < L::NW; ++p)
 #pragma unroll
-        for (int e = 0; e < C::GB; ++e)
-          if (n0 + c + e < a.N)
-            u[j][e / 4] |= (uint32_t)(uint8_t)src[e] << (8 * (e % 4));
+      for (int e = 0; e < GW; ++e) u[j][p][e] = 0u;
+    if ((WT % kThreads == 0 || i < WT) && q0 + r < tkq && n0 + c < a.N) {
+#pragma unroll
+      for (int p = 0; p < L::NW; ++p) {
+        const int8_t* src = wb + (size_t)(p * tkq + q0 + r) * a.ldw + c;
+        if (a.wvec) {
+          if constexpr (GW == 4) {
+            const uint4 t = *reinterpret_cast<const uint4*>(src);
+            u[j][p][0] = t.x; u[j][p][1] = t.y;
+            u[j][p][2] = t.z; u[j][p][3] = t.w;
+          } else if constexpr (GW == 2) {
+            const uint2 t = *reinterpret_cast<const uint2*>(src);
+            u[j][p][0] = t.x; u[j][p][1] = t.y;
+          } else {
+            u[j][p][0] = *reinterpret_cast<const uint32_t*>(src);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < C::GB; ++e)
+            if (n0 + c + e < a.N)
+              u[j][p][e / 4] |= (uint32_t)(uint8_t)src[e] << (8 * (e % 4));
+        }
       }
     }
   }
@@ -450,20 +514,24 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
   for (int j = 0; j < WL; ++j) {
     const int i = tid + j * kThreads, r = i / G, c = C::GB * (i % G);
     if (WT % kThreads == 0 || i < WT) {
-      if constexpr (L::F == 1) {
-        store_words<GW>(ws + r * T::kWS + c, u[j]);
+      if constexpr (L::R * L::D == 1) {
+        store_words<GW>(ws + r * T::kWS + c, u[j][0]);
       } else {
-        uint32_t d[L::F][GW];
+        constexpr int O = L::R * L::D;          // decoded rows a packed row
+        uint32_t d[O][GW];
 #pragma unroll
         for (int e = 0; e < GW; ++e) {
-          uint32_t fields[L::F];
-          decode_word<L::F>(u[j][e], fields);
+          uint32_t w[L::NW], out[O];
 #pragma unroll
-          for (int f = 0; f < L::F; ++f) d[f][e] = fields[f];
+          for (int p = 0; p < L::NW; ++p) w[p] = u[j][p][e];
+          L::decode(w, out);
+#pragma unroll
+          for (int o = 0; o < O; ++o) d[o][e] = out[o];
         }
 #pragma unroll
-        for (int f = 0; f < L::F; ++f)
-          store_words<GW>(ws + (f * C::KQ + r) * T::kWS + c, d[f]);
+        for (int o = 0; o < O; ++o)
+          store_words<GW>(ws + ((o / L::D) * C::RL + L::D * r + o % L::D) *
+                                   T::kWS + c, d[o]);
       }
     }
   }
@@ -519,14 +587,15 @@ __device__ __forceinline__ void dense_tile(const Args& a, int m0, int n0,
   const int nb = L::blocks(a), tkq = L::rows(a);
   for (int kb = 0; kb < nb; ++kb) {
     for (int q0 = 0; q0 < tkq; q0 += C::KQ) {
-      const int k00 = kb * L::F * tkq + q0;     // dense row of field 0
+      const int k00 = kb * L::R * L::D * tkq + L::D * q0;   // run 0's row
       sync();   // the previous chunk (or tile) is consumed
       stage_chunk<T, STAGE, L>(a, m0, n0, kb, q0, tid, xs, ws);
       sync();
       // the warp's k-steps of the chunk, PS at a time: each group's passes
       // summed into the zeroed fragments ``part``, then added into acc (the
-      // exact rules: straight into acc). Slabs: the k-steps that are not
-      // live are skipped; every m16 fragment is computed, rows past M too
+      // exact rules: straight into acc). Slabs, Bitplane: the k-steps that
+      // are not live are skipped; every m16 fragment is computed, rows past
+      // M too
 #pragma unroll
       for (int s0 = 0; s0 < C::NJ; s0 += C::PS) {
         float part[T::MF][T::NF][4];
@@ -541,8 +610,10 @@ __device__ __forceinline__ void dense_tile(const Args& a, int m0, int n0,
 #pragma unroll
         for (int s = s0; s < s0 + C::PS; ++s) {
           const int ks = 16 * (wk + s * T::WK);
+          if (C::NJ % C::PS != 0 && s >= C::NJ) continue;
           if (C::KS % T::WK != 0 && ks >= C::CW) continue;
-          if (L::kSlabs && !live_step<C>(a, tkq, k00, q0, ks)) continue;
+          if (L::kSlabs && !live_step<C>(a, L::D * tkq, k00, L::D * q0, ks))
+            continue;
           const uint8_t* wp = ws + (ks + 2 * t) * T::kWS + wn + 4 * g;
           uint32_t b[2][4];   // [k half][n8 fragment]
           b_pairs(*reinterpret_cast<const uint32_t*>(wp),
@@ -651,18 +722,19 @@ int run_dense(const float* x, int M, int K, const int8_t* w, int ldw, int N,
                           : launch<Wide, STAGE, RowMajor>(a, s);
 }
 
-// Y = stage(X) . W + b [PReLU] over bytes in slabs (nb, gn, tkq, tile_n) of
-// F fields a byte (Slabs<F>, the file's note): the Narrow16 tile up to
+// Y = stage(X) . W + b [PReLU] over bytes in slabs, layout L (the file's
+// note): Slabs<F>, (nb, gn, tkq, tile_n) of F fields a byte, or Bitplane,
+// (nb, gn, 2*tkq, tile_n) with tkq = tkb. The Narrow16 tile up to
 // kNarrow16MaxM rows of X, Narrow up to kNarrowMaxM, Wide above.
 // cudaErrorInvalidValue for a geometry that does not hold K and N, or
 // slabs narrower than the tile's columns.
-template <int STAGE, int F>
+template <int STAGE, class L>
 int run_slabs(const float* x, int M, int K, const void* w, int nb, int gn,
               int tkq, int tile_n, int N, const float* bias,
               const float* alpha, float* y, void* stream) {
   const int bn = M <= kNarrowMaxM ? Narrow::BN : Wide::BN;
   if (nb < 1 || gn < 1 || tkq < 1 || tile_n < 1 ||
-      (long long)nb * F * tkq < K || (long long)gn * tile_n < N ||
+      (long long)nb * L::R * L::D * tkq < K || (long long)gn * tile_n < N ||
       (gn > 1 && tile_n % bn != 0))
     return (int)cudaErrorInvalidValue;
   Args a{};
@@ -671,12 +743,12 @@ int run_slabs(const float* x, int M, int K, const void* w, int nb, int gn,
   a.nb = nb; a.gn = gn; a.tkq = tkq;
   a.bias = bias; a.alpha = alpha;
   a.y = y; a.ldy = N;
-  a.xvec = x_vec(x, K) && tkq % 4 == 0;
+  a.xvec = x_vec(x, K) && L::D * tkq % 4 == 0;
   a.wvec = w_vec(a.w, tile_n, N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= kNarrow16MaxM) return launch<Narrow16, STAGE, Slabs<F>>(a, s);
-  return M <= kNarrowMaxM ? launch<Narrow, STAGE, Slabs<F>>(a, s)
-                          : launch<Wide, STAGE, Slabs<F>>(a, s);
+  if (M <= kNarrow16MaxM) return launch<Narrow16, STAGE, L>(a, s);
+  return M <= kNarrowMaxM ? launch<Narrow, STAGE, L>(a, s)
+                          : launch<Wide, STAGE, L>(a, s);
 }
 
 }  // namespace dmma

@@ -31,12 +31,14 @@
 
 #include "dense_mma.cuh"
 
+namespace dmma = ternary::dmma;
+
 extern "C" int ternary_tiled_dense_i8(const float* x, int M, int K,
                                       const int8_t* tiles, int gk, int gn,
                                       int tile_k, int tile_n, int N,
                                       const float* bias, const float* alpha,
                                       float* y, void* stream) {
-  return ternary::dmma::run_slabs<ternary::kStageI8, 1>(
+  return dmma::run_slabs<ternary::kStageI8, dmma::Slabs<1>>(
       x, M, K, tiles, gk, gn, tile_k, tile_n, N, bias, alpha, y, stream);
 }
 
@@ -45,6 +47,6 @@ extern "C" int ternary_tiled_dense_x8(const float* x, int M, int K,
                                       int tile_k, int tile_n, int N,
                                       const float* bias, const float* alpha,
                                       float* y, void* stream) {
-  return ternary::dmma::run_slabs<ternary::kStageX8, 1>(
+  return dmma::run_slabs<ternary::kStageX8, dmma::Slabs<1>>(
       x, M, K, tiles, gk, gn, tile_k, tile_n, N, bias, alpha, y, stream);
 }

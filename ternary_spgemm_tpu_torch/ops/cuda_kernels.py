@@ -1,41 +1,46 @@
 """CUDA SpMM kernels — counterpart of the SpMM kernels of
 ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Eighteen registered kernels on four cores: ``csrc/bitplane_core.cuh`` for
-the bitplane and nibble-pair containers, with the int8 tensor-core core
+Eighteen registered kernels on three cores: ``csrc/bitplane_core.cuh``
+(one lane a column, CUDA cores) for the nibble-pair container and the x8
+and i8 bitplane kernels' decode branches, with the int8 tensor-core core
 (``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels' prefill branches,
 which they take above :data:`X8_MMA_MIN_M` and :data:`I8_MMA_MIN_M` rows
 of X; the bf16 tensor-core tile (``csrc/dense_mma.cuh``) at every M for
 ``CudaDense`` and ``CudaDense_bf16`` (f32 X as three bf16 pieces,
-:func:`split_bf16`; bf16 X as one) and for the int8-X kernels over the
-packed-row containers, the tiled-dense i8 and x8, dense i8, block-packed,
-tiled block-packed and stride-packed i8 ones (X staged by its rule, i8 as
-two exact pieces, x8 as one; the 2-bit and base-3 codes decoded as they
-are staged, :func:`swar_decode`); ``csrc/packed_core.cuh`` for the f32
-stride-packed kernels; ``csrc/ell_core.cuh`` for the ELL gathers:
+:func:`split_bf16`; bf16 X as one), for the kernels over the packed-row
+containers, the int8-X tiled-dense i8 and x8, dense i8, block-packed,
+tiled block-packed and stride-packed i8 ones and the f32 stride-packed
+ones (X staged by its rule, i8 as two exact pieces, x8 as one, f32 as
+three; the 2-bit and base-3 codes decoded as they are staged,
+:func:`swar_decode`), and for ``CudaTiledBitplane_bf16`` (its pos and neg
+bit planes decoded as they are staged, bf16 X as one piece);
+``csrc/ell_core.cuh`` for the ELL gathers:
 
-=======================  ========================  ==================  =====
-kernel                   replaces (Pallas)         source              X rule
-=======================  ========================  ==================  =====
-CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu         x8
-CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu         i8
-CudaTiledBitplane_bf16   PallasTiledBitplane_bf16  bitplane_bf16.cu    bf16
-CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu       i8
-CudaTiledDense_i8        PallasTiledDense_i8       tiled_dense.cu      i8
-CudaTiledDense_x8        PallasTiledDense_x8       tiled_dense.cu      x8
-CudaDense                PallasDense               dense.cu            f32
-CudaDense_bf16           PallasDense_bf16          dense.cu            bf16
-CudaDense_i8             PallasDense_i8            dense.cu            i8
-CudaBlockPacked_i8       PallasBlockPacked_i8      blockpacked.cu      i8
-CudaTiledBlockPacked_i8  PallasTiledBlockPacked_i8 blockpacked.cu      i8
-CudaPacked2Bit           PallasPacked2Bit          packed.cu           f32
-CudaPacked53             PallasPacked53            packed.cu           f32
-CudaPacked2Bit_i8        PallasPacked2Bit_i8       blockpacked.cu      i8
-CudaPacked53_i8          PallasPacked53_i8         blockpacked.cu      i8
-CudaEllDeposit_i8        PallasEllDeposit_i8       ell.cu              i8
-CudaTiledEllGather       PallasTiledEllGather      ell.cu              f32
-CudaEllGather            PallasEllGather           ell.cu              f32
-=======================  ========================  ==================  =====
+=======================  ========================  ================  =====  ==========
+kernel                   replaces (Pallas)         source            X      core
+=======================  ========================  ================  =====  ==========
+CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu       x8     bitplane,
+                                                                            int8 mma
+CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu       i8     bitplane,
+                                                                            int8 mma
+CudaTiledBitplane_bf16   PallasTiledBitplane_bf16  bitplane_bf16.cu  bf16   bf16 tile
+CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu     i8     bitplane
+CudaTiledDense_i8        PallasTiledDense_i8       tiled_dense.cu    i8     bf16 tile
+CudaTiledDense_x8        PallasTiledDense_x8       tiled_dense.cu    x8     bf16 tile
+CudaDense                PallasDense               dense.cu          f32    bf16 tile
+CudaDense_bf16           PallasDense_bf16          dense.cu          bf16   bf16 tile
+CudaDense_i8             PallasDense_i8            dense.cu          i8     bf16 tile
+CudaBlockPacked_i8       PallasBlockPacked_i8      blockpacked.cu    i8     bf16 tile
+CudaTiledBlockPacked_i8  PallasTiledBlockPacked_i8 blockpacked.cu    i8     bf16 tile
+CudaPacked2Bit           PallasPacked2Bit          packed.cu         f32    bf16 tile
+CudaPacked53             PallasPacked53            packed.cu         f32    bf16 tile
+CudaPacked2Bit_i8        PallasPacked2Bit_i8       blockpacked.cu    i8     bf16 tile
+CudaPacked53_i8          PallasPacked53_i8         blockpacked.cu    i8     bf16 tile
+CudaEllDeposit_i8        PallasEllDeposit_i8       ell.cu            i8     ELL
+CudaTiledEllGather       PallasTiledEllGather      ell.cu            f32    ELL
+CudaEllGather            PallasEllGather           ell.cu            f32    ELL
+=======================  ========================  ================  =====  ==========
 
 X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
 (``_to_x8``) — exact on any float; *i8* stages ``floor(x + 512) - 512``,
@@ -44,7 +49,7 @@ non-integer X floored); both accumulate in int32 on the bitplane cores and
 as exact integer f32 sums on the bf16 tile; *bf16*
 rounds X to bf16 (nearest even) and sums in f32 (exact for integer
 |x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order
-(``CudaDense``: three exact bf16 passes, :func:`split_bf16`).
+(on the bf16 tile: three exact bf16 passes, :func:`split_bf16`).
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and adds one to :data:`launches`. On a CPU tensor, and only
@@ -518,9 +523,10 @@ def cuda_tiled_bitplane_i8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
 
 @register_kernel(
     "CudaTiledBitplane_bf16", TiledBitplane,
-    description="split-sign bitplanes (2 bits/weight) decoded per lane, X "
-                "rounded to bf16 and summed in f32 (exact for integer "
-                "activations |x| <= 256; bf16 rounding outside)",
+    description="split-sign bitplanes (2 bits/weight) decoded as they are "
+                "staged, X rounded to bf16, one bf16 tensor-core pass summed "
+                "in f32 (exact for integer activations |x| <= 256; bf16 "
+                "rounding outside)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1602",
     x_absmax=256, source=_CSRC + "bitplane_bf16.cu",
     plain=bitplane_bf16_plain)
@@ -660,9 +666,10 @@ def cuda_tiled_blockpacked_i8_kernel(X, fmt: TiledBlockPacked, bias,
 
 @register_kernel(
     "CudaPacked2Bit", PackedTernary2Bit,
-    description="stride-packed 2-bit codes (2 bits/weight) decoded per lane, "
-                "f32 activations as they are, f32 sums in a fixed order "
-                "(exact f32 SpMM)",
+    description="stride-packed 2-bit codes (2 bits/weight) decoded as they "
+                "are staged, f32 activations split into three exact bf16 "
+                "pieces, three bf16 tensor-core passes summed in f32 in a "
+                "fixed order (exact f32 SpMM)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:264",
     source=_CSRC + "packed.cu", plain=packed2_plain)
 def cuda_packed2_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
@@ -677,9 +684,10 @@ def cuda_packed2_kernel(X, fmt: PackedTernary2Bit, bias, alpha=None):
 
 @register_kernel(
     "CudaPacked53", PackedTernary53,
-    description="stride-packed base-3 codes (1.6 bits/weight) decoded per "
-                "lane, f32 activations as they are, f32 sums in a fixed "
-                "order (exact f32 SpMM)",
+    description="stride-packed base-3 codes (1.6 bits/weight) decoded as "
+                "they are staged, f32 activations split into three exact "
+                "bf16 pieces, three bf16 tensor-core passes summed in f32 in "
+                "a fixed order (exact f32 SpMM)",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:275",
     source=_CSRC + "packed.cu", plain=packed53_plain)
 def cuda_packed53_kernel(X, fmt: PackedTernary53, bias, alpha=None):

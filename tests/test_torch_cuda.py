@@ -13,8 +13,9 @@ tests alone); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact (``-k
 dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
-kernels alone, ``-k ring`` the ring on the same tile, and ``-k
-packed_mma`` the int8-X kernels over the packed-row containers on it). Off those
+kernels alone, ``-k ring`` the ring on the same tile, ``-k packed_mma``
+the int8-X kernels over the packed-row containers on it and ``-k
+float_mma`` the f32 stride-packed and bf16 bitplane kernels). Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
 (rounded to bf16 identically where they round) and differ only in f32
 summation order (rtol=1e-5, atol=1e-3). The SwiGLU kernel and its plain version both round
@@ -555,6 +556,137 @@ def test_packed_mma_non_finite(dev, name, M):
     fin = torch.isfinite(want)
     assert torch.equal(got[fin], want[fin])
     assert torch.equal(got[4:], want[4:])
+
+
+#: the float-X kernels over the code and bit-plane layouts of
+#: csrc/dense_mma.cuh's tile: name -> (kernel, plain version, container
+#: class, packer arguments, integer |x| range in which every value and
+#: partial sum is exact, the X rule's stage); the bit planes with tile_n
+#: 128 and 256, so that gn > 1
+FLOAT_MMA = {
+    "packed2": (ck.cuda_packed2_kernel, ck.packed2_plain, PackedTernary2Bit,
+                {}, 512, "f32"),
+    "packed53": (ck.cuda_packed53_kernel, ck.packed53_plain, PackedTernary53,
+                 {}, 512, "f32"),
+    "bitplane_bf16": (ck.cuda_tiled_bitplane_bf16_kernel,
+                      ck.bitplane_bf16_plain, TiledBitplane,
+                      {"tile_n": 256}, 256, "bf16"),
+    "bitplane_bf16_t128": (ck.cuda_tiled_bitplane_bf16_kernel,
+                           ck.bitplane_bf16_plain, TiledBitplane,
+                           {"tile_n": 128}, 256, "bf16"),
+}
+_FLOAT_W = {}
+
+
+def _float_mma_case(dev, name, M, K, N, prelu):
+    """The kernel, its plain version, the container of a seeded (K, N)
+    ternary W of density 1/3 (cached), integer X with the exact range's
+    edges, non-integer X uniform in +-2, a bias and a PReLU slope that
+    differ from column to column."""
+    kern, plain, cls, kw, vr, _ = FLOAT_MMA[name]
+    key = (name, K, N)
+    if key not in _FLOAT_W:
+        _FLOAT_W[key] = cls.from_dense(
+            generate_ternary(K, N, 3, seed=K + 7 * N), **kw).to(dev)
+    rng = np.random.default_rng(M * K + N)
+    X = rng.integers(-vr, vr + 1, size=(M, K)).astype(np.float32)
+    X[0, :: max(1, K // 7)] = vr
+    X[-1, 1:: max(1, K // 5)] = -vr
+    Xf = rng.uniform(-2, 2, (M, K)).astype(np.float32)
+    b = torch.from_numpy(rng.uniform(-4, 4, N).astype(np.float32)).to(dev)
+    a = (torch.from_numpy(rng.uniform(0.01, 0.5, N).astype(np.float32))
+         .to(dev) if prelu else None)
+    return (kern, plain, _FLOAT_W[key], torch.from_numpy(X).to(dev),
+            torch.from_numpy(Xf).to(dev), b, a)
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_MMA))
+@pytest.mark.parametrize("M", [1, 7, 16, 17, 32, 33, 512])
+@pytest.mark.parametrize("K,N", [(100, 1000), (999, 1000), (1024, 4096),
+                                 (4096, 520)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_float_mma_tile(dev, name, M, K, N, prelu):
+    """The f32 stride-packed kernels (three bf16 pieces) and the bf16
+    bitplane kernel (one) on the bf16 tensor-core tile, in every geometry
+    (16 x 32 up to M = 16, 32 x 32 up to 32, 64 x 128 above), on the ragged
+    edges (the stride-packed fields' tkq = 25, 250, 256 and 1024 at factor
+    4, 20, 200, 205 and 820 at factor 5; the bit planes' tkb = 16 at K =
+    100, under the 32-byte-row chunk; N = 1000 and 520, byte-staged W,
+    several slabs):
+    bitwise equal to the plain version on integer X with the exact range's
+    edges (+-512 for f32, +-256 for bf16), within rtol=1e-5, atol=1e-3 on
+    non-integer X (the tensor cores sum in another order than the plain
+    matmul), and the same bits from a second launch."""
+    kern, plain, fmt, X, Xf, b, a = _float_mma_case(dev, name, M, K, N,
+                                                    prelu)
+    got, want = kern(X, fmt, b, a), plain(X, fmt, b, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got, want, again = kern(Xf, fmt, b, a), plain(Xf, fmt, b, a), \
+        kern(Xf, fmt, b, a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_MMA))
+@pytest.mark.parametrize("M", [7, 33])
+def test_float_mma_non_finite(dev, name, M):
+    """inf, -inf and NaN in X give the plain version's non-finite cells
+    (inf * 0 is NaN in both: the pieces after an infinite one are 0) and
+    leave the other rows bitwise equal."""
+    kern, plain, fmt, X, _, b, _ = _float_mma_case(dev, name, M, 999, 1000,
+                                                   False)
+    X = X.clone()
+    X[0, 5] = float("inf")
+    X[1, 900] = float("-inf")
+    X[2, 17] = float("nan")
+    X[3, 3] = float("inf")
+    X[3, 4] = float("-inf")
+    got, want = kern(X, fmt, b), plain(X, fmt, b)
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    assert bool(torch.isnan(want[2]).all())
+    fin = torch.isfinite(want)
+    assert torch.equal(got[fin], want[fin])
+    assert torch.equal(got[4:], want[4:])
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_MMA))
+@pytest.mark.parametrize("M,K,N", [(32, 1024, 4096), (512, 1024, 1000)])
+def test_float_mma_deterministic(dev, name, M, K, N):
+    """20 back-to-back launches on non-integer X give the same bits: every
+    sum of the tile (the groups of k-steps, the chunks, the split-K's
+    warps) has a fixed order."""
+    kern, _, fmt, _, Xf, b, a = _float_mma_case(dev, name, M, K, N, True)
+    first = kern(Xf, fmt, b, a)
+    again = [kern(Xf, fmt, b, a) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, first) for y in again)
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_MMA))
+def test_float_mma_error_against_f64(dev, name):
+    """At 512 x 4096 x 4096 with X = 1.7 x U(-256, 256) + 0.37 (past the
+    exact ranges; partial sums up to ~1e4, where two f32 summation orders
+    differ by more than atol=1e-3), each output against the f64 product of
+    the same staged X: the tile's f32 sums (the tensor cores' within a
+    group of at most four k-steps, round to nearest across groups) are at
+    most twice as far from it as the plain version's f32 matmul."""
+    kern, plain, _, _, _, stage = FLOAT_MMA[name]
+    M, K, N = 512, 4096, 4096
+    _, _, fmt, _, _, b, _ = _float_mma_case(dev, name, 1, K, N, False)
+    g = torch.Generator(device=dev).manual_seed(K)
+    X = 1.7 * (512.0 * torch.rand((M, K), generator=g, device=dev) - 256.0) \
+        + 0.37
+    xs = X if stage == "f32" else X.to(torch.bfloat16).to(torch.float32)
+    ref = xs.double() @ fmt.to_dense().double() + b.double()
+    got, want = kern(X, fmt, b), plain(X, fmt, b)
+    torch.cuda.synchronize()
+    err_kernel = float((got.double() - ref).abs().max())
+    err_plain = float((want.double() - ref).abs().max())
+    assert err_kernel <= 2.0 * err_plain, (err_kernel, err_plain)
 
 
 def test_blockpacked_rejects_bad_factor(dev):

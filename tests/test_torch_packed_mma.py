@@ -1,8 +1,9 @@
-"""The int8-X kernels over the packed-row containers on the bf16
-tensor-core tile of ``csrc/dense_mma.cuh`` (``CudaTiledDense_i8`` /
-``_x8``, ``CudaDense_i8``, ``CudaBlockPacked_i8``,
-``CudaTiledBlockPacked_i8``, ``CudaPacked2Bit_i8``, ``CudaPacked53_i8``),
-on the CPU.
+"""The kernels over the packed-row and bit-plane containers on the bf16
+tensor-core tile of ``csrc/dense_mma.cuh`` (the int8-X ``CudaTiledDense_i8``
+/ ``_x8``, ``CudaDense_i8``, ``CudaBlockPacked_i8``,
+``CudaTiledBlockPacked_i8``, ``CudaPacked2Bit_i8``, ``CudaPacked53_i8``; the
+f32-X ``CudaPacked2Bit`` and ``CudaPacked53``; the bf16-X
+``CudaTiledBitplane_bf16``), on the CPU.
 
 * ``ops.cuda_kernels.split_bf16`` under the i8 and x8 rules: two pieces
   (i8) and one (x8) sum back to the staged value bitwise over the whole
@@ -10,16 +11,23 @@ on the CPU.
 * ``ops.cuda_kernels.swar_decode``, the Python twin of the tile's decode
   of four packed bytes at a time, against ``formats.packed.decode_fields``
   for every byte the packers emit.
-* A numpy emulation of the tile's lanes over the slab layout — the
-  (K-block, chunk of packed rows) walk, X staged field-major by its rule
-  and split, the masks at a field's ``tkq`` and at K, the skipped k-steps,
-  the codes decoded into int8 rows of W, the B registers ``b_pairs``
-  interleaves, ``mma.sync`` m16n8k16 and the epilogue's column map — gives
-  ``rule(X) @ W`` exactly for DenseTernary, TiledDenseTernary (K = 100,
-  where ``tile_k`` = 128 is under the Narrow tile's 256-row chunk),
-  BlockPackedTernary, TiledBlockPacked and the stride-packed containers
-  (``tkq`` = 250 and 200, not multiples of 16), in both geometries, on
-  integer and non-integer X.
+* A numpy emulation of the tile's lanes over the slab layouts (``Slabs<F>``
+  and ``Bitplane``) — the (K-block, chunk of packed rows) walk, X staged
+  run by run (a field's, or a half of a bit-plane block's) by its rule and
+  split, the masks at a run's end and at K, the skipped k-steps, the
+  codes and the pos / neg bits decoded into int8 rows of W, the B
+  registers ``b_pairs`` interleaves, ``mma.sync`` m16n8k16, the groups of
+  k-steps the float rules sum into zeroed fragments (rounded to f32 as
+  they are added) and the epilogue's column map — gives ``rule(X) @ W``
+  (W from ``decode_fields`` / ``decode_planes``) for DenseTernary,
+  TiledDenseTernary (K = 100, where ``tile_k`` = 128 is under the Narrow
+  tile's 256-row chunk), BlockPackedTernary, TiledBlockPacked, the
+  stride-packed containers (``tkq`` = 250 and 200, not multiples of 16;
+  i8 and f32 X: F = 5's ragged split and ragged last group) and
+  TiledBitplane (``tkb`` = 16 under the 32-byte-row chunk at K = 100; K =
+  999 over two slabs; four K-blocks), in every geometry: exactly on
+  integer X, and on non-integer X exactly for the integer rules and within
+  rtol=1e-5, atol=1e-3 for the float ones.
 
 The plain versions against the JAX Pallas kernels (interpret mode) are
 ``tests/test_torch_kernels.py``'s ``test_plain_equals_pallas`` and
@@ -34,9 +42,10 @@ import torch
 
 from test_torch_dense_mma import G, T4, b_pairs, mma
 from ternary_spgemm_tpu_torch import formats as tf
+from ternary_spgemm_tpu_torch.formats.bitplane import decode_planes
 from ternary_spgemm_tpu_torch.formats.packed import decode_fields
 from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
-from ternary_spgemm_tpu_torch.ops.api import to_i8, to_x8
+from ternary_spgemm_tpu_torch.ops.api import to_bf16, to_f32, to_i8, to_x8
 
 
 # -- the split under the integer rules -------------------------------------
@@ -142,6 +151,42 @@ def test_swar_decode_packed_container(cls, kw):
                        torch.from_numpy(W))
 
 
+def _words(rows: np.ndarray) -> np.ndarray:
+    """(R, C) bytes -> (R, C / 4) little-endian 32-bit words."""
+    return (rows.reshape(rows.shape[0], -1, 4) <<
+            (8 * np.arange(4))).sum(-1)
+
+
+def bitplane_decode(pos: np.ndarray, neg: np.ndarray) -> list:
+    """dense_mma.cuh ``Bitplane::decode`` on words of four columns of a pos
+    and a neg byte-row: output o (bit o of each byte) is
+    ``pbit | 0xFF * nbit``."""
+    return [((pos >> o) & 0x01010101) | (((neg >> o) & 0x01010101) * 0xFF)
+            for o in range(8)]
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_bitplane_decode_every_byte_pair(shift):
+    """``bitplane_decode`` (the twin of ``Bitplane::decode``) on every pos /
+    neg byte pair the packer emits (no bit set in both: 3**8 pairs), each
+    at every byte position of a word (the columns shifted by ``shift``):
+    output o holds, byte for byte, ``decode_planes``' weight of bit o."""
+    digits = np.array(list(itertools.product((0, 1, 2), repeat=8)))
+    bits = 1 << np.arange(8)
+    pos = ((digits == 1) * bits).sum(1)
+    neg = ((digits == 2) * bits).sum(1)
+    cols = -(-(len(pos) + shift) // 4) * 4
+    plane = np.zeros((1, 1, 2, cols), np.uint8)
+    plane[0, 0, 0, shift:shift + len(pos)] = pos
+    plane[0, 0, 1, shift:shift + len(pos)] = neg
+    want = decode_planes(torch.from_numpy(plane), 1).numpy()   # (8, cols)
+    outs = bitplane_decode(_words(plane[0, 0, :1].astype(np.int64)),
+                           _words(plane[0, 0, 1:].astype(np.int64)))
+    for o, d in enumerate(outs):
+        got = ((d[..., None] >> (8 * np.arange(4))) & 0xFF).reshape(-1)
+        assert np.array_equal(got.astype(np.uint8).view(np.int8), want[o]), o
+
+
 # -- the tile's lanes over the slab layout ----------------------------------
 
 #: dense_mma.cuh's geometries over the slabs: (WM, WN, KC, MF); a warp
@@ -150,47 +195,85 @@ def test_swar_decode_packed_container(cls, kw):
 TILES = {"narrow16": (1, 1, 256, 1), "narrow": (1, 1, 256, 2),
          "wide": (2, 4, 128, 2)}
 
+#: dense_mma.cuh's kSumSteps: k-steps the float rules sum into one zeroed
+#: fragment
+SUM_STEPS = 4
+#: the X rules (ops/api.py) by stage
+RULES = {"x8": to_x8, "i8": to_i8, "f32": to_f32, "bf16": to_bf16}
+
+
 def _slabs(fmt):
-    """(bytes, nb, gn, tkq, tile_n, F) as the wrappers pass them."""
+    """(bytes, nb, gn, tkq, tile_n, trait) as the wrappers pass them; the
+    trait (R, D, KDIV, NW) is dense_mma.cuh's layout: R runs of D*KQ
+    staged columns a chunk of KC / KDIV packed rows, NW planes of bytes."""
+    if isinstance(fmt, tf.TiledBitplane):
+        nb, gn = fmt.plane.shape[:2]
+        return fmt.plane, nb, gn, fmt.tkb, fmt.tile_n, (2, 4, 8, 2)
     if isinstance(fmt, tf.DenseTernary):
-        return fmt.dense.view(torch.uint8), 1, 1, fmt.K, fmt.N, 1
+        return fmt.dense.view(torch.uint8), 1, 1, fmt.K, fmt.N, (1, 1, 1, 1)
     if isinstance(fmt, tf.TiledDenseTernary):
         gk, gn = fmt.tiles.shape[:2]
-        return fmt.tiles.view(torch.uint8), gk, gn, fmt.tile_k, fmt.tile_n, 1
+        return (fmt.tiles.view(torch.uint8), gk, gn, fmt.tile_k, fmt.tile_n,
+                (1, 1, 1, 1))
     if isinstance(fmt, tf.BlockPackedTernary):
         return (fmt.packed, fmt.packed.shape[0] // fmt.tile_kq, 1,
-                fmt.tile_kq, fmt.N, fmt.factor)
+                fmt.tile_kq, fmt.N, (fmt.factor, 1, 4, 1))
     if isinstance(fmt, tf.TiledBlockPacked):
         nb, gn = fmt.tiles.shape[:2]
-        return fmt.tiles, nb, gn, fmt.tile_kq, fmt.tile_n, fmt.factor
-    return fmt.packed, 1, 1, fmt.packed.shape[0], fmt.N, fmt.FACTOR
+        return (fmt.tiles, nb, gn, fmt.tile_kq, fmt.tile_n,
+                (fmt.factor, 1, 4, 1))
+    return (fmt.packed, 1, 1, fmt.packed.shape[0], fmt.N,
+            (fmt.FACTOR, 1, 4, 1))
 
 
-def _words(rows: np.ndarray) -> np.ndarray:
-    """(R, C) bytes -> (R, C / 4) little-endian 32-bit words."""
-    return (rows.reshape(rows.shape[0], -1, 4) <<
-            (8 * np.arange(4))).sum(-1)
+def _decode(raw: list, R: int, D: int, KQ: int, BN: int) -> np.ndarray:
+    """The chunk's decoded W rows (R*D*KQ, BN) from its NW planes of raw
+    bytes (KQ, BN): output o of packed row r lands on row (o // D) * D*KQ
+    + D*r + o % D."""
+    if R * D == 1:
+        return raw[0]
+    if len(raw) == 2:
+        outs = bitplane_decode(_words(raw[0]), _words(raw[1]))
+    else:
+        outs = [d.numpy() for d in
+                ck.swar_decode(torch.from_numpy(_words(raw[0])), R)]
+    ws = np.zeros((R * D * KQ, BN), np.int64)
+    for o, d in enumerate(outs):
+        rows = (o // D) * D * KQ + D * np.arange(KQ) + o % D
+        ws[rows] = ((d[..., None] >> (8 * np.arange(4))) & 0xFF
+                    ).reshape(KQ, BN)
+    return ws
 
 
 def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
     """stage(X) (M, K) times the container's W as the tile's lanes compute
-    it (``csrc/dense_mma.cuh``: ``stage_chunk``, ``dense_tile``)."""
+    it (``csrc/dense_mma.cuh``: ``stage_chunk``, ``dense_tile``): the exact
+    rules (x8, i8) sum every k-step straight into the accumulators; the
+    float ones (f32, bf16) each group of at most ``SUM_STEPS`` of a warp's
+    k-steps into a zeroed fragment (exact here), rounded to f32 as it is
+    added to the f32 accumulator."""
     WM, WN, KC, MF = TILES[tile]
     WK, BM, BN = 8 // (WM * WN), 16 * MF * WM, 32 * WN
-    data, nb, gn, tkq, tile_n, F = _slabs(fmt)
+    data, nb, gn, tkq, tile_n, (R, D, KDIV, NW) = _slabs(fmt)
     flat = data.reshape(-1).numpy().astype(np.int64)
-    KQ = KC if F == 1 else KC // 4       # packed rows a chunk
-    CW = F * KQ                          # staged columns, decoded W rows
+    KQ = KC // KDIV                      # packed rows a chunk
+    RL = D * KQ                          # staged columns a run
+    CW = R * RL                          # staged columns, decoded W rows
     KS, NJ = CW // 16, -(-CW // 16 // WK)
+    exact = stage in ("x8", "i8")
+    PS = NJ if exact or NJ < SUM_STEPS else SUM_STEPS
+    groups = [range(s0, min(s0 + PS, NJ)) for s0 in range(0, NJ, PS)]
+    assert max(len(grp) for grp in groups) <= SUM_STEPS or exact
     M, (K, N) = X.shape[0], fmt.shape
     pieces = [p.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
               for p in ck.split_bf16(torch.from_numpy(X), stage=stage)]
     NP = len(pieces)
 
-    def live(kb, q0, ks):
-        """dense_mma.cuh live_step: k-step ks holds a row inside tkq and K."""
-        f, q = divmod(ks, KQ)
-        return q0 + q < tkq and kb * F * tkq + f * tkq + q0 + q < K
+    def dense_row(kb, q0, c):
+        """The dense row of staged column c, or None past its run or K."""
+        run, q = divmod(c, RL)
+        k = kb * R * D * tkq + run * D * tkq + D * q0 + q
+        return k if D * q0 + q < D * tkq and k < K else None
 
     Y = np.zeros((M, N))
     for m0 in range(0, M, BM):
@@ -198,57 +281,60 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
         for n0 in range(0, N, BN):
             g = n0 // tile_n
             cols = min(BN, N - n0)
-            acc = np.zeros((8, MF, 4, 4, 32))  # warp, i, f, r, lane
+            acc = np.zeros((8, MF, 4, 4, 32),
+                           np.float64 if exact else np.float32)
             for kb in range(nb):
-                base = (kb * gn + g) * tkq * tile_n + n0 - g * tile_n
+                base = (kb * gn + g) * NW * tkq * tile_n + n0 - g * tile_n
                 for q0 in range(0, tkq, KQ):
                     xs = np.zeros((NP, BM, CW), np.int64)
                     for c in range(CW):
-                        f, q = divmod(c, KQ)
-                        k = kb * F * tkq + f * tkq + q0 + q
-                        if q0 + q < tkq and k < K:
+                        k = dense_row(kb, q0, c)
+                        if k is not None:
                             for p in range(NP):
                                 xs[p, :rows, c] = pieces[p][m0:m0 + rows, k]
-                    raw = np.zeros((KQ, BN), np.int64)
+                    raw = [np.zeros((KQ, BN), np.int64) for _ in range(NW)]
                     for r in range(min(KQ, tkq - q0)):
-                        at = base + (q0 + r) * tile_n
-                        raw[r, :cols] = flat[at:at + cols]
-                    if F == 1:
-                        ws = raw
-                    else:
-                        dec = ck.swar_decode(torch.from_numpy(_words(raw)), F)
-                        ws = np.concatenate([
-                            ((d.numpy()[..., None] >> (8 * np.arange(4)))
-                             & 0xFF).reshape(KQ, BN) for d in dec])
+                        for p in range(NW):
+                            at = base + (p * tkq + q0 + r) * tile_n
+                            raw[p][r, :cols] = flat[at:at + cols]
+                    ws = _decode(raw, R, D, KQ, BN)
                     for warp in range(8):
                         wk, wmn = warp // (WM * WN), warp % (WM * WN)
                         wm, wn = 16 * MF * (wmn // WN), 32 * (wmn % WN)
-                        for j in range(NJ):
-                            ks = 16 * (wk + j * WK)
-                            if ks >= CW or not live(kb, q0, ks):
-                                continue
+                        for grp in groups:
+                            part = np.zeros((MF, 4, 4, 32))
+                            for j in grp:
+                                ks = 16 * (wk + j * WK)
+                                if ks >= CW or dense_row(kb, q0, ks) is None:
+                                    continue
 
-                            def word(row):
-                                c4 = wn + 4 * G[:, None] + np.arange(4)
-                                return (ws[row[:, None], c4] <<
-                                        (8 * np.arange(4))).sum(1)
+                                def word(row):
+                                    c4 = wn + 4 * G[:, None] + np.arange(4)
+                                    return (ws[row[:, None], c4] <<
+                                            (8 * np.arange(4))).sum(1)
 
-                            b0 = b_pairs(word(ks + 2 * T4),
-                                         word(ks + 2 * T4 + 1))
-                            b1 = b_pairs(word(ks + 2 * T4 + 8),
-                                         word(ks + 2 * T4 + 9))
-                            for i in range(MF):
-                                for p in range(NP):
-                                    a = []
-                                    for ro, co in [(0, 0), (8, 0), (0, 8),
-                                                   (8, 8)]:
-                                        row = wm + 16 * i + ro + G
-                                        col = ks + co + 2 * T4
-                                        a.append(xs[p, row, col] |
-                                                 xs[p, row, col + 1] << 16)
-                                    for f8 in range(4):
-                                        mma(acc[warp, i, f8], a,
-                                            (b0[f8], b1[f8]))
+                                b0 = b_pairs(word(ks + 2 * T4),
+                                             word(ks + 2 * T4 + 1))
+                                b1 = b_pairs(word(ks + 2 * T4 + 8),
+                                             word(ks + 2 * T4 + 9))
+                                for i in range(MF):
+                                    for p in range(NP):
+                                        a = []
+                                        for ro, co in [(0, 0), (8, 0),
+                                                       (0, 8), (8, 8)]:
+                                            row = wm + 16 * i + ro + G
+                                            col = ks + co + 2 * T4
+                                            a.append(xs[p, row, col] |
+                                                     xs[p, row, col + 1]
+                                                     << 16)
+                                        for f8 in range(4):
+                                            mma(part[i, f8], a,
+                                                (b0[f8], b1[f8]))
+                            if exact:
+                                acc[warp] += part
+                            else:
+                                acc[warp] = (acc[warp] + part.astype(
+                                    np.float32)).astype(np.float32)
             red = np.zeros((WK, BM, BN))
             for warp in range(8):
                 wk, wmn = warp // (WM * WN), warp % (WM * WN)
@@ -266,7 +352,9 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
 #: layout -> (container class, K, N, packer arguments, X rules of its
 #: kernels): every slab layout the wrappers launch, each with a ragged
 #: edge (K = 100 under the Narrow chunk; a field's tkq not a multiple of
-#: 16: 40, 24, and the stride-packed 250 and 200 at K = 999; gn = 2)
+#: 16: 40, 24, and the stride-packed 250 and 200 at K = 999; gn = 2; the
+#: bit planes' tkb = 16 under the 32-byte-row chunk at K = 100, K = 999 in
+#: one 1024-row block of two slabs, and four blocks of tkb = 32)
 LAYOUTS = {
     "dense": ("DenseTernary", 300, 40, {}, ("i8",)),
     "tiled_k100": ("TiledDenseTernary", 100, 200, {"tile_n": 128},
@@ -282,8 +370,12 @@ LAYOUTS = {
     "tiled_blockpacked_f5": ("TiledBlockPacked", 300, 200,
                              {"factor": 5, "tile_kq": 24, "tile_n": 128},
                              ("i8",)),
-    "packed2": ("PackedTernary2Bit", 999, 40, {}, ("i8",)),
-    "packed53": ("PackedTernary53", 999, 40, {}, ("i8",)),
+    "packed2": ("PackedTernary2Bit", 999, 40, {}, ("i8", "f32")),
+    "packed53": ("PackedTernary53", 999, 40, {}, ("i8", "f32")),
+    "bitplane_k100": ("TiledBitplane", 100, 40, {}, ("bf16",)),
+    "bitplane": ("TiledBitplane", 999, 200, {"tile_n": 128}, ("bf16",)),
+    "bitplane_tkb32": ("TiledBitplane", 999, 130,
+                       {"tkb": 32, "tile_n": 128}, ("bf16",)),
 }
 CASES = [(layout, stage) for layout, spec in sorted(LAYOUTS.items())
          for stage in spec[4]]
@@ -297,6 +389,8 @@ def test_layouts_are_ragged():
     assert tk["tiled_k100"] == 128 and tk["packed2"] == 250 \
         and tk["packed53"] == 200
     assert all(t % 16 for n, t in tk.items() if "packed" in n)
+    assert (tk["bitplane_k100"], tk["bitplane"], tk["bitplane_tkb32"]) == \
+        (16, 128, 32)
 
 
 @pytest.mark.parametrize("layout,stage", CASES)
@@ -304,19 +398,29 @@ def test_layouts_are_ragged():
                                     ("wide", 40)])
 @pytest.mark.parametrize("kind", ["integer", "non-integer"])
 def test_tile_lanes_give_rule_x_w(layout, stage, tile, M, kind):
-    """The emulated lanes give rule(X) @ W exactly, integer X with the
-    domain's edges or not (the rules round or floor it to integers)."""
+    """The emulated lanes give rule(X) @ W, W the container decoded by the
+    packers' own decoders: exactly on integer X with the domain's edges,
+    and on non-integer X for the rules that round or floor it to integers;
+    within rtol=1e-5, atol=1e-3 (phase 6's bound) on non-integer X for
+    the float rules, whose groups are rounded to f32."""
     cls, K, N, kw, _ = LAYOUTS[layout]
     W = tf.generate_ternary(K, N, 3, seed=K + N)
     fmt = getattr(tf, cls).from_dense(W, **kw)
-    vr = 127 if stage == "x8" else 512
+    dense = fmt.to_dense().numpy().astype(np.float64)
+    assert np.array_equal(dense, W)
+    vr = {"x8": 127, "bf16": 256}.get(stage, 512)
     rng = np.random.default_rng(M * K)
     if kind == "integer":
         X = rng.integers(-vr, vr + 1, (M, K)).astype(np.float32)
         X[:, ::5], X[:, 2::5] = vr, -vr
-    else:   # x8 past its clamp, i8 inside its domain
+    elif stage in ("x8", "i8"):   # x8 past its clamp, i8 inside its domain
         hi = 1.3 * vr if stage == "x8" else vr - 0.01
         X = rng.uniform(-hi, hi, (M, K)).astype(np.float32)
-    rule = to_x8 if stage == "x8" else to_i8
-    want = rule(torch.from_numpy(X)).double().numpy() @ W.astype(np.float64)
-    np.testing.assert_array_equal(emulate_slabs(X, fmt, stage, tile), want)
+    else:                         # the float rules: uniform in +-2
+        X = rng.uniform(-2, 2, (M, K)).astype(np.float32)
+    want = RULES[stage](torch.from_numpy(X)).double().numpy() @ dense
+    got = emulate_slabs(X, fmt, stage, tile)
+    if kind == "integer" or stage in ("x8", "i8"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
