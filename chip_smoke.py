@@ -29,7 +29,10 @@ result line if any fails, or if no GPU is visible):
    may flip against the plain version, each by 1, and every row without a
    flip agrees within rtol=1e-5, atol=0.01) and its crossover: both
    branches timed, bitwise equal to each other, at M in {4, 8, 16, 32, 64,
-   128}; the PReLU
+   128}; the SwiGLU's decode branch, a split walk, at M in {1, 4}: y, h
+   and rmax bitwise equal to the tensor-core branch for the rule's parts
+   (``fused_ffn.split_parts``) and for every other count of parts timed,
+   each phase's parts swept with the other phase unsplit; the PReLU
    FFN kernel at the ffn_bench blocks (M = 32, 1024 -> 4096 -> 1024 and
    2048 -> 4096 -> 2048) and at M in {1, 33, 128}, PReLU2 off and on, with
    a random bias and slope per column, its hidden state, requantized
@@ -75,7 +78,8 @@ result line if any fails, or if no GPU is visible):
    kernels on ``csrc/dense_mma.cuh``'s bf16 tensor-core tile
    (``DENSE_KERNELS``: dense f32 and bf16, the int8-X tiled-dense, dense,
    block-packed, tiled block-packed and stride-packed ones, the f32
-   stride-packed ones and the bf16 bitplane one) timed, each bitwise on
+   stride-packed ones, the bf16 bitplane one and the nibble-pair one)
+   timed, each bitwise on
    integer X, at M in ``DENSE_ROWS`` at the
    north star's K and N (``phase_dense_rows``, which also runs against a
    parent tree's package to time the bodies the tile replaced);
@@ -182,12 +186,13 @@ DENSE_ROWS = (1, 4, 7, 16, 32, 512)
 #: the kernels on dense_mma.cuh's bf16 tensor-core tile, which phase 6
 #: times at ``DENSE_ROWS``: the dense f32 and bf16 kernels, the int8-X
 #: kernels over the packed-row containers (the block-packed ones at factor
-#: 4 and 5), the f32 stride-packed ones and the bf16 bitplane one
+#: 4 and 5), the f32 stride-packed ones, the bf16 bitplane one and the
+#: nibble-pair one
 DENSE_KERNELS = ("CudaDense", "CudaDense_bf16", "CudaTiledDense_i8",
                  "CudaTiledDense_x8", "CudaDense_i8", "CudaBlockPacked_i8",
                  "CudaTiledBlockPacked_i8", "CudaPacked2Bit_i8",
                  "CudaPacked53_i8", "CudaPacked2Bit", "CudaPacked53",
-                 "CudaTiledBitplane_bf16")
+                 "CudaTiledBitplane_bf16", "CudaTiledNibblePair_i8")
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
 X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
@@ -197,6 +202,12 @@ I8_CROSSOVER_M = (4, 8, 16, 32, 64, 128, 512)
 #: phase 3's SwiGLU crossover: the M at which both branches are timed at
 #: 4096 -> 11008 -> 4096
 SWIGLU_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
+#: phase 3's SwiGLU split walk: the decode M at which its parts are timed,
+#: and the parts swept for gate and up (S1, a walk of 16 chunks at 7B width)
+#: and for down (S2, 44 chunks), the other phase unsplit
+SWIGLU_SPLIT_M = (1, 4)
+SWIGLU_SPLIT_S1 = (1, 2, 3, 4, 6, 8, 16)
+SWIGLU_SPLIT_S2 = (1, 2, 4, 6, 8, 11, 16, 22, 44)
 #: phase 11's ring sizes, at the JAX test's shape and at full width, and
 #: the full width (M, K, N): the serve's 4 x 128 prefill rows through
 #: BitNet-7B's merged QKV
@@ -437,6 +448,7 @@ def phase_kernels(dev, card: str) -> dict:
         elif M == 512:
             stats[KERNEL_NAME]["prefill"] = rec
     phase_swiglu_crossover(card, fg, fu, fd, kw, gen, flush)
+    phase_swiglu_split(card, fg, fu, fd, kw, gen, flush)
     stats[FFN_KERNEL_NAME] = phase_prelu_ffn(dev, card, flush)
     del flush
     return stats
@@ -563,6 +575,53 @@ def phase_swiglu_crossover(card: str, fg, fu, fd, kw, gen, flush) -> None:
           "branch, y, h and rmax bitwise equal: " + "; ".join(rows)
           + f" (SWIGLU_MMA_MIN_M = {fused_ffn.SWIGLU_MMA_MIN_M}) [{card}]",
           flush=True)
+
+
+def phase_swiglu_split(card: str, fg, fu, fd, kw, gen, flush) -> None:
+    """Phase 3, the SwiGLU decode branch's split walk at each
+    ``SWIGLU_SPLIT_M`` over the 4096 -> 11008 -> 4096 block: the rule's
+    parts (S1, S2) against the unsplit kernel, each phase split alone, and
+    each phase's sweep (``SWIGLU_SPLIT_S1`` with S2 = 1,
+    ``SWIGLU_SPLIT_S2`` with S1 = 1); every run's y, h and rmax bitwise
+    equal to the tensor-core branch's."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+    from ternary_spgemm_tpu_torch.utils.device import sm_count
+
+    dev = fg.plane.device
+    for M in SWIGLU_SPLIT_M:
+        x = torch.randn((M, fg.K), generator=gen, device=dev)
+        xq, sx = fused_ffn.requantize_rows(x)
+        want = fused_ffn._swiglu_mma(xq, sx, fg, fu, fd, **kw)
+        rule = tuple(fused_ffn.split_parts(M, f.N, f.plane.shape[0], f.tkb,
+                                           sm_count(dev)) for f in (fg, fd))
+        times = {}
+        for parts in {(1, 1), rule, (rule[0], 1), (1, rule[1]),
+                      *((s, 1) for s in SWIGLU_SPLIT_S1),
+                      *((1, s) for s in SWIGLU_SPLIT_S2)}:
+            got = fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts,
+                                          **kw)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("y", "h", "rmax")):
+                check(torch.equal(g, w), f"SwiGLU decode M={M} parts={parts}:"
+                      f" {what} differs from the tensor-core branch")
+            times[parts] = event_ms(lambda: fused_ffn._swiglu_lanes(
+                xq, sx, fg, fu, fd, parts=parts, **kw), flush=flush)
+        t11 = times[(1, 1)]
+        print(f"SwiGLU decode split M={M} 4096->11008->4096, y, h and rmax "
+              f"bitwise equal to the tensor-core branch at every parts: rule "
+              f"(S1, S2) = {rule} {times[rule]:.4f} ms vs unsplit {t11:.4f} "
+              f"ms; gate and up alone (S1 = {rule[0]}, 1) "
+              f"{times[(rule[0], 1)]:.4f} ms (saves "
+              f"{t11 - times[(rule[0], 1)]:.4f}), down alone (1, S2 = "
+              f"{rule[1]}) {times[(1, rule[1])]:.4f} ms (saves "
+              f"{t11 - times[(1, rule[1])]:.4f}); sweep S1 (S2 = 1): "
+              + ", ".join(f"{s} {times[(s, 1)]:.4f}" for s in SWIGLU_SPLIT_S1)
+              + "; sweep S2 (S1 = 1): "
+              + ", ".join(f"{s} {times[(1, s)]:.4f}" for s in SWIGLU_SPLIT_S2)
+              + f" ms [{card}]", flush=True)
 
 
 def phase_prelu_ffn(dev, card: str, flush) -> dict:

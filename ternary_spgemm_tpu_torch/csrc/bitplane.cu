@@ -44,7 +44,7 @@ extern "C" int ternary_bitplane_x8(const float* x, int M, int K,
                                    int tkb, int tile_n, int N,
                                    const float* bias, const float* alpha,
                                    float* y, void* stream) {
-  return ternary::run_spmm<ternary::kStageX8, ternary::kWBitplane>(
+  return ternary::run_spmm<ternary::kStageX8>(
       x, M, K, plane, nb, gn, tkb, tile_n, N, bias, alpha, y, stream);
 }
 
@@ -65,7 +65,7 @@ extern "C" int ternary_bitplane_i8(const float* x, int M, int K,
                                    int tkb, int tile_n, int N,
                                    const float* bias, const float* alpha,
                                    float* y, void* stream) {
-  return ternary::run_spmm<ternary::kStageI8, ternary::kWBitplane>(
+  return ternary::run_spmm<ternary::kStageI8>(
       x, M, K, plane, nb, gn, tkb, tile_n, N, bias, alpha, y, stream);
 }
 

@@ -1,31 +1,24 @@
-// Shared core of the CUDA-core SpMM kernels over the bit-plane and
-// nibble-pair containers: one templated kernel that decodes the ternary
-// weights straight from the container bytes and accumulates the dot
-// products in exact int32 (every rule it runs stages integers). Its users:
-// the x8 and i8 bitplane kernels up to their tensor-core splits
-// (bitplane.cu), CudaTiledNibblePair_i8 (nibblepair.cu), the fused FFNs'
-// decode branches (ffn.cu, swiglu.cu).
+// Shared core of the CUDA-core SpMM kernels over the bit-plane container:
+// one templated kernel that decodes the ternary weights straight from the
+// plane bytes and accumulates the dot products in exact int32 (every rule
+// it runs stages integers). Its users: the decode branches of the x8 and
+// i8 bitplane kernels (bitplane.cu) and of the fused FFNs (ffn.cu,
+// swiglu.cu; the SwiGLU's as a split walk, below). Every other SpMM body
+// runs dense_mma.cuh's bf16 tensor-core tile, bitplane_mma.cuh's int8 one
+// or ell_core.cuh.
 //
-// Containers (ternary_spgemm_tpu_torch/formats/), all tile-contiguous, a
+// The container (ternary_spgemm_tpu_torch/formats/bitplane.py),
+// TiledBitplane: plane (nb, gn, 2*tkb, tile_n) uint8, tile-contiguous, a
 // K-block of B = 8*tkb dense rows by a storage tile of tile_n columns per
-// slab. The core reads every one as tkb "byte-rows" t, each holding the
-// weights of dense rows 4t + j (the low half) and 4*tkb + 4t + j (the high
-// half) for j < 4 — the row order of the TPU's int32 -> int8 bitcast
-// (ternary_spgemm_tpu/ops/pallas_kernels.py:966-1023):
-//   * kWBitplane, TiledBitplane: plane (nb, gn, 2*tkb, tile_n) uint8; bit
-//     4h + j of byte-row t of the pos plane (rows [0, tkb)) is the +1 flag
-//     of dense row h*4*tkb + 4t + j, the neg plane (rows [tkb, 2*tkb)) the
-//     -1 flag;
-//   * kWNibble, TiledNibblePair: words (nb, gn, tkb, tile_n) int32 of 4-bit
-//     two's-complement nibbles; little-endian byte j of word row t holds
-//     dense row 4t + j in its low nibble and 4*tkb + 4t + j in its high one
-//     (formats/bitplane.py:176-180, 208-214 of the JAX package).
-// The int8, packed-code and bf16 bitplane kernels run dense_mma.cuh's bf16
-// tensor-core tile instead.
+// slab. Bit 4h + j of byte-row t of the pos plane (rows [0, tkb)) is the +1
+// flag of dense row h*4*tkb + 4t + j, the neg plane (rows [tkb, 2*tkb)) the
+// -1 flag: the low half (h = 0) and the high half of the block, in the row
+// order of the TPU's int32 -> int8 bitcast
+// (ternary_spgemm_tpu/ops/pallas_kernels.py:966-1023).
 //
 // Design, simple first:
 //   * one output column per lane: a warp reads 32 neighbouring elements of
-//     a slab row (one 32-byte sector for the byte formats), coalesced;
+//     a slab row (one 32-byte sector), coalesced;
 //   * a block is 32 columns x 8 warps; the 8 warps split each staged chunk's
 //     byte-rows and their partial sums are added in shared memory at the end
 //     (in a fixed warp order);
@@ -36,14 +29,22 @@
 //     shared load feeds four multiply-adds per row;
 //   * each lane loads a byte-row's bits once (load_row), decodes each half
 //     into four w in {-1, 0, +1} (decode_half) and reuses them for all MT
-//     rows; w * x is one multiply-add.
+//     rows; w * x is one multiply-add;
+//   * the split walk (SPLIT, launch_split): the blocks' (K-block, chunk)
+//     walk cut into S contiguous parts as a third grid dimension, part s
+//     taking chunks [s*W/S, (s+1)*W/S) of the W, its int32 sums written to
+//     a (S, NP, M, N) buffer; split_finish_kernel adds the S parts in part
+//     order (exact integers: the same bits in any order) and applies the
+//     epilogue, so Y is bitwise the unsplit kernel's. It puts more blocks
+//     on the SMs where N/32 blocks each walking all of K would leave most
+//     of them idle (the SwiGLU's down product at decode: 128 blocks).
 //
 // What bounds it on an H100: at decode sizes (M <= 32) the weight bytes are
-// the floor — 2 bits per weight (bitplane) or 4 (nibble) at
-// 3.35 TB/s — but this first kernel spends about (3 + MT) instructions per
-// weight and lane, so it is bound by issue rate, not by memory. The tensor
-// cores (int8 / bf16 mma, wgmma) and a pipelined TMA stream of the weights
-// are the later, faster design.
+// the floor — 2 bits per weight at 3.35 TB/s — but this kernel spends
+// about (3 + MT) instructions per weight and lane, and each block waits on
+// its chunks' loads in series, so it is bound by issue rate and latency,
+// not by memory. The tensor cores (int8 / bf16 mma, wgmma) and a pipelined
+// TMA stream of the weights are the later, faster design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,7 +72,6 @@ enum StageMode { kStageX8 = 0, kStageI8 = 1, kStageTrunc = 2, kStageRequant = 3,
 // [PReLU] + row absmax; kEpiScaleBias: scale, then + b [PReLU]
 enum EpiMode { kEpiBias = 0, kEpiSwiglu = 1, kEpiScale = 2, kEpiBiasRmax = 3,
                kEpiScaleBias = 4 };
-enum WeightFmt { kWBitplane = 0, kWNibble = 1 };
 
 // The ELL core's sums by X rule (ell_core.cuh): f32 X in f32, the integer
 // rules in int
@@ -81,7 +81,7 @@ using Acc = typename std::conditional<STAGE == kStageF32, float, int>::type;
 struct Args {
   const float* x;           // (M, K) f32 activations, row-major
   int M, K;
-  const uint8_t* plane0;    // the weights (layout by WeightFmt)
+  const uint8_t* plane0;    // the weights (TiledBitplane's plane)
   const uint8_t* plane1;    // second plane of the same geometry (NP == 2)
   int nb, gn, tkb, tile_n, N;
   const float* bias;        // kEpiBias / BiasRmax / ScaleBias: (N,)
@@ -116,31 +116,19 @@ __device__ __forceinline__ int stage_value(float v, float scale) {
 }
 
 // The raw bits of one byte-row, read once per lane from element ``off``:
-// the pos and neg bytes (kWBitplane; the neg plane ``second`` bytes on) or
-// the nibble word (kWNibble).
-template <int WFMT>
+// the pos and neg bytes (the neg plane ``second`` bytes on).
 __device__ __forceinline__ uint2 load_row(const uint8_t* base, size_t off,
                                           size_t second) {
-  if constexpr (WFMT == kWBitplane) {
-    return make_uint2(base[off], base[off + second]);
-  } else {
-    return make_uint2((unsigned)reinterpret_cast<const int32_t*>(base)[off],
-                      0u);
-  }
+  return make_uint2(base[off], base[off + second]);
 }
 
 // Weights of half h of a loaded byte-row: w[j] is dense row
 // h*4*tkb + 4t + j of the block.
-template <int WFMT>
 __device__ __forceinline__ void decode_half(uint2 r, int h, int w[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    if constexpr (WFMT == kWBitplane) {
-      const int b = 4 * h + j;
-      w[j] = (int)((r.x >> b) & 1u) - (int)((r.y >> b) & 1u);
-    } else {                                   // sign extend: ((v+8)&0xF)-8
-      w[j] = (int)(((r.x >> (8 * j + 4 * h)) + 8u) & 0xFu) - 8;
-    }
+    const int b = 4 * h + j;
+    w[j] = (int)((r.x >> b) & 1u) - (int)((r.y >> b) & 1u);
   }
 }
 
@@ -178,8 +166,17 @@ __device__ __forceinline__ int abs_bits(float v) {
   return __float_as_int(fabsf(v));
 }
 
-template <int MT, int STAGE, int NP, int EPI, int WFMT>
-__global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// One block's tile of Y: 32 columns x MT rows (the file's note). SPLIT:
+// part blockIdx.z of the gridDim.z parts of the (K-block, chunk) walk, its
+// int32 sums written to ``part`` (S, NP, M, N) in place of the epilogue.
+// Written so (``a`` by value; the unsplit walk's two loops, the split's
+// skip of other parts' chunks under if constexpr), the unsplit
+// instantiations compile to the same SASS as a kernel without the split;
+// ``a`` by reference, or the chunk as a lambda, changed it.
+template <int MT, int STAGE, int NP, int EPI, bool SPLIT>
+__device__ __forceinline__ void bitplane_body(const Args a, int* part) {
   using A = int;
   __shared__ __align__(16) A xs[MT * kCW];
   __shared__ float rs[MT];
@@ -200,14 +197,26 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) { acc0[m] = 0; acc1[m] = 0; }
 
-  // elements (of the format's type) of one (K-block, N-tile) slab; the neg
-  // plane lies neg_off elements after the pos plane
-  const size_t slab_elems = (size_t)(WFMT == kWBitplane ? 2 : 1) * a.tkb * a.tile_n;
+  // bytes of one (K-block, N-tile) slab; the neg plane lies neg_off bytes
+  // after the pos plane
+  const size_t slab_elems = (size_t)2 * a.tkb * a.tile_n;
   const size_t neg_off = (size_t)a.tkb * a.tile_n;
+
+  // SPLIT: chunks [s*W/S, (s+1)*W/S) of the blocks' W = nb * cdiv(tkb, kTC)
+  int part_begin = 0, part_end = 0;
+  if constexpr (SPLIT) {
+    const int walk = a.nb * cdiv(a.tkb, kTC);
+    part_begin = (int)((long long)blockIdx.z * walk / gridDim.z);
+    part_end = (int)((long long)(blockIdx.z + 1) * walk / gridDim.z);
+  }
 
   for (int kb = 0; kb < a.nb; ++kb) {
     const size_t at = ((size_t)kb * a.gn + g) * slab_elems + n;
     for (int t0 = 0; t0 < a.tkb; t0 += kTC) {
+      if constexpr (SPLIT) {   // another part's chunk
+        const int w = kb * cdiv(a.tkb, kTC) + t0 / kTC;
+        if (w < part_begin || w >= part_end) continue;
+      }
       const int tc = min(kTC, a.tkb - t0);
       __syncthreads();   // previous chunk consumed (and rs[] written)
       for (int i = tid; i < MT * kCW; i += kThreads) {
@@ -226,15 +235,15 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
 #pragma unroll 4
         for (int tl = warp; tl < tc; tl += kWarps) {
           const size_t off = at + (size_t)(t0 + tl) * a.tile_n;
-          const uint2 r0 = load_row<WFMT>(a.plane0, off, neg_off);
+          const uint2 r0 = load_row(a.plane0, off, neg_off);
           uint2 r1 = make_uint2(0u, 0u);
           if constexpr (NP == 2)
-            r1 = load_row<WFMT>(a.plane1, off, neg_off);
+            r1 = load_row(a.plane1, off, neg_off);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             int w0[4], w1[4];
-            decode_half<WFMT>(r0, h, w0);
-            if constexpr (NP == 2) decode_half<WFMT>(r1, h, w1);
+            decode_half(r0, h, w0);
+            if constexpr (NP == 2) decode_half(r1, h, w1);
 #pragma unroll
             for (int m = 0; m < MT; ++m) {
               const int4 xv = *reinterpret_cast<const int4*>(
@@ -270,6 +279,18 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
     }
   }
 
+  if constexpr (SPLIT) {   // this part's sums, for split_finish_kernel
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int m = warp + r * kWarps, gm = m0 + m;
+      if (m < MT && gm < a.M && col_ok) {
+        const size_t o = ((size_t)blockIdx.z * NP * a.M + gm) * a.N + col;
+        part[o] = s0[r];
+        if constexpr (NP == 2) part[o + (size_t)a.M * a.N] = s1[r];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int m = warp + r * kWarps;
@@ -312,21 +333,91 @@ __global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
   }
 }
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+template <int MT, int STAGE, int NP, int EPI>
+__global__ void __launch_bounds__(kThreads) bitplane_kernel(const Args a) {
+  bitplane_body<MT, STAGE, NP, EPI, false>(a, nullptr);
+}
 
-// Launch with the smallest M-tile that holds M (more row tiles above 32).
-template <int STAGE, int NP, int EPI, int WFMT = kWBitplane>
-int launch_bitplane(const Args& a, cudaStream_t stream) {
-  const dim3 block(kCols, kWarps);
-  if (a.M <= 4) {
-    bitplane_kernel<4, STAGE, NP, EPI, WFMT><<<dim3(cdiv(a.N, kCols), cdiv(a.M, 4)), block, 0, stream>>>(a);
-  } else if (a.M <= 8) {
-    bitplane_kernel<8, STAGE, NP, EPI, WFMT><<<dim3(cdiv(a.N, kCols), cdiv(a.M, 8)), block, 0, stream>>>(a);
-  } else if (a.M <= 16) {
-    bitplane_kernel<16, STAGE, NP, EPI, WFMT><<<dim3(cdiv(a.N, kCols), cdiv(a.M, 16)), block, 0, stream>>>(a);
-  } else {
-    bitplane_kernel<32, STAGE, NP, EPI, WFMT><<<dim3(cdiv(a.N, kCols), cdiv(a.M, 32)), block, 0, stream>>>(a);
+// The split walk's parts: grid z the S parts, sums into ``part``. At the
+// decode tile (MT = 4) held to 64 registers, 4 blocks an SM: its parts
+// fill the card in waves of 4 * SMs blocks (ops/fused_ffn.py
+// SPLIT_BLOCKS_PER_SM), as the unsplit kernel's 64 registers do.
+template <int MT, int STAGE, int NP, int EPI>
+__global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : 1)
+    bitplane_split_kernel(const Args a, int* part) {
+  bitplane_body<MT, STAGE, NP, EPI, true>(a, part);
+}
+
+// The split walk's epilogue: a thread an element of Y (M, N), a block
+// kThreads columns of one row. The S = ``parts`` int32 sums of ``part`` are
+// added in part order, then EPI's expression as bitplane_body applies it:
+// kEpiSwiglu writes h and folds each warp's row absmax into rmax_out,
+// kEpiScale scales the requantized product.
+template <int NP, int EPI>
+__global__ void __launch_bounds__(kThreads)
+    split_finish_kernel(const Args a, const int* part, int parts) {
+  const int gm = blockIdx.y, col = blockIdx.x * kThreads + threadIdx.x;
+  const bool ok = col < a.N;
+  const size_t plane = (size_t)a.M * a.N, o = (size_t)gm * a.N + col;
+  int s0 = 0, s1 = 0;
+  if (ok) {
+    for (int s = 0; s < parts; ++s) {
+      s0 += part[s * NP * plane + o];
+      if constexpr (NP == 2) s1 += part[(s * NP + 1) * plane + o];
+    }
   }
+  if constexpr (EPI == kEpiSwiglu) {
+    float hv = 0.0f;
+    if (ok) {
+      hv = epi_swiglu((float)s0, (float)s1, a.sx[gm], a.gamma0, a.gamma1);
+      a.y[o] = hv;
+    }
+    const int bits = __reduce_max_sync(0xffffffffu, abs_bits(hv));
+    if (threadIdx.x % 32 == 0) atomicMax(&a.rmax_out[gm], bits);
+  } else {
+    static_assert(EPI == kEpiScale, "the SwiGLU's epilogues");
+    if (ok)
+      a.y[o] = epi_scale((float)s0, requant_scale(a.rmax_in, gm), a.gamma0);
+  }
+}
+
+template <int MT, int STAGE, int NP, int EPI, bool SPLIT>
+void launch_tile(const Args& a, cudaStream_t stream, int* part, int parts) {
+  const dim3 grid(cdiv(a.N, kCols), cdiv(a.M, MT), parts);
+  const dim3 block(kCols, kWarps);
+  if constexpr (SPLIT)
+    bitplane_split_kernel<MT, STAGE, NP, EPI><<<grid, block, 0, stream>>>(
+        a, part);
+  else
+    bitplane_kernel<MT, STAGE, NP, EPI><<<grid, block, 0, stream>>>(a);
+}
+
+// Launch with the smallest M-tile that holds M (more row tiles above 32);
+// SPLIT: the split walk's ``parts`` parts, their sums into ``part``.
+template <int STAGE, int NP, int EPI, bool SPLIT = false>
+int launch_bitplane(const Args& a, cudaStream_t stream, int* part = nullptr,
+                    int parts = 1) {
+  if (a.M <= 4)
+    launch_tile<4, STAGE, NP, EPI, SPLIT>(a, stream, part, parts);
+  else if (a.M <= 8)
+    launch_tile<8, STAGE, NP, EPI, SPLIT>(a, stream, part, parts);
+  else if (a.M <= 16)
+    launch_tile<16, STAGE, NP, EPI, SPLIT>(a, stream, part, parts);
+  else
+    launch_tile<32, STAGE, NP, EPI, SPLIT>(a, stream, part, parts);
+  return (int)cudaGetLastError();
+}
+
+// One product as a split walk of ``parts`` parts and its finishing kernel
+// (``part``: parts * NP * M * N int32), or with one part the unsplit
+// kernel, its epilogue in place. Y is the same bits either way.
+template <int STAGE, int NP, int EPI>
+int launch_split(const Args& a, int* part, int parts, cudaStream_t stream) {
+  if (parts <= 1) return launch_bitplane<STAGE, NP, EPI>(a, stream);
+  const int err = launch_bitplane<STAGE, NP, EPI, true>(a, stream, part, parts);
+  if (err != 0) return err;
+  split_finish_kernel<NP, EPI><<<dim3(cdiv(a.N, kThreads), a.M), kThreads, 0,
+                                 stream>>>(a, part, parts);
   return (int)cudaGetLastError();
 }
 
@@ -346,11 +437,11 @@ inline Args spmm_args(const float* x, int M, int K, const void* w, int nb,
 }
 
 // The entry point of every SpMM kernel on this core.
-template <int STAGE, int WFMT>
+template <int STAGE>
 int run_spmm(const float* x, int M, int K, const void* w, int nb, int gn,
              int tkb, int tile_n, int N, const float* bias,
              const float* alpha, float* y, void* stream) {
-  return launch_bitplane<STAGE, 1, kEpiBias, WFMT>(
+  return launch_bitplane<STAGE, 1, kEpiBias>(
       spmm_args(x, M, K, w, nb, gn, tkb, tile_n, N, bias, alpha, y),
       static_cast<cudaStream_t>(stream));
 }

@@ -4,8 +4,8 @@
 // :47-64). The TPU probe times the magic-multiply bit deposit of its Pallas
 // kernels on a VMEM-resident plane tile. What this port's kernels run is
 // bitplane_core.cuh's decode: load_row (the pos and neg bytes of a byte-row)
-// and decode_half<kWBitplane> (four weights a half), each weight then
-// multiplied into MT rows of staged activations. So this probe times that
+// and decode_half (four weights a half), each weight then multiplied into
+// MT rows of staged activations. So this probe times that
 // sequence on a shared-memory-resident tile, with no device-memory traffic
 // in the timed loop:
 //   * the (2*tkb, tns) uint8 plane tile and an (8, B = 8*tkb) int32 X are
@@ -55,14 +55,13 @@ decode_rate_kernel(const uint8_t* __restrict__ plane, int tkb, int tns,
     for (int r = 0; r < reps; ++r) {
 #pragma unroll 4
       for (int t = 0; t < tkb; ++t) {
-        uint2 raw = ternary::load_row<ternary::kWBitplane>(
-            ps, (size_t)t * tns + n, neg_off);
+        uint2 raw = ternary::load_row(ps, (size_t)t * tns + n, neg_off);
         raw.x = (raw.x + (unsigned)r) & 0xFFu;
         raw.y = (raw.y + (unsigned)r) & 0xFFu;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           int w[4];
-          ternary::decode_half<ternary::kWBitplane>(raw, h, w);
+          ternary::decode_half(raw, h, w);
 #pragma unroll
           for (int m = 0; m < kDecodeRows; ++m) {
             const int4 xv = *reinterpret_cast<const int4*>(

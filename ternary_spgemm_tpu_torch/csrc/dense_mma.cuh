@@ -15,7 +15,9 @@
 //   * CudaPacked2Bit and CudaPacked53 (packed.cu, ternary_packed_f32):
 //     kStageF32 over the same codes, the stride-packed containers;
 //   * CudaTiledBitplane_bf16 (bitplane_bf16.cu, ternary_bitplane_bf16):
-//     kStageBf16 over TiledBitplane's pos and neg bit planes (Bitplane).
+//     kStageBf16 over TiledBitplane's pos and neg bit planes (Bitplane);
+//   * CudaTiledNibblePair_i8 (nibblepair.cu, ternary_nibblepair_i8):
+//     kStageI8 over TiledNibblePair's signed-nibble words (Nibble).
 //
 // Replaces the products of ternary_spgemm_tpu/ops/pallas_kernels.py
 // _dense_kernel (:113; launched by pallas_dense_kernel :173 and
@@ -24,8 +26,9 @@
 // (:777), pallas_tiled_dense_x8_kernel (:821), pallas_dense_i8_kernel
 // (:420), pallas_blockpacked_i8_kernel (:596), pallas_tiled_blockpacked_
 // i8_kernel (:886), pallas_packed2/53_i8_kernel (:502, :513),
-// pallas_packed2/53_kernel (:264, :275) and pallas_tiled_bitplane_bf16_
-// kernel (:1602). The f32 ones take the TPU's own route to an exact f32 product: "the TPU MXU
+// pallas_packed2/53_kernel (:264, :275), pallas_tiled_bitplane_bf16_
+// kernel (:1602) and pallas_tiled_nibblepair_i8_kernel (:1463). The f32
+// ones take the TPU's own route to an exact f32 product: "the TPU MXU
 // computes f32 dots via multi-pass bf16 products" (Precision.HIGHEST,
 // pallas_kernels.py:124-131); the int8 ones issue int8 dots into int32
 // accumulators, exact on their domain. Here:
@@ -92,7 +95,12 @@
 //   * Bitplane: TiledBitplane's plane (nb, gn, 2*tkb, tile_n) uint8, tkq =
 //     tkb byte-rows a block (R = 2 halves, D = 4): in slab (kb, g) pos
 //     byte-row t < tkb and neg byte-row tkb + t hold, in bit 4h + j, the
-//     +1 and -1 flags of dense row kb*8*tkb + h*4*tkb + 4t + j.
+//     +1 and -1 flags of dense row kb*8*tkb + h*4*tkb + 4t + j;
+//   * Nibble: TiledNibblePair's words (nb, gn, tkb, tile_n) int32, the
+//     bit planes' row map with four bytes a column (CB = 4): little-endian
+//     byte j of word row t holds, in nibble h (low, high), the 4-bit two's
+//     complement weight of dense row kb*8*tkb + h*4*tkb + 4t + j.
+//     Every other layout has one byte a column (CB = 1).
 //     A block's columns lie in one slab (tile_n a multiple of the tile's
 //     width where gn > 1). A chunk is KQ packed rows of one K-block: it
 //     stages R runs of D*KQ columns of X side by side (a field's, or a
@@ -112,15 +120,20 @@
 //     every byte), d = q - 3*qn, q = qn, field by field;
 //   * bit planes: the words of four columns of a pos and a neg byte-row,
 //     bit o of each byte -> pbit | 0xFF * nbit (the planes never share a
-//     bit), eight words of weight bytes.
+//     bit), eight words of weight bytes;
+//   * nibbles: the four words of four columns of a word row, transposed
+//     byte for byte (byte j of each column's word -> one word of the four
+//     columns' bytes j), then each nibble n -> sign_bytes(n): the packer
+//     emits only 0x0, 0x1 and 0xF (formats/bitplane.py), which become 0,
+//     0x01 and 0xFF; another nibble would decode wrongly.
 //
 // What bounds it on an H100: at M = 512 (L: 512 x 4096 x 4096) the NP
 // passes are NP x 17.2 G bf16 operations, 17-52 us at the 989 TFLOP/s
 // peak, and the bytes ~14 us: the operations. At M <= 32 (the north star,
-// 32 x 1024 x 4096) the W bytes (8, 2 or 1.6 bits a weight; 1.25 us at
+// 32 x 1024 x 4096) the W bytes (8, 4, 2 or 1.6 bits a weight; 1.25 us at
 // 3.35 TB/s for one byte a weight), under the latency of the chunks each
 // block walks in series. A CUDA-core body (bitplane_core.cuh's, which the
-// nibble-pair kernel and the small-M branches still run) spends MT
+// small-M branches of the x8, i8 and fused FFN kernels still run) spends MT
 // multiply-adds and MT/4 shared loads a weight and lane, zeros included:
 // only the tensor cores take the product under one f32 torch.matmul. This
 // first tile still pays each chunk's round trip to memory in series, and
@@ -137,10 +150,11 @@
 //     Narrow16 (16 x 32, one m16 fragment a warp) for M <= 16;
 //   * the exact rules (x8, i8) sum straight into the accumulators, which
 //     saves the zeroed fragments' 32 registers a thread; a k-step whose
-//     rows all lie past tkq or K is skipped (Slabs, Bitplane);
+//     rows all lie past tkq or K is skipped (Slabs, Bitplane, Nibble);
 //   * a chunk of KC rows of K (KC / 4 packed rows for the codes, KC / 8
-//     byte-rows for the bit planes) at a time: X staged from f32 (16-byte
-//     loads where K, tkq and the address allow), its rule applied and
+//     byte-rows or word rows for the bit planes and the nibbles) at a
+//     time: X staged from f32 (16-byte loads where K, tkq and the address
+//     allow), its rule applied and
 //     split into its pieces as it is staged, one bf16 plane a piece; W
 //     staged with 16-byte loads (8- or 4-byte ones for the codes' and the
 //     bit planes' smaller chunks, so that every thread decodes; byte loads
@@ -256,13 +270,14 @@ __device__ __forceinline__ void decode_word(uint32_t word, uint32_t out[F]) {
 
 // The weight layouts (the file's note): R runs of D*KQ staged columns a
 // chunk of KQ = KC / KDIV packed rows, each packed row holding D dense rows
-// of each run in NW planes of bytes; the K-blocks, the packed rows a block,
-// and the bytes of block kb from the tile's first column n0 (rows ldw
-// apart; a second plane tkq rows on). ``decode`` turns a packed row's NW
-// words (four columns each) into its R*D words of weight bytes, output o
-// holding dense row D*q + o % D of run o / D.
+// of each run in NW planes of CB bytes a column; the K-blocks, the packed
+// rows a block, and the bytes of block kb from the tile's first column n0
+// (rows ldw bytes apart; a second plane tkq rows on). ``decode`` turns a
+// packed row's NW words (four columns each; Nibble: one column each, four
+// columns) into its R*D words of weight bytes, output o holding dense row
+// D*q + o % D of run o / D.
 struct RowMajor {
-  static constexpr int R = 1, D = 1, KDIV = 1, NW = 1;
+  static constexpr int R = 1, D = 1, KDIV = 1, NW = 1, CB = 1;
   static constexpr bool kSlabs = false;
   __device__ static int blocks(const Args&) { return 1; }
   __device__ static int rows(const Args& a) { return a.K; }
@@ -273,7 +288,7 @@ struct RowMajor {
 template <int F>
 struct Slabs {
   static_assert(F == 1 || F == 4 || F == 5, "factor 1, 4 or 5");
-  static constexpr int R = F, D = 1, KDIV = F == 1 ? 1 : 4, NW = 1;
+  static constexpr int R = F, D = 1, KDIV = F == 1 ? 1 : 4, NW = 1, CB = 1;
   static constexpr bool kSlabs = true;
   __device__ static int blocks(const Args& a) { return a.nb; }
   __device__ static int rows(const Args& a) { return a.tkq; }
@@ -286,7 +301,7 @@ struct Slabs {
   }
 };
 struct Bitplane {
-  static constexpr int R = 2, D = 4, KDIV = 8, NW = 2;
+  static constexpr int R = 2, D = 4, KDIV = 8, NW = 2, CB = 1;
   static constexpr bool kSlabs = true;
   __device__ static int blocks(const Args& a) { return a.nb; }
   __device__ static int rows(const Args& a) { return a.tkq; }
@@ -303,6 +318,36 @@ struct Bitplane {
     for (int o = 0; o < 8; ++o)
       out[o] = ((w[0] >> o) & 0x01010101u) |
                (((w[1] >> o) & 0x01010101u) * 0xFFu);
+  }
+};
+struct Nibble {
+  static constexpr int R = 2, D = 4, KDIV = 8, NW = 1, CB = 4;
+  static constexpr bool kSlabs = true;
+  __device__ static int blocks(const Args& a) { return a.nb; }
+  __device__ static int rows(const Args& a) { return a.tkq; }
+  __device__ static const int8_t* block(const Args& a, int kb, int n0) {
+    const int tn = a.ldw / CB, g = n0 / tn;
+    return a.w + ((size_t)kb * a.gn + g) * a.tkq * a.ldw +
+           CB * (n0 - g * tn);
+  }
+  // the words w[0..3] of four columns -> output o = 4h + j, dense row 4q +
+  // j of run h: byte e the weight of column e, from nibble h of byte j of
+  // w[e]. A 4 x 4 byte transpose, then sign_bytes of each nibble (its bits
+  // 0 and 1; 0x0 -> 0, 0x1 -> 0x01, 0xF -> 0xFF, the packer's only nibbles)
+  __device__ static void decode(const uint32_t w[4], uint32_t out[8]) {
+    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+    const uint32_t t[4] = {__byte_perm(lo01, lo23, 0x5410),
+                           __byte_perm(lo01, lo23, 0x7632),
+                           __byte_perm(hi01, hi23, 0x5410),
+                           __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[j] = sign_bytes(t[j]);
+      out[4 + j] = sign_bytes(t[j] >> 4);
+    }
   }
 };
 
@@ -322,7 +367,7 @@ struct Bitplane {
 // W is staged in groups of GB bytes a thread: 16, or 8 or 4 where more
 // would leave threads without a group (the codes' and the bit planes'
 // Narrow chunks, the bit planes' Wide one), so that the decode is spread
-// over all of them.
+// over all of them; the nibbles' 16 bytes are four columns of a word row.
 template <class T, int STAGE, class L>
 struct Chunk {
   static constexpr int NP = kPieces<STAGE>;
@@ -332,9 +377,10 @@ struct Chunk {
   static constexpr int KS = CW / 16;
   static constexpr int NJ = cdiv(KS, T::WK);
   static constexpr int PS = kExact<STAGE> || NJ < kSumSteps ? NJ : kSumSteps;
-  static constexpr int GB = KQ * T::BN / 16 >= kThreads ? 16
-                            : KQ * T::BN / 8 >= kThreads ? 8 : 4;
+  static constexpr int GB = KQ * T::BN * L::CB / 16 >= kThreads ? 16
+                            : KQ * T::BN * L::CB / 8 >= kThreads ? 8 : 4;
   static_assert(RL % 16 == 0, "whole k-steps a run");
+  static_assert(L::CB == 1 || GB == 4 * L::CB, "a word a column, 4 columns");
   static constexpr int kAS = CW + 8;          // X piece row stride, bf16
   // the NP X pieces and the W rows of a chunk, then (reusing them) the WK
   // partial tiles of the reduction
@@ -446,7 +492,7 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
   constexpr int Q = C::CW / 4;                  // 4-column groups a row
   constexpr int XL = T::BM * Q / kThreads;      // X groups a thread
   constexpr int GW = C::GB / 4;                 // W words a group
-  constexpr int G = T::BN / C::GB;              // W groups a row
+  constexpr int G = T::BN * L::CB / C::GB;      // W groups a row
   constexpr int WT = C::KQ * G;                 // W groups a chunk
   constexpr int WL = cdiv(WT, kThreads);        // W groups a thread
   static_assert(T::BM * Q % kThreads == 0, "whole X groups a thread");
@@ -474,9 +520,9 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
       }
     }
   }
-  // W: GB columns of one packed row a group (of each of its NW planes), one
-  // 16-, 8- or 4-byte load where aligned, GB byte loads (each column
-  // masked) elsewhere
+  // W: GB bytes (GB / CB columns) of one packed row a group (of each of its
+  // NW planes), one 16-, 8- or 4-byte load where aligned, GB byte loads
+  // (each column masked) elsewhere; c is the group's first byte of the row
   const int8_t* wb = L::block(a, kb, n0);
   uint32_t u[WL][L::NW][GW];
 #pragma unroll
@@ -486,7 +532,8 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
     for (int p = 0; p < L::NW; ++p)
 #pragma unroll
       for (int e = 0; e < GW; ++e) u[j][p][e] = 0u;
-    if ((WT % kThreads == 0 || i < WT) && q0 + r < tkq && n0 + c < a.N) {
+    if ((WT % kThreads == 0 || i < WT) && q0 + r < tkq &&
+        n0 + c / L::CB < a.N) {
 #pragma unroll
       for (int p = 0; p < L::NW; ++p) {
         const int8_t* src = wb + (size_t)(p * tkq + q0 + r) * a.ldw + c;
@@ -504,7 +551,7 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
         } else {
 #pragma unroll
           for (int e = 0; e < C::GB; ++e)
-            if (n0 + c + e < a.N)
+            if (n0 + c / L::CB + e / L::CB < a.N)
               u[j][p][e / 4] |= (uint32_t)(uint8_t)src[e] << (8 * (e % 4));
         }
       }
@@ -516,6 +563,15 @@ __device__ __forceinline__ void stage_chunk(const Args& a, int m0, int n0,
     if (WT % kThreads == 0 || i < WT) {
       if constexpr (L::R * L::D == 1) {
         store_words<GW>(ws + r * T::kWS + c, u[j][0]);
+      } else if constexpr (L::CB > 1) {
+        // the group's GW words are GW columns: one word a decoded row
+        constexpr int O = L::R * L::D;
+        uint32_t d[O];
+        L::decode(u[j][0], d);
+#pragma unroll
+        for (int o = 0; o < O; ++o)
+          store_words<1>(ws + ((o / L::D) * C::RL + L::D * r + o % L::D) *
+                                  T::kWS + c / L::CB, &d[o]);
       } else {
         constexpr int O = L::R * L::D;          // decoded rows a packed row
         uint32_t d[O][GW];
@@ -682,8 +738,8 @@ __global__ void __launch_bounds__(kThreads, 2) dense_kernel(const Args a) {
 }
 
 // Whether 16-byte loads of X (row stride K; and, in slabs, runs of tkq
-// columns) and of W (row stride ldw, ``cols`` columns from ``w``) stay
-// aligned.
+// columns) and of W (row stride ldw, ``cols`` bytes of a row from ``w``)
+// stay aligned.
 __host__ __device__ inline bool x_vec(const float* x, int K) {
   return K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
@@ -723,8 +779,9 @@ int run_dense(const float* x, int M, int K, const int8_t* w, int ldw, int N,
 }
 
 // Y = stage(X) . W + b [PReLU] over bytes in slabs, layout L (the file's
-// note): Slabs<F>, (nb, gn, tkq, tile_n) of F fields a byte, or Bitplane,
-// (nb, gn, 2*tkq, tile_n) with tkq = tkb. The Narrow16 tile up to
+// note): Slabs<F>, (nb, gn, tkq, tile_n) of F fields a byte, Bitplane,
+// (nb, gn, 2*tkq, tile_n) with tkq = tkb, or Nibble, (nb, gn, tkq, tile_n)
+// words with tkq = tkb. The Narrow16 tile up to
 // kNarrow16MaxM rows of X, Narrow up to kNarrowMaxM, Wide above.
 // cudaErrorInvalidValue for a geometry that does not hold K and N, or
 // slabs narrower than the tile's columns.
@@ -739,12 +796,12 @@ int run_slabs(const float* x, int M, int K, const void* w, int nb, int gn,
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.M = M; a.K = K;
-  a.w = static_cast<const int8_t*>(w); a.ldw = tile_n; a.N = N;
+  a.w = static_cast<const int8_t*>(w); a.ldw = tile_n * L::CB; a.N = N;
   a.nb = nb; a.gn = gn; a.tkq = tkq;
   a.bias = bias; a.alpha = alpha;
   a.y = y; a.ldy = N;
   a.xvec = x_vec(x, K) && L::D * tkq % 4 == 0;
-  a.wvec = w_vec(a.w, tile_n, N);
+  a.wvec = w_vec(a.w, a.ldw, N * L::CB);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= kNarrow16MaxM) return launch<Narrow16, STAGE, L>(a, s);
   return M <= kNarrowMaxM ? launch<Narrow, STAGE, L>(a, s)

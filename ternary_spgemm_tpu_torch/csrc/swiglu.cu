@@ -24,18 +24,33 @@
 // Two entry points split by M (the wrapper's SWIGLU_MMA_MIN_M), with the
 // same contract and the same bits: ternary_swiglu, the decode kernel of
 // bitplane_core.cuh, for small M; ternary_swiglu_mma, the int8 tensor-core
-// core of bitplane_mma.cuh, above it. The latter makes four launches on one
-// stream: the memset of rmax; the truncating pre-pass of xq into an int8
-// scratch and the gate-and-up product (two accumulator sets) with the
-// silu-mul epilogue; the requantizing pre-pass of h into a second int8
-// scratch (it reads the rmax the product left); the down product with the
-// scale epilogue. Its integer sums are exact and its epilogues are the
+// core of bitplane_mma.cuh, above it.
+//
+// ternary_swiglu runs each phase as a split walk of S parts
+// (bitplane_core.cuh launch_split): at decode's M = 4 and 7B width phase 2
+// is 128 blocks each walking 44 chunks in series (phase 1 344 blocks of
+// 16), which leaves most of the card's block slots empty. Part s of S
+// takes a contiguous 1/S of the (K-block, chunk) walk as a third grid
+// dimension and writes its int32 sums (both planes in phase 1) to the (S,
+// NP, M, N) buffer ``part``; a finishing kernel a phase adds the S parts
+// in order (exact integers) and applies the phase's epilogue, the
+// expressions above, so y, h and rmax keep their bits for every S. The
+// wrapper computes S1 and S2 from the grid and the card's SMs
+// (ops/fused_ffn.py split_parts); S = 1 is the unsplit kernel, its
+// epilogue in place, with no finishing kernel.
+//
+// ternary_swiglu_mma makes four launches on one stream: the memset of
+// rmax; the truncating pre-pass of xq into an int8 scratch and the
+// gate-and-up product (two accumulator sets) with the silu-mul epilogue;
+// the requantizing pre-pass of h into a second int8 scratch (it reads the
+// rmax the product left); the down product with the scale epilogue. Its integer sums are exact and its epilogues are the
 // decode kernel's expressions, so y, h and rmax are bitwise equal between
 // the two.
 //
 // What bounds it: see bitplane_core.cuh; phase 1 decodes two planes per
 // staged activation, and the hidden round trip through L2 costs 8 bytes per
-// hidden element against ~1.3 KB of plane bytes per hidden column.
+// hidden element against ~1.3 KB of plane bytes per hidden column; the
+// split's partial sums another 4 * S * NP bytes per output element, in L2.
 //
 // Returns cudaGetLastError(); the Python wrapper raises on anything but 0.
 
@@ -72,6 +87,9 @@ void swiglu_args(const float* xq, const float* sx, int M, int K,
 
 }  // namespace
 
+// ``part``: int32 scratch of max(parts1 * 2 * M * N1, parts2 * M * N2)
+// elements for the split walks' sums (unread where both are 1); ``parts1``,
+// ``parts2``: the parts S of phase 1 and phase 2, each in 1..its walk
 extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
                               const uint8_t* plane_gate,
                               const uint8_t* plane_up, int nb1, int gn1,
@@ -80,7 +98,8 @@ extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
                               int tkb2, int tile_n2, int N2,
                               float gamma_gate, float gamma_up,
                               float gamma_down, float* h, int* rmax,
-                              float* y, void* stream) {
+                              float* y, void* stream, int* part, int parts1,
+                              int parts2) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = (int)cudaMemsetAsync(rmax, 0, sizeof(int) * (size_t)M, s);
   if (err != 0) return err;
@@ -88,9 +107,11 @@ extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
   swiglu_args(xq, sx, M, K, plane_gate, plane_up, nb1, gn1, tkb1, tile_n1, N1,
               plane_down, nb2, gn2, tkb2, tile_n2, N2, gamma_gate, gamma_up,
               gamma_down, h, rmax, y, &p1, &p2);
-  err = ternary::launch_bitplane<ternary::kStageTrunc, 2, ternary::kEpiSwiglu>(p1, s);
+  err = ternary::launch_split<ternary::kStageTrunc, 2, ternary::kEpiSwiglu>(
+      p1, part, parts1, s);
   if (err != 0) return err;
-  return ternary::launch_bitplane<ternary::kStageRequant, 1, ternary::kEpiScale>(p2, s);
+  return ternary::launch_split<ternary::kStageRequant, 1, ternary::kEpiScale>(
+      p2, part, parts2, s);
 }
 
 // ``xq8``: int8 scratch of M x (nb1 * 2 * round_up(4*tkb1, 128)) bytes for

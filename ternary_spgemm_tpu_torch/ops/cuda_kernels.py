@@ -1,21 +1,22 @@
 """CUDA SpMM kernels — counterpart of the SpMM kernels of
 ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Eighteen registered kernels on three cores: ``csrc/bitplane_core.cuh``
-(one lane a column, CUDA cores) for the nibble-pair container and the x8
-and i8 bitplane kernels' decode branches, with the int8 tensor-core core
-(``csrc/bitplane_mma.cuh``) of the x8 and i8 kernels' prefill branches,
-which they take above :data:`X8_MMA_MIN_M` and :data:`I8_MMA_MIN_M` rows
-of X; the bf16 tensor-core tile (``csrc/dense_mma.cuh``) at every M for
-``CudaDense`` and ``CudaDense_bf16`` (f32 X as three bf16 pieces,
-:func:`split_bf16`; bf16 X as one), for the kernels over the packed-row
-containers, the int8-X tiled-dense i8 and x8, dense i8, block-packed,
-tiled block-packed and stride-packed i8 ones and the f32 stride-packed
-ones (X staged by its rule, i8 as two exact pieces, x8 as one, f32 as
-three; the 2-bit and base-3 codes decoded as they are staged,
-:func:`swar_decode`), and for ``CudaTiledBitplane_bf16`` (its pos and neg
-bit planes decoded as they are staged, bf16 X as one piece);
-``csrc/ell_core.cuh`` for the ELL gathers:
+Eighteen registered kernels on four cores: ``csrc/bitplane_core.cuh``
+(one lane a column, CUDA cores) for the x8 and i8 bitplane kernels'
+decode branches, with the int8 tensor-core core
+(``csrc/bitplane_mma.cuh``) of their prefill branches, which they take
+above :data:`X8_MMA_MIN_M` and :data:`I8_MMA_MIN_M` rows of X; the bf16
+tensor-core tile (``csrc/dense_mma.cuh``) at every M for ``CudaDense``
+and ``CudaDense_bf16`` (f32 X as three bf16 pieces, :func:`split_bf16`;
+bf16 X as one), for the kernels over the packed-row containers, the
+int8-X tiled-dense i8 and x8, dense i8, block-packed, tiled block-packed
+and stride-packed i8 ones and the f32 stride-packed ones (X staged by its
+rule, i8 as two exact pieces, x8 as one, f32 as three; the 2-bit and
+base-3 codes decoded as they are staged, :func:`swar_decode`), for
+``CudaTiledBitplane_bf16`` (its pos and neg bit planes decoded as they
+are staged, bf16 X as one piece) and for ``CudaTiledNibblePair_i8`` (its
+signed-nibble words transposed and decoded as they are staged, i8 X as
+two pieces); ``csrc/ell_core.cuh`` for the ELL gathers:
 
 =======================  ========================  ================  =====  ==========
 kernel                   replaces (Pallas)         source            X      core
@@ -25,7 +26,7 @@ CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu       x8     bitp
 CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu       i8     bitplane,
                                                                             int8 mma
 CudaTiledBitplane_bf16   PallasTiledBitplane_bf16  bitplane_bf16.cu  bf16   bf16 tile
-CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu     i8     bitplane
+CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu     i8     bf16 tile
 CudaTiledDense_i8        PallasTiledDense_i8       tiled_dense.cu    i8     bf16 tile
 CudaTiledDense_x8        PallasTiledDense_x8       tiled_dense.cu    x8     bf16 tile
 CudaDense                PallasDense               dense.cu          f32    bf16 tile
@@ -540,9 +541,10 @@ def cuda_tiled_bitplane_bf16_kernel(X, fmt: TiledBitplane, bias, alpha=None):
 
 @register_kernel(
     "CudaTiledNibblePair_i8", TiledNibblePair,
-    description="signed-nibble words (4 bits/weight) sign-extended per lane, "
-                "integer activations |x| <= 512 (non-integer X floored) "
-                "accumulated in int32",
+    description="signed-nibble words (4 bits/weight) decoded as they are "
+                "staged, integer activations |x| <= 512 (non-integer X "
+                "floored) as two exact bf16 pieces on the bf16 tensor "
+                "cores, exact sums",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1463",
     x_absmax=512, source=_CSRC + "nibblepair.cu", plain=nibblepair_i8_plain)
 def cuda_tiled_nibblepair_i8_kernel(X, fmt: TiledNibblePair, bias,

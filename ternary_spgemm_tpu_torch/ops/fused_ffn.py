@@ -18,10 +18,11 @@ and the reference-epilogue PReLU FFN over integer activations |X| <= 512::
 
 :func:`fused_bitplane_swiglu` runs the first as one call of the CUDA kernel
 in ``csrc/swiglu.cu``, :func:`fused_bitplane_ffn` the second as one call of
-``csrc/ffn.cu``; each makes two launches (the up-projection with its
+``csrc/ffn.cu``; each makes two products (the up-projection with its
 epilogue and the row absmax, then the requantizing down projection; the
-SwiGLU above :data:`SWIGLU_MMA_MIN_M` rows on the int8 tensor cores, with a
-pre-pass before each product). On a
+SwiGLU's up to :data:`SWIGLU_MMA_MIN_M` rows each a split walk of
+:func:`split_parts` parts and a finishing kernel, above it on the int8
+tensor cores with a pre-pass before each product). On a
 CPU tensor each runs its plain version (:func:`swiglu_plain`,
 :func:`ffn_plain`), the same math in PyTorch with every op in the JAX
 order. silu is ``g * sigmoid(g)`` as ``jax.nn.silu`` writes it, with the
@@ -46,7 +47,8 @@ from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     note_plain,
     stream_handle,
 )
-from ternary_spgemm_tpu_torch.utils import round_up
+from ternary_spgemm_tpu_torch.utils import cdiv, round_up
+from ternary_spgemm_tpu_torch.utils.device import sm_count
 
 #: requantization constants shared by every path (the JAX values)
 _RQ_ABSMAX = 127.0
@@ -62,17 +64,54 @@ FFN_REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:229"
 #: the PReLU FFN's serving-M contract (JAX's; the SwiGLU has no row limit)
 SERVING_M = 128
 #: The SwiGLU's two branches split at M: up to this many rows of xq the
-#: decode kernel (``ternary_swiglu``, ``csrc/bitplane_core.cuh``), above it
-#: the int8 tensor-core kernel (``ternary_swiglu_mma``,
-#: ``csrc/bitplane_mma.cuh``). The crossover, measured by ``chip_smoke.py``
-#: phase 3 at 4096 -> 11008 -> 4096 (NVIDIA H100 80GB HBM3, 700 W), decode
-#: vs tensor-core ms: M=4 0.2177 vs 0.2604, M=8 0.3394 vs 0.2617, M=16
-#: 0.5915 vs 0.2660, M=32 0.9615 vs 0.2710, M=64 2.0033 vs 0.2787, M=128
-#: 3.6313 vs 0.2982. So decode's M = 4 keeps the decode kernel.
-SWIGLU_MMA_MIN_M = 4
+#: decode kernel (``ternary_swiglu``, ``csrc/bitplane_core.cuh``, each
+#: phase a split walk of :func:`split_parts` parts), above it the int8
+#: tensor-core kernel (``ternary_swiglu_mma``, ``csrc/bitplane_mma.cuh``).
+#: The crossover, measured by ``chip_smoke.py`` phase 3 at 4096 -> 11008 ->
+#: 4096 (NVIDIA H100 80GB HBM3, 700 W), decode vs tensor-core ms: M=4
+#: 0.1311 vs 0.2566, M=8 0.2100 vs 0.2585, M=16 0.4033 vs 0.2620, M=32
+#: 0.9231 vs 0.2668, M=64 1.7924 vs 0.2742, M=128 3.6957 vs 0.2946 (the
+#: unsplit decode kernel: M=4 0.2177, M=8 0.3394). So the split falls at 8
+#: rows; decode's M = 4 keeps the decode kernel.
+SWIGLU_MMA_MIN_M = 8
 #: launches of the SwiGLU's tensor-core branch (also counted under
 #: :data:`KERNEL_NAME`)
 SWIGLU_MMA_COUNT = f"{KERNEL_NAME}/mma"
+#: The decode branch's split walk (``csrc/bitplane_core.cuh``
+#: ``launch_split``): blocks of the decode kernel an SM holds at decode's
+#: M-tile of 4 rows (256 threads of 64 registers: the unsplit kernel's
+#: count, and the split kernel's cap), so a phase's blocks run in waves of
+#: ``SPLIT_BLOCKS_PER_SM * SMs``.
+SPLIT_BLOCKS_PER_SM = 4
+#: bitplane_core.cuh's geometry: output columns a block, byte-rows a chunk,
+#: and the M-tiles it launches (the smallest that holds M)
+_CORE_COLS, _CORE_CHUNK, _CORE_MT = 32, 32, (4, 8, 16, 32)
+
+
+def split_walk(nb: int, tkb: int) -> int:
+    """The chunks each block of the decode kernel walks in series over a
+    TiledBitplane of ``nb`` K-blocks of ``tkb`` byte-rows: ``nb *
+    cdiv(tkb, 32)``."""
+    return nb * cdiv(tkb, _CORE_CHUNK)
+
+
+def split_parts(M: int, N: int, nb: int, tkb: int, sms: int) -> int:
+    """S, the parts of one phase's split walk for ``M`` rows of X, ``N``
+    output columns, ``nb`` K-blocks of ``tkb`` byte-rows on a card of
+    ``sms`` SMs. Each block waits on its chunks in series, so a phase takes
+    about (waves of blocks) x (chunks a part + 1, the block's reduction
+    and writes costing about one chunk): S minimises ``cdiv(blocks * S,
+    slots) * (cdiv(W, S) + 1)`` over 1..W (:func:`split_walk`), the fewest
+    parts on a tie, with ``blocks = cdiv(N, 32) * cdiv(M, MT)`` and
+    ``slots = SPLIT_BLOCKS_PER_SM * sms``. At 7B width and M = 4 on 132
+    SMs: 3 for gate and up (344 blocks, 16 chunks: 2 waves of 6 against 1
+    of 16), 4 for down (128 blocks, 44 chunks: 1 wave of 11)."""
+    mt = next((t for t in _CORE_MT if M <= t), _CORE_MT[-1])
+    blocks = cdiv(N, _CORE_COLS) * cdiv(M, mt)
+    slots, walk = SPLIT_BLOCKS_PER_SM * sms, split_walk(nb, tkb)
+    return min(range(1, walk + 1),
+               key=lambda S: (cdiv(blocks * S, slots) * (cdiv(walk, S) + 1),
+                              S))
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -174,9 +213,11 @@ def swiglu_mma_row_bytes(fmt_gate: TiledBitplane,
 
 def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
                 gamma_gate: float = 1.0, gamma_up: float = 1.0,
-                gamma_down: float = 1.0):
+                gamma_down: float = 1.0, parts: tuple = None):
     """One call of the decode (``mma`` False) or the tensor-core branch ->
-    ``(y, h, rmax)``, as :func:`swiglu_launch`."""
+    ``(y, h, rmax)``, as :func:`swiglu_launch`. The decode branch splits
+    each phase's walk into :func:`split_parts` parts, or into ``parts`` =
+    (S1, S2) where a test or a timing asks for others."""
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
@@ -195,11 +236,25 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
     y = torch.empty((M, N2), dtype=torch.float32, device=dev)
     if M == 0:
         return y, h, rmax.view(torch.float32)
-    entry, scratch = "ternary_swiglu", []
-    if mma:   # held until the launches are queued
+    # held until the launches are queued
+    if mma:
         entry = "ternary_swiglu_mma"
         scratch = [torch.empty(M * n, dtype=torch.int8, device=dev)
                    for n in swiglu_mma_row_bytes(fmt_gate, fmt_down)]
+        extra = [t.data_ptr() for t in scratch]
+    else:
+        entry = "ternary_swiglu"
+        s1, s2 = parts or (
+            split_parts(M, N1, pg.shape[0], fmt_gate.tkb, sm_count(dev)),
+            split_parts(M, N2, pd.shape[0], fmt_down.tkb, sm_count(dev)))
+        for p, f, w in ((s1, fmt_gate, pg), (s2, fmt_down, pd)):
+            if not 1 <= p <= split_walk(w.shape[0], f.tkb):
+                raise ValueError(f"{KERNEL_NAME}: {p} parts of a walk of "
+                                 f"{split_walk(w.shape[0], f.tkb)} chunks")
+        scratch = torch.empty(max(s1 * 2 * M * N1, s2 * M * N2)
+                              if max(s1, s2) > 1 else 0,
+                              dtype=torch.int32, device=dev)
+        extra = [scratch.data_ptr() or None, s1, s2]
     err = getattr(_build.load(), entry)(
         xq.data_ptr(), sx.data_ptr(), M, K,
         pg.data_ptr(), pu.data_ptr(), pg.shape[0], pg.shape[1],
@@ -208,7 +263,7 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
         fmt_down.tile_n, N2,
         float(gamma_gate), float(gamma_up), float(gamma_down),
         h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream_handle(dev),
-        *(t.data_ptr() for t in scratch))
+        *extra)
     _build.check(err, entry)
     launches[KERNEL_NAME] += 1
     if mma:
@@ -216,9 +271,13 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
     return y, h, rmax.view(torch.float32)
 
 
-def _swiglu_lanes(xq, sx, fmt_gate, fmt_up, fmt_down, **gammas):
-    """The decode branch of the SwiGLU kernel at any M."""
-    return _swiglu_run(False, xq, sx, fmt_gate, fmt_up, fmt_down, **gammas)
+def _swiglu_lanes(xq, sx, fmt_gate, fmt_up, fmt_down, *, parts=None,
+                  **gammas):
+    """The decode branch of the SwiGLU kernel at any M; ``parts`` = (S1,
+    S2) splits its phases' walks into other parts than
+    :func:`split_parts`' (``(1, 1)``: the unsplit kernel)."""
+    return _swiglu_run(False, xq, sx, fmt_gate, fmt_up, fmt_down,
+                       parts=parts, **gammas)
 
 
 def _swiglu_mma(xq, sx, fmt_gate, fmt_up, fmt_down, **gammas):

@@ -483,6 +483,8 @@ PACKED_MMA = {
                    PackedTernary2Bit, {}, 512),
     "packed53_i8": (ck.cuda_packed53_i8_kernel, ck.packed53_i8_plain,
                     PackedTernary53, {}, 512),
+    "nibble_i8": (ck.cuda_tiled_nibblepair_i8_kernel, ck.nibblepair_i8_plain,
+                  TiledNibblePair, {"tile_n": 256}, 512),
 }
 _PACKED_W = {}
 
@@ -523,7 +525,9 @@ def test_packed_mma_tile(dev, name, M, K, N, prelu):
     one above), on the ragged edges: TiledDense
     at K = 100 (tile_k = 128, under the Narrow tile's 256-row chunk), the
     stride-packed fields at K = 999 (tkq = 250 and 200, not multiples of
-    16), BlockPacked at N = 1000 (byte-staged W), several slabs (gn > 1)."""
+    16), BlockPacked at N = 1000 (byte-staged W), several slabs (gn > 1),
+    the nibbles' tkb = 16 under the 32-row chunk at K = 100 and K = 999 in
+    one block of 1024 rows."""
     kern, plain, fmt, X, Xf, b, a = _packed_mma_case(dev, name, M, K, N,
                                                      prelu)
     for x in (X, Xf):
@@ -556,6 +560,36 @@ def test_packed_mma_non_finite(dev, name, M):
     fin = torch.isfinite(want)
     assert torch.equal(got[fin], want[fin])
     assert torch.equal(got[4:], want[4:])
+
+
+@pytest.mark.parametrize("M", [1, 7, 17, 33])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_nibble_mma_byte_staged_and_deterministic(dev, M, prelu):
+    """CudaTiledNibblePair_i8 at N = 130 (4 * N bytes a word row, not a
+    multiple of 16: the words staged byte by byte, each column masked) over
+    two slabs of 128 columns and K = 999 with tkb = 32 (four K-blocks, the
+    last one ragged): bitwise equal to the plain version on integer X
+    with the +-512 edges and on non-integer X, and the same bits over 20
+    back-to-back launches."""
+    K, N = 999, 130
+    fmt = TiledNibblePair.from_dense(generate_ternary(K, N, 3, seed=M),
+                                     tkb=32, tile_n=128).to(dev)
+    assert fmt.words.shape[:2] == (4, 2)
+    rng = np.random.default_rng(M)
+    X = rng.integers(-512, 513, size=(M, K)).astype(np.float32)
+    X[:, ::7], X[:, 3::7] = 512.0, -512.0
+    Xf = rng.uniform(-511.99, 511.99, (M, K)).astype(np.float32)
+    b = torch.from_numpy(rng.uniform(-4, 4, N).astype(np.float32)).to(dev)
+    a = (torch.from_numpy(rng.uniform(0.01, 0.5, N).astype(np.float32))
+         .to(dev) if prelu else None)
+    kern, plain = ck.cuda_tiled_nibblepair_i8_kernel, ck.nibblepair_i8_plain
+    for x in (torch.from_numpy(X).to(dev), torch.from_numpy(Xf).to(dev)):
+        first = kern(x, fmt, b, a)
+        again = [kern(x, fmt, b, a) for _ in range(20)]
+        want = plain(x, fmt, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(first, want)
+        assert all(torch.equal(y, first) for y in again)
 
 
 #: the float-X kernels over the code and bit-plane layouts of
@@ -773,6 +807,42 @@ def test_swiglu_branches_bitwise(dev, M, K, N1, N2, tile_n):
     assert ck.launches[fused_ffn.SWIGLU_MMA_COUNT] == before + 1
     for got, want, what in zip(mma, lanes, ("y", "h", "rmax")):
         assert torch.equal(got, want), what
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
+@pytest.mark.parametrize("K,N1,N2,tile_n", [(4096, 11008, 4096, 4096),
+                                            (200, 300, 96, 128)])
+def test_swiglu_decode_split_bitwise(dev, M, K, N1, N2, tile_n):
+    """The SwiGLU's decode branch as a split walk (its rule's parts, and
+    other parts: unsplit, two, a walk's worth) gives y, h and rmax bit for
+    bit equal to the tensor-core branch at the same M, and the same bits
+    over two launches; at BitNet-7B width (S = 3 and 4 on an H100) and at
+    odd widths (gn1 = 3, N2 = 96, walks of one and two chunks)."""
+    xq, sx, fg, fu, fd = _swiglu_case(dev, M, K, N1, N2, tile_n)
+    kw = dict(gamma_gate=0.021, gamma_up=0.034, gamma_down=1.7)
+    want = fused_ffn._swiglu_mma(xq, sx, fg, fu, fd, **kw)
+    walks = [fused_ffn.split_walk(f.plane.shape[0], f.tkb) for f in (fg, fd)]
+    before = ck.launches[fused_ffn.KERNEL_NAME]
+    runs = [fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)
+            for _ in range(2)]
+    for parts in ((1, 1), (min(2, walks[0]), min(2, walks[1])),
+                  tuple(walks)):
+        runs.append(fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts,
+                                            **kw))
+    torch.cuda.synchronize()
+    assert ck.launches[fused_ffn.KERNEL_NAME] == before + 5
+    for got in runs:
+        for g, w, what in zip(got, want, ("y", "h", "rmax")):
+            assert torch.equal(g, w), what
+
+
+def test_swiglu_decode_refuses_bad_parts(dev):
+    """Parts outside 1..the walk's chunks raise before any launch."""
+    xq, sx, fg, fu, fd = _swiglu_case(dev, 4, 200, 300, 96, 128)
+    walk = fused_ffn.split_walk(fd.plane.shape[0], fd.tkb)
+    for parts in ((0, 1), (1, walk + 1)):
+        with pytest.raises(ValueError, match="parts"):
+            fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts)
 
 
 @pytest.mark.parametrize("M,K,N,tile_n,block_k", [

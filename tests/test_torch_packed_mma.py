@@ -3,14 +3,17 @@ tensor-core tile of ``csrc/dense_mma.cuh`` (the int8-X ``CudaTiledDense_i8``
 / ``_x8``, ``CudaDense_i8``, ``CudaBlockPacked_i8``,
 ``CudaTiledBlockPacked_i8``, ``CudaPacked2Bit_i8``, ``CudaPacked53_i8``; the
 f32-X ``CudaPacked2Bit`` and ``CudaPacked53``; the bf16-X
-``CudaTiledBitplane_bf16``), on the CPU.
+``CudaTiledBitplane_bf16``; the int8-X ``CudaTiledNibblePair_i8``), on the
+CPU.
 
 * ``ops.cuda_kernels.split_bf16`` under the i8 and x8 rules: two pieces
   (i8) and one (x8) sum back to the staged value bitwise over the whole
   domain, and where the i8 split stops being exact.
 * ``ops.cuda_kernels.swar_decode``, the Python twin of the tile's decode
   of four packed bytes at a time, against ``formats.packed.decode_fields``
-  for every byte the packers emit.
+  for every byte the packers emit; ``nibble_decode``, the twin of the
+  nibbles' transposing decode, against ``formats.bitplane.decode_nibbles``
+  for every nibble the packer emits at every byte and column of a group.
 * A numpy emulation of the tile's lanes over the slab layouts (``Slabs<F>``
   and ``Bitplane``) — the (K-block, chunk of packed rows) walk, X staged
   run by run (a field's, or a half of a bit-plane block's) by its rule and
@@ -23,9 +26,10 @@ f32-X ``CudaPacked2Bit`` and ``CudaPacked53``; the bf16-X
   TiledDenseTernary (K = 100, where ``tile_k`` = 128 is under the Narrow
   tile's 256-row chunk), BlockPackedTernary, TiledBlockPacked, the
   stride-packed containers (``tkq`` = 250 and 200, not multiples of 16;
-  i8 and f32 X: F = 5's ragged split and ragged last group) and
-  TiledBitplane (``tkb`` = 16 under the 32-byte-row chunk at K = 100; K =
-  999 over two slabs; four K-blocks), in every geometry: exactly on
+  i8 and f32 X: F = 5's ragged split and ragged last group),
+  TiledBitplane and TiledNibblePair (``tkb`` = 16 under the 32-row chunk
+  at K = 100; K = 999 over two slabs; four K-blocks), in every geometry:
+  exactly on
   integer X, and on non-integer X exactly for the integer rules and within
   rtol=1e-5, atol=1e-3 for the float ones.
 
@@ -40,9 +44,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dense_mma import G, T4, b_pairs, mma
+from test_torch_dense_mma import G, T4, b_pairs, byte_perm, mma
 from ternary_spgemm_tpu_torch import formats as tf
-from ternary_spgemm_tpu_torch.formats.bitplane import decode_planes
+from ternary_spgemm_tpu_torch.formats.bitplane import (
+    decode_nibbles,
+    decode_planes,
+)
 from ternary_spgemm_tpu_torch.formats.packed import decode_fields
 from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
 from ternary_spgemm_tpu_torch.ops.api import to_bf16, to_f32, to_i8, to_x8
@@ -187,6 +194,43 @@ def test_bitplane_decode_every_byte_pair(shift):
         assert np.array_equal(got.astype(np.uint8).view(np.int8), want[o]), o
 
 
+def nibble_decode(words: np.ndarray) -> list:
+    """dense_mma.cuh ``Nibble::decode`` on the words of four columns of a
+    word row (``words[..., e]``: column e): a 4 x 4 byte transpose with
+    byte permutes, then ``sign_bytes`` of each nibble; output o = 4h + j
+    holds in byte e the weight of column e from nibble h of its byte j."""
+    w = [words[..., e] for e in range(4)]
+    lo01, hi01 = byte_perm(w[0], w[1], 0x5140), byte_perm(w[0], w[1], 0x7362)
+    lo23, hi23 = byte_perm(w[2], w[3], 0x5140), byte_perm(w[2], w[3], 0x7362)
+    t = [byte_perm(lo01, lo23, 0x5410), byte_perm(lo01, lo23, 0x7632),
+         byte_perm(hi01, hi23, 0x5410), byte_perm(hi01, hi23, 0x7632)]
+
+    def sign_bytes(d):
+        return (d & 0x01010101) | (((d >> 1) & 0x01010101) * 0xFF)
+
+    return [sign_bytes(x) for x in t] + [sign_bytes(x >> 4) for x in t]
+
+
+@pytest.mark.parametrize("column", [0, 1, 2, 3])
+def test_nibble_decode_every_emitted_nibble(column):
+    """``nibble_decode`` (the twin of ``Nibble::decode``) on groups of four
+    columns whose word at ``column`` runs through every combination of
+    the packer's nibbles (0x0, 0x1, 0xF: 3**8 words, so every nibble at
+    every byte and half), the other columns' words other such words:
+    output o, byte e, is ``decode_nibbles``' weight of dense row o of
+    column e (one word row, tkb = 1)."""
+    digits = np.array(list(itertools.product((0x0, 0x1, 0xF), repeat=8)))
+    word = (digits << (4 * np.arange(8))).sum(1)     # nibble i: bits 4i..
+    group = np.stack([np.roll(word, 11 * (e + 1)) for e in range(4)], 1)
+    group[:, column] = word
+    words = torch.from_numpy(group.reshape(1, 1, 1, -1).astype(np.uint32)
+                             .view(np.int32))
+    want = decode_nibbles(words).numpy()                # (8, 4 * groups)
+    for o, d in enumerate(nibble_decode(group)):
+        got = ((d[:, None] >> (8 * np.arange(4))) & 0xFF).reshape(-1)
+        assert np.array_equal(got.astype(np.uint8).view(np.int8), want[o]), o
+
+
 # -- the tile's lanes over the slab layout ----------------------------------
 
 #: dense_mma.cuh's geometries over the slabs: (WM, WN, KC, MF); a warp
@@ -204,35 +248,44 @@ RULES = {"x8": to_x8, "i8": to_i8, "f32": to_f32, "bf16": to_bf16}
 
 def _slabs(fmt):
     """(bytes, nb, gn, tkq, tile_n, trait) as the wrappers pass them; the
-    trait (R, D, KDIV, NW) is dense_mma.cuh's layout: R runs of D*KQ
-    staged columns a chunk of KC / KDIV packed rows, NW planes of bytes."""
+    trait (R, D, KDIV, NW, CB) is dense_mma.cuh's layout: R runs of D*KQ
+    staged columns a chunk of KC / KDIV packed rows, NW planes of CB bytes
+    a column."""
     if isinstance(fmt, tf.TiledBitplane):
         nb, gn = fmt.plane.shape[:2]
-        return fmt.plane, nb, gn, fmt.tkb, fmt.tile_n, (2, 4, 8, 2)
+        return fmt.plane, nb, gn, fmt.tkb, fmt.tile_n, (2, 4, 8, 2, 1)
+    if isinstance(fmt, tf.TiledNibblePair):
+        nb, gn = fmt.words.shape[:2]
+        return (fmt.words.view(torch.uint8), nb, gn, fmt.tkb, fmt.tile_n,
+                (2, 4, 8, 1, 4))
     if isinstance(fmt, tf.DenseTernary):
-        return fmt.dense.view(torch.uint8), 1, 1, fmt.K, fmt.N, (1, 1, 1, 1)
+        return (fmt.dense.view(torch.uint8), 1, 1, fmt.K, fmt.N,
+                (1, 1, 1, 1, 1))
     if isinstance(fmt, tf.TiledDenseTernary):
         gk, gn = fmt.tiles.shape[:2]
         return (fmt.tiles.view(torch.uint8), gk, gn, fmt.tile_k, fmt.tile_n,
-                (1, 1, 1, 1))
+                (1, 1, 1, 1, 1))
     if isinstance(fmt, tf.BlockPackedTernary):
         return (fmt.packed, fmt.packed.shape[0] // fmt.tile_kq, 1,
-                fmt.tile_kq, fmt.N, (fmt.factor, 1, 4, 1))
+                fmt.tile_kq, fmt.N, (fmt.factor, 1, 4, 1, 1))
     if isinstance(fmt, tf.TiledBlockPacked):
         nb, gn = fmt.tiles.shape[:2]
         return (fmt.tiles, nb, gn, fmt.tile_kq, fmt.tile_n,
-                (fmt.factor, 1, 4, 1))
+                (fmt.factor, 1, 4, 1, 1))
     return (fmt.packed, 1, 1, fmt.packed.shape[0], fmt.N,
-            (fmt.FACTOR, 1, 4, 1))
+            (fmt.FACTOR, 1, 4, 1, 1))
 
 
-def _decode(raw: list, R: int, D: int, KQ: int, BN: int) -> np.ndarray:
+def _decode(raw: list, R: int, D: int, KQ: int, BN: int,
+            CB: int) -> np.ndarray:
     """The chunk's decoded W rows (R*D*KQ, BN) from its NW planes of raw
-    bytes (KQ, BN): output o of packed row r lands on row (o // D) * D*KQ
+    bytes (KQ, CB*BN): output o of packed row r lands on row (o // D) * D*KQ
     + D*r + o % D."""
     if R * D == 1:
         return raw[0]
-    if len(raw) == 2:
+    if CB == 4:         # a word a column, groups of four columns
+        outs = nibble_decode(_words(raw[0]).reshape(KQ, BN // 4, 4))
+    elif len(raw) == 2:
         outs = bitplane_decode(_words(raw[0]), _words(raw[1]))
     else:
         outs = [d.numpy() for d in
@@ -254,7 +307,7 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
     added to the f32 accumulator."""
     WM, WN, KC, MF = TILES[tile]
     WK, BM, BN = 8 // (WM * WN), 16 * MF * WM, 32 * WN
-    data, nb, gn, tkq, tile_n, (R, D, KDIV, NW) = _slabs(fmt)
+    data, nb, gn, tkq, tile_n, (R, D, KDIV, NW, CB) = _slabs(fmt)
     flat = data.reshape(-1).numpy().astype(np.int64)
     KQ = KC // KDIV                      # packed rows a chunk
     RL = D * KQ                          # staged columns a run
@@ -284,7 +337,8 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
             acc = np.zeros((8, MF, 4, 4, 32),
                            np.float64 if exact else np.float32)
             for kb in range(nb):
-                base = (kb * gn + g) * NW * tkq * tile_n + n0 - g * tile_n
+                base = CB * ((kb * gn + g) * NW * tkq * tile_n + n0 -
+                             g * tile_n)
                 for q0 in range(0, tkq, KQ):
                     xs = np.zeros((NP, BM, CW), np.int64)
                     for c in range(CW):
@@ -292,12 +346,13 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
                         if k is not None:
                             for p in range(NP):
                                 xs[p, :rows, c] = pieces[p][m0:m0 + rows, k]
-                    raw = [np.zeros((KQ, BN), np.int64) for _ in range(NW)]
+                    raw = [np.zeros((KQ, CB * BN), np.int64)
+                           for _ in range(NW)]
                     for r in range(min(KQ, tkq - q0)):
                         for p in range(NW):
-                            at = base + (p * tkq + q0 + r) * tile_n
-                            raw[p][r, :cols] = flat[at:at + cols]
-                    ws = _decode(raw, R, D, KQ, BN)
+                            at = base + CB * (p * tkq + q0 + r) * tile_n
+                            raw[p][r, :CB * cols] = flat[at:at + CB * cols]
+                    ws = _decode(raw, R, D, KQ, BN, CB)
                     for warp in range(8):
                         wk, wmn = warp // (WM * WN), warp % (WM * WN)
                         wm, wn = 16 * MF * (wmn // WN), 32 * (wmn % WN)
@@ -353,8 +408,9 @@ def emulate_slabs(X: np.ndarray, fmt, stage: str, tile: str) -> np.ndarray:
 #: kernels): every slab layout the wrappers launch, each with a ragged
 #: edge (K = 100 under the Narrow chunk; a field's tkq not a multiple of
 #: 16: 40, 24, and the stride-packed 250 and 200 at K = 999; gn = 2; the
-#: bit planes' tkb = 16 under the 32-byte-row chunk at K = 100, K = 999 in
-#: one 1024-row block of two slabs, and four blocks of tkb = 32)
+#: bit planes' and the nibbles' tkb = 16 under the 32-row chunk at K =
+#: 100, K = 999 in one 1024-row block of two slabs, and four blocks of tkb
+#: = 32)
 LAYOUTS = {
     "dense": ("DenseTernary", 300, 40, {}, ("i8",)),
     "tiled_k100": ("TiledDenseTernary", 100, 200, {"tile_n": 128},
@@ -376,6 +432,10 @@ LAYOUTS = {
     "bitplane": ("TiledBitplane", 999, 200, {"tile_n": 128}, ("bf16",)),
     "bitplane_tkb32": ("TiledBitplane", 999, 130,
                        {"tkb": 32, "tile_n": 128}, ("bf16",)),
+    "nibble_k100": ("TiledNibblePair", 100, 40, {}, ("i8",)),
+    "nibble": ("TiledNibblePair", 999, 200, {"tile_n": 128}, ("i8",)),
+    "nibble_tkb32": ("TiledNibblePair", 999, 130,
+                     {"tkb": 32, "tile_n": 128}, ("i8",)),
 }
 CASES = [(layout, stage) for layout, spec in sorted(LAYOUTS.items())
          for stage in spec[4]]
@@ -389,8 +449,9 @@ def test_layouts_are_ragged():
     assert tk["tiled_k100"] == 128 and tk["packed2"] == 250 \
         and tk["packed53"] == 200
     assert all(t % 16 for n, t in tk.items() if "packed" in n)
-    assert (tk["bitplane_k100"], tk["bitplane"], tk["bitplane_tkb32"]) == \
-        (16, 128, 32)
+    for what in ("bitplane", "nibble"):
+        assert (tk[f"{what}_k100"], tk[what], tk[f"{what}_tkb32"]) == \
+            (16, 128, 32)
 
 
 @pytest.mark.parametrize("layout,stage", CASES)
