@@ -20,11 +20,18 @@ result line if any fails, or if no GPU is visible):
    32x1024x4096 and at 32x4096x11008 (gn=3), both bitwise equal with PReLU
    on and off and a random bias and slope per column; the x8 kernel's
    crossover: both branches, each bitwise, timed on the merged QKV at M in
-   {4, 8, 16, 32, 64, 128}; the i8 kernel's two branches bitwise at every
+   {4, 8, 16, 32, 48, 64, 128}; the i8 kernel's two branches bitwise at every
    phase-6 shape, PReLU on and off, on integer X with the +-512 edges and
    on non-integer X, and its crossover: both timed, each bitwise, at the
-   north star and 32x4096x11008's K and N for M in {4, 8, 16, 32, 64, 128,
-   512}; the SwiGLU kernel at M in {4, 128, 512} (its two branches' y, h
+   north star and 32x4096x11008's K and N for M in {4, 8, 16, 32, 48, 64,
+   128, 512}; the x8 and i8 decode body (``csrc/gemv_core.cuh``): both kernels'
+   branches bitwise on random plane bytes (pos and neg both set in
+   places; tile_n 4096, 96 and 30, M in {1, 4, 7, 16, 33}, PReLU on and
+   off), the body's split-K parts S swept at the merged QKV and wo (M = 4)
+   and at 4096 -> 11008 (M = 4, 16), each S bitwise, beside the rule's
+   choice (``fused_ffn.gemv_parts``), and the kernels a call of each
+   branch launches (``torch.profiler``: one for the decode body); the
+   SwiGLU kernel at M in {4, 128, 512} (its two branches' y, h
    and rmax bitwise equal; at most 1e-4 of the requantized hidden values
    may flip against the plain version, each by 1, and every row without a
    flip agrees within rtol=1e-5, atol=0.01) and its crossover: both
@@ -37,8 +44,11 @@ result line if any fails, or if no GPU is visible):
    2048 -> 4096 -> 2048) and at M in {1, 33, 128}, PReLU2 off and on, with
    a random bias and slope per column, its hidden state, requantized
    hidden values and output bitwise equal. Median
-   times from CUDA events, with a 256 MB buffer written between launches
-   so that the weights come from device memory as they do in serving;
+   times from CUDA events, with a 1 GiB buffer written between launches
+   so that the weights come from device memory as they do in serving (and
+   the card, writing it for ~0.3 ms, stays behind the host, so that no
+   wrapper's host path lands between the events: the decode body's calls
+   take less device time than their host path);
    beside each, two yardsticks: ``library_ms``, one ``torch.matmul`` of the
    staged X by the dense f32 W decoded beforehand (TF32 off; none for the
    fused SwiGLU), and ``bound_ms``, the least time the card could take: the
@@ -58,7 +68,8 @@ result line if any fails, or if no GPU is visible):
    through ``generate`` with an int8 KV cache. The launch counters must
    match the path (x8 twice and the SwiGLU once per layer per forward, the
    x8 kernel's tensor-core branch twice and the SwiGLU's once per layer in
-   the prefill and never in decode; i8 on the headline op, on its
+   the prefill and never in decode, so the decode steps' x8 launches are
+   all on the decode body; i8 on the headline op, on its
    tensor-core branch when its 32 rows are above ``I8_MMA_MIN_M``) and no
    plain version may run on a CUDA tensor;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
@@ -195,10 +206,16 @@ DENSE_KERNELS = ("CudaDense", "CudaDense_bf16", "CudaTiledDense_i8",
                  "CudaTiledBitplane_bf16", "CudaTiledNibblePair_i8")
 #: phase 3's x8 crossover: the M at which both branches are timed on the
 #: merged QKV
-X8_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
+X8_CROSSOVER_M = (4, 8, 16, 32, 48, 64, 128)
 #: phase 3's i8 crossover: the M at which both branches are timed at the
 #: north star (K = 1024) and the up-projection (K = 4096)
-I8_CROSSOVER_M = (4, 8, 16, 32, 64, 128, 512)
+I8_CROSSOVER_M = (4, 8, 16, 32, 48, 64, 128, 512)
+#: phase 3's sweep of the x8 and i8 decode body's parts S (``gemv_core.cuh``;
+#: each within what the walk allows): (kernel, M, K, N) at the merged QKV
+#: and wo at decode's M = 4, and the up-projection's K and N at M = 4, 16
+GEMV_SPLIT_CASES = (("x8", 4, 4096, 12288), ("x8", 4, 4096, 4096),
+                    ("i8", 4, 4096, 11008), ("i8", 16, 4096, 11008))
+GEMV_SPLIT_S = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 #: phase 3's SwiGLU crossover: the M at which both branches are timed at
 #: 4096 -> 11008 -> 4096
 SWIGLU_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
@@ -332,7 +349,7 @@ def phase_kernels(dev, card: str) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
     stats = {name: {"max_abs_err": 0.0} for name in (*SERVE_KERNELS,
                                                      KERNEL_NAME)}
 
@@ -390,6 +407,7 @@ def phase_kernels(dev, card: str) -> dict:
                   ck.bitplane_i8_plain, ck.to_i8, 32, K, N, s=s, x=x,
                   record=i8 if K == 1024 else i8["u"])
     phase_i8_branches(dev, card, gen, flush)
+    phase_gemv(dev, card, gen, flush)
 
     fg, fu, fd = fmt(4096, 11008), fmt(4096, 11008), fmt(11008, 4096)
     kw = dict(gamma_gate=0.03, gamma_up=0.03, gamma_down=0.03)
@@ -544,6 +562,102 @@ def phase_i8_branches(dev, card: str, gen, flush) -> None:
         print(f"i8 crossover at Mx{K}x{N}, decode vs tensor-core branch, both "
               f"bitwise equal to plain: " + "; ".join(rows)
               + f" (I8_MMA_MIN_M = {ck.I8_MMA_MIN_M}) [{card}]", flush=True)
+
+
+def phase_gemv(dev, card: str, gen, flush) -> None:
+    """Phase 3, the x8 and i8 decode body (``csrc/gemv_core.cuh``): both
+    kernels' two branches bitwise against the plain version on random plane
+    bytes (pos and neg both set in places), PReLU on and off; the body's
+    parts S swept at ``GEMV_SPLIT_CASES``, each S bitwise, beside the rule's
+    choice (``ops.fused_ffn.gemv_parts``); and the kernels each branch's call
+    launches, counted by ``torch.profiler``."""
+    import dataclasses
+
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+    from ternary_spgemm_tpu_torch.tools.serve_trace import traced
+    from ternary_spgemm_tpu_torch.utils.device import sm_count
+
+    kernels = {
+        "x8": (ck._bitplane_x8_lanes, ck._bitplane_x8_mma,
+               ck.bitplane_x8_plain, 1),
+        "i8": (ck._bitplane_i8_lanes, ck._bitplane_i8_mma,
+               ck.bitplane_i8_plain, 2)}
+
+    def x_for(rule, M, K):
+        if rule == "x8":
+            return 60.0 * torch.randn((M, K), generator=gen, device=dev)
+        return torch.randint(-512, 513, (M, K), generator=gen,
+                             device=dev).to(torch.float32)
+
+    for K, N, tile_n in ((4096, 12288, 4096), (999, 1000, 96), (200, 77, 30)):
+        f = TiledBitplane.from_dense(random_ternary(K, N, 2, gen, dev),
+                                     tile_n=tile_n)
+        f = dataclasses.replace(f, plane=torch.randint(
+            0, 256, tuple(f.plane.shape), generator=gen, device=dev,
+            dtype=torch.uint8))
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        a = 0.25 * torch.rand((N,), generator=gen, device=dev)
+        for rule, (lanes, mma, plain, _) in kernels.items():
+            for M in (1, 4, 7, 16, 33):
+                x = x_for(rule, M, K)
+                for alpha in (None, a):
+                    want = plain(x, f, b, alpha)
+                    for branch, fn in (("decode", lanes), ("mma", mma)):
+                        got = fn(x, f, b, alpha)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"{rule} {branch} branch on random plane bytes "
+                              f"{M}x{K}x{N} prelu={alpha is not None}: "
+                              f"kernel != plain")
+    print("x8 and i8 on random plane bytes (pos and neg both set in places): "
+          "decode and tensor-core branches bitwise equal to plain at "
+          "Mx4096x12288, Mx999x1000 (tile_n 96) and Mx200x77 (tile_n 30, byte "
+          f"loads), M in 1, 4, 7, 16, 33, PReLU on/off [{card}]", flush=True)
+
+    sms = sm_count(dev)
+    for rule, M, K, N in GEMV_SPLIT_CASES:
+        lanes, _, plain, planes = kernels[rule]
+        f = TiledBitplane.from_dense(random_ternary(K, N, 2, gen, dev))
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        x = x_for(rule, M, K)
+        nb = f.plane.shape[0]
+        walk = nb * f.tkb
+        lo = -(-walk // fused_ffn.gemv_part_max(M, planes))
+        rule_s = fused_ffn.gemv_parts(M, N, nb, f.tkb, sms, planes)
+        want = plain(x, f, b)
+        times = {}
+        for S in sorted({rule_s, *(t for t in GEMV_SPLIT_S
+                                   if lo <= t <= walk)}):
+            got = lanes(x, f, b, parts=S)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"{rule} decode {M}x{K}x{N} parts={S}: kernel != plain")
+            times[S] = event_ms(lambda: lanes(x, f, b, parts=S), flush=flush)
+        best = min(times, key=times.get)
+        print(f"{rule} decode body {M}x{K}x{N}, S parts, each bitwise equal to "
+              f"plain: rule S = {rule_s} {times[rule_s]:.4f} ms, fastest S = "
+              f"{best} {times[best]:.4f} ms; "
+              + ", ".join(f"{t} {ms:.4f}" for t, ms in times.items())
+              + f" ms [{card}]", flush=True)
+
+    rows = []
+    for rule, (lanes, mma, _, _) in kernels.items():
+        f = TiledBitplane.from_dense(random_ternary(4096, 4096, 2, gen, dev))
+        b = torch.zeros((4096,), device=dev)
+        for branch, fn, M in (("decode", lanes, 4), ("tensor-core", mma, 64)):
+            x = x_for(rule, M, 4096)
+            n = traced(lambda: fn(x, f, b), dev)["kernels"]
+            if branch == "decode":
+                check(n == 1, f"{rule} decode body: {n} kernels a call, not 1")
+            rows.append(f"{rule} {branch} {n}")
+    print("kernels a call (torch.profiler, Mx4096x4096): " + ", ".join(rows)
+          + f" [{card}]", flush=True)
 
 
 def phase_swiglu_crossover(card: str, fg, fu, fd, kw, gen, flush) -> None:
@@ -809,6 +923,12 @@ def phase_serve(dev, card: str) -> dict:
     check(counts.get(ck.X8_MMA_COUNT, 0) == 2 * L,
           f"x8 tensor-core launches {counts.get(ck.X8_MMA_COUNT, 0)} != "
           f"2*{L} (the prefill's; none in decode)")
+    x8_decode = counts["CudaTiledBitplane_x8"] - counts[ck.X8_MMA_COUNT]
+    check(x8_decode == 2 * L * (F - 1),
+          f"x8 decode-body launches {x8_decode} != 2*{L}*{F - 1}")
+    print(f"serve: {x8_decode} x8 launches on the decode body "
+          f"(csrc/gemv_core.cuh, {B} rows a step), {counts[ck.X8_MMA_COUNT]} "
+          f"on the tensor cores (the prefill's {B * T0} rows)", flush=True)
     check(counts.get("fused_bitplane_swiglu") == L * F,
           f"SwiGLU launches {counts.get('fused_bitplane_swiglu')} != {L}*{F}")
     check(B * T0 > fused_ffn.SWIGLU_MMA_MIN_M >= B,

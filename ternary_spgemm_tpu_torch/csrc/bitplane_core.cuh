@@ -1,11 +1,12 @@
 // Shared core of the CUDA-core SpMM kernels over the bit-plane container:
 // one templated kernel that decodes the ternary weights straight from the
 // plane bytes and accumulates the dot products in exact int32 (every rule
-// it runs stages integers). Its users: the decode branches of the x8 and
-// i8 bitplane kernels (bitplane.cu) and of the fused FFNs (ffn.cu,
-// swiglu.cu; the SwiGLU's as a split walk, below). Every other SpMM body
-// runs dense_mma.cuh's bf16 tensor-core tile, bitplane_mma.cuh's int8 one
-// or ell_core.cuh.
+// it runs stages integers). Its users: the decode branches of the fused
+// FFNs (ffn.cu, swiglu.cu; the SwiGLU's as a split walk, below) and the
+// decode-rate probe (decode_rate.cu: load_row, decode_half). The x8 and i8
+// bitplane kernels' decode branches stream the planes on gemv_core.cuh;
+// every other SpMM body runs dense_mma.cuh's bf16 tensor-core tile,
+// bitplane_mma.cuh's int8 one or ell_core.cuh.
 //
 // The container (ternary_spgemm_tpu_torch/formats/bitplane.py),
 // TiledBitplane: plane (nb, gn, 2*tkb, tile_n) uint8, tile-contiguous, a
@@ -422,7 +423,7 @@ int launch_split(const Args& a, int* part, int parts, cudaStream_t stream) {
 }
 
 // The arguments of one SpMM, Y = stage(X) . W + b [PReLU], over one weight
-// container: ``w`` is the container's weight tensor, (nb, gn, ...) its first
+// container (bitplane_mma.cuh run_spmm_mma): ``w`` is the container's weight tensor, (nb, gn, ...) its first
 // two dimensions, ``tkb`` its byte-rows per K-block.
 inline Args spmm_args(const float* x, int M, int K, const void* w, int nb,
                       int gn, int tkb, int tile_n, int N, const float* bias,
@@ -434,16 +435,6 @@ inline Args spmm_args(const float* x, int M, int K, const void* w, int nb,
   a.bias = bias; a.alpha = alpha;
   a.y = y;
   return a;
-}
-
-// The entry point of every SpMM kernel on this core.
-template <int STAGE>
-int run_spmm(const float* x, int M, int K, const void* w, int nb, int gn,
-             int tkb, int tile_n, int N, const float* bias,
-             const float* alpha, float* y, void* stream) {
-  return launch_bitplane<STAGE, 1, kEpiBias>(
-      spmm_args(x, M, K, w, nb, gn, tkb, tile_n, N, bias, alpha, y),
-      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace ternary

@@ -93,6 +93,7 @@
 #include <algorithm>
 
 #include "bitplane_core.cuh"
+#include "ternary4.cuh"   // ternary4, times32
 
 namespace ternary {
 namespace mma8 {
@@ -171,21 +172,6 @@ __global__ void stage_kernel(const float* __restrict__ x, int M, int K,
                          (signed char)v[2], (signed char)v[3]);
     }
   }
-}
-
-// Four weights as packed int8 {-1, 0, +1}, byte j = pos bit j - neg bit j:
-// the multiply spreads a nibble's bits to bit 0 of bytes 0..3; 0x80 + pos -
-// neg per byte borrows across no byte, and ^0x80 makes it an int8.
-__device__ __forceinline__ uint32_t ternary4(uint32_t p, uint32_t n) {
-  const uint32_t sp = (p * 0x00204081u) & 0x01010101u;
-  const uint32_t sn = (n * 0x00204081u) & 0x01010101u;
-  return ((sp | 0x80808080u) - sn) ^ 0x80808080u;
-}
-
-// 32 w bytewise from ternary4's w: 0x01 -> 0x20, 0xFF -> 0xE0, 0 -> 0 (the
-// mask drops the bits each byte's shift carries into the next)
-__device__ __forceinline__ uint32_t times32(uint32_t b) {
-  return (b << 5) & 0xE0E0E0E0u;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], const void* p) {

@@ -49,10 +49,13 @@ _SWIGLU = [_P, _P, _I, _I, _P, _P, *[_I] * 5, _P, *[_I] * 5, _F, _F, _F, _P,
            _P, _P, _P]
 #: argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "ternary_bitplane_x8": _SPMM,
+    #: _SPMM, then the split-K parts' int32 scratch, the tiles' counters
+    #: and the parts
+    "ternary_bitplane_x8": [*_SPMM, _P, _P, _I],
     #: _SPMM, then the int8 scratch for the rounded X
     "ternary_bitplane_x8_mma": [*_SPMM, _P],
-    "ternary_bitplane_i8": _SPMM,
+    #: as ternary_bitplane_x8
+    "ternary_bitplane_i8": [*_SPMM, _P, _P, _I],
     #: _SPMM, then the int8 scratch for the hi and lo planes of X
     "ternary_bitplane_i8_mma": [*_SPMM, _P],
     "ternary_bitplane_bf16": _SPMM,

@@ -1,9 +1,10 @@
 """CUDA SpMM kernels — counterpart of the SpMM kernels of
 ``ternary_spgemm_tpu/ops/pallas_kernels.py``.
 
-Eighteen registered kernels on four cores: ``csrc/bitplane_core.cuh``
-(one lane a column, CUDA cores) for the x8 and i8 bitplane kernels'
-decode branches, with the int8 tensor-core core
+Eighteen registered kernels on four cores: ``csrc/gemv_core.cuh`` (the
+planes streamed a warp-row at a time, ``__dp4a`` on the CUDA cores, the
+walk split across blocks and folded in one launch) for the x8 and i8
+bitplane kernels' decode branches, with the int8 tensor-core core
 (``csrc/bitplane_mma.cuh``) of their prefill branches, which they take
 above :data:`X8_MMA_MIN_M` and :data:`I8_MMA_MIN_M` rows of X; the bf16
 tensor-core tile (``csrc/dense_mma.cuh``) at every M for ``CudaDense``
@@ -21,9 +22,9 @@ two pieces); ``csrc/ell_core.cuh`` for the ELL gathers:
 =======================  ========================  ================  =====  ==========
 kernel                   replaces (Pallas)         source            X      core
 =======================  ========================  ================  =====  ==========
-CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu       x8     bitplane,
+CudaTiledBitplane_x8     PallasTiledBitplane_x8    bitplane.cu       x8     gemv,
                                                                             int8 mma
-CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu       i8     bitplane,
+CudaTiledBitplane_i8     PallasTiledBitplane_i8    bitplane.cu       i8     gemv,
                                                                             int8 mma
 CudaTiledBitplane_bf16   PallasTiledBitplane_bf16  bitplane_bf16.cu  bf16   bf16 tile
 CudaTiledNibblePair_i8   PallasTiledNibblePair_i8  nibblepair.cu     i8     bf16 tile
@@ -47,7 +48,9 @@ X rules (``ops/api.py``): *x8* rounds half to even and clamps to int8 +-127
 (``_to_x8``) — exact on any float; *i8* stages ``floor(x + 512) - 512``,
 the value of the TPU's int8 split (exact for integer |x| <= 512,
 non-integer X floored); both accumulate in int32 on the bitplane cores and
-as exact integer f32 sums on the bf16 tile; *bf16*
+as exact integer f32 sums on the bf16 tile (the bitplane kernels'
+decode body and tensor-core branch stage i8 as ``32 * int8(v >> 5) + (v &
+31)``, equal to v on [-4096, 4095]); *bf16*
 rounds X to bf16 (nearest even) and sums in f32 (exact for integer
 |x| <= 256); *f32* takes X as it is and sums in f32 in a fixed order
 (on the bf16 tile: three exact bf16 passes, :func:`split_bf16`).
@@ -101,6 +104,7 @@ from ternary_spgemm_tpu_torch.ops.api import (  # noqa: F401  (X rules re-export
     to_x8,
 )
 from ternary_spgemm_tpu_torch.utils import cdiv, round_up
+from ternary_spgemm_tpu_torch.utils.device import sm_count
 
 #: kernel launches by name (each wrapper counts where it launches)
 launches: collections.Counter = collections.Counter()
@@ -360,14 +364,16 @@ def stream_handle(device: torch.device) -> int:
 
 
 def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
-            bias, alpha, *, scratch_row_bytes: int = 0,
+            bias, alpha, *, scratch_row_bytes: int = 0, tail=None,
             counts: tuple = ()) -> torch.Tensor:
     """Launch ``entry`` over ``fmt``: ``weights`` checks and returns the
     container's weight tensor (or a tuple of them, passed in order), ``geom``
     is the tuple of integers the entry point takes between the weight
     pointers and N. With ``scratch_row_bytes``, an int8 scratch of that many
-    bytes a row of X is passed after the stream. A launch adds one to
-    ``name``'s count and to each of ``counts``."""
+    bytes a row of X is passed after the stream; with ``tail``, the
+    arguments ``tail(M, N, device, stream)`` returns (tensors passed as
+    pointers, None as a null pointer). A launch adds one to ``name``'s
+    count and to each of ``counts``."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors (CPU tensors take the "
@@ -385,15 +391,20 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
     if M == 0 or N == 0:
         return Y
     lib = _build.load()
+    stream = stream_handle(dev)
     extra = []
     if scratch_row_bytes:   # held until the launch is queued
         scratch = torch.empty(M * scratch_row_bytes, dtype=torch.int8,
                               device=dev)
         extra.append(scratch.data_ptr())
+    if tail is not None:
+        held = tail(M, N, dev, stream)   # held until the launch is queued
+        extra.extend(t.data_ptr() if isinstance(t, torch.Tensor) else t
+                     for t in held)
     err = getattr(lib, entry)(
         X.data_ptr(), M, K, *ptrs, *geom, N, bias.data_ptr(),
-        None if alpha is None else alpha.data_ptr(), Y.data_ptr(),
-        stream_handle(dev), *extra)
+        None if alpha is None else alpha.data_ptr(), Y.data_ptr(), stream,
+        *extra)
     _build.check(err, entry)
     for n in (name, *counts):
         launches[n] += 1
@@ -401,32 +412,35 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
 
 
 #: The x8 kernel's two branches split at M: up to this many rows of X the
-#: decode kernel (``ternary_bitplane_x8``, one lane a column), above it the
-#: int8 tensor-core kernel (``ternary_bitplane_x8_mma``,
+#: decode body (``ternary_bitplane_x8``, ``csrc/gemv_core.cuh``), above it
+#: the int8 tensor-core kernel (``ternary_bitplane_x8_mma``,
 #: ``csrc/bitplane_mma.cuh``). The crossover, measured by ``chip_smoke.py``
 #: phase 3 on the merged QKV (M x 4096 x 12288; NVIDIA H100 80GB HBM3,
-#: 700 W), decode vs tensor-core ms: M=4 0.0580 vs 0.0706, M=8 0.0773 vs
-#: 0.0714, M=16 0.1682 vs 0.0727, M=32 0.3557 vs 0.0743, M=64 0.6525 vs
-#: 0.0767, M=128 1.2372 vs 0.0834. The tensor-core branch's ~0.07 ms floor
-#: is its serial walk over K (16 chunks of synchronous loads).
-X8_MMA_MIN_M = 4
+#: 700 W), decode vs tensor-core ms: M=4 0.0229 vs 0.0696, M=8 0.0287 vs
+#: 0.0703, M=16 0.0439 vs 0.0712, M=32 0.0668 vs 0.0730, M=48 0.0996 vs
+#: 0.0739, M=64 0.1155 vs 0.0757, M=128 0.2130 vs 0.0823 (the decode body
+#: at ``ops.fused_ffn.gemv_parts``' parts; the chunk-walk kernel it
+#: replaced lost from M = 8, 0.0771 vs 0.0698). The serve's decode (4
+#: rows) and prefill (512) lie on either side.
+X8_MMA_MIN_M = 32
 #: launches of the x8 kernel's tensor-core branch (also counted under the
 #: kernel's own name)
 X8_MMA_COUNT = "CudaTiledBitplane_x8/mma"
 #: The i8 kernel's two branches split at M: up to this many rows of X the
-#: decode kernel (``ternary_bitplane_i8``), above it the int8 tensor-core
-#: kernel (``ternary_bitplane_i8_mma``, X split as 32*hi + lo). The
-#: crossover, measured by ``chip_smoke.py`` phase 3 (NVIDIA H100 80GB HBM3,
-#: 700 W), decode vs tensor-core ms: at the north star's K = 1024 (N = 4096)
-#: M=4 0.0177 vs 0.0318, M=8 0.0210 vs 0.0323, M=16 0.0268 vs 0.0323, M=32
-#: 0.0391 vs 0.0331, M=64 0.0663 vs 0.0351, M=128 0.1167 vs 0.0391, M=512
-#: 0.4125 vs 0.0445; at K = 4096 (N = 11008) M=4 0.0576 vs 0.0958, M=8
-#: 0.0771 vs 0.0978, M=16 0.1653 vs 0.0976, M=32 0.3477 vs 0.0993, M=64
-#: 0.6284 vs 0.1042, M=128 1.1339 vs 0.1162, M=512 4.1748 vs 0.2465. The
-#: tensor-core branch's floor grows with K (the chunks each block walks in
-#: series), the decode kernel's time with M * K, so at K = 4096 the split
-#: would fall at 8; no shape that runs has 9 to 16 rows.
-I8_MMA_MIN_M = 16
+#: decode body (``ternary_bitplane_i8``, ``csrc/gemv_core.cuh``), above it
+#: the int8 tensor-core kernel (``ternary_bitplane_i8_mma``); both stage X
+#: as 32*hi + lo. The crossover, measured by ``chip_smoke.py`` phase 3
+#: (NVIDIA H100 80GB HBM3, 700 W), decode vs tensor-core ms: at the north
+#: star's K = 1024 (N = 4096) M=4 0.0109 vs 0.0316, M=8 0.0123 vs 0.0316,
+#: M=16 0.0148 vs 0.0317, M=32 0.0182 vs 0.0328, M=48 0.0235 vs 0.0345,
+#: M=64 0.0244 vs 0.0345, M=128 0.0341 vs 0.0382, M=512 0.1104 vs 0.0431;
+#: at K = 4096 (N = 11008) M=4 0.0259 vs 0.0925, M=8 0.0352 vs 0.0934,
+#: M=16 0.0541 vs 0.0941, M=32 0.0903 vs 0.0967, M=48 0.1180 vs 0.1013,
+#: M=64 0.1605 vs 0.1020. The decode body's time grows with M * K (each
+#: row tile of 16 re-reads the planes and re-stages X), the tensor-core
+#: branch's floor with K, so the split falls at 32 at K = 4096 (above 128
+#: at K = 1024); the headline op's 32 rows take the decode body.
+I8_MMA_MIN_M = 32
 #: launches of the i8 kernel's tensor-core branch (also counted under the
 #: kernel's own name)
 I8_MMA_COUNT = "CudaTiledBitplane_i8/mma"
@@ -450,9 +464,57 @@ def mma_row_bytes(fmt: TiledBitplane) -> int:
     return fmt.plane.shape[0] * 2 * round_up(4 * fmt.tkb, 128)
 
 
-def _bitplane_lanes(name, entry, X, fmt: TiledBitplane, bias, alpha):
+#: the decode body's counters by (device, stream): one int32 a (column
+#: tile, row tile) of a split launch, zero between calls (the last part of
+#: a tile to arrive resets its own), so launches on one stream share them
+_GEMV_COUNTERS: dict = {}
+
+
+def gemv_counters(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """At least ``tiles`` zeroed counters for the decode body on ``dev``'s
+    stream ``stream`` (a handle), allocated once and grown when a launch
+    needs more."""
+    c = _GEMV_COUNTERS.get((dev, stream))
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
+        _GEMV_COUNTERS[(dev, stream)] = c
+    return c
+
+
+def gemv_plan(name: str, M: int, N: int, nb: int, tkb: int, planes: int,
+              dev: torch.device, parts=None) -> tuple:
+    """(S, tiles) of one decode-body call: S the parts of its walk of ``nb
+    * tkb`` byte-rows, ``ops.fused_ffn.gemv_parts``' or ``parts``, checked
+    against the walk and the staged X (ValueError); tiles its (column,
+    row) tiles."""
+    from ternary_spgemm_tpu_torch.ops import fused_ffn   # imports this module
+
+    walk = nb * tkb
+    S = parts if parts is not None else fused_ffn.gemv_parts(
+        M, N, nb, tkb, sm_count(dev), planes)
+    most = fused_ffn.gemv_part_max(M, planes)
+    if not 1 <= S <= max(1, walk) or cdiv(walk, S) > most:
+        raise ValueError(f"{name}: {S} parts of a walk of {walk} byte-rows "
+                         f"(each part at most {most})")
+    return S, cdiv(N, fused_ffn.GEMV_COLS) * cdiv(M, fused_ffn.gemv_tile(M))
+
+
+def _bitplane_lanes(name, entry, planes, X, fmt: TiledBitplane, bias, alpha,
+                    parts=None):
+    """The decode branch (``csrc/gemv_core.cuh``): one launch, its byte-row
+    walk split into :func:`gemv_plan`'s parts (1: no scratch, no counters);
+    ``planes``: the X rule's int8 planes (x8 1, i8 2)."""
+    def tail(M, N, dev, stream):
+        S, tiles = gemv_plan(name, M, N, cdiv(fmt.K, 8 * fmt.tkb), fmt.tkb,
+                             planes, dev, parts)
+        if S == 1:
+            return None, None, 1
+        return (torch.empty(S * M * N, dtype=torch.int32, device=dev),
+                gemv_counters(dev, stream, tiles), S)
+
     return _launch(name, entry, X, fmt, check_plane,
-                   (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n), bias, alpha)
+                   (*fmt.plane.shape[:2], fmt.tkb, fmt.tile_n), bias, alpha,
+                   tail=tail)
 
 
 def _bitplane_mma(name, entry, planes, X, fmt: TiledBitplane, bias, alpha):
@@ -462,10 +524,12 @@ def _bitplane_mma(name, entry, planes, X, fmt: TiledBitplane, bias, alpha):
                    counts=(f"{name}/mma",))
 
 
-def _bitplane_x8_lanes(X, fmt: TiledBitplane, bias, alpha=None):
-    """The decode branch of ``CudaTiledBitplane_x8`` at any M."""
-    return _bitplane_lanes("CudaTiledBitplane_x8", "ternary_bitplane_x8", X,
-                           fmt, bias, alpha)
+def _bitplane_x8_lanes(X, fmt: TiledBitplane, bias, alpha=None, *,
+                       parts=None):
+    """The decode branch of ``CudaTiledBitplane_x8`` at any M (``parts``:
+    :func:`_bitplane_lanes`)."""
+    return _bitplane_lanes("CudaTiledBitplane_x8", "ternary_bitplane_x8", 1,
+                           X, fmt, bias, alpha, parts)
 
 
 def _bitplane_x8_mma(X, fmt: TiledBitplane, bias, alpha=None):
@@ -474,10 +538,14 @@ def _bitplane_x8_mma(X, fmt: TiledBitplane, bias, alpha=None):
                          X, fmt, bias, alpha)
 
 
-def _bitplane_i8_lanes(X, fmt: TiledBitplane, bias, alpha=None):
-    """The decode branch of ``CudaTiledBitplane_i8`` at any M."""
-    return _bitplane_lanes("CudaTiledBitplane_i8", "ternary_bitplane_i8", X,
-                           fmt, bias, alpha)
+def _bitplane_i8_lanes(X, fmt: TiledBitplane, bias, alpha=None, *,
+                       parts=None):
+    """The decode branch of ``CudaTiledBitplane_i8`` at any M (``parts``:
+    :func:`_bitplane_lanes`): X staged as the tensor-core branch stages it,
+    ``32 * int8(v >> 5) + (v & 31)``, so the two give the same bits on
+    every input."""
+    return _bitplane_lanes("CudaTiledBitplane_i8", "ternary_bitplane_i8", 2,
+                           X, fmt, bias, alpha, parts)
 
 
 def _bitplane_i8_mma(X, fmt: TiledBitplane, bias, alpha=None):
@@ -494,8 +562,8 @@ def _bitplane_i8_mma(X, fmt: TiledBitplane, bias, alpha=None):
     "CudaTiledBitplane_x8", TiledBitplane,
     description="split-sign bitplanes (2 bits/weight), int8-native "
                 "activations (round + clamp +-127) accumulated in int32: "
-                "decoded per lane up to X8_MMA_MIN_M rows, on the int8 "
-                "tensor cores above; the A8 serving projections",
+                "streamed with __dp4a, split-K, up to X8_MMA_MIN_M rows, on "
+                "the int8 tensor cores above; the A8 serving projections",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1552",
     x_absmax=127, source=_CSRC + "bitplane.cu", plain=bitplane_x8_plain)
 def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
@@ -510,8 +578,9 @@ def cuda_tiled_bitplane_x8_kernel(X, fmt: TiledBitplane, bias, alpha=None):
     "CudaTiledBitplane_i8", TiledBitplane,
     description="split-sign bitplanes (2 bits/weight), integer activations "
                 "|x| <= 512 (non-integer X floored) accumulated in int32: "
-                "decoded per lane up to I8_MMA_MIN_M rows, on the int8 "
-                "tensor cores above (X as 32*hi + lo); the headline SpMM",
+                "streamed with __dp4a, split-K, up to I8_MMA_MIN_M rows, on "
+                "the int8 tensor cores above (X as 32*hi + lo in both); the "
+                "headline SpMM",
     reference="ternary_spgemm_tpu/ops/pallas_kernels.py:1277",
     x_absmax=512, source=_CSRC + "bitplane.cu", plain=bitplane_i8_plain)
 def cuda_tiled_bitplane_i8_kernel(X, fmt: TiledBitplane, bias, alpha=None):

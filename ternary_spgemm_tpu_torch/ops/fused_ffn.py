@@ -114,6 +114,53 @@ def split_parts(M: int, N: int, nb: int, tkb: int, sms: int) -> int:
                               S))
 
 
+#: ``csrc/gemv_core.cuh``, the decode body of the x8 and i8 bitplane
+#: kernels: output columns a block (four a lane), warps a block, byte-rows
+#: a warp's register set, its M-tiles (the smallest that holds M; row
+#: tiles of 16 above 16 rows) and the int32 words of staged X a block holds
+GEMV_COLS, GEMV_WARPS, GEMV_BATCH, GEMV_MT = 128, 8, 4, (4, 8, 16)
+GEMV_X_WORDS = 8192
+#: :func:`gemv_parts`' bounds: blocks an SM and parts, from phase 3's
+#: sweep of S (PERF.md §6: fuller waves of shorter parts lost)
+GEMV_SLOTS_PER_SM, GEMV_MAX_PARTS = 3, 8
+
+
+def gemv_tile(M: int) -> int:
+    """The decode body's M-tile for ``M`` rows of X."""
+    return next((t for t in GEMV_MT if M <= t), GEMV_MT[-1])
+
+
+def gemv_part_max(M: int, planes: int = 1) -> int:
+    """The most byte-rows a part of the decode body may take at ``M`` rows:
+    its staged X (two halves of ``planes`` int8 words a row of the M-tile,
+    x8 one plane, i8 two) fills :data:`GEMV_X_WORDS`."""
+    return GEMV_X_WORDS // (2 * planes * gemv_tile(M))
+
+
+def gemv_parts(M: int, N: int, nb: int, tkb: int, sms: int,
+               planes: int = 1) -> int:
+    """S, the parts of the decode body's byte-row walk for ``M`` rows of X,
+    ``N`` columns, ``nb`` K-blocks of ``tkb`` byte-rows on a card of
+    ``sms`` SMs (``planes``: the X rule's int8 planes, x8 1, i8 2), its
+    walk the ``nb * tkb`` byte-rows of the container: the
+    largest power of two up to :data:`GEMV_MAX_PARTS` whose ``tiles * S``
+    blocks fit :data:`GEMV_SLOTS_PER_SM` an SM (``tiles = cdiv(N, 128) *
+    cdiv(M, MT)``) and whose parts give each warp a whole register set
+    (``walk // S >= 8 * 4`` byte-rows); then at least the parts whose X
+    fits (:func:`gemv_part_max`), and 1. Phase 3's sweep (PERF.md §6)
+    found such S within 8% of the fastest at every measured shape: parts of
+    a whole number of the warps' register sets beat their neighbours, and
+    more than 8 parts (shorter walks, a longer fold) lost."""
+    tiles = cdiv(N, GEMV_COLS) * cdiv(M, gemv_tile(M))
+    walk = nb * tkb
+    S = 1
+    while (2 * S <= GEMV_MAX_PARTS
+           and tiles * 2 * S <= GEMV_SLOTS_PER_SM * sms
+           and walk // (2 * S) >= GEMV_WARPS * GEMV_BATCH):
+        S *= 2
+    return max(S, cdiv(walk, gemv_part_max(M, planes)), 1)
+
+
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` by an IEEE division on every device. (On CUDA, PyTorch
     divides by a Python scalar as ``x * (1 / c)``, which differs from the

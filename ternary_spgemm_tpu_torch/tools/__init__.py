@@ -7,9 +7,12 @@ int``::
     python -m ternary_spgemm_tpu_torch.tools.decode_roofline  [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.deposit_study    [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.serve_trace      [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.sass_compare     PARENT_CSRC
 
 Each runs on the card by default (and raises without one); ``--device
-cpu`` runs the plain versions, with host-clock times. Each prints its rows
+cpu`` runs the plain versions, with host-clock times. ``sass_compare``
+needs the CUDA toolkit, not a card: it holds two trees' compiled kernel
+bodies against each other. Each prints its rows
 and one JSON object, and writes a file only when given ``--out``, never
 under the repository's ``bench_artifacts/`` (the JAX tools' TPU records).
 """

@@ -8,8 +8,8 @@ repository's conftest left out (it imports JAX)::
 
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
 to the plain versions (each on both of its branches, split at
-``X8_MMA_MIN_M`` and ``I8_MMA_MIN_M``; ``-k x8`` and ``-k i8_`` run their
-tests alone); so must the f32 and
+``X8_MMA_MIN_M`` and ``I8_MMA_MIN_M``; ``-k "x8 or i8_"`` runs their
+tests alone, ``-k gemv`` their decode body's split walk); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact (``-k
 dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
@@ -210,7 +210,8 @@ def test_x8_mma_bitwise(dev, M, K, N, tile_n, tkb, prelu):
 @pytest.mark.parametrize("prelu", [False, True])
 def test_x8_decode_branch_bitwise(dev, M, K, N, tile_n, tkb, prelu):
     """The x8 kernel's decode branch above the rows the wrapper gives it
-    (its 8- and 32-row tiles), bitwise equal to the plain version."""
+    (its 8-row tile, and three row tiles of 16), bitwise equal to the plain
+    version."""
     fmt, X, b, a = _x8_case(dev, M, K, N, tile_n, tkb, prelu)
     got = ck._bitplane_x8_lanes(X, fmt, b, a)
     want = ck.bitplane_x8_plain(X, fmt, b, a)
@@ -303,6 +304,110 @@ def test_i8_dispatch_threshold(dev, K, prelu):
         assert ck.launches[name] == before.get(name, 0) + 1
         assert ck.launches[ck.I8_MMA_COUNT] == \
             before.get(ck.I8_MMA_COUNT, 0) + mma
+
+
+#: the x8 and i8 decode body (csrc/gemv_core.cuh): decode branch, plain
+#: version, X planes staged
+GEMV = {"x8": (ck._bitplane_x8_lanes, ck.bitplane_x8_plain, 1),
+        "i8": (ck._bitplane_i8_lanes, ck.bitplane_i8_plain, 2)}
+#: its odd geometries (K, N, tkb, tile_n): ragged K with tkb = 20 (a walk of
+#: 140 byte-rows), three tiles and N off the last; tile_n not a multiple of
+#: 4 (byte loads); one K-block of 16 byte-rows in one wide tile
+GEMV_GEOMS = [(999, 300, 20, 128), (200, 77, 16, 30), (100, 300, None, 4096)]
+
+
+def _gemv_case(dev, rule, M, K, N, tkb, tile_n, prelu):
+    """A container and an X in the rule's domain: x8 1.3 x integers in
+    +-127 with .5 ties on every third column; i8 integers in +-512 with the
+    edges on every seventh column."""
+    fmt = TiledBitplane.from_dense(generate_ternary(K, N, 3, seed=K + N),
+                                   tkb=tkb, tile_n=tile_n).to(dev)
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    if rule == "x8":
+        X = 1.3 * torch.randint(-127, 128, (M, K), generator=g,
+                                device=dev).to(torch.float32)
+        X[:, ::3] = torch.round(X[:, ::3]) + 0.5
+    else:
+        X = torch.randint(-512, 513, (M, K), generator=g,
+                          device=dev).to(torch.float32)
+        X[:, ::7] = 512.0
+        X[:, 3::7] = -512.0
+    b = 4.0 * torch.rand((N,), generator=g, device=dev) - 2.0
+    a = 0.25 * torch.rand((N,), generator=g, device=dev) if prelu else None
+    return fmt, X, b, a
+
+
+@pytest.mark.parametrize("rule", sorted(GEMV))
+@pytest.mark.parametrize("M", [1, 4, 5, 8, 16, 17, 33])
+@pytest.mark.parametrize("K,N,tkb,tile_n", GEMV_GEOMS)
+@pytest.mark.parametrize("prelu", [False, True])
+def test_gemv_split_bitwise(dev, rule, M, K, N, tkb, tile_n, prelu):
+    """The decode body bitwise equal to the plain version at odd shapes, for
+    the rule's parts and for every S in 1..W whose part's X fits (M-tiles
+    of 4, 8 and 16; two and three row tiles at 17 and 33)."""
+    lanes, plain, planes = GEMV[rule]
+    fmt, X, b, a = _gemv_case(dev, rule, M, K, N, tkb, tile_n, prelu)
+    want = plain(X, fmt, b, a)
+    walk = fmt.plane.shape[0] * fmt.tkb
+    lo = -(-walk // fused_ffn.gemv_part_max(M, planes))
+    for S in (None, *range(lo, walk + 1)):
+        got = lanes(X, fmt, b, a, parts=S)
+        assert torch.equal(got, want), S
+
+
+@pytest.mark.parametrize("rule", sorted(GEMV))
+@pytest.mark.parametrize("M", [1, 4, 16, 33])
+@pytest.mark.parametrize("K,N,tile_n", [(999, 300, 128), (200, 77, 30),
+                                        (4096, 4096, 4096)])
+@pytest.mark.parametrize("prelu", [False, True])
+def test_gemv_random_plane_bytes(dev, rule, M, K, N, tile_n, prelu):
+    """Random plane bytes, pos and neg both set in places (and the tiles'
+    padding not zero): both branches bitwise equal to the plain version's
+    ``bits(pos) - bits(neg)``."""
+    lanes, plain, _ = GEMV[rule]
+    fmt, X, b, a = _gemv_case(dev, rule, M, K, N, None, tile_n, prelu)
+    g = torch.Generator(device=dev).manual_seed(K)
+    fmt = dataclasses.replace(fmt, plane=torch.randint(
+        0, 256, tuple(fmt.plane.shape), generator=g, device=dev,
+        dtype=torch.uint8))
+    want = plain(X, fmt, b, a)
+    mma = getattr(ck, f"_bitplane_{rule}_mma")
+    for fn in (lanes, mma):
+        got = fn(X, fmt, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+
+
+def test_gemv_counters_return_to_zero(dev):
+    """Split calls in a row on the same counters: each leaves them at 0
+    (the last part of each tile resets its own) and gives the plain
+    version's bits; a call with more tiles grows them."""
+    for rule in sorted(GEMV):
+        lanes, plain, _ = GEMV[rule]
+        for M, N in ((4, 300), (4, 300), (16, 4100), (4, 300)):
+            fmt, X, b, _ = _gemv_case(dev, rule, M, 999, N, 20, 128, False)
+            want = plain(X, fmt, b)
+            for S in (3, 3, 7):
+                got = lanes(X, fmt, b, parts=S)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                counters = ck._GEMV_COUNTERS[(X.device,
+                                              ck.stream_handle(X.device))]
+                assert int(counters.abs().sum()) == 0
+
+
+def test_gemv_refuses_bad_parts(dev):
+    """Parts outside 1..W, or fewer than the staged X allows, raise before
+    any launch."""
+    fmt, X, b, _ = _gemv_case(dev, "i8", 16, 4096, 300, None, 4096, False)
+    walk = fmt.plane.shape[0] * fmt.tkb
+    lo = -(-walk // fused_ffn.gemv_part_max(16, 2))
+    assert lo > 1
+    before = ck.launches["CudaTiledBitplane_i8"]
+    for S in (0, lo - 1, walk + 1):
+        with pytest.raises(ValueError, match="parts"):
+            ck._bitplane_i8_lanes(X, fmt, b, parts=S)
+    assert ck.launches["CudaTiledBitplane_i8"] == before
 
 
 @pytest.mark.parametrize("M,K,N,tile_n", [(7, 1000, 260, 128),

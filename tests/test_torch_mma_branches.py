@@ -96,12 +96,12 @@ def test_swiglu_above_split_matches_jax(K, N1, N2, tile_n):
 
 
 @pytest.mark.parametrize("M,device,branch", [
-    (1, "cuda", "decode"), (16, "cuda", "decode"), (17, "cuda", "mma"),
+    (1, "cuda", "decode"), (32, "cuda", "decode"), (33, "cuda", "mma"),
     (512, "cuda", "mma"), (4, "cpu", "plain"), (512, "cpu", "plain")])
 def test_i8_split_rule(M, device, branch):
-    """On the card the decode branch up to I8_MMA_MIN_M = 16 rows (at any
+    """On the card the decode branch up to I8_MMA_MIN_M = 32 rows (at any
     K), the tensor-core branch above; the plain version on the CPU."""
-    assert ck.I8_MMA_MIN_M == 16
+    assert ck.I8_MMA_MIN_M == 32
     assert ck.i8_branch(M, device) == branch
 
 
