@@ -40,10 +40,13 @@ result line if any fails, or if no GPU is visible):
    and rmax bitwise equal to the tensor-core branch for the rule's parts
    (``fused_ffn.split_parts``) and for every other count of parts timed,
    each phase's parts swept with the other phase unsplit; the PReLU
-   FFN kernel at the ffn_bench blocks (M = 32, 1024 -> 4096 -> 1024 and
-   2048 -> 4096 -> 2048) and at M in {1, 33, 128}, PReLU2 off and on, with
-   a random bias and slope per column, its hidden state, requantized
-   hidden values and output bitwise equal. Median
+   FFN kernel (both phases on ``csrc/gemv_core.cuh``) at the ffn_bench
+   blocks (M = 32, 1024 -> 4096 -> 1024 and 2048 -> 4096 -> 2048) and at M
+   in {1, 33, 128}, PReLU2 off and on, with a random bias and slope per
+   column, its hidden state, requantized hidden values and output bitwise
+   equal, each phase's parts (``fused_ffn.gemv_parts``) printed beside its
+   time, and at M = 32 each phase's parts swept with the other at the
+   rule's, each bitwise. Median
    times from CUDA events, with a 1 GiB buffer written between launches
    so that the weights come from device memory as they do in serving (and
    the card, writing it for ~0.3 ms, stays behind the host, so that no
@@ -110,7 +113,9 @@ result line if any fails, or if no GPU is visible):
    below and a small tile; timed at 512 MB), the decode-rate kernel
    (random and all-ones X, one block and one an SM) and every rung of the
    deposit ladder (each of deposit_study's three configs and a ragged
-   shape) bitwise against their plain versions; then, counted,
+   shape) bitwise against their plain versions, the decode-rate kernel's
+   one-SM time beside its bound (its ``__dp4a`` at one SM's integer rate,
+   ``SM_DP4A_PER_S``); then, counted,
    ``tools.membench`` over 16/64/256/512 MB x two tiles x both layouts (no
    config recorded as failed, no rate above 1.05 x 3.35 TB/s: the L2 flush
    holds at 16 MB), ``tools.decode_roofline`` at its four configs (both
@@ -191,6 +196,17 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 #: bf16 passes of an exact f32 product (``ops.cuda_kernels.split_bf16``)
 F32_BF16_PASSES = 3
+#: one H100 SM's __dp4a rate, assumed: 64 a clock, the CUDA C++
+#: Programming Guide's arithmetic-instruction throughput for compute
+#: capability 9.0 for 32-bit integer multiply-add (the guide's table has no
+#: __dp4a row, so that __dp4a issues at this rate is an assumption, not a
+#: cited figure), at the H100 SXM's 1,980 MHz boost clock (NVIDIA's data
+#: sheet); phase 9 bounds the decode-rate probe by it and prints the
+#: probe's own rate at one SM and at all SMs, which reads below it
+SM_DP4A_PER_S = 64 * 1.98e9
+#: phase 3's sweep of the PReLU FFN's parts at M = 32, 1024 -> 4096 ->
+#: 1024: each phase's S with the other at the rule's
+FFN_SPLIT_S = (1, 2, 4, 8, 16)
 #: phase 6's dense rows: the M at which the kernels on dense_mma.cuh's
 #: tile (``DENSE_KERNELS``) are timed at the north star's K and N
 DENSE_ROWS = (1, 4, 7, 16, 32, 512)
@@ -747,8 +763,10 @@ def phase_prelu_ffn(dev, card: str, flush) -> dict:
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
         ffn_hidden_plain, ffn_launch, ffn_plain, requantize_rows, true_div)
+    from ternary_spgemm_tpu_torch.utils.device import sm_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(5678)
@@ -768,12 +786,15 @@ def phase_prelu_ffn(dev, card: str, flush) -> dict:
                   for n in (N1, N2))
         a1, a2_on = (0.25 * torch.rand((n,), generator=gen, device=dev)
                      for n in (N1, N2))
+        h_plain = ffn_hidden_plain(x, f1, b1, a1, gamma1=kw["gamma1"])
+        hq_plain, _ = requantize_rows(h_plain)
+        plain_off = None    # (y, h, rmax) of the plain version, PReLU2 off
         for a2 in (None, a2_on):
             y, h, rmax = ffn_launch(x, f1, b1, a1, f2, b2, a2, **kw)
             want = ffn_plain(x, f1, b1, a1, f2, b2, a2, **kw)
-            h_plain = ffn_hidden_plain(x, f1, b1, a1, gamma1=kw["gamma1"])
             hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
-            hq_plain, _ = requantize_rows(h_plain)
+            if a2 is None:
+                plain_off = (want, h_plain, h_plain.abs().amax(1))
             torch.cuda.synchronize()
             what = f"PReLU FFN M={M} {K}->{N1}->{N2} prelu2={a2 is not None}"
             check(torch.equal(h, h_plain), f"{what}: hidden h != plain")
@@ -789,13 +810,51 @@ def phase_prelu_ffn(dev, card: str, flush) -> dict:
         bms, by = bound(weight_bytes(f1) + weight_bytes(f2)
                         + 4 * (M * K + M * N2 + 2 * N1 + N2),
                         spmm_ops(M, f1) + spmm_ops(M, f2))
+        rule = tuple(fused_ffn.gemv_parts(M, f.N, f.plane.shape[0], f.tkb,
+                                          sm_count(dev), planes)
+                     for f, planes in ((f1, 2), (f2, 1)))
         print(f"kernel fused_bitplane_ffn M={M} {K}->{N1}->{N2}: h, hq and y "
               f"bitwise equal (PReLU2 on/off); {ms:.4f} ms vs plain {pms:.4f} "
-              f"ms, bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+              f"ms, bound {bms:.6f} ms ({by}); parts (S1, S2) = {rule} "
+              f"[{card}]", flush=True)
         if (M, K) == (32, 1024):
+            phase_ffn_split(card, args, kw, rule, plain_off, flush)
             stat.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
                         bound_by=by)
     return stat
+
+
+def phase_ffn_split(card: str, args, kw, rule, plain, flush) -> None:
+    """Phase 3, the PReLU FFN's split walks on ``args``' block: each
+    phase's parts S at ``FFN_SPLIT_S`` (those its walk and staged X allow)
+    with the other phase at the rule's, each run's y, h and rmax bitwise
+    equal to ``plain``, the plain version's, timed."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    x, f1, _, _, f2 = args[:5]
+    M = x.shape[0]
+    rows = []
+    for i, (f, planes) in enumerate(((f1, 2), (f2, 1))):
+        walk = f.plane.shape[0] * f.tkb
+        lo = -(-walk // fused_ffn.gemv_part_max(M, planes))
+        times = {}
+        for S in (t for t in FFN_SPLIT_S if lo <= t <= walk):
+            parts = (S, rule[1]) if i == 0 else (rule[0], S)
+            got = fused_ffn.ffn_launch(*args, **kw, parts=parts)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, plain, ("y", "h", "rmax")):
+                check(torch.equal(g, w), f"PReLU FFN parts={parts}: {what} "
+                      "!= plain")
+            times[S] = event_ms(lambda: fused_ffn.ffn_launch(
+                *args, **kw, parts=parts), flush=flush)
+        rows.append(f"S{i + 1} (S{2 - i} = {rule[1 - i]}): " + ", ".join(
+            f"{t} {ms:.4f}" for t, ms in times.items()))
+    print(f"PReLU FFN split M={M} {f1.K}->{f1.N}->{f2.N}, each bitwise equal "
+          f"to plain (the rule's parts {rule}): " + "; ".join(rows) + f" ms [{card}]",
+          flush=True)
 
 
 def small_tree(cfg, seed: int) -> dict:
@@ -1252,17 +1311,23 @@ def phase_probes(dev, card: str):
             check(torch.equal(got, want),
                   f"decode rate blocks={blocks}: kernel != plain")
     ms = event_ms(lambda: dr.decode_rate_launch(plane, ones, reps, 1))
+    all_ms = event_ms(lambda: dr.decode_rate_launch(plane, ones, reps, sms))
     pms = event_ms(lambda: dr.decode_rate_plain(plane, ones, reps))
-    # one block computes the (8, tns) output: a multiply and an add for
-    # each weight, row and repetition; the tile, X and the output once
-    bms, by = bound(plane.numel() + 4 * (ones.numel() + 8 * tns),
-                    2 * 8 * reps * 8 * tkb * tns)
+    # one block computes the (8, tns) output on one SM: the i8 rule's two
+    # __dp4a (four products each) for each weight, row and repetition, at
+    # one SM's integer rate; the tile, X and the output once
+    dp4a = 2 * 8 * reps * 8 * tkb * tns // 4
+    bms, by = bound(plane.numel() + 4 * (ones.numel() + 8 * tns), dp4a,
+                    SM_DP4A_PER_S)
     stats[dr.KERNEL_NAME] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                  library_ms=None, bound_ms=bms, bound_by=by)
     print(f"kernel decode_rate: bitwise equal (random and all-ones X, 1 and "
           f"{sms} blocks); one SM {ms:.4f} ms = "
-          f"{reps * 8 * tkb * tns / ms / 1e6:.2f} G weights/s vs plain "
-          f"{pms:.4f} ms, bound {bms:.6f} ms ({by}) [{card}]", flush=True)
+          f"{reps * 8 * tkb * tns / ms / 1e6:.2f} G weights/s, "
+          f"{dp4a / ms / 1e6:.2f} G __dp4a/s; {sms} SMs {all_ms:.4f} ms = "
+          f"{dp4a / all_ms / 1e6:.2f} G __dp4a/s an SM; vs plain {pms:.4f} "
+          f"ms, bound {bms:.6f} ms ({by}: {dp4a} __dp4a at "
+          f"{SM_DP4A_PER_S / 1e9:.2f} G/s, one SM) [{card}]", flush=True)
 
     # the deposit ladder: every mode at each of deposit_study's configs
     # (the north star among them) and at a ragged shape

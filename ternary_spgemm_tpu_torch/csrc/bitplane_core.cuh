@@ -1,12 +1,13 @@
 // Shared core of the CUDA-core SpMM kernels over the bit-plane container:
 // one templated kernel that decodes the ternary weights straight from the
 // plane bytes and accumulates the dot products in exact int32 (every rule
-// it runs stages integers). Its users: the decode branches of the fused
-// FFNs (ffn.cu, swiglu.cu; the SwiGLU's as a split walk, below) and the
-// decode-rate probe (decode_rate.cu: load_row, decode_half). The x8 and i8
-// bitplane kernels' decode branches stream the planes on gemv_core.cuh;
+// it runs stages integers). Its one user: the fused SwiGLU's decode branch
+// (swiglu.cu, a split walk, below). The x8 and i8 bitplane kernels' decode
+// branches and the fused PReLU FFN stream the planes on gemv_core.cuh;
 // every other SpMM body runs dense_mma.cuh's bf16 tensor-core tile,
-// bitplane_mma.cuh's int8 one or ell_core.cuh.
+// bitplane_mma.cuh's int8 one or ell_core.cuh. The X rules (stage_value),
+// the epilogues' expressions (epi_*), requant_scale and abs_bits here are
+// shared with those cores.
 //
 // The container (ternary_spgemm_tpu_torch/formats/bitplane.py),
 // TiledBitplane: plane (nb, gn, 2*tkb, tile_n) uint8, tile-contiguous, a
@@ -85,11 +86,11 @@ struct Args {
   const uint8_t* plane0;    // the weights (TiledBitplane's plane)
   const uint8_t* plane1;    // second plane of the same geometry (NP == 2)
   int nb, gn, tkb, tile_n, N;
-  const float* bias;        // kEpiBias / BiasRmax / ScaleBias: (N,)
+  const float* bias;        // bitplane_mma.cuh's kEpiBias: (N,)
   const float* alpha;       // the same: (N,) PReLU slopes, or null
   const float* sx;          // kEpiSwiglu: (M,) input row scales
-  const int* rmax_in;       // kStageRequant / kEpiScale(Bias): (M,) row absmax bits
-  int* rmax_out;            // kEpiSwiglu / BiasRmax: (M,) row absmax bits, pre-zeroed
+  const int* rmax_in;       // kStageRequant / kEpiScale: (M,) row absmax bits
+  int* rmax_out;            // kEpiSwiglu: (M,) row absmax bits, pre-zeroed
   float gamma0, gamma1;
   float* y;                 // (M, N) f32 output
 };
@@ -190,7 +191,7 @@ __device__ __forceinline__ void bitplane_body(const Args a, int* part) {
   const int n = col_ok ? col - g * a.tile_n : 0;
   const int B = 8 * a.tkb;
 
-  if (STAGE == kStageRequant || EPI == kEpiScale || EPI == kEpiScaleBias) {
+  if (STAGE == kStageRequant || EPI == kEpiScale) {
     if (tid < MT) rs[tid] = (m0 + tid < a.M) ? requant_scale(a.rmax_in, m0 + tid) : 1.0f;
   }
 
@@ -299,17 +300,7 @@ __device__ __forceinline__ void bitplane_body(const Args a, int* part) {
     const bool row_ok = m < MT && gm < a.M;
     const bool ok = row_ok && col_ok;
     const size_t o = (size_t)gm * a.N + col;
-    if (EPI == kEpiBias || EPI == kEpiBiasRmax) {
-      float yv = 0.0f;
-      if (ok) {
-        yv = epi_bias((float)s0[r], a.bias, a.alpha, col);
-        a.y[o] = yv;
-      }
-      if (EPI == kEpiBiasRmax) {   // the running row absmax, as kEpiSwiglu
-        const int bits = __reduce_max_sync(0xffffffffu, abs_bits(yv));
-        if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
-      }
-    } else if (EPI == kEpiSwiglu) {
+    if (EPI == kEpiSwiglu) {
       float hv = 0.0f;
       if (ok) {
         hv = epi_swiglu((float)s0[r], (float)s1[r], a.sx[gm], a.gamma0,
@@ -320,16 +311,6 @@ __device__ __forceinline__ void bitplane_body(const Args a, int* part) {
       if (lane == 0 && row_ok) atomicMax(&a.rmax_out[gm], bits);
     } else if (EPI == kEpiScale) {
       if (ok) a.y[o] = epi_scale((float)s0[r], rs[m], a.gamma0);
-    } else {
-      // ops/fused_ffn.py:189-191: acc * (((rmax + eps) / 127) * gamma) + b,
-      // then PReLU; rounded products and sums, never one FMA, so that the
-      // card rounds twice as the plain version does
-      if (ok) {
-        float yv = __fadd_rn(__fmul_rn((float)s0[r], __fmul_rn(rs[m], a.gamma0)),
-                             a.bias[col]);
-        if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[col] * yv;
-        a.y[o] = yv;
-      }
     }
   }
 }

@@ -1,9 +1,12 @@
-// The streaming decode body over the bit-plane container: Y = stage(X) . W
-// + b [PReLU] at small M, the decode branches of CudaTiledBitplane_x8 and
-// CudaTiledBitplane_i8 (bitplane.cu: ternary_bitplane_x8, _i8). One
-// templated kernel, one launch a call; the two X rules are its only
-// difference. Above the wrappers' X8_MMA_MIN_M / I8_MMA_MIN_M rows the
-// int8 tensor-core core (bitplane_mma.cuh) takes over.
+// The streaming decode body over the bit-plane container at small M: Y =
+// stage(X) . W + epilogue, the decode branches of CudaTiledBitplane_x8 and
+// CudaTiledBitplane_i8 (bitplane.cu: ternary_bitplane_x8, _i8; epi_bias)
+// and both phases of the fused PReLU FFN block (ffn.cu: the i8 rule with
+// kEpiBiasRmax, then the requantizing rule with kEpiScaleBias). One
+// templated kernel, one launch a product; the X rule and the epilogue are
+// its only differences. Above the wrappers' X8_MMA_MIN_M / I8_MMA_MIN_M
+// rows the int8 tensor-core core (bitplane_mma.cuh) takes the x8 and i8
+// kernels over.
 //
 // The container (formats/bitplane.py): plane (nb, gn, 2*tkb, tile_n)
 // uint8; byte-row t of slab (kb, g) is tile_n contiguous bytes, one a
@@ -35,13 +38,15 @@
 //     as bitplane_mma.cuh's stage_kernel stages them (32*hi + lo == v for
 //     v in [-4096, 4095]; beyond, hi wraps as it does there), so the i8
 //     kernel's two branches give the same bits on every input, not only
-//     on its domain;
+//     on its domain; kStageRequant (the FFN's phase 2, X its f32 hidden
+//     state) as one plane rint(h / scale), the staging thread's row scale
+//     (rmax + 1e-12) / 127 computed once by IEEE division from rmax_in;
 //   * products with __dp4a: each nibble pair becomes four signed bytes
 //     (ternary4, ternary4.cuh: pos - neg on every byte pair, both flags
-//     set included), reused for the MT rows; x8 one __dp4a a row against
-//     the staged word, i8 two, dp4a(32w, hi) + dp4a(w, lo) (times32);
-//     every sum an exact int32 (wrapping adds are associative, so any
-//     order gives the same bits);
+//     set included), reused for the MT rows; x8 and the requantized rule
+//     one __dp4a a row against the staged word, i8 two, dp4a(32w, hi) +
+//     dp4a(w, lo) (times32); every sum an exact int32 (wrapping adds are
+//     associative, so any order gives the same bits);
 //   * split-K across blocks, exact: grid z holds S parts of the byte-row
 //     walk (W = nb * tkb byte-rows, part s taking [s*W/S, (s+1)*W/S)), so
 //     that cdiv(N, 128) column tiles fill the card (ops/fused_ffn.py
@@ -49,10 +54,17 @@
 //     order, each part writes its int32 sums to ``part`` (S, M, N), and the
 //     last part of a (column, row) tile to arrive, found with an atomic
 //     counter that it resets to 0, adds the S parts in part order and
-//     applies the epilogue: one launch a call. With S = 1 the block
+//     applies the epilogue: one launch a product. With S = 1 the block
 //     applies it in place;
-//   * the epilogue is epi_bias (bitplane_core.cuh), so Y is bitwise the
-//     plain version's and the tensor-core branch's;
+//   * the epilogues (bitplane_core.cuh's expressions, so that Y is bitwise
+//     the plain version's and the tensor-core branch's): kEpiBias, + b
+//     [PReLU]; kEpiBiasRmax, the same written to y, then the row's absmax
+//     folded into rmax_out (pre-zeroed) with one atomicMax a warp on the
+//     int bits of |y| (a warp's 32 threads hold 32 consecutive columns of
+//     one row of the block's output map), by the block that folds (or the
+//     S = 1 block) only, so rmax is the max over all N columns of the
+//     finished sums; kEpiScaleBias, acc * (scale * gamma0) + b [PReLU]
+//     with rounded multiplies and adds and no FMA, as the plain version;
 //   * M-tiles of 4, 8 and 16 rows (grid y holds more row tiles above 16),
 //     each lane holding 4 x MT accumulators.
 // Any geometry the container can have: tile_n not a multiple of 4, or a
@@ -63,7 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bitplane_core.cuh"   // stage_value, epi_bias, cdiv, the stages
+#include "bitplane_core.cuh"   // stage_value, epi_bias, requant_scale, abs_bits,
+                               // cdiv, the stages and epilogues
 #include "ternary4.cuh"        // ternary4, times32
 
 namespace ternary {
@@ -100,6 +113,9 @@ struct Args {
   float* y;                 // (M, N) f32 output
   int* part;                // S > 1: (S, M, N) int32 sums of the parts
   int* counters;            // S > 1: one a (column, row) tile, 0 between calls
+  const int* rmax_in;       // kStageRequant / kEpiScaleBias: (M,) row absmax bits
+  int* rmax_out;            // kEpiBiasRmax: (M,) row absmax bits, pre-zeroed
+  float gamma0;             // kEpiScaleBias: the output scale's gamma
 };
 
 // The byte-rows of one warp in walk order: walk index w = kb*tkb + t, the
@@ -213,10 +229,41 @@ __device__ __forceinline__ int pack4(const int v[4]) {
                (uint32_t)(v[2] & 0xFF) << 16 | (uint32_t)(v[3] & 0xFF) << 24);
 }
 
+// Element (gm, gc) of the output from its int32 sum ``acc`` by the FFN's
+// epilogues. kEpiBias stays inline where it is stored, so that the x8 and
+// i8 bodies compile as they did before these epilogues. The whole warp
+// calls it: kEpiBiasRmax reduces the row's |y| bits over its 32 columns.
+template <int EPI>
+__device__ __forceinline__ void store_ffn(const Args& a, int acc, int gm,
+                                          int gc, bool col_ok, int lane) {
+  const bool ok = col_ok && gm < a.M;
+  if constexpr (EPI == kEpiBiasRmax) {
+    float hv = 0.0f;
+    if (ok) {
+      hv = epi_bias((float)acc, a.bias, a.alpha, gc);
+      a.y[(size_t)gm * a.N + gc] = hv;
+    }
+    const int bits = __reduce_max_sync(0xffffffffu, abs_bits(hv));
+    if (lane == 0 && gm < a.M) atomicMax(a.rmax_out + gm, bits);
+  } else {
+    // ops/fused_ffn.py:189-191 of the JAX package: acc * (((rmax + eps) /
+    // 127) * gamma) + b, then PReLU; rounded products and sums, never one
+    // FMA, so that the card rounds twice as the plain version does
+    static_assert(EPI == kEpiScaleBias, "the FFN's epilogues");
+    if (ok) {
+      const float rs = requant_scale(a.rmax_in, gm);
+      float yv = __fadd_rn(__fmul_rn((float)acc, __fmul_rn(rs, a.gamma0)),
+                           a.bias[gc]);
+      if (a.alpha != nullptr) yv = yv > 0.0f ? yv : a.alpha[gc] * yv;
+      a.y[(size_t)gm * a.N + gc] = yv;
+    }
+  }
+}
+
 // One block: kCols columns x MT rows of Y over part blockIdx.z of the walk
 // (the file's note). Blocks an SM by the accumulators: 4 at MT = 4 (64
 // registers), 3 at 8, 2 at 16.
-template <int MT, int STAGE, bool VEC>
+template <int MT, int STAGE, int EPI, bool VEC>
 __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
     gemv_kernel(const Args a) {
   constexpr int NA = planes<STAGE>();
@@ -266,6 +313,10 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
   // loads before its stores
   {
     const int m = (tid % G) >> 1, h = tid & 1, gm = m0 + m;
+    float scale = 1.0f;   // the x8 and i8 rules take none
+    if constexpr (STAGE == kStageRequant) {
+      if (gm < a.M) scale = requant_scale(a.rmax_in, gm);
+    }
     const bool vec_x = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
     const float* xrow = a.x + (size_t)(gm < a.M ? gm : 0) * a.K;
     int rel = tid / G;
@@ -293,10 +344,10 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
 #pragma unroll
       for (int u = 0; u < SU; ++u) {
         if (rel + u * RSTEP >= len) break;
-        const int s[4] = {stage_value<STAGE>(v[u].x, 1.0f),
-                          stage_value<STAGE>(v[u].y, 1.0f),
-                          stage_value<STAGE>(v[u].z, 1.0f),
-                          stage_value<STAGE>(v[u].w, 1.0f)};
+        const int s[4] = {stage_value<STAGE>(v[u].x, scale),
+                          stage_value<STAGE>(v[u].y, scale),
+                          stage_value<STAGE>(v[u].z, scale),
+                          stage_value<STAGE>(v[u].w, scale)};
         int* dst = xs + (rel + u * RSTEP) * RW + (tid % G) * NA;
         if constexpr (NA == 2) {
           // 32 * (v >> 5) + (v & 31) == v; the hi byte wraps outside
@@ -363,9 +414,13 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
 #pragma unroll
       for (int e = 0; e < EPT; ++e) {
         const int gm = m0 + pass * RG + (tid + e * kThreads) / kCols;
-        if (col_ok && gm < a.M)
-          a.y[(size_t)gm * a.N + gc] = epi_bias((float)out[pass][e], a.bias,
-                                                a.alpha, gc);
+        if constexpr (EPI == kEpiBias) {
+          if (col_ok && gm < a.M)
+            a.y[(size_t)gm * a.N + gc] = epi_bias((float)out[pass][e], a.bias,
+                                                  a.alpha, gc);
+        } else {
+          store_ffn<EPI>(a, out[pass][e], gm, gc, col_ok, lane);
+        }
       }
     return;
   }
@@ -409,13 +464,17 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       const int gm = m0 + pass * RG + (tid + e * kThreads) / kCols;
-      if (col_ok && gm < a.M)
-        a.y[(size_t)gm * a.N + gc] = epi_bias((float)sum[pass][e], a.bias,
-                                              a.alpha, gc);
+      if constexpr (EPI == kEpiBias) {
+        if (col_ok && gm < a.M)
+          a.y[(size_t)gm * a.N + gc] = epi_bias((float)sum[pass][e], a.bias,
+                                                a.alpha, gc);
+      } else {
+        store_ffn<EPI>(a, sum[pass][e], gm, gc, col_ok, lane);
+      }
     }
 }
 
-template <int MT, int STAGE>
+template <int MT, int STAGE, int EPI>
 int launch_tile(const Args& a, int parts, cudaStream_t stream) {
   const dim3 grid(cdiv(a.N, kCols), cdiv(a.M, MT), parts);
   const bool vec = a.tile_n % kColsLane == 0 &&
@@ -423,21 +482,21 @@ int launch_tile(const Args& a, int parts, cudaStream_t stream) {
   if (cdiv(a.nb * a.tkb, parts) > part_max<MT, STAGE>())
     return (int)cudaErrorInvalidValue;   // a part's X would not fit
   if (vec)
-    gemv_kernel<MT, STAGE, true><<<grid, kThreads, 0, stream>>>(a);
+    gemv_kernel<MT, STAGE, EPI, true><<<grid, kThreads, 0, stream>>>(a);
   else
-    gemv_kernel<MT, STAGE, false><<<grid, kThreads, 0, stream>>>(a);
+    gemv_kernel<MT, STAGE, EPI, false><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Y = STAGE(X) . W + b [PReLU] as ``parts`` parts of the walk (1: no
-// scratch, no counters), the smallest M-tile that holds M (row tiles of 16
-// above 16 rows).
-template <int STAGE>
+// Y = STAGE(X) . W, then EPI (default + b [PReLU]), as ``parts`` parts of
+// the walk (1: no scratch, no counters), the smallest M-tile that holds M
+// (row tiles of 16 above 16 rows).
+template <int STAGE, int EPI = kEpiBias>
 int run(const Args& a, int parts, cudaStream_t stream) {
   if (parts < 1) return (int)cudaErrorInvalidValue;
-  if (a.M <= 4) return launch_tile<4, STAGE>(a, parts, stream);
-  if (a.M <= 8) return launch_tile<8, STAGE>(a, parts, stream);
-  return launch_tile<16, STAGE>(a, parts, stream);
+  if (a.M <= 4) return launch_tile<4, STAGE, EPI>(a, parts, stream);
+  if (a.M <= 8) return launch_tile<8, STAGE, EPI>(a, parts, stream);
+  return launch_tile<16, STAGE, EPI>(a, parts, stream);
 }
 
 }  // namespace gemv

@@ -77,9 +77,10 @@ SIGNATURES = {
     "ternary_swiglu_mma": [*_SWIGLU, _P, _P],
     #: (x, M, K, plane1, nb1, gn1, tkb1, tile_n1, N1, b1/gamma1, alpha1,
     #: plane2, nb2, gn2, tkb2, tile_n2, N2, b2, alpha2, gamma1*gamma2, h,
-    #: rmax, y, stream)
+    #: rmax, y, stream), then the split-K parts' int32 scratch, the tiles'
+    #: counters and the parts of phase 1 and phase 2
     "ternary_prelu_ffn": [_P, _I, _I, _P, *[_I] * 5, _P, _P, _P, *[_I] * 5,
-                          _P, _P, _F, _P, _P, _P, _P],
+                          _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I],
     #: (array, gk, gn, tk, tn, layout, sms, scratch, replicas, out, stream)
     "ternary_stream_rate": [_P, *[_I] * 6, _P, _I, _P, _P],
     #: (plane, tkb, tns, x, reps, blocks, out, stream)

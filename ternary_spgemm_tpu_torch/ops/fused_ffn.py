@@ -22,7 +22,9 @@ in ``csrc/swiglu.cu``, :func:`fused_bitplane_ffn` the second as one call of
 epilogue and the row absmax, then the requantizing down projection; the
 SwiGLU's up to :data:`SWIGLU_MMA_MIN_M` rows each a split walk of
 :func:`split_parts` parts and a finishing kernel, above it on the int8
-tensor cores with a pre-pass before each product). On a
+tensor cores with a pre-pass before each product; the PReLU FFN's each one
+launch of ``csrc/gemv_core.cuh``'s streaming decode body, its walk split
+into :func:`gemv_parts` parts). On a
 CPU tensor each runs its plain version (:func:`swiglu_plain`,
 :func:`ffn_plain`), the same math in PyTorch with every op in the JAX
 order. silu is ``g * sigmoid(g)`` as ``jax.nn.silu`` writes it, with the
@@ -41,6 +43,8 @@ from ternary_spgemm_tpu_torch.ops.api import finish, to_i8
 from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     check_f32,
     check_plane,
+    gemv_counters,
+    gemv_plan,
     launches,
     matmul_plain,
     mma_row_bytes,
@@ -417,11 +421,16 @@ def ffn_plain(X, fmt1: TiledBitplane, b1, alpha1, fmt2: TiledBitplane, b2,
 
 
 def ffn_launch(X, fmt1: TiledBitplane, b1, alpha1, fmt2: TiledBitplane, b2,
-               alpha2=None, *, gamma1: float = 1.0, gamma2: float = 1.0):
+               alpha2=None, *, gamma1: float = 1.0, gamma2: float = 1.0,
+               parts: tuple = None):
     """Run the CUDA kernel -> ``(y (M, N2), h (M, N1), rmax (M,))``: the
     output, the unscaled f32 hidden state and its per-row absmax (as f32),
     so a caller can check the requantized hidden against the plain
-    version."""
+    version. Each phase's byte-row walk is split into :func:`gemv_parts`
+    parts (phase 1's X rule two int8 planes, phase 2's one), or into
+    ``parts`` = (S1, S2) where a test or a timing asks for others
+    (ValueError before any launch for parts the walk or the staged X does
+    not allow)."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"{FFN_KERNEL_NAME} runs on CUDA tensors (CPU "
@@ -445,13 +454,25 @@ def ffn_launch(X, fmt1: TiledBitplane, b1, alpha1, fmt2: TiledBitplane, b2,
     y = torch.empty((M, N2), dtype=torch.float32, device=dev)
     if M == 0:
         return y, h, rmax.view(torch.float32)
+    (s1, t1), (s2, t2) = (
+        gemv_plan(name, M, f.N, w.shape[0], f.tkb, planes, dev, p)
+        for f, w, planes, p in zip((fmt1, fmt2), (p1, p2), (2, 1),
+                                   parts or (None, None)))
+    stream = stream_handle(dev)
+    # held until the launches are queued
+    part = counters = None
+    if max(s1, s2) > 1:
+        part = torch.empty(max(s1 * M * N1, s2 * M * N2), dtype=torch.int32,
+                           device=dev)
+        counters = gemv_counters(dev, stream, max(t1, t2))
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     err = _build.load().ternary_prelu_ffn(
         X.data_ptr(), M, K, p1.data_ptr(), p1.shape[0], p1.shape[1],
         fmt1.tkb, fmt1.tile_n, N1, b1g.data_ptr(), ptr(alpha1),
         p2.data_ptr(), p2.shape[0], p2.shape[1], fmt2.tkb, fmt2.tile_n, N2,
         b2.data_ptr(), ptr(alpha2), float(gamma1 * gamma2), h.data_ptr(),
-        rmax.data_ptr(), y.data_ptr(), stream_handle(dev))
+        rmax.data_ptr(), y.data_ptr(), stream, ptr(part), ptr(counters), s1,
+        s2)
     _build.check(err, "ternary_prelu_ffn")
     launches[FFN_KERNEL_NAME] += 1
     return y, h, rmax.view(torch.float32)

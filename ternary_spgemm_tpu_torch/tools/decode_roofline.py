@@ -1,25 +1,28 @@
-"""Decode rate of the bitplane core, and the roofline with decode as a
-resource — counterpart of ``tools/decode_roofline.py``.
+"""Decode rate of the bitplane decode body, and the roofline with decode as
+a resource — counterpart of ``tools/decode_roofline.py``.
 
-The hand-written bitplane kernels decode every weight from its two plane
-bits before they multiply it (``csrc/bitplane_core.cuh``), and at the north
-star they run far above their bytes bound. This tool measures the decode
-rate pi directly: :func:`measure_decode_rate` runs ``csrc/decode_rate.cu``,
-``reps`` repetitions of the core's ``load_row`` + ``decode_half`` over a
-(2*tkb, tns) plane tile held in shared memory, every weight consumed by
-int32 multiply-adds into 8 rows of all-ones X. It reports the rate of all
-the card's SMs at one block each (132 on an H100 SXM; the SpMM grids are
-128 blocks, so this is the figure that bounds them) and of one SM. Then
-it measures the card's memory rate beta
+The decode branch of the flagship ``CudaTiledBitplane_i8`` (its small-M
+branch, ``csrc/gemv_core.cuh``) makes four int8 weights from a nibble pair
+of its two planes with ``ternary4`` and consumes them with the i8 rule's two
+``__dp4a`` a row, ``dp4a(32w, hi) + dp4a(w, lo)``, on the CUDA cores. This
+tool measures that decode's rate pi directly: :func:`measure_decode_rate`
+runs ``csrc/decode_rate.cu``, ``reps`` repetitions of the body's inner step
+(``gemv::consume`` at an M-tile of 8 rows: a lane's pos and neg words of a
+byte-row, ``ternary4``, the two ``__dp4a``) over a (2*tkb, tns) plane tile
+held in shared memory, into 8 rows of all-ones X. It reports the rate of
+all the card's SMs at one block each (132 on an H100 SXM) and of one SM.
+Then it measures the card's memory rate beta
 (``bench.instrument.measure_hbm_bandwidth``), times both branches of
 ``CudaTiledBitplane_i8`` at the JAX tool's four configs (on the inputs
 ``bench.harness.run_config`` makes) and writes a roofline row for each::
 
     t_bytes  = own_bytes / beta          (f32 X as the kernel reads it, the
                                           container, f32 Y and bias)
-    decode branch (the core's decode, then int32 multiply-adds):
+    decode branch (ternary4 and the two __dp4a a row, on the CUDA cores):
       t_decode = K * N / pi
-      t_dot    = 2 * M * K * N / 1979e12 (the H100's int8 tensor-core peak)
+      t_dot    = 2 * M * K * N / 1979e12 (the H100's int8 tensor-core peak,
+                                          although this branch runs on the
+                                          CUDA cores: a floor, not its rate)
     mma branch (the plane bytes decode straight into mma fragments, so no
     decode-rate bound; X as 32*hi + lo, two int8 mma a k-step):
       t_decode = None
@@ -86,7 +89,8 @@ def decode_rate_plain(plane: torch.Tensor, x: torch.Tensor,
                       reps: int) -> torch.Tensor:
     """The plain version: ``sum_r x @ W_r`` -> (8, tns) int32, ``W_r`` the
     tile perturbed as ``(plane + r) & 0xFF`` decoded by the bitplane row
-    map (sums in f64, exact for these sizes)."""
+    map (sums in f64, exact for these sizes). The kernel's contract: x in
+    [-127, 127], where its int8 hi / lo split is exact."""
     note_plain(KERNEL_NAME, plane)
     tkb = plane.shape[0] // 2
     acc = torch.zeros((ROWS, plane.shape[1]), dtype=torch.float64,
@@ -147,7 +151,8 @@ def probe_inputs(tkb: int, tns: int, dev, *, seed: int = 0):
 
 def measure_decode_rate(dev, tkb: int = 128, tns: int = 512,
                         reps: int = 64) -> dict:
-    """Weights a second of the core's decode on a shared-memory-resident
+    """Weights a second of the decode body's inner step (``ternary4`` and
+    the i8 rule's two ``__dp4a`` a row, 8 rows) on a shared-memory-resident
     tile: all SMs (one block each) and one SM."""
     plane, x = probe_inputs(tkb, tns, dev)
     weights = reps * 8 * tkb * tns
@@ -165,8 +170,9 @@ def measure_decode_rate(dev, tkb: int = 128, tns: int = 512,
         t = timer(dev)(lambda p, xx: decode_rate(p, xx, reps), plane,
                        aux=(x,), min_seconds=0.3)
         rec.update(seconds=t.seconds, weights_per_s=weights / t.seconds)
-    rec["note"] = ("includes the consuming 8-row int32 multiply-adds and a "
-                   "2-op per-byte perturbation each repetition: a "
+    rec["note"] = ("the i8 decode body's inner step (ternary4, then two "
+                   "__dp4a a row for each of 8 rows) with a per-byte "
+                   "perturbation of the plane words each repetition: a "
                    "conservative (low) rate")
     return rec
 
@@ -175,9 +181,11 @@ def roofline_row(config: str, seconds: float, own_bytes: float,
                  beta: float, pi: float, branch: str = "decode") -> dict:
     """The roofline of one config and branch from measured rates: bytes at
     ``beta``, and for the decode branch (and the plain version) decode at
-    ``pi``, serial with, or overlapping, the dot at the int8 peak; the mma
-    branch has no decode bound and twice the dot's operations (hi and lo).
-    Fractions are None without ``beta``."""
+    ``pi``, serial with, or overlapping, the dot at the int8 tensor-core
+    peak (the decode branch runs on the CUDA cores, so its ``t_dot`` is a
+    floor it cannot reach); the mma branch has no decode bound and twice
+    the dot's operations (hi and lo). Fractions are None without
+    ``beta``."""
     M, K, N, _ = map(int, config.split("x"))
     t_bytes = own_bytes / beta if beta else None
     t_decode = None if branch == "mma" else K * N / pi
@@ -250,9 +258,12 @@ def main(argv=None) -> int:
         "2*M*K*N/int8_peak (augmented_roofline_fraction; > 1 means the "
         "kernel overlaps better than fully serial) and FULL-OVERLAP ideal = "
         "max(bytes, decode, dot) (overlapped_roofline_fraction). pi_decode "
-        "is the all-SM rate of the core's decode at an 8-row M-tile; the "
-        "mma branch has no decode term and 4*M*K*N operations (X as "
-        "32*hi + lo). The int8 peak is the H100's data-sheet 1,979 TOP/s.")
+        "is the all-SM rate of the decode body's inner step (gemv_core.cuh: "
+        "ternary4 and the i8 rule's two __dp4a a row) at an 8-row M-tile; "
+        "the decode row's t_dot is taken at the int8 tensor-core peak "
+        "although that branch runs on the CUDA cores. The mma branch has no "
+        "decode term and 4*M*K*N operations (X as 32*hi + lo). The int8 "
+        "peak is the H100's data-sheet 1,979 TOP/s.")
     emit(result, args.out)
     return 0
 

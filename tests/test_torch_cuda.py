@@ -9,7 +9,9 @@ repository's conftest left out (it imports JAX)::
 The x8/i8 kernels accumulate exact integers, so they must be bitwise equal
 to the plain versions (each on both of its branches, split at
 ``X8_MMA_MIN_M`` and ``I8_MMA_MIN_M``; ``-k "x8 or i8_"`` runs their
-tests alone, ``-k gemv`` their decode body's split walk); so must the f32 and
+tests alone, ``-k gemv`` their decode body's split walk, ``-k ffn`` the
+fused PReLU FFN's two phases on the same body and ``-k decode_rate`` the
+probe of its inner step); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact (``-k
 dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
@@ -1095,6 +1097,92 @@ def test_prelu_ffn_kernel(dev, M, K, N1, N2, tile_n, prelu2):
     assert torch.equal(y, want)
 
 
+#: (M, K, N1, N2, tile_n1): ragged hidden widths, tile_n1 30 (byte loads
+#: in phase 1) and N1 not a multiple of 128; the ffn_bench block
+FFN_SPLIT_GEOMS = [(1, 200, 300, 96, 30), (4, 999, 260, 77, 4096),
+                   (16, 200, 300, 96, 30), (33, 999, 260, 77, 4096),
+                   (32, 1024, 4096, 1024, 4096)]
+
+
+def _ffn_case(dev, M, K, N1, N2, tile_n1, seed=0):
+    f1 = TiledBitplane.from_dense(generate_ternary(K, N1, 3, seed=seed + K),
+                                  tile_n=tile_n1).to(dev)
+    f2 = TiledBitplane.from_dense(generate_ternary(N1, N2, 3,
+                                                   seed=seed + N1)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    X = torch.randint(-512, 513, (M, K), generator=g,
+                      device=dev).to(torch.float32)
+    X[:, ::7] = 512.0
+    X[:, 3::7] = -512.0
+    b1, b2 = (4.0 * torch.rand((n,), generator=g, device=dev) - 2.0
+              for n in (N1, N2))
+    a1, a2 = (0.25 * torch.rand((n,), generator=g, device=dev)
+              for n in (N1, N2))
+    return X, f1, b1, a1, f2, b2, a2
+
+
+@pytest.mark.parametrize("M,K,N1,N2,tile_n1", FFN_SPLIT_GEOMS)
+@pytest.mark.parametrize("prelu2", [False, True])
+def test_prelu_ffn_split_bitwise(dev, M, K, N1, N2, tile_n1, prelu2):
+    """Both phases on the decode body at forced parts (S1, S2) in {1, 2, 4,
+    8}^2 (those the walks and the staged X allow) and at the rule's: h, the
+    requantized h, rmax and y bitwise the plain version's; one launch
+    counted a call."""
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        FFN_KERNEL_NAME, ffn_hidden_plain, ffn_launch, ffn_plain)
+
+    X, f1, b1, a1, f2, b2, a2 = _ffn_case(dev, M, K, N1, N2, tile_n1)
+    a2 = a2 if prelu2 else None
+    kw = dict(gamma1=0.037, gamma2=1.9)
+    want = ffn_plain(X, f1, b1, a1, f2, b2, a2, **kw)
+    h_plain = ffn_hidden_plain(X, f1, b1, a1, gamma1=0.037)
+    hq_plain, _ = requantize_rows(h_plain)
+    rmax_plain = h_plain.abs().amax(1)
+    ok = []
+    for (f, planes) in ((f1, 2), (f2, 1)):
+        walk = f.plane.shape[0] * f.tkb
+        lo = -(-walk // fused_ffn.gemv_part_max(M, planes))
+        ok.append([S for S in (1, 2, 4, 8) if lo <= S <= walk])
+    before = ck.launches[FFN_KERNEL_NAME]
+    runs = [None, *((s1, s2) for s1 in ok[0] for s2 in ok[1])]
+    for parts in runs:
+        y, h, rmax = ffn_launch(X, f1, b1, a1, f2, b2, a2, **kw, parts=parts)
+        hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
+        torch.cuda.synchronize()
+        assert torch.equal(h, h_plain), parts
+        assert torch.equal(rmax, rmax_plain), parts
+        assert torch.equal(hq, hq_plain), parts
+        assert torch.equal(y, want), parts
+    assert ck.launches[FFN_KERNEL_NAME] == before + len(runs)
+
+
+def test_prelu_ffn_counters_and_bad_parts(dev):
+    """Split FFN calls in a row leave the decode body's counters at 0 (phase
+    1's folding blocks reset them before phase 2), between x8 / i8 calls
+    on the same stream; parts the walk or the staged X refuse raise before
+    any launch."""
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        FFN_KERNEL_NAME, ffn_launch, ffn_plain)
+
+    X, f1, b1, a1, f2, b2, a2 = _ffn_case(dev, 16, 999, 260, 77, 4096)
+    fmt, Xi, bi, _ = _gemv_case(dev, "i8", 4, 999, 300, 20, 128, False)
+    want = ffn_plain(X, f1, b1, a1, f2, b2, a2)
+    want_i = ck.bitplane_i8_plain(Xi, fmt, bi)
+    for parts in ((3, 5), (8, 8), (3, 5)):
+        y = ffn_launch(X, f1, b1, a1, f2, b2, a2, parts=parts)[0]
+        yi = ck._bitplane_i8_lanes(Xi, fmt, bi, parts=7)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want) and torch.equal(yi, want_i)
+        counters = ck._GEMV_COUNTERS[(X.device, ck.stream_handle(X.device))]
+        assert int(counters.abs().sum()) == 0
+    walk2 = f2.plane.shape[0] * f2.tkb
+    before = ck.launches[FFN_KERNEL_NAME]
+    for parts in ((0, 1), (1, walk2 + 1)):
+        with pytest.raises(ValueError, match="parts"):
+            ffn_launch(X, f1, b1, a1, f2, b2, a2, parts=parts)
+    assert ck.launches[FFN_KERNEL_NAME] == before
+
+
 def test_prelu_ffn_contract_on_card(dev):
     from ternary_spgemm_tpu_torch.ops.fused_ffn import fused_bitplane_ffn
 
@@ -1134,10 +1222,13 @@ def test_stream_kernel(dev, layout, tk, tn, gk, gn):
 
 
 @pytest.mark.parametrize("tkb,tns,reps,blocks", [
-    (128, 512, 4, 1), (128, 512, 3, 132), (16, 96, 5, 3)])
+    (128, 512, 4, 1), (128, 512, 3, 132), (16, 96, 5, 3), (20, 130, 300, 2)])
 def test_decode_rate_kernel(dev, tkb, tns, reps, blocks):
     """The decode-rate probe bitwise equal to its plain version, on random
-    X (which checks the row map) and on the all-ones X the tool uses."""
+    X in [-127, 127] (which checks the row map and the hi / lo split) and
+    on the all-ones X the tool uses; tkb not a multiple of the 8 warps, tns
+    not of 4 or of the 128-column tiles, and more than 256 repetitions
+    (the perturbation wraps)."""
     from ternary_spgemm_tpu_torch.tools import decode_roofline as dr
 
     plane, ones = dr.probe_inputs(tkb, tns, dev, seed=tkb + reps)
