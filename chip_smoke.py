@@ -74,7 +74,17 @@ result line if any fails, or if no GPU is visible):
    the prefill and never in decode, so the decode steps' x8 launches are
    all on the decode body; i8 on the headline op, on its
    tensor-core branch when its 32 rows are above ``I8_MMA_MIN_M``) and no
-   plain version may run on a CUDA tensor;
+   plain version may run on a CUDA tensor. That counted run is the eager
+   loop (``graph=False``); then the captured loop (``models/graphs.py``,
+   ``generate``'s default on the card) on the same prompt: tokens
+   identical to the eager loop's, the launches counted while its decode
+   step was captured equal to one eager decode step's (x8 twice on the
+   decode body and the SwiGLU once a layer, nothing on the tensor cores)
+   and its prefill capture's to the eager prefill's; a sampled run
+   (temperature 0.8, top-k 50, top-p 0.95, one seed) captured and eager,
+   token for token; eager and captured prefill (tokens/s) and decode
+   (ms a step) timed in the order eager, graph, graph, eager, and each
+   loop's ``max_memory_allocated``, beside the card's name and power limit;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
    nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
    block-packed and tiled block-packed i8 at factor 4 and 5, stride-packed
@@ -928,7 +938,8 @@ def phase_model_parity(dev) -> None:
 
 
 def phase_serve(dev, card: str) -> dict:
-    """Phase 5: the counted main path at BitNet-7B width."""
+    """Phase 5: the counted main path at BitNet-7B width, eager; then the
+    captured loop against it."""
     import torch
 
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
@@ -961,7 +972,7 @@ def phase_serve(dev, card: str) -> dict:
         warnings.simplefilter("ignore", UserWarning)
         y_ns = ternary_spgemm(x_ns, f_ns, b_ns)      # default dispatch -> i8
     t1 = time.perf_counter()
-    toks = generate(lm, prompt, n_new, cache_dtype=torch.int8)
+    toks = generate(lm, prompt, n_new, cache_dtype=torch.int8, graph=False)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t1
     counts = dict(ck.launches)
@@ -1008,31 +1019,138 @@ def phase_serve(dev, card: str) -> dict:
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
     check(torch.equal(toks[:, :T0], prompt), "prompt not kept")
     check(bool(torch.isfinite(y_ns).all()), "headline SpMM not finite")
-
-    # timing pass over the same entry points (outside the counted run)
-    with torch.no_grad():
-        caches = init_cache(cfg, B, T0 + n_new, torch.int8, device=dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        logits, caches = lm.prefill(prompt, caches)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t2
-        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-        cur = torch.argmax(logits[:, -1], dim=-1)
-        t3 = time.perf_counter()
-        for t in range(T0, T0 + n_new - 1):
-            logits, caches = lm.decode_step(cur, caches, t)
-            cur = torch.argmax(logits, dim=-1)
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t3) / (n_new - 1) * 1e3
-        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
     print(f"serve bitnet7b (32 layers, d=4096, ff=11008), batch {B}, prompt "
-          f"{T0}, {n_new} new tokens: build {build_s:.2f} s; generate "
-          f"{gen_s:.3f} s; prefill {prefill_s * 1e3:.2f} ms = "
-          f"{B * T0 / prefill_s:.1f} tokens/s; decode {decode_ms:.3f} ms per "
-          f"step of {B} tokens; max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"{T0}, {n_new} new tokens, eager: build {build_s:.2f} s; generate "
+          f"{gen_s:.3f} s; max_memory_allocated {peak / 2**30:.3f} GiB "
           f"[{card}]", flush=True)
+    phase_serve_graph(dev, card, lm, prompt, toks, n_new, peak)
     return counts
+
+
+def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
+                      eager_peak: int) -> None:
+    """Phase 5, the captured loop: the eager loop's greedy tokens and one
+    eager step's launches from the captures, sampled tokens captured and
+    eager for one seed, then E G G E timings of prefill and decode."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import generate, init_cache
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    cfg = lm.cfg
+    L = cfg.n_layers
+    (B, T0), int8 = prompt.shape, torch.int8
+    # one eager prefill's and one eager decode step's launches
+    with torch.no_grad():
+        caches = init_cache(cfg, B, T0 + n_new, int8, device=dev)
+        ck.reset_counts()
+        logits, caches = lm.prefill(prompt, caches)
+        eager = {"prefill": dict(ck.launches)}
+        ck.reset_counts()
+        lm.decode_step(torch.argmax(logits[:, -1], dim=-1), caches, T0)
+        eager["step"] = dict(ck.launches)
+    check(eager["step"] == {"CudaTiledBitplane_x8": 2 * L,
+                            "fused_bitplane_swiglu": L},
+          f"one eager decode step launched {eager['step']}")
+
+    lm._captured.clear()
+    ck.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = generate(lm, prompt, n_new, cache_dtype=int8)    # captures
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated(dev)
+    check(not ck.plain_on_cuda,
+          f"a plain version ran on a CUDA tensor: {dict(ck.plain_on_cuda)}")
+    check(torch.equal(got, toks), "captured greedy tokens differ from the "
+          f"eager loop's:\n{got.cpu()}\n{toks.cpu()}")
+    (loop,) = lm._captured.values()
+    captured = {k: dict(v) for k, v in loop.launches.items()}
+    print(f"serve captured: launches while capturing {captured}; one eager "
+          f"prefill {eager['prefill']}, one eager step {eager['step']}",
+          flush=True)
+    for name in ("prefill", "step"):
+        check(captured[name] == eager[name],
+              f"the {name} capture launched {captured[name]}, one eager "
+              f"{name} {eager[name]}")
+    check(captured["prefill"].get(ck.X8_MMA_COUNT) == 2 * L
+          and captured["prefill"].get(fused_ffn.SWIGLU_MMA_COUNT) == L,
+          "the prefill capture is not on the tensor cores")
+    t0 = time.perf_counter()
+    again = generate(lm, prompt, n_new, cache_dtype=int8)  # replays
+    again_s = time.perf_counter() - t0
+    check(torch.equal(again, toks) and len(lm._captured) == 1,
+          "a second captured generate did not replay the first's graphs")
+
+    kw = dict(cache_dtype=int8, temperature=0.8, top_k=50, top_p=0.95)
+    sampled = []
+    for graph in (False, True):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1234)
+        sampled.append(generate(lm, prompt, n_new, generator=g, graph=graph,
+                                **kw))
+    check(torch.equal(sampled[0], sampled[1]), "captured sampled tokens "
+          f"differ from the eager loop's:\n{sampled[1].cpu()}\n"
+          f"{sampled[0].cpu()}")
+    check(bool(((sampled[0] >= 0) & (sampled[0] < cfg.vocab)).all()),
+          "sampled token out of vocab")
+    print(f"serve sampled (T=0.8, top_k=50, top_p=0.95, seed 1234): "
+          f"captured and eager tokens identical; "
+          f"{int((sampled[0][:, T0:] != toks[:, T0:]).sum())} of "
+          f"{B * n_new} differ from greedy", flush=True)
+
+    def time_eager():
+        with torch.no_grad():
+            caches = init_cache(cfg, B, T0 + n_new, int8, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = lm.prefill(prompt, caches)
+            cur = torch.argmax(logits[:, -1], dim=-1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t
+            check(bool(torch.isfinite(logits).all()),
+                  "prefill logits not finite")
+            t = time.perf_counter()
+            for pos in range(T0, T0 + n_new - 1):
+                logits, caches = lm.decode_step(cur, caches, pos)
+                cur = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(logits).all()),
+                  "decode logits not finite")
+        return prefill_s, (time.perf_counter() - t) / (n_new - 1)
+
+    def time_graph():
+        loop.load(prompt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop.call("prefill")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(n_new - 1):
+            loop.call("step")
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t) / (n_new - 1)
+        check(torch.equal(loop.tokens[:, T0:T0 + n_new], toks[:, T0:]),
+              "the timed replays gave other tokens")
+        return prefill_s, step_s
+
+    runs = []
+    for name, fn in (("eager", time_eager), ("graph", time_graph),
+                     ("graph", time_graph), ("eager", time_eager)):
+        prefill_s, step_s = fn()
+        runs.append(f"{name} prefill {prefill_s * 1e3:.2f} ms = "
+                    f"{B * T0 / prefill_s:.1f} tokens/s, decode "
+                    f"{step_s * 1e3:.3f} ms a step")
+    print(f"serve bitnet7b, batch {B}, prompt {T0}, {n_new} new tokens, int8 "
+          f"cache, E G G E: " + "; ".join(runs) + f"; captured generate "
+          f"{first_s:.3f} s the first call (capture included), "
+          f"{again_s:.3f} s the second; max_memory_allocated eager "
+          f"{eager_peak / 2**30:.3f} GiB, captured {graph_peak / 2**30:.3f} "
+          f"GiB [{card}]", flush=True)
+    lm._captured.clear()
 
 
 def phase_bench_kernels(dev, card: str) -> dict:

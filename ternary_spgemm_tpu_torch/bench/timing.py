@@ -104,19 +104,22 @@ def time_cuda_graph(fn: Callable, x: torch.Tensor, *, aux=(),
     back to back, so the host's gaps between ops (Python, dispatch) do not
     land between the events, as they do around an eager multi-op call; this
     is the counterpart of JAX timing one compiled program. ``fn`` must not
-    synchronise with the host."""
+    synchronise with the host. It is warmed up and captured on one side
+    stream, so that state a kernel keeps by stream (the decode body's
+    counters, ``ops.cuda_kernels.gemv_counters``) exists before the
+    capture."""
     if not x.is_cuda:
         raise ValueError(f"time_cuda_graph times CUDA tensors; got a tensor "
                          f"on {x.device} (use the 'wall' timer)")
     side = torch.cuda.Stream(device=x.device)
     side.wait_stream(torch.cuda.current_stream(x.device))
-    with torch.cuda.stream(side):           # warm up off the capture
+    with torch.cuda.stream(side):           # warm up on the capture stream
         for _ in range(2):
             fn(x, *aux)
-    torch.cuda.current_stream(x.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         fn(x, *aux)
+    torch.cuda.current_stream(x.device).wait_stream(side)
     return time_cuda_events(lambda _x: graph.replay(), x,
                             min_seconds=min_seconds, repeats=repeats)
 

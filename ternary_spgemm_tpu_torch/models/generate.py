@@ -6,12 +6,19 @@
 * :class:`ExportedTransformerLM` — full forward, whole-prompt prefill that
   fills the caches, and the one-token decode step; every projection runs on
   the kernel registry;
-* :func:`generate` — greedy decoding, with or without the prefill.
+* :func:`sample` — the JAX ``_make_sampler``'s temperature, top-k and
+  top-p (nucleus) masking, then ``argmax(masked + gumbel)``;
+* :func:`generate` — greedy or sampled decoding, with or without the
+  prefill; on the card a captured prefill and captured decode steps
+  (``models/graphs.py``), on the CPU the eager loop.
 
-The JAX package is functional; here :func:`_cache_put` writes the new rows
-into the cache tensors in place (no copy of the cache per step) and returns
-the same dict. Ring caches, chunked prefill, sampling, the bf16 head and
-serving-flag autotuning come in later slices of the port.
+The decode position ``pos`` is a Python int or a 0-d int64 tensor on the
+model's device (the captured step keeps it there and bumps it in place);
+the two give the same bits. The JAX package is functional; here
+:func:`_cache_put` writes the new rows into the cache tensors in place (no
+copy of the cache per step) and returns the same dict. Ring caches, chunked
+prefill, the bf16 head and serving-flag autotuning come in later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -34,11 +41,16 @@ from ternary_spgemm_tpu_torch.models.transformer import (
 )
 
 
-def _rotary_at(x: torch.Tensor, pos: int, base: float = 10000.0):
-    """Rotary embedding of ``x (B, H, 1, hd)`` at absolute position ``pos``."""
+def _rotary_at(x: torch.Tensor, pos, base: float = 10000.0):
+    """Rotary embedding of ``x (B, H, 1, hd)`` at absolute position ``pos``
+    (an int or a 0-d tensor: an integer is exact in f32, so both give the
+    angles ``float(pos) * freqs``)."""
     hd = x.shape[-1]
     half = hd // 2
-    cos, sin = cos_sin(float(pos) * rope_freqs(half, x.device, base))
+    freqs = rope_freqs(half, x.device, base)
+    ang = (pos.to(torch.float32) * freqs if isinstance(pos, torch.Tensor)
+           else float(pos) * freqs)
+    cos, sin = cos_sin(ang)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -73,20 +85,18 @@ def _quant_rows(x: torch.Tensor):
 
 
 def _cache_put(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-               pos: int) -> dict:
-    """Write (quantizing for int8 caches) rotated K/V rows at ``pos``, in
-    place."""
-    sl = slice(pos, pos + k_new.shape[2])
+               pos) -> dict:
+    """Write (quantizing for int8 caches) rotated K/V rows at positions
+    ``pos, pos + 1, ...`` (``pos`` an int or a 0-d tensor), in place."""
+    idx = torch.arange(k_new.shape[2], device=k_new.device) + pos
     if "k_scale" in cache:
         kq, ks = _quant_rows(k_new)
         vq, vs = _quant_rows(v_new)
-        cache["k"][:, :, sl] = kq
-        cache["v"][:, :, sl] = vq
-        cache["k_scale"][:, :, sl] = ks
-        cache["v_scale"][:, :, sl] = vs
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
-        cache["k"][:, :, sl] = k_new
-        cache["v"][:, :, sl] = v_new
+        rows = {"k": k_new, "v": v_new}
+    for name, r in rows.items():
+        cache[name].index_copy_(2, idx, r)
     return cache
 
 
@@ -114,7 +124,7 @@ def _cache_attn(q: torch.Tensor, cache: dict, T=None, hd_scale: float = 1.0):
     return logits, combine
 
 
-def _cached_attend(n_heads, q, k_new, v_new, cache, pos: int, window: int = 0):
+def _cached_attend(n_heads, q, k_new, v_new, cache, pos, window: int = 0):
     """One-token attention against the cache -> (out (B, 1, d), cache)."""
     nq, nkv = _norm_heads(n_heads)
     B, _, d = q.shape
@@ -136,7 +146,7 @@ def _cached_attend(n_heads, q, k_new, v_new, cache, pos: int, window: int = 0):
     return out.reshape(B, nq, 1, hd).transpose(1, 2).reshape(B, 1, d), cache
 
 
-def _block_decode(n_heads, lin, norm_attn, norm_ffn, x, cache, pos: int,
+def _block_decode(n_heads, lin, norm_attn, norm_ffn, x, cache, pos,
                   ffn=None, qkv=None, window: int = 0):
     """One block, one token; ``ffn``/``qkv`` override the SwiGLU and the
     three attention input projections."""
@@ -227,6 +237,10 @@ class ExportedTransformerLM(nn.Module):
         # decimal digits and would move the greedy argmax. PyTorch's default is already False; it is set here so
         # that no ambient setting changes the model's numbers.
         torch.backends.cuda.matmul.allow_tf32 = False
+        #: the captured generate loops (``models/graphs.py``) by their
+        #: settings; their graphs point at this model's tensors where they
+        #: lay at capture, so clear it after moving the model
+        self._captured: dict = {}
 
     def _head(self, x):
         """Tied-embedding logits head, a plain f32 matmul."""
@@ -253,8 +267,10 @@ class ExportedTransformerLM(nn.Module):
                                   window=self.cfg.window)
         return self._head(rms_norm(x, self.norm_out)), caches
 
-    def decode_step(self, tokens: torch.Tensor, caches, pos: int):
-        """``tokens (B,) -> (logits (B, vocab), caches)`` at position ``pos``."""
+    def decode_step(self, tokens: torch.Tensor, caches, pos):
+        """``tokens (B,) -> (logits (B, vocab), caches)`` at position ``pos``:
+        a Python int, or a 0-d int64 tensor on the model's device (what a
+        captured step reads), with the same bits."""
         B = tokens.shape[0]
         x = self.embed[tokens][:, None, :]
         for block, cache in zip(self.blocks, caches):
@@ -267,28 +283,116 @@ class ExportedTransformerLM(nn.Module):
         return self._head(rms_norm(x, self.norm_out))[:, 0], caches
 
 
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniform draws ``u`` in [0, 1): ``-log(-log(u))``
+    with ``u`` held at or above f32's smallest normal, as
+    ``jax.random.gumbel`` draws it."""
+    return -torch.log(-torch.log(torch.clamp_min(
+        u, torch.finfo(torch.float32).tiny)))
+
+
+def sample(logits: torch.Tensor, gumbel, temperature: float, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """Next tokens ``(B,)`` from ``logits (B, V)`` and Gumbel noise of the
+    same shape — the JAX ``_make_sampler``
+    (``ternary_spgemm_tpu/models/generate.py:635-657``). ``temperature <=
+    0``: ``argmax(logits)``, the noise ignored (it may be None). Else the
+    logits are divided by the temperature (an IEEE division), cut to the
+    ``top_k`` largest (below the k-th largest -> -inf) and to the ``top_p``
+    nucleus (sorted descending, f32 softmax and cumsum, a logit kept while
+    the mass before it is under ``top_p``, so the first always is; below
+    the least kept -> -inf), and the token is ``argmax(masked + gumbel)``:
+    ``jax.random.categorical``'s Gumbel-max draw. Ties go to the first
+    index, as in ``jnp.argmax``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = true_div(logits, temperature)
+    if top_k:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p and top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_l, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        cutoff = torch.where(keep, sorted_l, torch.inf).amin(dim=-1,
+                                                             keepdim=True)
+        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def draw_uniform(u: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``u`` with uniform [0, 1) draws from ``generator`` (never the
+    global generator), in place: the noise of one sampled token."""
+    if generator is None:
+        raise ValueError("sampling draws from an explicit torch.Generator")
+    return torch.rand(u.shape, generator=generator, out=u)
+
+
 @torch.no_grad()
 def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
-             max_t=None, prefill: bool = True, cache_dtype=torch.float32):
-    """Greedy-decode ``n_new`` tokens after ``prompt (B, T0)``; returns
-    ``(B, T0 + n_new)`` tokens. ``prefill=True`` runs the prompt as one
-    batched forward that fills the caches, then ``n_new - 1`` decode steps
-    (the JAX scan also computes an n_new-th step whose token it discards);
-    ``prefill=False`` feeds the prompt one token per step. Ties in the
-    argmax go to the first index, as in ``jnp.argmax``."""
+             max_t=None, prefill: bool = True, cache_dtype=torch.float32,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             generator=None, graph=None):
+    """Decode ``n_new`` tokens after ``prompt (B, T0)``; returns ``(B, T0 +
+    n_new)`` tokens. ``prefill=True`` runs the prompt as one batched
+    forward that fills the caches, then ``n_new - 1`` decode steps (the JAX
+    scan also computes an n_new-th step whose token it discards);
+    ``prefill=False`` feeds the prompt one token per step.
+
+    Sampling, as in the JAX ``generate``: ``temperature=0`` is greedy (ties
+    in the argmax go to the first index, as in ``jnp.argmax``); above 0
+    each token is drawn by :func:`sample` at that temperature, cut to
+    ``top_k`` and / or the ``top_p`` nucleus. The noise of each sampled
+    token is one ``(B, vocab)`` uniform draw from ``generator``, a
+    ``torch.Generator`` on the prompt's device (None: one seeded with 0,
+    as the JAX package defaults to ``key(0)``); the global generator is
+    never used. JAX folds its key with the position, so the two packages
+    sample one distribution, not the same tokens.
+
+    ``graph=None`` runs captured on a CUDA prompt and eagerly on a CPU one;
+    ``graph=True`` raises on the CPU; ``graph=False`` is the eager loop.
+    Captured (``models/graphs.py``): one CUDA graph of the prefill and one
+    of the decode step, captured at the first call for each (B, T0,
+    max_t, cache dtype, prefill, sampler) and kept on ``lm``, then
+    replayed; a capture that fails raises. Both loops draw the same noise
+    in the same order, so one generator seed gives the same tokens."""
     B, T0 = prompt.shape
+    if graph is None:
+        graph = prompt.is_cuda
+    elif graph and not prompt.is_cuda:
+        raise ValueError("generate(graph=True) replays CUDA graphs; the "
+                         f"prompt is on {prompt.device}")
     if n_new <= 0:
         return prompt
     max_t = max_t or (T0 + n_new)
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=prompt.device)
+        generator.manual_seed(0)
+    if graph:
+        from ternary_spgemm_tpu_torch.models.graphs import captured
+
+        loop = captured(lm, B, T0, max_t, cache_dtype=cache_dtype,
+                        prefill=prefill, temperature=temperature,
+                        top_k=top_k, top_p=top_p, device=prompt.device)
+        return torch.cat([prompt, loop.run(prompt, n_new, generator).to(
+            prompt.dtype)], dim=1)
+    u = (torch.empty((B, lm.cfg.vocab), device=prompt.device)
+         if temperature > 0.0 else None)
+
+    def pick(logits):
+        noise = (None if u is None
+                 else gumbel_from_uniform(draw_uniform(u, generator)))
+        return sample(logits, noise, temperature, top_k, top_p)
+
     caches = init_cache(lm.cfg, B, max_t, dtype=cache_dtype,
                         device=prompt.device)
     if prefill:
         logits, caches = lm.prefill(prompt, caches)
-        cur = torch.argmax(logits[:, T0 - 1], dim=-1)
+        cur = pick(logits[:, T0 - 1])
         out = [cur]
         for t in range(T0, T0 + n_new - 1):
             logits, caches = lm.decode_step(cur, caches, t)
-            cur = torch.argmax(logits, dim=-1)
+            cur = pick(logits)
             out.append(cur)
         return torch.cat([prompt, torch.stack(out, dim=1).to(prompt.dtype)],
                          dim=1)
@@ -297,6 +401,6 @@ def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
     for t in range(T0 + n_new - 1):
         tok = prompt[:, t] if t < T0 else cur
         logits, caches = lm.decode_step(tok, caches, t)
-        cur = torch.argmax(logits, dim=-1).to(prompt.dtype)
+        cur = pick(logits).to(prompt.dtype)
         gen.append(cur)
     return torch.cat([prompt, torch.stack(gen[T0 - 1:], dim=1)], dim=1)

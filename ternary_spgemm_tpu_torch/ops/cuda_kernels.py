@@ -106,7 +106,9 @@ from ternary_spgemm_tpu_torch.ops.api import (  # noqa: F401  (X rules re-export
 from ternary_spgemm_tpu_torch.utils import cdiv, round_up
 from ternary_spgemm_tpu_torch.utils.device import sm_count
 
-#: kernel launches by name (each wrapper counts where it launches)
+#: kernel launches by name (each wrapper counts where it launches). A
+#: launch captured into a CUDA graph counts once, at the capture; replays
+#: of the graph do not count (``models/graphs.py`` keeps each capture's)
 launches: collections.Counter = collections.Counter()
 #: plain-version runs on CUDA tensors, by name
 plain_on_cuda: collections.Counter = collections.Counter()
@@ -393,7 +395,9 @@ def _launch(name: str, entry: str, X, fmt: TernaryFormat, weights, geom,
     lib = _build.load()
     stream = stream_handle(dev)
     extra = []
-    if scratch_row_bytes:   # held until the launch is queued
+    # scratch is held until the launch is queued; in a CUDA graph's capture
+    # it comes from the graph's pool, which keeps it for the replays
+    if scratch_row_bytes:
         scratch = torch.empty(M * scratch_row_bytes, dtype=torch.int8,
                               device=dev)
         extra.append(scratch.data_ptr())
@@ -473,9 +477,17 @@ _GEMV_COUNTERS: dict = {}
 def gemv_counters(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
     """At least ``tiles`` zeroed counters for the decode body on ``dev``'s
     stream ``stream`` (a handle), allocated once and grown when a launch
-    needs more."""
+    needs more. Raises rather than allocate while the stream captures a
+    CUDA graph: the graph would keep a pointer to counters zeroed by a
+    captured memset, which no eager launch could share."""
     c = _GEMV_COUNTERS.get((dev, stream))
     if c is None or c.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the decode body's counters for this stream do not exist yet "
+                "(or are too few) while a CUDA graph is being captured: run "
+                "the captured work once on the capture stream first (the "
+                "warm-up) so that they are allocated before the capture")
         c = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
         _GEMV_COUNTERS[(dev, stream)] = c
     return c

@@ -316,6 +316,8 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
         h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream_handle(dev),
         *extra)
     _build.check(err, entry)
+    # counted where it is launched or captured, not at a graph's replay
+    # (``ops.cuda_kernels.launches``)
     launches[KERNEL_NAME] += 1
     if mma:
         launches[SWIGLU_MMA_COUNT] += 1

@@ -19,13 +19,20 @@ reports for each call:
 * ``host_ops``: the aten ops the call issued;
 * ``top``: the kernels with the most device time, by name.
 
+With ``--graph`` it traces one replay of the captured prefill and one
+of the captured decode step (``models/graphs.py``, captured and replayed
+once each before the traced replays) in place of the eager calls: what
+share of the step the card is busy once the host no longer issues each
+op. A replay is one host call, so its ``host_ops`` count only what the
+profiler records around the graph launch.
+
 Usage::
 
     python -m ternary_spgemm_tpu_torch.tools.serve_trace [--preset bitnet7b]
-        [--device cuda|cpu] [--out PATH]
+        [--device cuda|cpu] [--graph] [--out PATH]
 
 On the CPU there is no device: the busy figures are None and the times
-are the plain versions' host time.
+are the plain versions' host time; ``--graph`` raises there.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from ternary_spgemm_tpu_torch.bench.harness import device_name
 from ternary_spgemm_tpu_torch.models import serving
 from ternary_spgemm_tpu_torch.models.generate import init_cache
+from ternary_spgemm_tpu_torch.models.graphs import captured
 from ternary_spgemm_tpu_torch.models.transformer import BitTransformerConfig
 from ternary_spgemm_tpu_torch.tools import emit
 from ternary_spgemm_tpu_torch.utils.device import resolve_device
@@ -124,6 +132,9 @@ def main(argv=None) -> int:
     p.add_argument("--preset", default="bitnet7b",
                    choices=sorted(serving.PRESETS))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--graph", action="store_true",
+                   help="trace replays of the captured prefill and decode "
+                        "step (models/graphs.py)")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
@@ -133,21 +144,34 @@ def main(argv=None) -> int:
     B, T0 = BATCH, PROMPT
     prompt = torch.randint(0, cfg.vocab, (B, T0), generator=gen, device=dev)
     result = {"device": device_name(dev), "preset": args.preset,
-              "layers": cfg.n_layers, "batch": B, "prompt": T0}
-    # each prefill writes cache positions [0, T0), the decode step T0
-    caches = init_cache(cfg, B, T0 + 1, torch.int8, device=dev)
-    state = {}
+              "layers": cfg.n_layers, "batch": B, "prompt": T0,
+              "graph": args.graph}
+    if args.graph:
+        # the prefill writes cache positions [0, T0), the step T0
+        loop = captured(lm, B, T0, T0 + 2, cache_dtype=torch.int8,
+                        prefill=True, temperature=0.0, top_k=0, top_p=1.0,
+                        device=dev)
+        start = lambda: loop.load(prompt)
+        prefill = lambda: loop.call("prefill")
+        decode_step = lambda: loop.call("step")
+    else:
+        # each prefill writes cache positions [0, T0), the decode step T0
+        caches = init_cache(cfg, B, T0 + 1, torch.int8, device=dev)
+        state = {}
+        start = lambda: None
 
-    def prefill():
-        logits, state["caches"] = lm.prefill(prompt, caches)
-        state["cur"] = torch.argmax(logits[:, -1], dim=-1)
+        def prefill():
+            logits, state["caches"] = lm.prefill(prompt, caches)
+            state["cur"] = torch.argmax(logits[:, -1], dim=-1)
 
-    def decode_step():
-        lm.decode_step(state["cur"], state["caches"], T0)
+        def decode_step():
+            lm.decode_step(state["cur"], state["caches"], T0)
 
     with torch.no_grad():
+        start()
         prefill()                          # the warm-up
         decode_step()
+        start()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         result["prefill"] = traced(prefill, dev)
@@ -159,8 +183,9 @@ def main(argv=None) -> int:
                 f"({r['device_busy_share']:.1%})")
         print(f"{call}: wall {r['wall_ms']:.3f} ms, {busy}; kernels "
               f"{r['kernel_ms']:.3f} ms ({r['kernels']}), the port's "
-              f"{r['ternary_ms']:.3f} ms; {r['host_ops']} host ops "
-              f"[{result['device']}]", flush=True)
+              f"{r['ternary_ms']:.3f} ms; {r['host_ops']} host ops"
+              f"{' (captured)' if args.graph else ''} [{result['device']}]",
+              flush=True)
     emit(result, args.out)
     return 0
 

@@ -27,7 +27,9 @@ an exact .5 boundary. Such flips must be rare (<= 1e-4 of the elements,
 each by 1), and every row without a flip must agree within the fused-FFN
 tolerance of the JAX tests (rtol=1e-5, atol=0.01). The SwiGLU's two
 branches (split at ``SWIGLU_MMA_MIN_M``; ``-k swiglu``) must give the same
-bits as each other.
+bits as each other. The captured generate loop (``models/graphs.py``; ``-k
+"graph or tensor_pos or warmup"``) must give the eager loop's tokens,
+greedy and sampled.
 """
 
 import dataclasses
@@ -1328,3 +1330,135 @@ def test_cuda_graph_timer(dev):
     g = timing.time_cuda_graph(ops, x, min_seconds=0.05)
     e = timing.time_cuda_events(ops, x, min_seconds=0.05)
     assert 0 < g.seconds <= e.seconds * 1.05
+
+
+_SERVE = {}
+
+
+def _serve(dev):
+    """A small serving export (A8 linears, merged QKV, fused SwiGLU) on the
+    card, built once; two layers at d = 256."""
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerConfig, build_serving_lm)
+
+    if "lm" not in _SERVE:
+        cfg = BitTransformerConfig(vocab=64, d_model=256, n_heads=4,
+                                   d_ff=512, n_layers=2)
+        _SERVE["lm"] = build_serving_lm(cfg, s=2, seed=1, device=dev)
+    return _SERVE["lm"]
+
+
+def _prompt(dev, seed, B=3, T0=10):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(0, 64, (B, T0), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+def test_tensor_pos_decode_bitwise_on_card(dev, cache_dtype):
+    """A decode step at a 0-d position tensor on the card: the logits and
+    every cache array of the step at the same int position."""
+    from ternary_spgemm_tpu_torch.models import init_cache
+
+    lm = _serve(dev)
+    p = _prompt(dev, 0)
+    caches = init_cache(lm.cfg, 3, 13, cache_dtype, device=dev)
+    with torch.no_grad():
+        logits, caches = lm.prefill(p, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        a_c = [{k: v.clone() for k, v in c.items()} for c in caches]
+        b_c = [{k: v.clone() for k, v in c.items()} for c in caches]
+        for t in range(10, 13):
+            a, a_c = lm.decode_step(tok, a_c, t)
+            b, b_c = lm.decode_step(
+                tok, b_c, torch.tensor(t, device=dev))
+            assert torch.equal(a, b)
+            for ca, cb in zip(a_c, b_c):
+                for k in ca:
+                    assert torch.equal(ca[k], cb[k]), (t, k)
+            tok = torch.argmax(a, dim=-1)
+
+
+@pytest.mark.parametrize("prefill", [True, False])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.int8],
+                         ids=["f32", "int8"])
+def test_graph_greedy_equals_eager(dev, prefill, cache_dtype):
+    """Greedy tokens of the captured loop (``models/graphs.py``) equal the
+    eager loop's, and its decode capture launched what one eager decode
+    step launches: two x8 on the decode body and one SwiGLU a layer."""
+    from ternary_spgemm_tpu_torch.models import generate
+
+    lm = _serve(dev)
+    p = _prompt(dev, 1)
+    kw = dict(prefill=prefill, cache_dtype=cache_dtype)
+    want = generate(lm, p, 12, graph=False, **kw)
+    lm._captured.clear()
+    got = generate(lm, p, 12, **kw)
+    assert torch.equal(got, want)
+    (loop,) = lm._captured.values()
+    L = lm.cfg.n_layers
+    assert loop.launches["step"] == {"CudaTiledBitplane_x8": 2 * L,
+                                     "fused_bitplane_swiglu": L}
+    if prefill:
+        assert loop.launches["prefill"]["CudaTiledBitplane_x8"] == 2 * L
+
+
+@pytest.mark.parametrize("prefill", [True, False])
+def test_graph_sampling_equals_eager(dev, prefill):
+    """One seed, the same sampled tokens from the captured and the eager
+    loop (the same noise drawn in the same order); another seed others."""
+    from ternary_spgemm_tpu_torch.models import generate
+
+    lm = _serve(dev)
+    p = _prompt(dev, 2)
+    kw = dict(prefill=prefill, cache_dtype=torch.int8, temperature=0.8,
+              top_k=20, top_p=0.95)
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    want = generate(lm, p, 12, graph=False, generator=seeded(5), **kw)
+    got = generate(lm, p, 12, graph=True, generator=seeded(5), **kw)
+    assert torch.equal(got, want)
+    other = generate(lm, p, 12, graph=True, generator=seeded(6), **kw)
+    assert not torch.equal(other, got)
+
+
+def test_graph_reused_across_calls(dev):
+    """A second generate of one shape replays the first call's graphs, and
+    a new prompt of that shape gets the eager loop's tokens for it."""
+    from ternary_spgemm_tpu_torch.models import generate
+
+    lm = _serve(dev)
+    lm._captured.clear()
+    p1, p2 = _prompt(dev, 3), _prompt(dev, 4)
+    a = generate(lm, p1, 8, max_t=24, cache_dtype=torch.int8)
+    (loop,) = lm._captured.values()
+    graphs = dict(loop.graphs)
+    b = generate(lm, p2, 8, max_t=24, cache_dtype=torch.int8)
+    c = generate(lm, p1, 5, max_t=24, cache_dtype=torch.int8)
+    assert len(lm._captured) == 1 and loop.graphs == graphs
+    assert torch.equal(a, generate(lm, p1, 8, max_t=24, graph=False,
+                                   cache_dtype=torch.int8))
+    assert torch.equal(b, generate(lm, p2, 8, max_t=24, graph=False,
+                                   cache_dtype=torch.int8))
+    assert torch.equal(c, a[:, :15])
+
+
+def test_capture_without_warmup_raises(dev):
+    """Capturing a split decode-body launch on a stream that has never run
+    one raises: its counters would be allocated inside the graph."""
+    fmt = TiledBitplane.from_dense(generate_ternary(256, 384, 2, seed=0)
+                                   ).to(dev)
+    X = torch.from_numpy(generate_x(4, 256, seed=0)).to(dev).round()
+    b = torch.zeros(384, device=dev)
+    stream = torch.cuda.Stream(dev)
+    # streams come from a pool: forget any counters an earlier test left
+    ck._GEMV_COUNTERS.pop((X.device, stream.cuda_stream), None)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="warm-up"):
+        with torch.cuda.graph(graph, stream=stream):
+            ck._bitplane_x8_lanes(X, fmt, b, parts=2)

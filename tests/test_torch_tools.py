@@ -392,3 +392,12 @@ def test_serve_trace_main(capsys, monkeypatch):
         r = got[call]
         assert r["wall_ms"] > 0 and r["host_ops"] > 0
         assert r["device_busy_ms"] is None and r["kernels"] == 0
+
+
+def test_serve_trace_graph_needs_the_card(monkeypatch):
+    """``--graph`` traces replays of CUDA graphs: on the CPU it raises
+    rather than trace the eager calls under its name."""
+    monkeypatch.setitem(st.serving.PRESETS, "tiny", dict(
+        d_model=64, n_heads=4, d_ff=128, n_layers=1, vocab=64))
+    with pytest.raises(ValueError, match="CUDA graphs"):
+        st.main(["--device", "cpu", "--preset", "tiny", "--graph"])
