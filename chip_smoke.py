@@ -85,6 +85,25 @@ result line if any fails, or if no GPU is visible):
    token for token; eager and captured prefill (tokens/s) and decode
    (ms a step) timed in the order eager, graph, graph, eager, and each
    loop's ``max_memory_allocated``, beside the card's name and power limit;
+5b. the rest of the serving path on phase 5's LM, each part counted:
+   (a) ``save_lm_bundle`` of the full-depth LM into a temporary directory
+   (the JAX package's bundle format; the merged QKV's wq / wk / wv
+   derived), ``load_lm_bundle`` onto the card: every tensor and setting
+   equal, the loaded LM's captured greedy tokens phase 5's, its warm-ups'
+   and captures' launches one prefill's and one step's (each three
+   times), and its captured decode ms a step beside the original's; (b)
+   a 512-token prompt, batch 4, prefilled whole and by
+   ``chunked_prefill`` at chunks of 8 (32 rows: x8 on the decode body), 9
+   (36 rows: x8 on the tensor cores) and 128: the same next greedy
+   token, each call's kernels on the branch its rows select, tokens/s,
+   peak memory and the last logits' max |diff| against unchunked; (c)
+   phase 5's blocks as a window-128 model, a 64-token prompt and 192 new
+   tokens: ``generate(ring=True)`` gives the full cache's tokens, eager
+   and captured, each cache's bytes and captured decode ms a step; (d) phase 5's blocks with a bf16
+   embedding: f32 logits, the head within rtol=atol=0.05 of the f32 head
+   on the same hidden states, the whole model's logits against the f32
+   head's, the greedy tokens that agree and each head's captured decode
+   ms a step;
 6. every other hand-written SpMM kernel of the registry (bf16 bitplane,
    nibble-pair i8, tiled-dense i8 and x8, dense f32, bf16 and i8,
    block-packed and tiled block-packed i8 at factor 4 and 5, stride-packed
@@ -171,14 +190,18 @@ block-packed ones at factor 4), the card line, and ``{"ok": true,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -256,6 +279,17 @@ SWIGLU_SPLIT_S2 = (1, 2, 4, 6, 8, 11, 16, 22, 44)
 #: BitNet-7B's merged QKV
 RING_RANKS = (2, 4, 8)
 RING_FULL = (512, 4096, 12288)
+#: phase 5b's long prompt (the JAX serving tool's T0, which phase 5 cuts to
+#: 128) and its chunks: 8 (32 rows, up to ``X8_MMA_MIN_M``: the x8 decode
+#: body), 9 (36 rows: its tensor cores) and 128
+LONG_T0 = 512
+LONG_CHUNKS = (8, 9, 128)
+#: phase 5b's ring: the window, prompt and new tokens (the generation runs
+#: past the window, so the ring wraps) and the layers it runs
+RING_WINDOW, RING_T0, RING_NEW, RING_LAYERS = 128, 64, 192, 32
+#: phase 5b's bf16 head against the f32 head (the JAX package's own
+#: tolerance, ``tests/test_decode.py``)
+BF16_HEAD_TOL = 0.05
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -1024,7 +1058,7 @@ def phase_serve(dev, card: str) -> dict:
           f"{gen_s:.3f} s; max_memory_allocated {peak / 2**30:.3f} GiB "
           f"[{card}]", flush=True)
     phase_serve_graph(dev, card, lm, prompt, toks, n_new, peak)
-    return counts
+    return counts, lm, prompt, toks
 
 
 def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
@@ -1151,6 +1185,368 @@ def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
           f"{eager_peak / 2**30:.3f} GiB, captured {graph_peak / 2**30:.3f} "
           f"GiB [{card}]", flush=True)
     lm._captured.clear()
+
+
+def path_launches(counts: dict) -> dict:
+    """The serve's kernels' launches by branch: x8 and the SwiGLU on the
+    decode body and on the tensor cores (``/mma``)."""
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    out = {}
+    for name, mma in (("CudaTiledBitplane_x8", ck.X8_MMA_COUNT),
+                      ("fused_bitplane_swiglu", fused_ffn.SWIGLU_MMA_COUNT)):
+        out[name] = {"decode": counts.get(name, 0) - counts.get(mma, 0),
+                     "mma": counts.get(mma, 0)}
+    return out
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; raises if a plain version ran on a CUDA tensor. Returns (its
+    result, the counts)."""
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_counts()
+    out = fn()
+    counts = dict(ck.launches)
+    check(not ck.plain_on_cuda,
+          f"a plain version ran on a CUDA tensor: {dict(ck.plain_on_cuda)}")
+    return out, counts
+
+
+def graph_step_ms(lm, prompt, n_new: int, ring: bool = False) -> float:
+    """ms a decode step of ``lm``'s captured greedy loop for ``prompt``
+    (int8 cache, a ring or not; captured by an earlier ``generate``),
+    replays timed."""
+    import torch
+
+    (loop,) = [v for v in lm._captured.values()
+               if v.prompt.shape == prompt.shape
+               and ("pos_tab" in v.caches[0]) == ring]
+    loop.load(prompt)
+    loop.call("prefill")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_new - 1):
+        loop.call("step")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / (n_new - 1) * 1e3
+
+
+def phase_serve_more(dev, card: str, lm, prompt, toks) -> dict:
+    """Phase 5b: the rest of the serving path on phase 5's BitNet-7B LM,
+    each part counted: (a) the LM through a serving bundle and back, (b) a
+    512-token prompt prefilled whole and in chunks, (c) the ring cache
+    past its window, (d) the bf16 head. Returns the launches of all four."""
+    import torch
+
+    total = collections.Counter()
+    for part in (phase_bundle, phase_chunked, phase_ring_cache,
+                 phase_bf16_head):
+        total.update(part(dev, card, lm, prompt, toks))
+        torch.cuda.empty_cache()
+    return dict(total)
+
+
+def phase_bundle(dev, card: str, lm, prompt, toks) -> dict:
+    """Phase 5b (a): ``save_lm_bundle`` of the full-depth LM into a
+    temporary directory and ``load_lm_bundle`` onto the card: every tensor
+    of the loaded LM equal to the original's, every setting the same, and
+    its captured greedy tokens phase 5's."""
+    import zipfile
+
+    import torch
+
+    from ternary_spgemm_tpu_torch.checkpoint import (
+        load_lm_bundle, save_lm_bundle)
+    from ternary_spgemm_tpu_torch.models import generate
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    try:
+        path = os.path.join(tmp, "bitnet7b.npz")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_lm_bundle(path, lm)
+        save_s = time.perf_counter() - t
+        nbytes = os.path.getsize(path)
+        parts = collections.Counter()
+        with zipfile.ZipFile(path) as z:
+            for info in z.infolist():
+                key = info.filename[:-len(".npy")]
+                kind = ("derived wq/wk/wv" if key.split(".")[1:2] in
+                        (["wq"], ["wk"], ["wv"]) else
+                        "embedding" if key == "embed" else
+                        "planes" if key.endswith(".plane") else "other")
+                parts[kind] += info.file_size
+        t = time.perf_counter()
+        back = load_lm_bundle(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp)
+    want, got = lm.state_dict(), back.state_dict()
+    check(list(got) == list(want), "the loaded LM's tensors are not the "
+          f"original's: {sorted(set(got) ^ set(want))[:8]}")
+    for k, v in want.items():
+        check(got[k].device == v.device and got[k].dtype == v.dtype
+              and torch.equal(got[k], v), f"loaded tensor {k} differs")
+    for a, b in zip(lm.blocks, back.blocks):
+        check((a.fused_ffn, a.a8, a.kernel) == (b.fused_ffn, b.a8, b.kernel),
+              "a loaded block's settings differ")
+        for n, lin in a.linears.items():
+            other = b.linears[n]
+            check((lin.gamma, lin.a8, lin.kernel) ==
+                  (other.gamma, other.a8, other.kernel),
+                  f"loaded linear {n}'s settings differ")
+    tensor_bytes = sum(v.numel() * v.element_size() for v in want.values())
+    print(f"bundle bitnet7b ({lm.cfg.n_layers} layers): {nbytes} bytes on disk "
+          f"({dict(parts)}); save {save_s:.2f} s, load onto the card "
+          f"{load_s:.2f} s; {len(want)} tensors ({tensor_bytes} bytes) "
+          f"equal to the original's [{card}]", flush=True)
+
+    n_new = toks.shape[1] - prompt.shape[1]
+    got_toks, counts = counted(
+        lambda: generate(back, prompt, n_new, cache_dtype=torch.int8))
+    check(torch.equal(got_toks, toks), "the loaded LM's captured greedy "
+          f"tokens differ from phase 5's:\n{got_toks.cpu()}\n{toks.cpu()}")
+    want_counts = capture_launches(lm.cfg.n_layers)
+    check(counts == want_counts, f"the loaded LM's warm-ups and captures "
+          f"launched {counts}, not {want_counts}")
+    generate(lm, prompt, n_new, cache_dtype=torch.int8)   # captures lm's
+    ms = [(name, graph_step_ms(m, prompt, n_new))
+          for name, m in (("original", lm), ("loaded", back),
+                          ("loaded", back), ("original", lm))]
+    print(f"bundle: the loaded LM's captured greedy tokens are phase 5's "
+          f"({tuple(toks.shape)}); launches of its warm-ups and captures "
+          f"{path_launches(counts)}; captured decode ms a step "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms) + f" [{card}]",
+          flush=True)
+    lm._captured.clear()
+    del back
+    return counts
+
+
+def serve_launches(L: int, steps: int) -> dict:
+    """The launches of a greedy generate of an ``L``-layer A8 serve, eager:
+    its prefill (on the tensor cores) and ``steps`` decode steps (on the
+    decode body)."""
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    return {"CudaTiledBitplane_x8": 2 * L * (1 + steps),
+            ck.X8_MMA_COUNT: 2 * L,
+            "fused_bitplane_swiglu": L * (1 + steps),
+            fused_ffn.SWIGLU_MMA_COUNT: L}
+
+
+def capture_launches(L: int) -> dict:
+    """The launches of a first captured generate of that serve: each of its
+    two bodies (the prefill, one decode step) run ``graphs.WARMUP`` times
+    and captured once; the replays launch through the graphs, uncounted."""
+    from ternary_spgemm_tpu_torch.models.graphs import WARMUP
+
+    return {k: (WARMUP + 1) * v for k, v in serve_launches(L, 1).items()}
+
+
+def phase_chunked(dev, card: str, lm, prompt, toks) -> dict:
+    """Phase 5b (b): a 512-token prompt, batch 4, prefilled whole and by
+    ``chunked_prefill`` at each of ``LONG_CHUNKS``: the same next greedy
+    token from each, each chunk's kernels on the branch its rows select
+    (x8 above ``X8_MMA_MIN_M`` rows on the tensor cores, the SwiGLU above
+    ``SWIGLU_MMA_MIN_M``); tokens/s, peak memory and launches of each."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import init_cache
+    from ternary_spgemm_tpu_torch.models.generate import chunked_prefill
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+
+    cfg = lm.cfg
+    B, T, L = prompt.shape[0], LONG_T0, cfg.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(512)
+    long_prompt = torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                device=dev)
+    total = collections.Counter()
+    ref = None
+    for chunk in (None,) + LONG_CHUNKS:
+        caches = init_cache(cfg, B, T, torch.int8, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def run():
+            with torch.no_grad():
+                if chunk is None:
+                    logits = lm.prefill(long_prompt, caches)[0]
+                else:
+                    logits = chunked_prefill(lm, long_prompt, caches,
+                                             chunk)[0]
+                last = logits[:, -1].clone()
+            torch.cuda.synchronize()
+            return last
+
+        t = time.perf_counter()
+        last, counts = counted(run)
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        total.update(counts)
+        check(bool(torch.isfinite(last).all()), "prefill logits not finite")
+        starts = range(0, T, chunk or T)
+        rows = [B * min(chunk or T, T - s) for s in starts]
+        want = {"CudaTiledBitplane_x8": 2 * L * len(rows),
+                ck.X8_MMA_COUNT: 2 * L * sum(
+                    r > ck.X8_MMA_MIN_M for r in rows),
+                "fused_bitplane_swiglu": L * len(rows),
+                fused_ffn.SWIGLU_MMA_COUNT: L * sum(
+                    r > fused_ffn.SWIGLU_MMA_MIN_M for r in rows)}
+        want = {k: v for k, v in want.items() if v}
+        name = "unchunked" if chunk is None else f"chunk {chunk}"
+        check(counts == want, f"{name} launched {counts}, not {want}")
+        nxt = torch.argmax(last, dim=-1)
+        if ref is None:
+            ref = (last, nxt)
+            diff = ""
+        else:
+            check(torch.equal(nxt, ref[1]), f"{name}'s next greedy tokens "
+                  f"{nxt.tolist()} differ from unchunked {ref[1].tolist()}")
+            diff = (f", last logits max |diff| against unchunked "
+                    f"{float((last - ref[0]).abs().max()):.6g}")
+        print(f"prefill {T} tokens x {B}, {name} ({len(rows)} calls of "
+              f"{sorted(set(rows))} rows): {secs:.3f} s = {B * T / secs:.1f} "
+              f"tokens/s; max_memory_allocated {peak / 2**30:.3f} GiB "
+              f"({(peak - base) / 2**30:.3f} GiB above the model and "
+              f"caches); launches {path_launches(counts)}; next greedy "
+              f"tokens {nxt.tolist()}{diff} [{card}]", flush=True)
+        del caches
+    return dict(total)
+
+
+def phase_ring_cache(dev, card: str, lm, prompt, toks) -> dict:
+    """Phase 5b (c): phase 5's blocks (``RING_LAYERS`` of them) as a
+    sliding-window model (``RING_WINDOW``) generating ``RING_NEW`` tokens
+    after a ``RING_T0``-token prompt, so the ring wraps: ``generate(ring=
+    True)`` gives the full cache's tokens, eager and captured; the cache
+    bytes of each."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import (
+        ExportedTransformerLM, generate, init_cache)
+
+    cfg = dataclasses.replace(lm.cfg, window=RING_WINDOW,
+                              n_layers=RING_LAYERS)
+    lm_w = ExportedTransformerLM(cfg, list(lm.blocks)[:RING_LAYERS],
+                                 lm.embed, lm.norm_out)
+    p = prompt[:, :RING_T0]
+    B, L = p.shape[0], RING_LAYERS
+    total = collections.Counter()
+    out, secs = {}, {}
+    for ring in (False, True):
+        for graph in (False, True):
+            def run():
+                got = generate(lm_w, p, RING_NEW, cache_dtype=torch.int8,
+                               ring=ring, graph=graph)
+                torch.cuda.synchronize()
+                return got
+            t = time.perf_counter()
+            out[ring, graph], counts = counted(run)
+            secs[ring, graph] = time.perf_counter() - t
+            total.update(counts)
+            want = (capture_launches(L) if graph
+                    else serve_launches(L, RING_NEW - 1))
+            check(counts == want, f"ring={ring} graph={graph} launched "
+                  f"{counts}, not {want}")
+    full = out[False, False]
+    check(tuple(full.shape) == (B, RING_T0 + RING_NEW), "ring tokens shape")
+    for key, got in out.items():
+        check(torch.equal(got, full), f"ring={key[0]} graph={key[1]} tokens "
+              f"differ from the eager full cache's")
+    ms = [(ring, graph_step_ms(lm_w, p, RING_NEW, ring=ring))
+          for ring in (False, True, True, False)]
+    nbytes = {ring: sum(t.numel() * t.element_size()
+                        for c in init_cache(cfg, B, RING_T0 + RING_NEW,
+                                            torch.int8, ring=ring, device=dev)
+                        for t in c.values())
+              for ring in (False, True)}
+    print(f"ring: {L} layers of bitnet7b, window {RING_WINDOW}, batch {B}, "
+          f"prompt {RING_T0}, {RING_NEW} new tokens: tokens identical for "
+          f"the full cache and the ring, eager and captured; cache bytes "
+          f"full {nbytes[False]}, ring {nbytes[True]}; generate s "
+          + ", ".join(f"{'ring' if r else 'full'} {'graph' if g else 'eager'}"
+                      f" {v:.3f}" for (r, g), v in secs.items())
+          + " (graph: capture included); captured decode ms a step "
+          + ", ".join(f"{'ring' if r else 'full'} {v:.3f}" for r, v in ms)
+          + f" [{card}]", flush=True)
+    lm_w._captured.clear()
+    return dict(total)
+
+
+def phase_bf16_head(dev, card: str, lm, prompt, toks) -> dict:
+    """Phase 5b (d): phase 5's blocks with a bf16 embedding: f32 logits;
+    the bf16 head within ``BF16_HEAD_TOL`` of the f32 head on the f32
+    model's final hidden states; the whole model's logits against the f32
+    model's, the greedy tokens that agree, and the captured decode ms a
+    step of each head (f32, bf16, bf16, f32)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import (
+        ExportedTransformerLM, generate, init_cache)
+
+    hidden = {}
+
+    class Probe(ExportedTransformerLM):
+        def _head(self, x):
+            hidden["x"] = x
+            return super()._head(x)
+
+    cfg = lm.cfg
+    (B, T0), n_new = prompt.shape, toks.shape[1] - prompt.shape[1]
+    f32 = Probe(cfg, lm.blocks, lm.embed, lm.norm_out)
+    bf16 = ExportedTransformerLM(cfg, lm.blocks, lm.embed, lm.norm_out,
+                                 head_dtype=torch.bfloat16)
+    check(bf16.embed.dtype == torch.bfloat16, "the embedding is not bf16")
+    with torch.no_grad():
+        l32 = f32.prefill(prompt, init_cache(cfg, B, T0, torch.int8,
+                                             device=dev))[0]
+        l16 = bf16.prefill(prompt, init_cache(cfg, B, T0, torch.int8,
+                                              device=dev))[0]
+        x = hidden["x"]
+        h16, h32 = bf16._head(x), f32._head(x)
+    check(l16.dtype == torch.float32 and h16.dtype == torch.float32,
+          f"bf16 head logits are {l16.dtype}")
+    head_err = float((h16 - h32).abs().max())
+    check(bool(torch.isclose(h16, h32, rtol=BF16_HEAD_TOL,
+                             atol=BF16_HEAD_TOL).all()),
+          f"the bf16 head is {head_err} from the f32 head")
+    diff = (l16 - l32).abs()
+    within = float((diff <= BF16_HEAD_TOL + BF16_HEAD_TOL * l32.abs())
+                   .float().mean())
+
+    got, counts = counted(lambda: generate(bf16, prompt, n_new,
+                                           cache_dtype=torch.int8))
+    want = generate(bf16, prompt, n_new, cache_dtype=torch.int8, graph=False)
+    check(torch.equal(got, want), "the bf16 head's captured tokens differ "
+          "from its eager loop's")
+    generate(lm, prompt, n_new, cache_dtype=torch.int8)     # captures f32
+    agree = int((got[:, T0:] == toks[:, T0:]).sum())
+    first = [next((i for i in range(n_new) if got[b, T0 + i] != toks[b, T0 + i]),
+                  n_new) for b in range(B)]
+    ms = [(name, graph_step_ms(m, prompt, n_new))
+          for name, m in (("f32", lm), ("bf16", bf16), ("bf16", bf16),
+                          ("f32", lm))]
+    print(f"bf16 head: f32 logits; the head alone on the f32 model's hidden "
+          f"states max |diff| {head_err:.6g} (within rtol=atol="
+          f"{BF16_HEAD_TOL}); the whole model's prefill logits max |diff| "
+          f"{float(diff.max()):.6g}, {within:.4%} within rtol=atol="
+          f"{BF16_HEAD_TOL}; greedy tokens agreeing with the f32 head "
+          f"{agree} of {B * n_new} (first difference per row at new token "
+          f"{first}); captured decode ms a step "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms) + f" [{card}]",
+          flush=True)
+    lm._captured.clear()
+    bf16._captured.clear()
+    return counts
 
 
 def phase_bench_kernels(dev, card: str) -> dict:
@@ -1768,7 +2164,10 @@ def main() -> int:
         check(os.path.isfile(os.path.join(ROOT, src)), f"no source {src}")
     stats = phase_kernels(dev, card)
     phase_model_parity(dev)
-    serve_counts = phase_serve(dev, card)
+    serve_counts, lm, prompt, toks = phase_serve(dev, card)
+    more_counts = phase_serve_more(dev, card, lm, prompt, toks)
+    del lm
+    torch.cuda.empty_cache()
     stats.update(phase_bench_kernels(dev, card))
     bench_counts = phase_entry_point(dev)
     ffn_counts = phase_ffn_bench(card)
@@ -1780,8 +2179,8 @@ def main() -> int:
     stats.update(ring_stats)
     check("jax" not in sys.modules, "jax was imported")
 
-    runs = (serve_counts, bench_counts, ffn_counts, probe_counts,
-            ragged_counts, ring_counts)
+    runs = (serve_counts, more_counts, bench_counts, ffn_counts,
+            probe_counts, ragged_counts, ring_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

@@ -1,0 +1,404 @@
+"""Checkpoints and serving bundles — counterpart of
+``ternary_spgemm_tpu/checkpoint.py``, in the JAX package's file format, so
+that a file written by either package loads in the other with the same
+array bytes:
+
+* :func:`save_container` / :func:`load_container`: one container with its
+  scale, bias and slope, an ``.npz`` of ``field_<name>`` arrays and a JSON
+  ``header`` ``{"format", "static", "gamma"}`` (the legacy ``leaf_<i>``
+  layout is read too);
+* :func:`save_lm_bundle` / :func:`load_lm_bundle`: a whole serving LM, one
+  self-describing ``.npz`` (``{"version": 1, "cfg", "embed_dtype",
+  "blocks"}``; arrays keyed by their path, such as ``b3.wo.fmt.plane``);
+* :func:`save_pytree` / :func:`restore_pytree`: a tree of arrays as
+  ``leaf_<i>`` in ``jax.tree_util``'s flatten order (a dict's values by
+  sorted key, lists and tuples in order, None no leaf), the layout the JAX
+  package writes where orbax is not importable. An orbax directory cannot
+  be read here. The sharded forms wait for the port's parallel schemes
+  (ROADMAP A8).
+
+Names on disk are the JAX package's: a container's class name (looked up
+in :func:`~ternary_spgemm_tpu_torch.formats.all_formats`) and a kernel's
+JAX registry name, mapped to and from this port's through
+``ops.api.REFERENCE_KERNELS``. A file never holds pickled objects: a
+container field that is None is left out (the JAX package writes it as a
+pickled ``None``, which this loader reads as None without unpickling). A
+64-bit container field (the JAX packer's host column sums) loads as the
+32-bit array that the JAX package's device copy, and the port's kernels,
+hold.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ternary_spgemm_tpu_torch.formats.base import TernaryFormat, all_formats
+from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
+from ternary_spgemm_tpu_torch.ops.api import REFERENCE_KERNELS
+from ternary_spgemm_tpu_torch.utils.device import resolve_device
+
+#: the serving bundle's format version (the JAX package's)
+BUNDLE_VERSION = 1
+
+#: the attention inputs a merged-QKV block also carries in the JAX export
+QKV_LINEARS = ("wq", "wk", "wv")
+
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _numpy(x) -> np.ndarray:
+    """A tensor or array as a host numpy array with the same bytes."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            raise TypeError("numpy has no bfloat16: store the raw bits "
+                            "(the bundle's bf16 embedding does)")
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+#: 64-bit host arrays as the JAX package's device arrays hold them (64-bit
+#: types off): a container the JAX package saves straight from its packer
+#: has int64 column sums, which its kernels see as int32, as the port's do
+_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+           np.dtype(np.float64): np.float32}
+
+
+def _field_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A container field of a file as the tensor the port's kernels read."""
+    narrow = _NARROW.get(a.dtype)
+    if narrow is not None:
+        info = np.iinfo(narrow) if a.dtype.kind in "iu" else None
+        if info and a.size and (a.min() < info.min or a.max() > info.max):
+            raise ValueError(f"a {a.dtype} field does not fit "
+                             f"{np.dtype(narrow)}")
+        a = a.astype(narrow)
+    return _tensor(a, device)
+
+
+def _encode(obj) -> np.ndarray:
+    return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8)
+
+
+def _decode(data) -> dict:
+    return json.loads(bytes(data["header"]).decode())
+
+
+def _field(data, key: str):
+    """The array ``key`` of an open ``.npz``, or None where the file holds
+    none: left out (this package), or a pickled ``None`` (the JAX package's
+    ``np.asarray(None)``), which ``np.load`` refuses to unpickle."""
+    if key not in data:
+        return None
+    try:
+        return data[key]
+    except ValueError:
+        return None
+
+
+def _format_class(name: str):
+    cls = all_formats().get(name)
+    if cls is None:
+        raise NotImplementedError(
+            f"container {name!r} is not ported yet (ROADMAP A4); the port "
+            f"has {sorted(all_formats())}")
+    return cls
+
+
+def _jax_kernel(name):
+    """A kernel name of this port -> the JAX registry's name (None stays)."""
+    if name is None:
+        return None
+    for jax_name, port_name in REFERENCE_KERNELS.items():
+        if port_name == name:
+            return jax_name
+    raise ValueError(f"kernel {name!r} has no counterpart in the JAX "
+                     "registry, so a bundle cannot name it")
+
+
+def _port_kernel(name):
+    """A JAX registry name on disk -> this port's kernel (None stays)."""
+    if name is None:
+        return None
+    if name not in REFERENCE_KERNELS:
+        raise ValueError(f"kernel {name!r} is not in the JAX registry")
+    if REFERENCE_KERNELS[name] is None:
+        raise NotImplementedError(f"kernel {name!r} is not ported yet "
+                                  "(ROADMAP A4)")
+    return REFERENCE_KERNELS[name]
+
+
+def _fmt_record(fmt: TernaryFormat, prefix: str, arrays: dict) -> dict:
+    """``fmt``'s arrays into ``arrays`` as ``<prefix><field>``; returns its
+    header ``{"format", "static"}``."""
+    for name, t in fmt.arrays().items():
+        if t is not None:
+            arrays[prefix + name] = _numpy(t)
+    return {"format": type(fmt).__name__, "static": fmt.meta()}
+
+
+def _fmt_restore(hdr: dict, prefix: str, data, device) -> TernaryFormat:
+    cls = _format_class(hdr["format"])
+    fields = {}
+    for name in cls.ARRAY_FIELDS:
+        a = _field(data, prefix + name)
+        fields[name] = None if a is None else _field_tensor(a, device)
+    return cls(**fields, **hdr["static"])
+
+
+def save_container(path: str, fmt: TernaryFormat, *, gamma: float = 1.0,
+                   bias=None, alpha=None) -> None:
+    """Save one container with its scale and optional bias and per-column
+    slope (the JAX ``save_container``'s layout)."""
+    arrays = {}
+    header = _fmt_record(fmt, "field_", arrays)
+    if bias is not None:
+        arrays["bias"] = _numpy(bias)
+    if alpha is not None:
+        arrays["alpha"] = _numpy(alpha)
+    arrays["header"] = _encode({**header, "gamma": float(gamma)})
+    np.savez(_npz(path), **arrays)
+
+
+def load_container(path: str, device="cuda"):
+    """Load a container file (either package's) -> ``(fmt, gamma, bias,
+    alpha)``, the tensors on ``device`` (the card unless ``device="cpu"``;
+    raises without one); bias and alpha None where the file has none."""
+    device = resolve_device(device)
+    with np.load(_npz(path)) as data:
+        header = _decode(data)
+        cls = _format_class(header["format"])
+        if f"field_{cls.ARRAY_FIELDS[0]}" in data:
+            fmt = _fmt_restore(header, "field_", data, device)
+        else:   # the legacy positional layout
+            fmt = cls(**header["static"], **{
+                name: _field_tensor(data[f"leaf_{i}"], device)
+                for i, name in enumerate(cls.ARRAY_FIELDS)})
+        bias, alpha = (None if k not in data else _tensor(data[k], device)
+                       for k in ("bias", "alpha"))
+    return fmt, header["gamma"], bias, alpha
+
+
+def _linear_record(lin, prefix: str, arrays: dict) -> dict:
+    hdr = {"fmt": _fmt_record(lin.fmt, f"{prefix}.fmt.", arrays),
+           "fmt_t": (None if lin.fmt_t is None else
+                     _fmt_record(lin.fmt_t, f"{prefix}.fmt_t.", arrays)),
+           "gamma": float(lin.gamma), "kernel": _jax_kernel(lin.kernel),
+           "has_alpha": lin.alpha is not None, "a8": bool(lin.a8)}
+    arrays[f"{prefix}.bias"] = _numpy(lin.bias)
+    if lin.alpha is not None:
+        arrays[f"{prefix}.alpha"] = _numpy(lin.alpha)
+    return hdr
+
+
+def _linear_restore(hdr: dict, prefix: str, data, device):
+    from ternary_spgemm_tpu_torch.models.exported import ExportedBitLinear
+
+    return ExportedBitLinear(
+        _fmt_restore(hdr["fmt"], f"{prefix}.fmt.", data, device),
+        hdr["gamma"], data[f"{prefix}.bias"],
+        data[f"{prefix}.alpha"] if hdr["has_alpha"] else None,
+        kernel=_port_kernel(hdr["kernel"]), a8=hdr.get("a8", False),
+        fmt_t=(None if hdr["fmt_t"] is None else
+               _fmt_restore(hdr["fmt_t"], f"{prefix}.fmt_t.", data, "cpu")))
+
+
+def _split_qkv(block) -> dict:
+    """``wq``/``wk``/``wv`` of a merged-QKV block, in the form the JAX
+    export keeps them beside the merged container: each column segment of
+    the merged container re-packed with its ``tkb`` and ``tile_n``, its
+    gamma the segment's scale (which must be one value), its bias the
+    segment's, the block's kernel and A8 regime. The JAX block reads its
+    A8 regime from ``wq``, so a bundle without them would run the merged
+    QKV outside A8 there."""
+    from ternary_spgemm_tpu_torch.models.exported import ExportedBitLinear
+
+    fmt = block.qkv.fmt
+    if not isinstance(fmt, TiledBitplane):
+        raise NotImplementedError(
+            f"re-packing a merged {type(fmt).__name__} QKV into wq/wk/wv is "
+            "not supported; the port merges TiledBitplane only")
+    d, kvw = block.cfg.d_model, block.cfg.kv_width
+    W = fmt.to_dense()
+    out = {}
+    for name, lo, hi in (("wq", 0, d), ("wk", d, d + kvw),
+                         ("wv", d + kvw, d + 2 * kvw)):
+        scale = block.qkv.scale[lo:hi]
+        if not bool((scale == scale[0]).all()):
+            raise ValueError(f"the merged QKV's scale is not one value over "
+                             f"the {name} segment, so it has no gamma")
+        out[name] = ExportedBitLinear(
+            TiledBitplane.from_dense(W[:, lo:hi].contiguous(), tkb=fmt.tkb,
+                                     tile_n=fmt.tile_n),
+            float(scale[0]), block.qkv.bias[lo:hi], kernel=block.kernel,
+            a8=block.a8)
+    return out
+
+
+def save_lm_bundle(path: str, lm) -> None:
+    """Save an :class:`~ternary_spgemm_tpu_torch.models.ExportedTransformerLM`
+    as one serving bundle in the JAX package's format.
+
+    The header's ``cfg`` has the JAX ``BitTransformerConfig``'s fields,
+    each linear's and block's ``kernel`` the JAX registry's name, ``fmt_t``
+    the transposed container a loaded bundle brought (else null); a bf16
+    embedding is stored as its raw ``uint16`` bits with ``embed_dtype:
+    "bfloat16"``. A merged-QKV block without ``wq``/``wk``/``wv`` gets them
+    from :func:`_split_qkv`, listed under the block's ``"derived"`` key
+    (which the JAX loader ignores and :func:`load_lm_bundle` drops)."""
+    emb = lm.embed.detach().cpu()
+    if emb.dtype == torch.bfloat16:
+        embed_dtype = "bfloat16"
+        emb = emb.view(torch.int16).numpy().view(np.uint16)
+    else:
+        embed_dtype = str(emb.numpy().dtype)
+        emb = emb.numpy()
+    arrays = {"embed": emb, "norm_out": _numpy(lm.norm_out)}
+    blocks = []
+    for i, blk in enumerate(lm.blocks):
+        linears = dict(blk.linears)
+        bh = {"linears": {}, "fused_ffn": bool(blk.fused_ffn),
+              "kernel": _jax_kernel(blk.kernel)}
+        if blk.qkv is not None and not any(n in linears for n in QKV_LINEARS):
+            linears = {**_split_qkv(blk), **linears}
+            bh["derived"] = list(QKV_LINEARS)
+        for name, lin in linears.items():
+            bh["linears"][name] = _linear_record(lin, f"b{i}.{name}", arrays)
+        if blk.qkv is not None:
+            bh["qkv"] = _fmt_record(blk.qkv.fmt, f"b{i}.qkv.fmt.", arrays)
+            arrays[f"b{i}.qkv.scale"] = _numpy(blk.qkv.scale)
+            arrays[f"b{i}.qkv.bias"] = _numpy(blk.qkv.bias)
+        arrays[f"b{i}.norm_attn"] = _numpy(blk.norm_attn)
+        arrays[f"b{i}.norm_ffn"] = _numpy(blk.norm_ffn)
+        blocks.append(bh)
+    arrays["header"] = _encode({
+        "version": BUNDLE_VERSION, "cfg": dataclasses.asdict(lm.cfg),
+        "embed_dtype": embed_dtype, "blocks": blocks})
+    np.savez(_npz(path), **arrays)
+
+
+def load_lm_bundle(path: str, device="cuda"):
+    """Load a serving bundle (either package's) -> ``ExportedTransformerLM``
+    built on ``device`` (the card unless ``device="cpu"``; raises without
+    one). Transposed containers stay on the host (the port is forward-only
+    and keeps them for a re-save); the ``"derived"`` ``wq``/``wk``/``wv``
+    that :func:`save_lm_bundle` wrote are dropped. MoE bundles raise."""
+    from ternary_spgemm_tpu_torch.models.generate import ExportedTransformerLM
+    from ternary_spgemm_tpu_torch.models.transformer import (
+        BitTransformerConfig, ExportedTransformerBlock, MergedQKV)
+
+    device = resolve_device(device)
+    with np.load(_npz(path)) as data:
+        header = _decode(data)
+        if header.get("version") != BUNDLE_VERSION:
+            raise ValueError(f"bundle version {header.get('version')!r}; "
+                             f"this loader reads {BUNDLE_VERSION}")
+        cfg = BitTransformerConfig(**header["cfg"])
+        if cfg.moe_experts or any("moe" in bh for bh in header["blocks"]):
+            raise NotImplementedError("MoE bundles need the port's MoE "
+                                      "blocks, which are ROADMAP A7")
+        blocks = []
+        for i, bh in enumerate(header["blocks"]):
+            derived = set(bh.get("derived", ()))
+            hdrs = bh["linears"]
+            linears = {n: _linear_restore(h, f"b{i}.{n}", data, device)
+                       for n, h in hdrs.items() if n not in derived}
+            qkv = None
+            if bh.get("qkv") is not None:
+                qkv = MergedQKV(
+                    _fmt_restore(bh["qkv"], f"b{i}.qkv.fmt.", data, device),
+                    data[f"b{i}.qkv.scale"], data[f"b{i}.qkv.bias"])
+            blocks.append(ExportedTransformerBlock(
+                cfg, linears, data[f"b{i}.norm_attn"], data[f"b{i}.norm_ffn"],
+                fused_ffn=bh.get("fused_ffn", False), qkv=qkv,
+                kernel=_port_kernel(bh.get("kernel")),
+                a8=hdrs.get("wq", {}).get("a8", False)))
+        embed, head_dtype = data["embed"], None
+        edt = header.get("embed_dtype", "float32")
+        if edt == "bfloat16":
+            embed = torch.from_numpy(embed.view(np.int16)).view(torch.bfloat16)
+            head_dtype = torch.bfloat16
+        elif edt != "float32":
+            raise ValueError(f"embed_dtype {edt!r}: the port's head is f32 "
+                             "or bf16")
+        return ExportedTransformerLM(cfg, blocks, embed, data["norm_out"],
+                                     head_dtype=head_dtype)
+
+
+def _leaves(tree) -> list:
+    """``tree``'s leaves in ``jax.tree_util``'s order: a dict's values by
+    sorted key (an OrderedDict's in its own order), a list's or tuple's in
+    order, no leaf for None."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        keys = tree if isinstance(tree, OrderedDict) else sorted(tree)
+        return [leaf for k in keys for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for child in tree for leaf in _leaves(child)]
+    return [tree]
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure with its leaves taken in turn from the iterator
+    ``leaves`` (the order of :func:`_leaves`)."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        keys = like if isinstance(like, OrderedDict) else sorted(like)
+        values = {k: _rebuild(like[k], leaves) for k in keys}
+        return type(like)((k, values[k]) for k in like)
+    if isinstance(like, (list, tuple)):
+        children = [_rebuild(c, leaves) for c in like]
+        if hasattr(like, "_fields"):              # a namedtuple
+            return type(like)(*children)
+        return type(like)(children)
+    arr = next(leaves)
+    if isinstance(like, torch.Tensor):
+        return _tensor(arr, like.device)
+    return arr
+
+
+def save_pytree(path: str, tree) -> None:
+    """Save a tree of tensors or arrays (dicts, lists, tuples, None) as the
+    ``.npz`` the JAX ``save_pytree`` writes where orbax is not importable:
+    ``leaf_<i>`` in ``jax.tree_util``'s flatten order."""
+    np.savez(_npz(path), **{f"leaf_{i}": _numpy(leaf)
+                            for i, leaf in enumerate(_leaves(tree))})
+
+
+def restore_pytree(path: str, like):
+    """Restore a :func:`save_pytree` file (either package's ``.npz``) into
+    ``like``'s structure: a leaf that is a tensor in ``like`` comes back a
+    tensor on its device, any other a numpy array. An orbax directory (what
+    the JAX ``save_pytree`` writes where orbax is importable) raises."""
+    p = _npz(path)
+    if not os.path.exists(p):
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory: an orbax checkpoint, which the JAX "
+                "package's save_pytree writes where orbax is importable. "
+                "The port reads only the .npz layout (leaf_<i> in "
+                "jax.tree_util's flatten order): save the tree where orbax "
+                "is not importable, or with this package's save_pytree")
+        raise FileNotFoundError(p)
+    n = len(_leaves(like))
+    with np.load(p) as data:
+        stored = sum(k.startswith("leaf_") for k in data.files)
+        if stored != n:
+            raise ValueError(f"{p} holds {stored} leaves; the tree given as "
+                             f"`like` has {n}")
+        leaves = [data[f"leaf_{i}"] for i in range(n)]
+    return _rebuild(like, iter(leaves))

@@ -6,6 +6,7 @@ not ported yet)."""
 
 from ternary_spgemm_tpu_torch.formats.base import (
     TernaryFormat,
+    all_formats,
     format_from_buffers,
     register_format,
     register_format_buffers,
@@ -39,7 +40,7 @@ from ternary_spgemm_tpu_torch.formats.tiled import (
 )
 
 __all__ = [
-    "TernaryFormat", "register_format",
+    "TernaryFormat", "register_format", "all_formats",
     "register_format_buffers", "format_from_buffers",
     "TiledBitplane", "TiledNibblePair", "TiledDenseTernary",
     "TiledBlockPacked", "BlockPackedTernary", "PackedTernary2Bit",

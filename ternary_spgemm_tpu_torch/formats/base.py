@@ -3,8 +3,10 @@
 Counterpart of ``ternary_spgemm_tpu/formats/base.py``. A container is a
 frozen dataclass whose array fields (``ARRAY_FIELDS``) are torch tensors and
 whose other fields are static shape metadata (an optional derived tensor,
-such as TCSC's gather tables, may be None). There is no pytree
-registration: :meth:`TernaryFormat.to` moves the tensors, and modules that
+such as TCSC's gather tables, may be None). :func:`register_format`
+records each container by class name (:func:`all_formats`, what the
+checkpoint loader looks names up in). There is no pytree registration:
+:meth:`TernaryFormat.to` moves the tensors, and modules that
 hold a container keep its tensors as registered buffers
 (:func:`register_format_buffers`) so that ``module.to(device)`` moves them.
 """
@@ -13,15 +15,29 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import ClassVar, Dict
+from typing import ClassVar, Dict, Type
 
 import numpy as np
 import torch
 
+_FORMAT_REGISTRY: Dict[str, Type["TernaryFormat"]] = {}
+
 
 def register_format(cls):
-    """Class decorator: make a container class a frozen dataclass."""
-    return dataclasses.dataclass(frozen=True, eq=False)(cls)
+    """Class decorator: make a container class a frozen dataclass and
+    register it by class name (a base whose name starts with ``_`` is not
+    registered)."""
+    cls = dataclasses.dataclass(frozen=True, eq=False)(cls)
+    if not cls.__name__.startswith("_"):
+        _FORMAT_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def all_formats() -> Dict[str, Type["TernaryFormat"]]:
+    """Class name -> container class, for every registered container: the
+    names the JAX package's ``all_formats()`` gives the same containers,
+    which the checkpoint files record."""
+    return dict(_FORMAT_REGISTRY)
 
 
 class TernaryFormat(abc.ABC):

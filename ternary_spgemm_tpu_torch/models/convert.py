@@ -22,20 +22,23 @@ from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 def lm_from_jax_params(cfg: BitTransformerConfig, params_np: dict, *,
                        a8: bool, fused_qkv: bool, fused_ffn: bool,
-                       device="cuda", **fmt_kwargs) -> ExportedTransformerLM:
+                       device="cuda", format_cls=TiledBitplane, kernel=None,
+                       head_dtype=None, **fmt_kwargs) -> ExportedTransformerLM:
     """The port's :class:`ExportedTransformerLM` from a JAX QAT tree (the
     counterpart of ``ExportedTransformerLM.from_params(model, params,
-    TiledBitplane, a8=..., fused_qkv=..., fused_ffn=..., with_transpose=
-    False)``), built on the card (raises without one) unless
-    ``device="cpu"``."""
+    format_cls, kernel=..., a8=..., fused_qkv=..., fused_ffn=...,
+    head_dtype=..., with_transpose=False)``), built on the card (raises
+    without one) unless ``device="cpu"``. ``kernel`` names a kernel of this
+    port's registry (None: dispatch as the JAX package does)."""
     device = resolve_device(device)
     if cfg.moe_experts:
-        raise NotImplementedError("MoE blocks are not ported yet")
+        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A7)")
     if len(params_np["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params_np['blocks'])} blocks, "
                          f"cfg.n_layers={cfg.n_layers}")
     blocks = [ExportedTransformerBlock.from_params(
-        cfg, p, TiledBitplane, fused_ffn=fused_ffn, fused_qkv=fused_qkv,
-        a8=a8, device=device, **fmt_kwargs) for p in params_np["blocks"]]
+        cfg, p, format_cls, kernel=kernel, fused_ffn=fused_ffn,
+        fused_qkv=fused_qkv, a8=a8, device=device, **fmt_kwargs)
+        for p in params_np["blocks"]]
     return ExportedTransformerLM(cfg, blocks, params_np["embed"],
-                                 params_np["norm_out"])
+                                 params_np["norm_out"], head_dtype=head_dtype)

@@ -59,11 +59,17 @@ class ExportedBitLinear(nn.Module):
     ``spgemm(x, b / gamma) * gamma`` through default dispatch — over a
     TiledBitplane that is the _i8 kernel, which floors non-integer x (and
     warns), exactly as the JAX package does.
+
+    ``fmt_t``: the transposed container of a loaded bundle (the JAX
+    export's ``with_transpose=True``). The forward never reads it; it is
+    kept on the host so that a re-save writes it back unchanged.
     """
 
     def __init__(self, fmt: TernaryFormat, gamma: float, bias, alpha=None, *,
-                 kernel: Optional[str] = None, a8: bool = False):
+                 kernel: Optional[str] = None, a8: bool = False,
+                 fmt_t: Optional[TernaryFormat] = None):
         super().__init__()
+        self.fmt_t = None if fmt_t is None else fmt_t.to("cpu")
         register_format_buffers(self, fmt)
         dev = fmt.device
         self.gamma = float(gamma)

@@ -2,10 +2,15 @@
 ``ternary_spgemm_tpu/models/generate.py`` for the exported model.
 
 * :func:`init_cache` — per-block ``(B, H, max_T, hd)`` K/V caches, f32 or
-  int8 with per-(token, head) absmax scales;
-* :class:`ExportedTransformerLM` — full forward, whole-prompt prefill that
-  fills the caches, and the one-token decode step; every projection runs on
-  the kernel registry;
+  int8 with per-(token, head) absmax scales; ``ring=True`` (sliding-window
+  models) a ring of ``window`` slots that records each slot's position;
+* :class:`ExportedTransformerLM` — full forward, prefill that fills the
+  caches (the whole prompt, or one chunk of it at ``start``), and the
+  one-token decode step; every projection runs on the kernel registry;
+  an f32 or a bf16 tied head (``head_dtype``); :meth:`~ExportedTransformerLM.
+  from_params` from a JAX parameter tree;
+* :func:`chunked_prefill` — a long prompt in fixed-size chunks, each
+  attending to the cache the chunks before it filled;
 * :func:`sample` — the JAX ``_make_sampler``'s temperature, top-k and
   top-p (nucleus) masking, then ``argmax(masked + gumbel)``;
 * :func:`generate` — greedy or sampled decoding, with or without the
@@ -16,9 +21,8 @@ The decode position ``pos`` is a Python int or a 0-d int64 tensor on the
 model's device (the captured step keeps it there and bumps it in place);
 the two give the same bits. The JAX package is functional; here
 :func:`_cache_put` writes the new rows into the cache tensors in place (no
-copy of the cache per step) and returns the same dict. Ring caches, chunked
-prefill, the bf16 head and serving-flag autotuning come in later slices of
-the port.
+copy of the cache per step) and returns the same dict. Serving-flag
+autotuning (``from_params(auto=True)``) comes in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from ternary_spgemm_tpu_torch.formats.base import as_f32
+from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
 from ternary_spgemm_tpu_torch.ops.fused_ffn import true_div
 from ternary_spgemm_tpu_torch.models.transformer import (
     F64,
@@ -56,24 +61,40 @@ def _rotary_at(x: torch.Tensor, pos, base: float = 10000.0):
 
 
 def init_cache(cfg: BitTransformerConfig, batch: int, max_t: int,
-               dtype=torch.float32, *, device=None):
+               dtype=torch.float32, *, ring: bool = False, device=None):
     """Zeroed per-block caches: a list of ``{"k", "v"}: (B, H, max_T, hd)``;
     ``dtype=torch.int8`` adds ``k_scale``/``v_scale`` ``(B, H, max_T, 1)``
     f32 (4x smaller cache; scales applied outside the attention dots). With
-    GQA, H is the KV-head count."""
+    GQA, H is the KV-head count.
+
+    ``ring=True`` (needs ``cfg.window > 0``): ``window`` slots whatever
+    ``max_t``; position p lives at slot ``p % window``, and ``pos_tab
+    (window,)`` int32 holds each slot's position (-1: empty), which the
+    decode step masks by. A prompt longer than the window cannot be
+    prefilled into a ring (its own earlier queries need the keys it would
+    evict): :func:`generate` refuses it."""
     hd = cfg.d_model // cfg.n_heads
-    shape = (batch, cfg.kv_heads, max_t, hd)
+    slots = max_t
+    if ring:
+        if not cfg.window:
+            raise ValueError("ring=True requires cfg.window > 0")
+        slots = cfg.window
+    shape = (batch, cfg.kv_heads, slots, hd)
     caches = []
     for _ in range(cfg.n_layers):
         if dtype == torch.int8:
-            caches.append({
+            cache = {
                 "k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(shape[:3] + (1,), device=device),
-                "v_scale": torch.zeros(shape[:3] + (1,), device=device)})
+                "v_scale": torch.zeros(shape[:3] + (1,), device=device)}
         else:
-            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+            cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if ring:
+            cache["pos_tab"] = torch.full((slots,), -1, dtype=torch.int32,
+                                          device=device)
+        caches.append(cache)
     return caches
 
 
@@ -87,8 +108,14 @@ def _quant_rows(x: torch.Tensor):
 def _cache_put(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                pos) -> dict:
     """Write (quantizing for int8 caches) rotated K/V rows at positions
-    ``pos, pos + 1, ...`` (``pos`` an int or a 0-d tensor), in place."""
+    ``pos, pos + 1, ...`` (``pos`` an int or a 0-d tensor), in place. A
+    ring cache (``pos_tab``) takes position p at slot ``p % window`` and
+    records p there."""
     idx = torch.arange(k_new.shape[2], device=k_new.device) + pos
+    if "pos_tab" in cache:
+        slots = torch.remainder(idx, cache["pos_tab"].shape[0])
+        cache["pos_tab"].index_copy_(0, slots, idx.to(torch.int32))
+        idx = slots
     if "k_scale" in cache:
         kq, ks = _quant_rows(k_new)
         vq, vs = _quant_rows(v_new)
@@ -137,10 +164,15 @@ def _cached_attend(n_heads, q, k_new, v_new, cache, pos, window: int = 0):
     cache = _cache_put(cache, k_new, v_new, pos)
     qg = q.reshape(B, nkv, G, hd)
     logits, combine = _cache_attn(qg, cache, hd_scale=hd ** -0.5)
-    kidx = torch.arange(cache["k"].shape[2], device=q.device)
-    mask = kidx <= pos
-    if window:
-        mask = mask & (pos - kidx < window)
+    if "pos_tab" in cache:
+        # a ring's slots are in no order: mask by the position each holds
+        pt = cache["pos_tab"]
+        mask = (pt >= 0) & (pt <= pos) & (pos - pt < pt.shape[0])
+    else:
+        kidx = torch.arange(cache["k"].shape[2], device=q.device)
+        mask = kidx <= pos
+        if window:
+            mask = mask & (pos - kidx < window)
     logits = torch.where(mask[None, None, None, :], logits, -torch.inf)
     out = combine(torch.softmax(logits, dim=-1)).to(torch.float32)
     return out.reshape(B, nq, 1, hd).transpose(1, 2).reshape(B, 1, d), cache
@@ -163,39 +195,58 @@ def _block_decode(n_heads, lin, norm_attn, norm_ffn, x, cache, pos,
     return x, cache
 
 
-def _prefill_attend(n_heads, q, k, v, cache, window: int = 0):
-    """Whole-prompt causal attention (positions 0..T-1) that also fills the
-    cache; attention reads through the cache, so prefill and stepwise decode
-    use one formulation (int8 caches included)."""
+def _prefill_attend(n_heads, q, k, v, cache, start=None, window: int = 0):
+    """Causal attention over a prompt that also fills the cache; attention
+    reads through the cache, so prefill and stepwise decode use one
+    formulation (int8 caches included).
+
+    ``start=None``: the whole prompt at positions 0..T-1 (the cache read
+    cut to T). ``start`` an int or a 0-d tensor: one chunk of a longer
+    prompt at positions ``start..start+T-1``, attending to the whole cache
+    under the mask ``k_idx <= start + q_local`` (the chunks before it
+    visible, later slots masked). A ring cache takes no chunk."""
     nq, nkv = _norm_heads(n_heads)
     B, T, d = q.shape
     hd = d // nq
     G = nq // nkv
+    chunked = start is not None
+    if chunked and "pos_tab" in cache:
+        raise NotImplementedError(
+            "chunked prefill into a ring cache is unsupported (writing a "
+            "chunk before attending would evict keys its own earlier "
+            "queries still need); prefill a full cache, or keep the whole "
+            "prompt within the window")
+    off = start if chunked else 0
     q = q.reshape(B, T, nq, hd).transpose(1, 2)
     kv = lambda z: z.reshape(B, T, nkv, hd).transpose(1, 2)
     k, v = kv(k), kv(v)
-    q, k = rotary_embed(q), rotary_embed(k)
-    cache = _cache_put(cache, k, v, 0)
+    q, k = rotary_embed(q, offset=off), rotary_embed(k, offset=off)
+    cache = _cache_put(cache, k, v, off)
     qg = q.reshape(B, nkv, G * T, hd)
-    logits, combine = _cache_attn(qg, cache, T=T, hd_scale=hd ** -0.5)
-    logits = logits.reshape(B, nkv, G, T, T)
-    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
+    logits, combine = _cache_attn(qg, cache, T=None if chunked else T,
+                                  hd_scale=hd ** -0.5)
+    K = logits.shape[-1]
+    logits = logits.reshape(B, nkv, G, T, K)
+    qabs = torch.arange(T, device=q.device)[:, None] + off
+    kidx = torch.arange(K, device=q.device)[None, :]
+    mask = kidx <= qabs
     if window:
-        qi = torch.arange(T, device=q.device)[:, None]
-        mask = mask & (qi - torch.arange(T, device=q.device)[None, :] < window)
+        mask = mask & (qabs - kidx < window)
     logits = torch.where(mask[None, None, None], logits, -torch.inf)
-    probs = torch.softmax(logits, dim=-1).reshape(B, nkv, G * T, T)
+    probs = torch.softmax(logits, dim=-1).reshape(B, nkv, G * T, K)
     out = combine(probs).to(torch.float32).reshape(B, nq, T, hd)
     return out.transpose(1, 2).reshape(B, T, d), cache
 
 
 def _block_prefill(n_heads, lin, norm_attn, norm_ffn, x, cache, ffn=None,
-                   qkv=None, window: int = 0):
-    """One block over the whole prompt, filling its cache."""
+                   qkv=None, start=None, window: int = 0):
+    """One block over the whole prompt (or one chunk of it at ``start``),
+    filling its cache."""
     h = rms_norm(x, norm_attn)
     q, k, v = (qkv(h) if qkv is not None
                else (lin("wq", h), lin("wk", h), lin("wv", h)))
-    attn, cache = _prefill_attend(n_heads, q, k, v, cache, window=window)
+    attn, cache = _prefill_attend(n_heads, q, k, v, cache, start=start,
+                                  window=window)
     x = x + lin("wo", attn)
     h = rms_norm(x, norm_ffn)
     if ffn is not None:
@@ -223,15 +274,26 @@ def _fused_hooks(block: ExportedTransformerBlock, rows: int, bt):
 
 
 class ExportedTransformerLM(nn.Module):
-    """Ternary-backbone causal LM over exported blocks: f32 embeddings,
-    tied f32 head. ``.to(device)`` moves every container."""
+    """Ternary-backbone causal LM over exported blocks with a tied head.
+    ``.to(device)`` moves every container.
 
-    def __init__(self, cfg: BitTransformerConfig, blocks, embed, norm_out):
+    ``head_dtype=torch.bfloat16`` keeps the tied embedding in bf16, which
+    halves the bytes the head streams a decode step (the whole ``(vocab,
+    d)`` matrix): the lookup upcasts its rows to f32, and the head
+    multiplies bf16 operands into f32 sums and f32 logits, as the JAX
+    package's ``preferred_element_type=f32`` does. None: f32 throughout."""
+
+    def __init__(self, cfg: BitTransformerConfig, blocks, embed, norm_out,
+                 head_dtype=None):
         super().__init__()
+        if head_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"head_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {head_dtype!r}")
         self.cfg = cfg
         self.blocks = nn.ModuleList(blocks)
         dev = self.blocks[0].norm_attn.device
-        self.register_buffer("embed", as_f32(embed, dev))
+        self.register_buffer("embed", as_f32(embed, dev).to(
+            head_dtype or torch.float32))
         self.register_buffer("norm_out", as_f32(norm_out, dev))
         # The f32 head must run in full f32 on the card: TF32 keeps ~3
         # decimal digits and would move the greedy argmax. PyTorch's default is already False; it is set here so
@@ -242,29 +304,71 @@ class ExportedTransformerLM(nn.Module):
         #: lay at capture, so clear it after moving the model
         self._captured: dict = {}
 
+    @classmethod
+    def from_params(cls, cfg: BitTransformerConfig, params: dict,
+                    format_cls=TiledBitplane, *, kernel=None,
+                    fused_ffn: bool = False, fused_qkv: bool = False,
+                    a8: bool = False, head_dtype=None, auto: bool = False,
+                    device="cuda", **fmt_kwargs) -> "ExportedTransformerLM":
+        """From a JAX ``BitTransformerLM.init`` parameter tree as numpy
+        (the counterpart of the JAX ``from_params(model, params, ...)``,
+        which takes the model for its cfg), through
+        :func:`~ternary_spgemm_tpu_torch.models.convert.lm_from_jax_params`:
+        ``format_cls``, ``kernel`` (a name of this port's registry), the
+        serving flags and the head's dtype; built on the card (raises
+        without one) unless ``device="cpu"``. The port is forward-only: no
+        transposed containers."""
+        if auto:
+            raise NotImplementedError(
+                "from_params(auto=True) measures the serving flags "
+                "(autotune_serving_flags), which the port does not have yet "
+                "(ROADMAP A6); pass fused_ffn / fused_qkv")
+        from ternary_spgemm_tpu_torch.models.convert import lm_from_jax_params
+
+        return lm_from_jax_params(cfg, params, a8=a8, fused_qkv=fused_qkv,
+                                  fused_ffn=fused_ffn, device=device,
+                                  format_cls=format_cls, kernel=kernel,
+                                  head_dtype=head_dtype, **fmt_kwargs)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens].to(torch.float32)
+
     def _head(self, x):
-        """Tied-embedding logits head, a plain f32 matmul."""
-        return torch.einsum("btd,vd->btv", x, self.embed)
+        """Tied-embedding logits head: a plain f32 matmul, or bf16 operands
+        into f32 sums and f32 logits (``torch.mm(..., out_dtype=f32)`` on the
+        card; on the CPU, which has no kernel for that, both operands
+        upcast: a bf16 product is exact in f32)."""
+        if self.embed.dtype == torch.float32:
+            return torch.einsum("btd,vd->btv", x, self.embed)
+        B, T, d = x.shape
+        a = x.reshape(B * T, d).to(self.embed.dtype)
+        if a.is_cuda:
+            y = torch.mm(a, self.embed.t(), out_dtype=torch.float32)
+        else:
+            y = a.to(torch.float32) @ self.embed.to(torch.float32).t()
+        return y.reshape(B, T, -1)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full causal forward: ``tokens (B, T) -> logits (B, T, vocab)``."""
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for block in self.blocks:
             x = block(x)
         return self._head(rms_norm(x, self.norm_out))
 
-    def prefill(self, tokens: torch.Tensor, caches):
+    def prefill(self, tokens: torch.Tensor, caches, start=None):
         """Prompt prefill: ``tokens (B, T0) -> (logits (B, T0, vocab),
-        caches)``, the caches filled at positions 0..T0-1."""
+        caches)``, the caches filled at positions 0..T0-1; with ``start``
+        (an int or a 0-d tensor) one chunk of a longer prompt at positions
+        ``start..start+T0-1`` (:func:`chunked_prefill`)."""
         B, T = tokens.shape
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for block, cache in zip(self.blocks, caches):
             lin = (lambda b_: lambda n, z: b_.linears[n](
                 z.reshape(B * T, -1)).reshape(B, T, -1))(block)
             ffn, qkv = _fused_hooks(block, B * T, lambda z: (B, T))
             x, _ = _block_prefill(self.cfg.head_tuple, lin, block.norm_attn,
                                   block.norm_ffn, x, cache, ffn=ffn, qkv=qkv,
-                                  window=self.cfg.window)
+                                  start=start, window=self.cfg.window)
         return self._head(rms_norm(x, self.norm_out)), caches
 
     def decode_step(self, tokens: torch.Tensor, caches, pos):
@@ -272,7 +376,7 @@ class ExportedTransformerLM(nn.Module):
         a Python int, or a 0-d int64 tensor on the model's device (what a
         captured step reads), with the same bits."""
         B = tokens.shape[0]
-        x = self.embed[tokens][:, None, :]
+        x = self._embed(tokens)[:, None, :]
         for block, cache in zip(self.blocks, caches):
             lin = (lambda b_: lambda n, z: b_.linears[n](
                 z.reshape(B, -1))[:, None, :])(block)
@@ -281,6 +385,25 @@ class ExportedTransformerLM(nn.Module):
                                  block.norm_ffn, x, cache, pos, ffn=ffn,
                                  qkv=qkv, window=self.cfg.window)
         return self._head(rms_norm(x, self.norm_out))[:, 0], caches
+
+
+@torch.no_grad()
+def chunked_prefill(lm: ExportedTransformerLM, tokens: torch.Tensor, caches,
+                    chunk: int):
+    """Prefill a long prompt ``(B, T0)`` in chunks of ``chunk`` tokens (the
+    last may be shorter), each through ``lm.prefill(..., start=s)``: each
+    chunk attends to everything the chunks before it cached, so the result
+    is the unchunked prefill's, while the attention logits of one call take
+    O(chunk * max_t) memory, not O(T0**2). Returns ``(the last chunk's
+    logits (B, Tc, vocab), caches)``. The counterpart of the JAX
+    ``chunked_prefill`` (``ternary_spgemm_tpu/models/generate.py:605-632``);
+    here each chunk runs eagerly."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    logits = None
+    for s in range(0, tokens.shape[1], chunk):
+        logits, caches = lm.prefill(tokens[:, s:s + chunk], caches, start=s)
+    return logits, caches
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
@@ -331,8 +454,8 @@ def draw_uniform(u: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
              max_t=None, prefill: bool = True, cache_dtype=torch.float32,
-             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-             generator=None, graph=None):
+             ring: bool = False, temperature: float = 0.0, top_k: int = 0,
+             top_p: float = 1.0, generator=None, graph=None):
     """Decode ``n_new`` tokens after ``prompt (B, T0)``; returns ``(B, T0 +
     n_new)`` tokens. ``prefill=True`` runs the prompt as one batched
     forward that fills the caches, then ``n_new - 1`` decode steps (the JAX
@@ -353,10 +476,25 @@ def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
     ``graph=True`` raises on the CPU; ``graph=False`` is the eager loop.
     Captured (``models/graphs.py``): one CUDA graph of the prefill and one
     of the decode step, captured at the first call for each (B, T0,
-    max_t, cache dtype, prefill, sampler) and kept on ``lm``, then
+    max_t, cache dtype, ring, prefill, sampler) and kept on ``lm``, then
     replayed; a capture that fails raises. Both loops draw the same noise
-    in the same order, so one generator seed gives the same tokens."""
+    in the same order, so one generator seed gives the same tokens.
+
+    ``ring=True`` (sliding-window models): the caches are rings of
+    ``window`` slots (:func:`init_cache`), whatever the generation's
+    length. It needs ``cfg.window > 0``, and with the prefill a prompt that
+    fits the window (``prefill=False`` feeds a longer one token by token,
+    which evicts only keys no later query needs)."""
     B, T0 = prompt.shape
+    if ring:
+        if not lm.cfg.window:
+            raise ValueError("generate(ring=True) requires cfg.window > 0")
+        if prefill and T0 > lm.cfg.window:
+            raise ValueError(
+                f"generate(ring=True): prompt length {T0} exceeds the "
+                f"window ({lm.cfg.window}); use prefill=False (stepwise "
+                "feeding evicts legitimately) or prefill a full cache "
+                "(ring prefill would evict keys its own queries need)")
     if graph is None:
         graph = prompt.is_cuda
     elif graph and not prompt.is_cuda:
@@ -372,7 +510,7 @@ def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
         from ternary_spgemm_tpu_torch.models.graphs import captured
 
         loop = captured(lm, B, T0, max_t, cache_dtype=cache_dtype,
-                        prefill=prefill, temperature=temperature,
+                        ring=ring, prefill=prefill, temperature=temperature,
                         top_k=top_k, top_p=top_p, device=prompt.device)
         return torch.cat([prompt, loop.run(prompt, n_new, generator).to(
             prompt.dtype)], dim=1)
@@ -384,7 +522,7 @@ def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
                  else gumbel_from_uniform(draw_uniform(u, generator)))
         return sample(logits, noise, temperature, top_k, top_p)
 
-    caches = init_cache(lm.cfg, B, max_t, dtype=cache_dtype,
+    caches = init_cache(lm.cfg, B, max_t, dtype=cache_dtype, ring=ring,
                         device=prompt.device)
     if prefill:
         logits, caches = lm.prefill(prompt, caches)

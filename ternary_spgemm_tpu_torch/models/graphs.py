@@ -6,7 +6,7 @@ compiled program.
 Run eagerly, a decode step of the A8 serve issues thousands of aten ops
 and kernel launches from the host, and the card waits on them (``PERF.md``
 §5). Here one setting (batch, prompt length T0, ``max_t``, cache dtype,
-prefill or not, sampler) gets:
+prefill or not, sampler, ring cache or not) gets:
 
 * :class:`GenerateLoop`: the KV caches and static buffers (the prompt, the
   current token, the position ``pos`` as a 0-d int64 tensor on the device,
@@ -15,7 +15,9 @@ prefill or not, sampler) gets:
   and writes the token at position T0. ``step`` runs the decode step at
   ``pos`` on ``cur`` (with ``prefill=False``, on the prompt's token while
   ``pos < T0``, as ``_run_nofill``), writes the sampled token at ``pos +
-  1`` and ends with ``pos += 1``. They run eagerly on any device;
+  1`` and ends with ``pos += 1``; a ring cache's slot (``pos %
+  window``) and its ``pos_tab`` entry come from ``pos`` on the device, so
+  one graph serves every step there too. They run eagerly on any device;
 * :class:`CapturedGenerate`: each body warmed up twice on a side stream,
   then captured into a CUDA graph on that stream, the two graphs in one
   memory pool. A generation is then: load the prompt (and zero the caches
@@ -37,6 +39,8 @@ capture's.
 from __future__ import annotations
 
 import collections
+import gc
+import weakref
 
 import torch
 
@@ -57,9 +61,9 @@ class GenerateLoop:
     (module docstring), run eagerly."""
 
     def __init__(self, lm, batch: int, prompt_len: int, max_t: int, *,
-                 cache_dtype=torch.float32, prefill: bool = True,
-                 temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, device):
+                 cache_dtype=torch.float32, ring: bool = False,
+                 prefill: bool = True, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0, device):
         if not 0 < prompt_len < max_t:
             raise ValueError(f"need 0 < prompt length ({prompt_len}) < "
                              f"max_t ({max_t})")
@@ -68,7 +72,8 @@ class GenerateLoop:
         self.prefill = prefill
         self.sampler = (temperature, top_k, top_p)
         self.prompt_len, self.max_t = prompt_len, max_t
-        self.caches = init_cache(lm.cfg, batch, max_t, cache_dtype, device=dev)
+        self.caches = init_cache(lm.cfg, batch, max_t, cache_dtype, ring=ring,
+                                 device=dev)
         long = dict(dtype=torch.long, device=dev)
         self.prompt = torch.zeros((batch, prompt_len), **long)
         self.cur = torch.zeros((batch,), **long)
@@ -104,8 +109,13 @@ class GenerateLoop:
         self.pos += 1
 
     def reset(self) -> None:
-        """Zero the caches and put ``pos`` where the first body starts."""
-        torch._foreach_zero_([t for c in self.caches for t in c.values()])
+        """Empty the caches (zeros; a ring's ``pos_tab`` -1) and put ``pos``
+        where the first body starts."""
+        torch._foreach_zero_([t for c in self.caches
+                              for k, t in c.items() if k != "pos_tab"])
+        for c in self.caches:
+            if "pos_tab" in c:
+                c["pos_tab"].fill_(-1)
         self.pos.fill_(self.prompt_len if self.prefill else 0)
 
     def load(self, prompt: torch.Tensor) -> None:
@@ -160,18 +170,30 @@ class CapturedGenerate(GenerateLoop):
         self.graphs = {}
         pool = torch.cuda.graph_pool_handle()
         self.stream.wait_stream(torch.cuda.current_stream(dev))
-        for name, body in self.calls.items():
-            with torch.no_grad():
-                with torch.cuda.stream(self.stream):
-                    for _ in range(WARMUP):
-                        self.reset()
+        # Python's cycle collector must not run inside a capture: if it
+        # frees another CUDA graph there, the graph's destruction is an
+        # operation a capturing stream does not permit, and the capture
+        # fails. Collect now, and hold it off until the captures are done.
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            for name, body in self.calls.items():
+                with torch.no_grad():
+                    with torch.cuda.stream(self.stream):
+                        for _ in range(WARMUP):
+                            self.reset()
+                            body()
+                    before = collections.Counter(ck.launches)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool,
+                                          stream=self.stream):
                         body()
-                before = collections.Counter(ck.launches)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool, stream=self.stream):
-                    body()
-            self.launches[name] = ck.launches - before
-            self.graphs[name] = graph
+                self.launches[name] = ck.launches - before
+                self.graphs[name] = graph
+        finally:
+            if was_enabled:
+                gc.enable()
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         # held, so that a later growth of this stream's counters cannot
         # free the ones the graphs fold through
@@ -181,18 +203,22 @@ class CapturedGenerate(GenerateLoop):
 
 def captured(lm, batch: int, prompt_len: int, max_t: int, *, cache_dtype,
              prefill: bool, temperature: float, top_k: int, top_p: float,
-             device) -> CapturedGenerate:
+             device, ring: bool = False) -> CapturedGenerate:
     """``lm``'s :class:`CapturedGenerate` for these settings, captured at
     the first call and kept in ``lm._captured`` (greedy settings share one
     whatever their top_k and top_p)."""
     if temperature <= 0.0:
         temperature, top_k, top_p = 0.0, 0, 1.0
-    key = (torch.device(device), batch, prompt_len, max_t, cache_dtype,
+    key = (torch.device(device), batch, prompt_len, max_t, cache_dtype, ring,
            prefill, float(temperature), int(top_k), float(top_p))
     loop = lm._captured.get(key)
     if loop is None:
-        loop = CapturedGenerate(lm, batch, prompt_len, max_t,
-                                cache_dtype=cache_dtype, prefill=prefill,
+        # the loop refers to ``lm`` weakly: ``lm`` holds it, and a cycle
+        # would keep the graphs alive until a cycle collection, which may
+        # come during another capture
+        loop = CapturedGenerate(weakref.proxy(lm), batch, prompt_len, max_t,
+                                cache_dtype=cache_dtype, ring=ring,
+                                prefill=prefill,
                                 temperature=temperature, top_k=top_k,
                                 top_p=top_p, device=device)
         lm._captured[key] = loop

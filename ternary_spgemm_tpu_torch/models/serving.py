@@ -45,9 +45,11 @@ def random_ternary(K: int, N: int, s: int, gen: torch.Generator,
 
 
 def build_serving_lm(cfg: BitTransformerConfig, *, s: int = 2, seed: int = 0,
-                     device="cuda") -> ExportedTransformerLM:
+                     device="cuda", head_dtype=None) -> ExportedTransformerLM:
     """A serving-export LM with random ternary weights of density 1/s, built
-    on the card (raises without one) unless ``device="cpu"``."""
+    on the card (raises without one) unless ``device="cpu"``;
+    ``head_dtype=torch.bfloat16`` stores the tied embedding in bf16 (the
+    JAX tool's ``--head-dtype``)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -70,4 +72,5 @@ def build_serving_lm(cfg: BitTransformerConfig, *, s: int = 2, seed: int = 0,
             cfg, linears, torch.ones(d), torch.ones(d), fused_ffn=True,
             qkv=qkv, a8=True))
     embed = 0.02 * torch.randn((cfg.vocab, d), generator=gen, device=device)
-    return ExportedTransformerLM(cfg, blocks, embed, torch.ones(d))
+    return ExportedTransformerLM(cfg, blocks, embed, torch.ones(d),
+                                 head_dtype=head_dtype)

@@ -72,13 +72,19 @@ def cos_sin(ang: torch.Tensor):
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
-def rotary_embed(x: torch.Tensor, *, base: float = 10000.0):
+def rotary_embed(x: torch.Tensor, *, base: float = 10000.0, offset=0):
     """Rotary position embeddings over the last axis of ``(..., T, D)``
-    (half-split pairing, positions ``0..T-1``)."""
+    (half-split pairing, positions ``offset..offset+T-1``; ``offset`` an
+    int or a 0-d tensor, the same bits: an integer position is exact in
+    f32, so a row's angles are those of ``_rotary_at`` at its position)."""
     T, D = x.shape[-2], x.shape[-1]
     half = D // 2
     freqs = rope_freqs(half, x.device, base)
     pos = torch.arange(T, dtype=torch.float32, device=x.device)
+    if isinstance(offset, torch.Tensor):
+        pos = pos + offset.to(torch.float32)
+    elif offset:
+        pos = pos + float(offset)
     cos, sin = cos_sin(pos[:, None] * freqs[None, :])
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

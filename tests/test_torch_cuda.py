@@ -29,7 +29,10 @@ tolerance of the JAX tests (rtol=1e-5, atol=0.01). The SwiGLU's two
 branches (split at ``SWIGLU_MMA_MIN_M``; ``-k swiglu``) must give the same
 bits as each other. The captured generate loop (``models/graphs.py``; ``-k
 "graph or tensor_pos or warmup"``) must give the eager loop's tokens,
-greedy and sampled.
+greedy and sampled, and with a ring cache (``-k ring_graph``). A serving
+bundle loaded with ``device="cuda"`` holds the saved tensors (``-k
+bundle``); the bf16 head gives f32 logits within 0.05 of the f32 head
+(``-k bf16``).
 """
 
 import dataclasses
@@ -1462,3 +1465,70 @@ def test_capture_without_warmup_raises(dev):
     with pytest.raises(RuntimeError, match="warm-up"):
         with torch.cuda.graph(graph, stream=stream):
             ck._bitplane_x8_lanes(X, fmt, b, parts=2)
+
+
+def test_bundle_loads_on_card_byte_identical(dev, tmp_path):
+    """A serving bundle saved from the card and loaded with ``device=
+    "cuda"``: every tensor on the card and equal to the saved model's (the
+    derived wq / wk / wv dropped again), and the loaded model's captured
+    greedy tokens the original's."""
+    from ternary_spgemm_tpu_torch.checkpoint import (
+        load_lm_bundle, save_lm_bundle)
+    from ternary_spgemm_tpu_torch.models import generate
+
+    lm = _serve(dev)
+    path = str(tmp_path / "serve.npz")
+    save_lm_bundle(path, lm)
+    back = load_lm_bundle(path, device="cuda")
+    a, b = back.state_dict(), lm.state_dict()
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].is_cuda and torch.equal(a[k], b[k]), k
+    p = _prompt(dev, 7)
+    want = generate(lm, p, 8, cache_dtype=torch.int8)
+    assert torch.equal(generate(back, p, 8, cache_dtype=torch.int8), want)
+
+
+@pytest.mark.parametrize("prefill,T0", [(True, 5), (False, 9)])
+def test_ring_graph_equals_eager(dev, prefill, T0):
+    """A window-5 model's ring (5 slots) past its window: the captured
+    loop's tokens are the eager loop's, and the full cache's."""
+    from ternary_spgemm_tpu_torch.models import (
+        ExportedTransformerLM, generate)
+
+    base = _serve(dev)
+    lm = ExportedTransformerLM(dataclasses.replace(base.cfg, window=5),
+                               base.blocks, base.embed, base.norm_out)
+    p = _prompt(dev, 8, T0=T0)
+    kw = dict(prefill=prefill, cache_dtype=torch.int8)
+    want = generate(lm, p, 12, graph=False, **kw)
+    assert torch.equal(generate(lm, p, 12, graph=False, ring=True, **kw),
+                       want)
+    assert torch.equal(generate(lm, p, 12, ring=True, **kw), want)
+    (loop,) = [v for v in lm._captured.values() if "pos_tab" in v.caches[0]]
+    assert loop.caches[0]["k"].shape[2] == 5
+
+
+def test_bf16_head_on_card(dev):
+    """The bf16 head on the card: f32 logits, within 0.05 of the f32 head
+    on the same hidden states and within the CPU's bf16 head's f32
+    summation order; captured greedy tokens the eager loop's."""
+    from ternary_spgemm_tpu_torch.models import (
+        ExportedTransformerLM, generate)
+
+    base = _serve(dev)
+    lm = ExportedTransformerLM(base.cfg, base.blocks, base.embed,
+                               base.norm_out, head_dtype=torch.bfloat16)
+    assert lm.embed.dtype == torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    x = torch.randn((3, 4, base.cfg.d_model), generator=g, device=dev)
+    y = lm._head(x)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, base._head(x), rtol=0.05, atol=0.05)
+    # the CPU's route: both bf16 operands upcast, products exact in f32
+    cpu = x.cpu().to(torch.bfloat16).float() @ lm.embed.cpu().float().t()
+    torch.testing.assert_close(y.cpu(), cpu, rtol=1e-5, atol=1e-5)
+    p = _prompt(dev, 9)
+    want = generate(lm, p, 8, graph=False, cache_dtype=torch.int8)
+    assert torch.equal(generate(lm, p, 8, cache_dtype=torch.int8), want)

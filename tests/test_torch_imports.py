@@ -1,5 +1,7 @@
 """The port imports no JAX: every module of ``ternary_spgemm_tpu_torch`` and
-``chip_smoke.py`` load in a fresh interpreter that never sees ``jax``."""
+``chip_smoke.py`` load in a fresh interpreter that never sees ``jax``,
+``orbax``, ``ml_dtypes`` or the JAX package (the checkpoint module reads
+and writes the JAX package's files without any of them)."""
 
 import os
 import pkgutil
@@ -21,7 +23,8 @@ def _modules():
 
 def test_every_module_is_listed():
     names = _modules()
-    for must in ("ternary_spgemm_tpu_torch.ops.cuda_kernels",
+    for must in ("ternary_spgemm_tpu_torch.checkpoint",
+                 "ternary_spgemm_tpu_torch.ops.cuda_kernels",
                  "ternary_spgemm_tpu_torch.ops.xla_kernels",
                  "ternary_spgemm_tpu_torch.ops.fused_ffn",
                  "ternary_spgemm_tpu_torch.formats.tcsc",
@@ -52,9 +55,8 @@ def test_no_jax_import(extra):
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith('jax.') or k.startswith('ternary_spgemm_tpu.') or "
-            "k == 'ternary_spgemm_tpu')\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'orbax', 'ml_dtypes', 'ternary_spgemm_tpu'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
