@@ -128,12 +128,19 @@ result line if any fails, or if no GPU is visible):
    parent tree's package to time the bodies the tile replaced);
 7. the benchmark entry point, counted: ``python -m ternary_spgemm_tpu_torch
    -M 32 -K 1024 -N 4096 -s 4 -correctness`` with PReLU off and on
-   (in-process, ``__main__.main``): every registered kernel correct (the
-   hand-written ones and the torch ops: BaseTCSC, BlockedEllTCSC,
-   DenseMXU*, PackedMXU_*), no ERROR line, each hand-written SpMM kernel
-   launched and no plain version on a CUDA tensor; then the headline
-   (``python -m ternary_spgemm_tpu_torch.bench.headline``) over all 19 of
-   ``bench.py``'s default kernels, whose JSON line is printed;
+   (in-process, ``__main__.main``): all 31 kernels, a counterpart of each
+   of the JAX registry's, correct (the hand-written ones and the torch
+   ops: BaseTCSC, BaseTCSR, BlockedTCSC, InterleavedTCSC,
+   InterleavedBlockedTCSC, EllTCSC, BlockedEllTCSC, DenseMXU*,
+   PackedMXU_*, PackedCSC; the six formulations ported last each printed
+   with its time, correct at abs 1e-5 on integer X), no ERROR line, each
+   hand-written SpMM kernel launched and no plain version on a CUDA
+   tensor; then the headline (``python -m
+   ternary_spgemm_tpu_torch.bench.headline``) over all 19 of ``bench.py``'s
+   default kernels, whose JSON line is printed, with the stacked
+   marginal's ``stacked_*`` keys (``bench/stacked.py``: 8 and 16 chained
+   ``CudaTiledBitplane_i8`` layers, each chain one CUDA graph) and no
+   ``stacked_error``;
 8. the FFN-block benchmark, counted: ``python -m
    ternary_spgemm_tpu_torch.tools.ffn_bench`` in-process at its default
    blocks (two PReLU, four SwiGLU, the JAX tool's): every row correct, both
@@ -153,9 +160,10 @@ result line if any fails, or if no GPU is visible):
    exact), each in-process, no plain version on a CUDA tensor;
 10. the ragged probe: the scalar-deposit kernel's tile bitwise equal to its
     plain version at 4096 entries (the probe's, seed 0) and 65,536, its
-    entries/s beside its bound (4096
-    dependent shared-memory read-modify-writes at one a clock, the SM clock
-    read under load); then, counted, ``tools.ragged_probe`` in-process: both
+    entries/s beside its latency bound (4096 dependent shared-memory
+    read-modify-writes on one thread, each at least ``SMEM_RMW_CYCLES``,
+    a shared-memory load's and a dependent integer op's latency, at the SM
+    clock read under load); then, counted, ``tools.ragged_probe`` in-process: both
     ``CudaTiledBitplane_i8`` and ``CudaEllDeposit_i8`` launched on each of
     its six configs (M = 32, K = N in {4096, 11008}, s in {16, 32, 64}), no
     row with an error, no plain version on a CUDA tensor;
@@ -171,7 +179,32 @@ result line if any fails, or if no GPU is visible):
     weights: three bf16 tensor-core passes, 6*M*nnz operations at 989
     TFLOP/s); then, counted, the entry point
     ``parallel.ring_allgather_spgemm`` at each ranks, one launch a call,
-    equal to ``X @ W + b``.
+    equal to ``X @ W + b``;
+12. the serving tool (``tools/serving_bench.py``) in-process at bitnet3b,
+    full depth (26 layers, d=3200, 32 heads of 100, ff=8640, vocab 32000:
+    K pads to 4096 rows on QKV, wo, gate and up and 8640 to 9216 on down),
+    batch 4, the preset's 512-token prompt and 64 new tokens, A8, int8
+    cache, captured, each run counted: with both fast paths, with none,
+    and with both and 8 K/V heads. Each prints prefill tokens/s, decode ms
+    a step, one step, block and head ms, peak memory, the FFN branch the
+    JAX rule picks (the fused SwiGLU at bitnet3b; launched or not, as the
+    variant says) and the kernels it launched; no plain version on a CUDA
+    tensor. The greedy tokens of the fused and the unfused variant are set
+    side by side (the JAX tests hold the two block by block, not as
+    tokens of a deep model), and the fast paths are taken apart on one
+    bitnet3b block at 4 and 512 rows: the merged QKV against wq, wk and wv,
+    the fused FFN against its three linears, and the block with each fast
+    path alone against the block with none, at the JAX tests' tolerance,
+    naming the fast path the block's divergence follows;
+13. autotune: ``ternary_spgemm(kernel="auto")`` at the north star over
+    TiledBitplane and BlockedEllTCSC (each candidate's time and the
+    winner printed; the result equal to ``X @ W + b``), then
+    ``autotune_serving_flags`` at bitnet3b, 4 rows, with a cache file
+    under ``build/``, and a second call that the file answers without a
+    probe; any candidate that raised fails the phase.
+
+Each phase's seconds are printed as it ends, and all of them before the
+last lines.
 
 The hand-written kernels, their CUDA sources and plain versions come from
 the registry (``KernelSpec.source``, ``KernelSpec.plain``), the fused FFNs'
@@ -290,6 +323,34 @@ RING_WINDOW, RING_T0, RING_NEW, RING_LAYERS = 128, 64, 192, 32
 #: phase 5b's bf16 head against the f32 head (the JAX package's own
 #: tolerance, ``tests/test_decode.py``)
 BF16_HEAD_TOL = 0.05
+#: phase 10's latency bound of the ragged probe's chain: the cycles of one
+#: dependent shared-memory read-modify-write on one thread, a shared-memory
+#: load's latency (19 cycles) and a dependent integer op's (4), the figures
+#: Jia et al. measured on Volta ("Dissecting the NVIDIA Volta GPU
+#: Architecture via Microbenchmarking", arXiv:1804.06826); that Hopper's
+#: are no shorter is an assumption. The bound is 4096 entries of it at the
+#: SM clock read under load
+SMEM_RMW_CYCLES = 19 + 4
+#: phase 12's serving tool runs at bitnet3b (full depth, batch 4, the
+#: preset's 512-token prompt and 64 new tokens, int8 cache, captured): the
+#: fast paths both, none, and both with 8 shared K/V heads
+SERVE_3B_ARGS = ["--preset", "bitnet3b", "--batch", "4", "--cache-dtype",
+                 "int8", "--repeats", "2"]
+SERVE_3B_VARIANTS = {"both": ["--fast-paths", "both"],
+                     "none": ["--fast-paths", "none"],
+                     "gqa8": ["--fast-paths", "both", "--kv-heads", "8"]}
+#: the JAX package's tolerances for a block with and without the fast
+#: paths (``tests/test_fused_ffn.py``: the merged QKV rtol=1e-5, atol=1e-4,
+#: the fused FFN rtol=atol=1e-5): phase 12 reads a bitnet3b block's parts at
+#: them
+FUSED_BLOCK_TOL = dict(rtol=1e-5, atol=1e-4)
+#: phase 7's six torch-op formulations of the last XLA kernels
+XLA_FORMULATIONS = ("BaseTCSR", "BlockedTCSC", "InterleavedTCSC",
+                    "InterleavedBlockedTCSC", "EllTCSC", "PackedCSC")
+#: the stacked marginal's keys in the headline (``bench/stacked.py``)
+STACKED_KEYS = ("stacked_marginal_seconds", "stacked_spread",
+                "stacked_depths", "stacked_gflops",
+                "stacked_roofline_fraction", "stacked_kernel")
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -979,12 +1040,13 @@ def phase_serve(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
     from ternary_spgemm_tpu_torch.models import (
         BitTransformerConfig, build_serving_lm, generate, init_cache)
-    from ternary_spgemm_tpu_torch.models.serving import PRESETS, random_ternary
+    from ternary_spgemm_tpu_torch.models.serving import (
+        preset_config, random_ternary)
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.ops import fused_ffn, ternary_spgemm
 
     B, T0, n_new = 4, 128, 32
-    cfg = BitTransformerConfig(**PRESETS["bitnet7b"])
+    cfg = preset_config("bitnet7b")
     gen = torch.Generator(device=dev)
     gen.manual_seed(42)
     t0 = time.perf_counter()
@@ -1696,10 +1758,22 @@ def phase_entry_point(dev) -> dict:
         check(rc == 0, f"the CLI exited {rc}")
         check("ERROR" not in out, "the CLI reported an ERROR")
         lines = out.splitlines()
+        check(len(all_kernels()) == 31 and lines[1] == (
+            "# 31 kernels, the port's registry: a counterpart of every "
+            "kernel of the JAX registry"), f"the CLI header: {lines[:2]}")
         for name in all_kernels():
             mine = [ln for ln in lines if ln.split()[:1] == [name]]
             check(len(mine) == 1 and mine[0].endswith("correct=True"),
                   f"{name} not reported correct: {mine}")
+        # the six torch-op formulations: correct at abs 1e-5 (the CLI's
+        # gate) on integer X, each with its time
+        times = {n: float([ln for ln in lines if ln.split()[:1] == [n]][0]
+                          .split()[1]) for n in XLA_FORMULATIONS}
+        print(f"the six formulations ({' '.join(extra) or 'no PReLU'}), "
+              "each correct at abs 1e-5 against the dense reference on "
+              "integer X: " + ", ".join(f"{n} {t:.2f} us"
+                                        for n, t in times.items()),
+              flush=True)
     counts = dict(ck.launches)
     plain = dict(ck.plain_on_cuda)
     print(f"entry-point launches: {counts}; plain versions on CUDA: {plain}",
@@ -1712,6 +1786,8 @@ def phase_entry_point(dev) -> dict:
 
     rc, out = run(headline.main, [])
     check(rc == 0, f"the headline exited {rc}:\n{out}")
+    check(not ck.plain_on_cuda, "a plain version ran on a CUDA tensor: "
+          f"{dict(ck.plain_on_cuda)}")
     check(len(headline.DEFAULT_KERNELS) == 19 and
           "# bench.py's 19 default kernels, each by its counterpart here"
           in out.splitlines() and "incomplete" not in out,
@@ -1723,7 +1799,19 @@ def phase_entry_point(dev) -> dict:
     print(out, end="", flush=True)
     print(f"headline best_kernel {head['best_kernel']}, best_any_kernel "
           f"{head['best_any_kernel']}", flush=True)
-    return counts
+    # the stacked marginal at the north star: bench.py's stacked_* keys, no
+    # stacked_error (the headline would print one and carry on)
+    check("stacked_error" not in head and all(k in head for k in
+                                              STACKED_KEYS),
+          f"the headline's stacked keys: {rec[0]}")
+    check(head["stacked_marginal_seconds"] > 0,
+          f"stacked marginal {head['stacked_marginal_seconds']}")
+    print("stacked marginal: " + ", ".join(f"{k} {head[k]}"
+                                           for k in STACKED_KEYS)
+          + f" [{card_line()}]", flush=True)
+    # the launches of the whole phase: the CLI's and the headline's (its
+    # stacked chains counted once each, at their capture)
+    return dict(ck.launches)
 
 
 def phase_ffn_bench(card: str) -> dict:
@@ -1959,15 +2047,17 @@ def phase_ragged(dev, card: str):
     del flush
     mhz = sm_clock_under_load(dev)
     # the entries read once and the tile written once; 4096 dependent
-    # shared-memory read-modify-writes, at best one a clock on one SM
-    bms, by = bound(ents.numel() * 4 + 8 * 128 * 4, ents.shape[0],
-                    mhz * 1e6)
+    # shared-memory read-modify-writes on one thread, each at least a
+    # load's and a dependent integer op's latency (SMEM_RMW_CYCLES)
+    bms, by = bound(ents.numel() * 4 + 8 * 128 * 4,
+                    ents.shape[0] * SMEM_RMW_CYCLES, mhz * 1e6)
     stats = {rp.KERNEL_NAME: dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
                                   library_ms=None, bound_ms=bms, bound_by=by)}
     print(f"kernel scalar_deposit_rate: tile bitwise equal (4096 and 65536 "
           f"entries); 4096 entries {ms:.4f} ms = {4096 / ms * 1e3:.4g} "
-          f"entries/s; plain {pms:.4f} ms; bound {bms:.6f} ms ({by}, "
-          f"SM clock {mhz:.0f} MHz under load) [{card}]", flush=True)
+          f"entries/s; plain {pms:.4f} ms; latency bound {bms:.6f} ms ({by}: "
+          f"4096 x {SMEM_RMW_CYCLES} cycles, SM clock {mhz:.0f} MHz under "
+          f"load) [{card}]", flush=True)
 
     ck.reset_counts()
     per_config, run_config = [], rp.run_config
@@ -2114,6 +2204,306 @@ def phase_ring(dev, card: str):
     return {rk.KERNEL_NAME: stat}, counts
 
 
+def phase_serve_3b(dev, card: str) -> dict:
+    """Phase 12: the serving tool (``tools/serving_bench.py``) in-process at
+    bitnet3b, full depth, in each of ``SERVE_3B_VARIANTS``, counted: its
+    figures, the FFN branch the JAX rule picks, the kernels each variant
+    launched, no plain version on a CUDA tensor; the greedy tokens of the
+    fused and the unfused variant set side by side, and the fast paths
+    taken apart on one bitnet3b block (:func:`phase_3b_parts`). Returns the
+    launch counts of the three runs."""
+    import numpy as np
+    import torch
+
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
+    from ternary_spgemm_tpu_torch.tools import serving_bench as sb
+
+    phase_3b_kernels(dev, card)
+    total = collections.Counter()
+    recs = {}
+    for tag, extra in SERVE_3B_VARIANTS.items():
+        argv = SERVE_3B_ARGS + extra
+        (rc, out), counts = counted(lambda: run_main(sb.main, argv))
+        print(f"$ python -m ternary_spgemm_tpu_torch.tools.serving_bench "
+              f"{' '.join(argv)}\n"
+              + "\n".join(out.splitlines()[:-1]), flush=True)
+        check(rc == 0, f"serving_bench {tag} exited {rc}")
+        rec = recs[tag] = json.loads(out.splitlines()[-1])
+        check(not rec["plain_on_cuda"], f"{tag}: a plain version ran on a "
+              f"CUDA tensor: {rec['plain_on_cuda']}")
+        ffn, _ = sb.FAST_PATHS[extra[1]]
+        # the JAX rule at bitnet3b: TiledBitplane, biasless, and the output
+        # projection (d = 3200) within one 4096-column storage tile
+        check(rec["ffn_branch"] == ("fused" if ffn else "unfused"),
+              f"{tag}: FFN branch {rec['ffn_branch']}")
+        sw = counts.get(fused_ffn.KERNEL_NAME, 0)
+        check((sw > 0) == ffn and counts.get("CudaTiledBitplane_x8", 0) > 0,
+              f"{tag}: launches {counts}")
+        a = rec["attribution_us"]
+        c = rec["config"]
+        print(f"serve bitnet3b {tag} ({c['n_layers']} layers, d="
+              f"{c['d_model']}, {c['n_heads']} heads of "
+              f"{c['d_model'] // c['n_heads']}, kv_heads {rec['kv_heads']}, "
+              f"ff={c['d_ff']}), batch {rec['batch']}, prompt {c['T0']}, "
+              f"{c['n_new']} new, int8 cache, captured: FFN {rec['ffn_branch']} "
+              f"({fused_ffn.KERNEL_NAME} {sw} launches); prefill "
+              f"{rec['prefill']['seconds'] * 1e3:.3f} ms = "
+              f"{rec['prefill']['aggregate_tokens_per_s']:.1f} tokens/s; "
+              f"decode {rec['decode']['seconds_per_token'] * 1e3:.4f} ms a "
+              f"step; one step alone "
+              f"{rec['decode_single_dispatch']['seconds'] * 1e3:.4f} ms; "
+              f"block {a['per_block'] / 1e3:.4f} ms, head "
+              f"{a['head'] / 1e3:.4f} ms, glue {a['glue_fraction']:.1%}; "
+              f"peak {(rec['peak_memory_bytes'] or 0) / 2**30:.3f} GiB; build "
+              f"{rec['build_seconds']:.1f} s; launches (captures and graphs "
+              f"counted once) {counts}; an eager prefill of 8 and 3 steps "
+              f"{rec['launches']} [{card}]", flush=True)
+        total.update(counts)
+    a = np.array(recs["both"]["greedy_tokens"])
+    b = np.array(recs["none"]["greedy_tokens"])
+    same = a == b
+    first = [int(np.argmin(r)) if not r.all() else None for r in same]
+    print(f"greedy tokens, fused against unfused: {int(same.sum())} of "
+          f"{same.size} agree (first difference per row at new token "
+          f"{first}). The JAX package's own tests hold the two only block "
+          f"by block (rtol={FUSED_BLOCK_TOL['rtol']}, "
+          f"atol={FUSED_BLOCK_TOL['atol']}), not tokens of a deep model; "
+          "one bitnet3b block's parts follow", flush=True)
+
+    phase_3b_parts(dev, card)
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def phase_3b_parts(dev, card: str, cfg=None) -> dict:
+    """Phase 12's fast paths taken apart: one block at bitnet3b width
+    (``cfg``: another preset), the same draw and the same input, at 4 rows
+    and at 512 (4 x 128): the merged QKV against the separate wq, wk and
+    wv; the fused FFN against its three linears; and the block with each
+    fast path alone and with both against the block with none. Prints, for
+    each, the share of outputs that differ at all, the max |diff| and the
+    share within ``FUSED_BLOCK_TOL``, and which fast path the block's
+    divergence follows. Returns ``{rows: {part: (differ, max_diff,
+    within)}}``."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models.serving import (
+        build_serving_lm, preset_config)
+    from ternary_spgemm_tpu_torch.models.transformer import rms_norm
+
+    one = dataclasses.replace(cfg or preset_config("bitnet3b"), n_layers=1)
+    d = one.d_model
+    blocks = {(f, q): build_serving_lm(one, seed=0, device=dev, fused_ffn=f,
+                                       fused_qkv=q).blocks[0]
+              for f in (True, False) for q in (True, False)}
+    none = blocks[False, False]
+    tol = FUSED_BLOCK_TOL
+
+    def cmp(got, want):
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"a {one.d_model}-wide block part is not finite")
+        diff = (got - want).abs()
+        return (float((diff > 0).float().mean()), float(diff.max()),
+                float((diff <= tol["atol"] + tol["rtol"] * want.abs()
+                       ).float().mean()))
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    with torch.no_grad():
+        for T in (1, 128):
+            x = torch.randn((4, T, d), generator=gen, device=dev)
+            h = rms_norm(x, none.norm_attn).reshape(4 * T, d)
+            hf = rms_norm(x, none.norm_ffn).reshape(4 * T, d)
+            res = {
+                "merged QKV vs wq/wk/wv": cmp(
+                    torch.cat(blocks[False, True]._qkv(h), 1),
+                    torch.cat(none._qkv(h), 1)),
+                "fused FFN vs three linears": cmp(
+                    blocks[True, False]._ffn(hf), none._ffn(hf)),
+                "block, merged QKV alone": cmp(blocks[False, True](x),
+                                               none(x)),
+                "block, fused FFN alone": cmp(blocks[True, False](x),
+                                              none(x)),
+                "block, both": cmp(blocks[True, True](x), none(x))}
+            out[4 * T] = res
+            for part, (differ, mx, within) in res.items():
+                print(f"bitnet3b {part}, {4 * T} rows: {differ:.4%} of "
+                      f"outputs differ, max |diff| {mx:.6g}, {within:.4%} "
+                      f"within rtol={tol['rtol']}, atol={tol['atol']} "
+                      f"[{card}]", flush=True)
+            outside = {p: 1.0 - res[f"block, {p} alone"][2]
+                       for p in ("merged QKV", "fused FFN")}
+            carrier = max(outside, key=outside.get)
+            print(f"bitnet3b block, {4 * T} rows: "
+                  + ("within the tolerance with either fast path alone"
+                     if not any(outside.values()) else
+                     f"the divergence follows the {carrier} ("
+                     + ", ".join(f"{p} alone {v:.4%} outside"
+                                 for p, v in outside.items()) + ")"),
+                  flush=True)
+    return out
+
+
+def phase_3b_kernels(dev, card: str) -> None:
+    """Phase 12's kernels at bitnet3b's shapes, which pad K (3200 -> 4096
+    rows; the hidden 8640 -> 9216) before the serve runs them: x8 bitwise
+    against its plain version on the merged QKV (3200 -> 9600), wo, and the
+    unfused down projection (8640 -> 3200), and the SwiGLU's two branches
+    bitwise against each other and against its plain version within phase
+    3's rule (hq flips by at most 1 in at most 1e-4 of the values; rows
+    without one within rtol=1e-5, atol=0.01), at decode's 4 rows and the
+    prefill's 512 (both sides of each split)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        _swiglu_lanes, _swiglu_mma, requantize_rows, swiglu_hidden_plain,
+        swiglu_launch, swiglu_plain, true_div)
+
+    gen = torch.Generator(device=dev).manual_seed(3200)
+    d, ff = 3200, 8640
+
+    def fmt(K, N):
+        return TiledBitplane.from_dense(random_ternary(K, N, 2, gen, dev))
+
+    for K, N, what in ((d, 3 * d, "qkv"), (d, d, "wo"), (ff, d, "down")):
+        f = fmt(K, N)
+        b = 4.0 * torch.rand((N,), generator=gen, device=dev) - 2.0
+        a = 0.25 * torch.rand((N,), generator=gen, device=dev)
+        for M in (4, 512):
+            x = 60.0 * torch.randn((M, K), generator=gen, device=dev)
+            for alpha in (None, a):
+                got = ck.cuda_tiled_bitplane_x8_kernel(x, f, b, alpha)
+                want = ck.bitplane_x8_plain(x, f, b, alpha)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"x8 bitnet3b {what} "
+                      f"{M}x{K}x{N}: kernel != plain (max |diff| "
+                      f"{float((got - want).abs().max())})")
+        print(f"kernel CudaTiledBitplane_x8 bitnet3b {what} {K}->{N} (K "
+              f"padded to {f.plane.shape[0] * 8 * f.tkb}): bitwise equal at "
+              f"M = 4 and 512, PReLU on/off [{card}]", flush=True)
+    fg, fu, fd = fmt(d, ff), fmt(d, ff), fmt(ff, d)
+    kw = dict(gamma_gate=0.03, gamma_up=0.03, gamma_down=0.03)
+    for M in (4, 512):
+        x = torch.randn((M, d), generator=gen, device=dev)
+        xq, sx = requantize_rows(x)
+        lanes = _swiglu_lanes(xq, sx, fg, fu, fd, **kw)
+        mma = _swiglu_mma(xq, sx, fg, fu, fd, **kw)
+        torch.cuda.synchronize()
+        for got, want, what in zip(mma, lanes, ("y", "h", "rmax")):
+            check(torch.equal(got, want),
+                  f"SwiGLU bitnet3b M={M}: the branches' {what} differ")
+        del lanes, mma
+        y, h, rmax = swiglu_launch(xq, sx, fg, fu, fd, **kw)
+        want = swiglu_plain(xq, sx, fg, fu, fd, **kw)
+        hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
+        hq_plain, _ = requantize_rows(swiglu_hidden_plain(
+            xq, sx, fg, fu, gamma_gate=0.03, gamma_up=0.03))
+        torch.cuda.synchronize()
+        diff = (hq - hq_plain).abs()
+        flips = int((diff > 0).sum())
+        check(float(diff.max()) <= 1.0 and flips <= 1e-4 * diff.numel(),
+              f"SwiGLU bitnet3b M={M}: {flips} hq flips, max {diff.max()}")
+        clean = ~(diff > 0).any(dim=1)
+        bad = (y[clean] - want[clean]).abs() > 0.01 + 1e-5 * want[clean].abs()
+        check(not bool(bad.any()), f"SwiGLU bitnet3b M={M}: "
+              f"{int(bad.sum())} outputs outside rtol=1e-5, atol=0.01")
+        print(f"kernel fused_bitplane_swiglu bitnet3b {d}->{ff}->{d} M={M}: "
+              f"branches bitwise; {flips} of {diff.numel()} hq values flip "
+              f"against the plain version (by 1) [{card}]", flush=True)
+
+
+def phase_autotune(dev, card: str) -> dict:
+    """Phase 13: autotune. ``ternary_spgemm(kernel="auto")`` at the north
+    star over TiledBitplane and BlockedEllTCSC (each candidate's time and
+    the winner printed; the result exact), then ``autotune_serving_flags``
+    at bitnet3b, 4 rows, with a cache file under ``build/``, and a second
+    call that the file answers without a probe. Fails on any candidate
+    that raised. Returns the launch counts."""
+    import importlib
+
+    import torch
+
+    from ternary_spgemm_tpu_torch.formats import BlockedEllTCSC, TiledBitplane
+    from ternary_spgemm_tpu_torch.models import autotune_serving_flags
+    from ternary_spgemm_tpu_torch.models.serving import (
+        build_serving_lm, preset_config, random_ternary)
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import ternary_spgemm
+
+    at = importlib.import_module("ternary_spgemm_tpu_torch.ops.autotune")
+    M, K, N, s = BENCH_SHAPES[0]
+    gen = torch.Generator(device=dev).manual_seed(77)
+    W = random_ternary(K, N, s, gen, dev)
+    x = torch.randint(-512, 513, (M, K), generator=gen,
+                      device=dev).to(torch.float32)
+    b = torch.full((N,), 2.0, device=dev)
+    want = x @ W.to(torch.float32) + b     # exact: integers below 2**24
+    at._CACHE.clear()
+    ck.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for fmt in (TiledBitplane.from_dense(W), BlockedEllTCSC.from_dense(W)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                name = at.autotune(x, fmt, b, verbose=True)
+            y = ternary_spgemm(x, fmt, b, kernel="auto")     # the memo's
+            check(torch.equal(y, want), f"kernel='auto' over "
+                  f"{type(fmt).__name__} ({name}) != X @ W + b")
+            print(f"autotune {type(fmt).__name__} {M}x{K}x{N} s={s}: "
+                  + "; ".join(buf.getvalue().split("\n")[:-1])
+                  + f"; winner {name} [{card}]", flush=True)
+
+        cfg = preset_config("bitnet3b")
+        one = dataclasses.replace(cfg, n_layers=1)
+        built = []
+
+        def builder(ffn, qkv):
+            built.append((ffn, qkv))
+            return build_serving_lm(one, seed=0, device=dev, fused_ffn=ffn,
+                                    fused_qkv=qkv).blocks[0]
+
+        cache = os.path.join(ROOT, "build", "autotune_serving.json")
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        if os.path.exists(cache):
+            os.remove(cache)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            picks = autotune_serving_flags(cfg, None, builder=builder, rows=4,
+                                           cache_path=cache, device=dev,
+                                           verbose=True)
+        with open(cache) as f:
+            disk = json.load(f)
+        print(f"autotune_serving_flags bitnet3b, 4 rows: "
+              + "; ".join(buf.getvalue().split("\n")[:-1])
+              + f"; picks {picks}; {os.path.relpath(cache, ROOT)} {disk} "
+              f"[{card}]", flush=True)
+        check(len(built) == 4, f"variants built: {built}")
+        at._CACHE.clear()
+        built.clear()
+        probe = at.time_call
+        at.time_call = lambda *a, **k: check(False, "the file did not answer")
+        try:
+            again = autotune_serving_flags(cfg, None, builder=builder, rows=4,
+                                           cache_path=cache, device=dev)
+        finally:
+            at.time_call = probe
+        check(again == picks and not built,
+              f"second call {again} (built {built}), first {picks}")
+        print("autotune_serving_flags again: the file answered, no probe",
+              flush=True)
+    failed = [str(w.message) for w in caught
+              if "autotune: candidate" in str(w.message)]
+    check(not failed, f"an autotune candidate failed: {failed}")
+    check(not ck.plain_on_cuda, "a plain version ran on a CUDA tensor: "
+          f"{dict(ck.plain_on_cuda)}")
+    at._CACHE.clear()
+    torch.cuda.empty_cache()
+    return dict(ck.launches)
+
+
 def main() -> int:
     import torch
 
@@ -2162,25 +2552,38 @@ def main() -> int:
         sources[mod.KERNEL_NAME] = (mod.SOURCE, mod.REFERENCE)
     for src, _ in sources.values():
         check(os.path.isfile(os.path.join(ROOT, src)), f"no source {src}")
-    stats = phase_kernels(dev, card)
-    phase_model_parity(dev)
-    serve_counts, lm, prompt, toks = phase_serve(dev, card)
-    more_counts = phase_serve_more(dev, card, lm, prompt, toks)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t
+        print(f"phase {phase}: {seconds[phase]:.1f} s", flush=True)
+        return out
+
+    stats = timed("3", phase_kernels, dev, card)
+    timed("4", phase_model_parity, dev)
+    serve_counts, lm, prompt, toks = timed("5", phase_serve, dev, card)
+    more_counts = timed("5b", phase_serve_more, dev, card, lm, prompt, toks)
     del lm
     torch.cuda.empty_cache()
-    stats.update(phase_bench_kernels(dev, card))
-    bench_counts = phase_entry_point(dev)
-    ffn_counts = phase_ffn_bench(card)
-    probe_stats, probe_counts = phase_probes(dev, card)
+    stats.update(timed("6", phase_bench_kernels, dev, card))
+    bench_counts = timed("7", phase_entry_point, dev)
+    ffn_counts = timed("8", phase_ffn_bench, card)
+    probe_stats, probe_counts = timed("9", phase_probes, dev, card)
     stats.update(probe_stats)
-    ragged_stats, ragged_counts = phase_ragged(dev, card)
+    ragged_stats, ragged_counts = timed("10", phase_ragged, dev, card)
     stats.update(ragged_stats)
-    ring_stats, ring_counts = phase_ring(dev, card)
+    ring_stats, ring_counts = timed("11", phase_ring, dev, card)
     stats.update(ring_stats)
+    serve3b_counts = timed("12", phase_serve_3b, dev, card)
+    tune_counts = timed("13", phase_autotune, dev, card)
     check("jax" not in sys.modules, "jax was imported")
+    print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
-            probe_counts, ragged_counts, ring_counts)
+            probe_counts, ragged_counts, ring_counts, serve3b_counts,
+            tune_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

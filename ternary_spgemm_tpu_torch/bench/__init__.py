@@ -1,5 +1,5 @@
 """Benchmarking, timing and instrumentation harness — counterpart of
-``ternary_spgemm_tpu/bench`` (``bench/stacked.py`` is not ported yet).
+``ternary_spgemm_tpu/bench`` (the stacked marginal: ``bench/stacked.py``).
 
 ``python -m ternary_spgemm_tpu_torch`` (the CLI) and
 ``python -m ternary_spgemm_tpu_torch.bench.headline`` (the one-line
@@ -20,6 +20,7 @@ from ternary_spgemm_tpu_torch.bench.instrument import (
     measure_hbm_bandwidth,
     roofline_fraction,
 )
+from ternary_spgemm_tpu_torch.bench.stacked import measure_stacked_marginal
 from ternary_spgemm_tpu_torch.bench.timing import (
     TIMERS,
     TimingResult,
@@ -30,6 +31,6 @@ from ternary_spgemm_tpu_torch.bench.timing import (
 __all__ = [
     "BenchConfig", "KernelResult", "run_config", "to_reference_json", "dump_json",
     "Instrumentation", "instrument", "advertised_hbm_bandwidth",
-    "measure_hbm_bandwidth", "roofline_fraction",
+    "measure_hbm_bandwidth", "roofline_fraction", "measure_stacked_marginal",
     "TIMERS", "TimingResult", "time_cuda_events", "time_wall",
 ]

@@ -10,10 +10,11 @@ quantities (``main.cpp:264-271``). Results serialize to the same sweep-JSON
 schema as the JAX package's (``plots/run_benchmark.py:44-47,103-107``), so
 the records of the two packages compare key for key, kernel by counterpart.
 
-The sweep covers this port's registry only: the kernels of the JAX
-registry that have a counterpart here (``ops.REFERENCE_KERNELS``). A
-default run of the JAX harness also times the kernels that are not ported
-yet (``ops.unported()``); the port's records have no entry for them.
+The sweep covers this port's registry: a counterpart of every kernel of
+the JAX registry (``ops.REFERENCE_KERNELS``). A container that cannot be
+built at the config (the blocked ones need K a multiple of their 512-row
+block, as in the JAX harness) is recorded as that kernel's error, marked
+``unbuildable``.
 
 ``BenchConfig.device`` is ``"cuda"`` by default and the harness raises if
 there is no card; ``"cpu"`` runs the kernels' plain versions, for tests,
@@ -70,6 +71,9 @@ class KernelResult:
     max_abs_err: Optional[float] = None
     speedup: Optional[float] = None
     error: Optional[str] = None   # recorded per kernel; the sweep goes on
+    #: the error is the container's refusal of this config (a blocked
+    #: container at a K off its block), not a fault of the kernel
+    unbuildable: bool = False
     seconds_spread: float = 0.0   # relative spread of the independent estimates
     n_estimates: int = 1
     low_confidence: bool = False
@@ -105,8 +109,6 @@ def device_name(device: str) -> str:
 def _counterpart_hint(name: str) -> str:
     if name not in REFERENCE_KERNELS:
         return f"; registered: {sorted(all_kernels())}"
-    if REFERENCE_KERNELS[name] is None:
-        return " (a JAX kernel not ported yet)"
     return f" (the JAX kernel's counterpart here is {REFERENCE_KERNELS[name]!r})"
 
 
@@ -152,9 +154,11 @@ def run_config(cfg: BenchConfig, *, bandwidth: Optional[float] = None,
     results: List[KernelResult] = []
     for name, spec in registry.items():
         inst = None
+        built = spec.format_cls in formats
         try:
-            if spec.format_cls not in formats:
+            if not built:
                 formats[spec.format_cls] = spec.format_cls.from_dense(W_dev)
+                built = True
             # M-dependent derived views (TCSC's gather tables) are built
             # here, outside the timed region, like every container array
             fmt = formats[spec.format_cls].prepare(cfg.M)
@@ -199,7 +203,8 @@ def run_config(cfg: BenchConfig, *, bandwidth: Optional[float] = None,
                 gflops=0.0, effective_gflops=0.0, nnz_per_s=0.0,
                 total_input_bytes=inst.total_input_bytes if inst else 0,
                 operational_intensity=inst.operational_intensity if inst else 0.0,
-                roofline_fraction=None, error=f"{type(e).__name__}: {e}"))
+                roofline_fraction=None, error=f"{type(e).__name__}: {e}",
+                unbuildable=not built and isinstance(e, ValueError)))
         if verbose:
             print(f"  {results[-1].name:28s} {status(results[-1])}",
                   flush=True)

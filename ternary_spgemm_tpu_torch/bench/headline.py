@@ -4,10 +4,11 @@ north-star config — the port's counterpart of the repository's ``bench.py``.
 Usage::
 
     python -m ternary_spgemm_tpu_torch.bench.headline [--all] [--correctness]
-        [--json-out PATH] [--device cuda|cpu]
+        [--stacked auto|on|off] [--json-out PATH] [--device cuda|cpu]
 
 Prints the card's name on a ``#`` line, then ONE JSON line with the keys of
-``bench.py`` (its stacked-marginal keys wait for ``bench/stacked.py``)::
+``bench.py``, the ``stacked_*`` keys of the stacked marginal
+(``bench/stacked.py``) included where it ran::
 
     {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
@@ -79,6 +80,10 @@ def main(argv=None) -> int:
     p.add_argument("--measure-beta", action="store_true",
                    help="measure the card's memory bandwidth and use it as "
                         "the roofline beta instead of the advertised number")
+    p.add_argument("--stacked", choices=["auto", "on", "off"], default="auto",
+                   help="also measure the stacked-regime marginal (chained "
+                        "CudaTiledBitplane_i8 layers at depths 8 and 16); "
+                        "auto: at the north star on the card")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
@@ -128,6 +133,25 @@ def main(argv=None) -> int:
                   or registry[r.name].x_absmax >= 512)]
     best = max(exact or ok, key=lambda r: r.gflops)
     best_any = max(ok, key=lambda r: r.gflops)
+
+    # the stacked-regime marginal rides in the same line (bench.py:118-138);
+    # an error there is reported as stacked_error, and the record still
+    # prints
+    stacked = {}
+    want_stacked = args.stacked == "on" or (
+        args.stacked == "auto" and args.device == "cuda"
+        and (args.M, args.K, args.N, args.s) == (32, 1024, 4096, 4))
+    if want_stacked:
+        try:
+            from ternary_spgemm_tpu_torch.bench.stacked import (
+                measure_stacked_marginal)
+            full = measure_stacked_marginal(
+                args.M, args.K, args.N, args.s,
+                repeats=max(1, args.repeats), bandwidth=beta,
+                device=args.device)
+            stacked = {k: v for k, v in full.items() if k != "stacked_rows"}
+        except Exception as e:
+            stacked = {"stacked_error": f"{type(e).__name__}: {e}"}
     print(json.dumps({
         "metric": "ternary_spgemm_useful_gflops",
         "value": round(best.gflops, 3),
@@ -143,6 +167,7 @@ def main(argv=None) -> int:
         "own_roofline_fraction": _round(best.own_roofline_fraction, 4),
         "best_any_kernel": best_any.name,
         "best_any_gflops": round(best_any.gflops, 3),
+        **stacked,
         "config": {"M": args.M, "K": args.K, "N": args.N, "s": args.s},
     }))
     return 0

@@ -18,6 +18,7 @@ synchronize: what a caller that launches once per step sees.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import statistics
 import time
@@ -117,8 +118,17 @@ def time_cuda_graph(fn: Callable, x: torch.Tensor, *, aux=(),
         for _ in range(2):
             fn(x, *aux)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        fn(x, *aux)
+    # no cycle collection inside the capture: freeing another CUDA graph
+    # there fails it (``models/graphs.py``)
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            fn(x, *aux)
+    finally:
+        if was_enabled:
+            gc.enable()
     torch.cuda.current_stream(x.device).wait_stream(side)
     return time_cuda_events(lambda _x: graph.replay(), x,
                             min_seconds=min_seconds, repeats=repeats)

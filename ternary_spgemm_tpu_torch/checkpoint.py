@@ -40,7 +40,7 @@ import torch
 
 from ternary_spgemm_tpu_torch.formats.base import TernaryFormat, all_formats
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
-from ternary_spgemm_tpu_torch.ops.api import REFERENCE_KERNELS
+from ternary_spgemm_tpu_torch.ops.api import jax_name, port_name
 from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 #: the serving bundle's format version (the JAX package's)
@@ -111,33 +111,10 @@ def _field(data, key: str):
 def _format_class(name: str):
     cls = all_formats().get(name)
     if cls is None:
-        raise NotImplementedError(
-            f"container {name!r} is not ported yet (ROADMAP A4); the port "
-            f"has {sorted(all_formats())}")
+        raise ValueError(
+            f"no container {name!r} in either package; they have "
+            f"{sorted(all_formats())}")
     return cls
-
-
-def _jax_kernel(name):
-    """A kernel name of this port -> the JAX registry's name (None stays)."""
-    if name is None:
-        return None
-    for jax_name, port_name in REFERENCE_KERNELS.items():
-        if port_name == name:
-            return jax_name
-    raise ValueError(f"kernel {name!r} has no counterpart in the JAX "
-                     "registry, so a bundle cannot name it")
-
-
-def _port_kernel(name):
-    """A JAX registry name on disk -> this port's kernel (None stays)."""
-    if name is None:
-        return None
-    if name not in REFERENCE_KERNELS:
-        raise ValueError(f"kernel {name!r} is not in the JAX registry")
-    if REFERENCE_KERNELS[name] is None:
-        raise NotImplementedError(f"kernel {name!r} is not ported yet "
-                                  "(ROADMAP A4)")
-    return REFERENCE_KERNELS[name]
 
 
 def _fmt_record(fmt: TernaryFormat, prefix: str, arrays: dict) -> dict:
@@ -195,7 +172,7 @@ def _linear_record(lin, prefix: str, arrays: dict) -> dict:
     hdr = {"fmt": _fmt_record(lin.fmt, f"{prefix}.fmt.", arrays),
            "fmt_t": (None if lin.fmt_t is None else
                      _fmt_record(lin.fmt_t, f"{prefix}.fmt_t.", arrays)),
-           "gamma": float(lin.gamma), "kernel": _jax_kernel(lin.kernel),
+           "gamma": float(lin.gamma), "kernel": jax_name(lin.kernel),
            "has_alpha": lin.alpha is not None, "a8": bool(lin.a8)}
     arrays[f"{prefix}.bias"] = _numpy(lin.bias)
     if lin.alpha is not None:
@@ -210,7 +187,7 @@ def _linear_restore(hdr: dict, prefix: str, data, device):
         _fmt_restore(hdr["fmt"], f"{prefix}.fmt.", data, device),
         hdr["gamma"], data[f"{prefix}.bias"],
         data[f"{prefix}.alpha"] if hdr["has_alpha"] else None,
-        kernel=_port_kernel(hdr["kernel"]), a8=hdr.get("a8", False),
+        kernel=port_name(hdr["kernel"]), a8=hdr.get("a8", False),
         fmt_t=(None if hdr["fmt_t"] is None else
                _fmt_restore(hdr["fmt_t"], f"{prefix}.fmt_t.", data, "cpu")))
 
@@ -270,7 +247,7 @@ def save_lm_bundle(path: str, lm) -> None:
     for i, blk in enumerate(lm.blocks):
         linears = dict(blk.linears)
         bh = {"linears": {}, "fused_ffn": bool(blk.fused_ffn),
-              "kernel": _jax_kernel(blk.kernel)}
+              "kernel": jax_name(blk.kernel)}
         if blk.qkv is not None and not any(n in linears for n in QKV_LINEARS):
             linears = {**_split_qkv(blk), **linears}
             bh["derived"] = list(QKV_LINEARS)
@@ -323,7 +300,7 @@ def load_lm_bundle(path: str, device="cuda"):
             blocks.append(ExportedTransformerBlock(
                 cfg, linears, data[f"b{i}.norm_attn"], data[f"b{i}.norm_ffn"],
                 fused_ffn=bh.get("fused_ffn", False), qkv=qkv,
-                kernel=_port_kernel(bh.get("kernel")),
+                kernel=port_name(bh.get("kernel")),
                 a8=hdrs.get("wq", {}).get("a8", False)))
         embed, head_dtype = data["embed"], None
         edt = header.get("embed_dtype", "float32")

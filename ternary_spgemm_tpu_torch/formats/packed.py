@@ -19,7 +19,12 @@ of ``B = factor * tile_kq`` dense rows: packed row ``blk*tile_kq + kq``
 holds, in field ``f``, the weight of dense row ``blk*B + f*tile_kq + kq``.
 The global stride is thus the block layout with one block of ``tile_kq =
 Kq``. Every container's bytes are identical to the JAX packer's for the
-same matrix and arguments. ``PackedCSC`` is not ported yet.
+same matrix and arguments.
+
+:class:`PackedCSC` is standard (not split-sign) CSC whose value stream is
+base-3 packed five a byte (:func:`pack_signs_base3`, digit ``j`` of byte
+``i`` the sign of nonzero ``5i + j``); ``_nnz`` is its static nonzero
+count, which cuts the decoded digits.
 
 The packers are vectorised torch and run on whatever device their input
 lies on.
@@ -80,6 +85,27 @@ def decode_fields(packed: torch.Tensor, factor: int) -> List[torch.Tensor]:
             w = d - 3 * (d >> 1)
         out.append(w.to(torch.int8))
     return out
+
+
+def pack_signs_base3(signs) -> torch.Tensor:
+    """Pack a 1-D stream of {-1, 0, +1} (numpy or torch) into base-3 uint8
+    bytes, 5 values a byte (the stream zero-padded to a multiple of 5, at
+    least one byte)."""
+    signs = torch.as_tensor(signs).to(torch.int8).reshape(-1)
+    n = signs.numel()
+    digits = torch.zeros(round_up(max(n, 1), 5), dtype=torch.int16,
+                         device=signs.device)
+    digits[:n] = torch.where(signs < 0, 2, signs).to(torch.int16)
+    pow3 = torch.tensor(_POW3, dtype=torch.int16, device=signs.device)
+    return (digits.view(-1, 5) * pow3).sum(dim=1).to(torch.uint8)
+
+
+def unpack_signs_base3(packed, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_signs_base3`: the first ``n`` int8 signs."""
+    p = torch.as_tensor(packed).to(torch.int16)
+    digits = torch.stack([(p // f) % 3 for f in _POW3], dim=1).reshape(-1)
+    digits = digits[:n]
+    return (digits - 3 * (digits >> 1)).to(torch.int8)
 
 
 def check_factor(factor: int) -> None:
@@ -178,6 +204,60 @@ class BlockPackedTernary(TernaryFormat):
     @property
     def shape(self):
         return (self.K, self.N)
+
+
+@register_format
+class PackedCSC(TernaryFormat):
+    """Standard CSC with base-3 packed value codes (the roadmap format,
+    ``readme.md:108-111``): one column-pointer table, one row-index stream
+    and the {-1, +1} values packed 5 a byte."""
+
+    ARRAY_FIELDS = ("col_start", "row_index", "packed_values", "col_ids")
+
+    col_start: torch.Tensor      # (N+1,) int32
+    row_index: torch.Tensor      # (nnz,) int32
+    packed_values: torch.Tensor  # (ceil(nnz/5),) uint8, at least 1
+    col_ids: torch.Tensor        # (nnz,) int32 companion (derived)
+    K: int
+    N: int
+    _nnz: int
+
+    @classmethod
+    def from_dense(cls, W, *, device=None) -> "PackedCSC":
+        """Build from a dense ternary ``(K, N)`` matrix (numpy or torch; on
+        ``device``, default the tensor's own)."""
+        W = _as_int8_dense(W, device)
+        K, N = W.shape
+        nz = torch.nonzero(W.t() != 0)        # column-major: column, row
+        n_idx, k_idx = nz[:, 0], nz[:, 1]
+        col_start = torch.zeros(N + 1, dtype=torch.int32, device=W.device)
+        col_start[1:] = torch.cumsum(torch.bincount(n_idx, minlength=N), 0)
+        return cls(col_start=col_start, row_index=k_idx.to(torch.int32),
+                   packed_values=pack_signs_base3(W[k_idx, n_idx]),
+                   col_ids=n_idx.to(torch.int32), K=K, N=N,
+                   _nnz=len(k_idx))
+
+    def signs(self) -> torch.Tensor:
+        """The int8 value of every nonzero, in stream order."""
+        return unpack_signs_base3(self.packed_values, self._nnz)
+
+    def to_dense(self) -> torch.Tensor:
+        W = torch.zeros((self.K, self.N), dtype=torch.int8,
+                        device=self.row_index.device)
+        W[self.row_index.long(), self.col_ids.long()] = self.signs()
+        return W
+
+    def size_bytes(self) -> int:
+        return int(4 * (self.N + 1) + 4 * len(self.row_index)
+                   + self.packed_values.numel())
+
+    @property
+    def shape(self):
+        return (self.K, self.N)
+
+    @property
+    def nnz(self) -> int:
+        return self._nnz
 
 
 @register_format

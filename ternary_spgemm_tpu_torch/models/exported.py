@@ -1,6 +1,8 @@
 """Exported ternary linear layers — counterpart of
-``ternary_spgemm_tpu/models/exported.py`` (forward only in this slice; the
-custom-VJP backward through the transposed container comes later).
+``ternary_spgemm_tpu/models/exported.py`` (forward only; the custom-VJP
+backward through the transposed container comes later): the layer, its
+measured kernel (``kernel="auto"``, :meth:`ExportedBitLinear.
+resolve_kernel`) and :func:`autotune_exported` for a whole model.
 """
 
 from __future__ import annotations
@@ -63,6 +65,12 @@ class ExportedBitLinear(nn.Module):
     ``fmt_t``: the transposed container of a loaded bundle (the JAX
     export's ``with_transpose=True``). The forward never reads it; it is
     kept on the host so that a re-save writes it back unchanged.
+
+    ``kernel="auto"``: the first call measures the candidates on the
+    activations the kernel receives (in the A8 regime the requantized
+    ones) and keeps the winner (``ops/autotune.py``); a call while a CUDA
+    stream is capturing raises, so resolve it first (an eager call,
+    :meth:`resolve_kernel` or :func:`autotune_exported`).
     """
 
     def __init__(self, fmt: TernaryFormat, gamma: float, bias, alpha=None, *,
@@ -107,20 +115,65 @@ class ExportedBitLinear(nn.Module):
             bias = torch.zeros(fmt.shape[1], dtype=torch.float32)
         return cls(fmt, gamma, bias, alpha, kernel=kernel, a8=a8)
 
+    def resolve_kernel(self, M: int, *, absmax: int = 127,
+                       integer: bool = True, cache_path=None,
+                       verbose: bool = False) -> str:
+        """Set ``kernel`` to the measured winner for an ``(M, K)`` batch in
+        the given domain (integer ``|x| <= absmax``, or with ``integer=
+        False`` non-integer X, the fully-exact kernels' domain): memoized
+        per shape and domain, and in ``cache_path`` across processes (the
+        JAX ``resolve_kernel``, ``models/exported.py:98-116`` there)."""
+        from ternary_spgemm_tpu_torch.formats.generate import generate_x
+        from ternary_spgemm_tpu_torch.ops.autotune import autotune
+
+        fmt = self.fmt
+        X = torch.from_numpy(generate_x(M, fmt.shape[0], seed=0,
+                                        value_range=absmax)).to(fmt.device)
+        if not integer:
+            X = X + 0.5
+        self.kernel = autotune(X, fmt, self.bias, self.alpha,
+                               cache_path=cache_path, verbose=verbose)
+        return self.kernel
+
+    def _kernel_for(self, x: torch.Tensor, fmt) -> Optional[str]:
+        """The kernel of this call: ``"auto"`` measured on ``x`` (what the
+        kernel receives) and kept; None in the A8 regime the A8 default."""
+        from ternary_spgemm_tpu_torch.ops.autotune import resolve
+
+        kernel = resolve(self, x, fmt, self.bias, self.alpha)
+        if kernel is None and self.a8:
+            return _default_a8_kernel(fmt)
+        return kernel
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fmt = self.fmt
-        kernel = self.kernel
-        if kernel is None and self.a8:
-            kernel = _default_a8_kernel(fmt)
         if self.a8:
             # A8: integer kernel dot, per-row scale and bias outside
             xq, s = _requantize_a8(x)
-            y = ternary_spgemm(xq, fmt, self.zero_bias, None, kernel=kernel)
+            y = ternary_spgemm(xq, fmt, self.zero_bias, None,
+                               kernel=self._kernel_for(xq, fmt))
             y = y * (s * self.gamma) + self.bias
         else:
             # gamma * (x @ Wq) + b  ==  gamma * (x @ Wq + b/gamma)
             y = ternary_spgemm(x, fmt, true_div(self.bias, self.gamma), None,
-                               kernel=kernel) * self.gamma
+                               kernel=self._kernel_for(x, fmt)) * self.gamma
         if self.alpha is not None:
             y = torch.where(y > 0, y, self.alpha[None, :] * y)
         return y
+
+
+def autotune_exported(model: nn.Module, M: int, *, absmax: int = 127,
+                      integer: bool = True, cache_path=None,
+                      verbose: bool = False) -> dict:
+    """Resolve every :class:`ExportedBitLinear` of ``model`` to its measured
+    fastest kernel for batch ``M`` in the given activation domain
+    (:meth:`ExportedBitLinear.resolve_kernel`; layers of one shape and
+    domain share a probe through the memo). Returns ``{(K, N): kernel}``
+    (the JAX ``autotune_exported``, ``models/exported.py:208-228``)."""
+    picks = {}
+    for layer in model.modules():
+        if isinstance(layer, ExportedBitLinear):
+            picks[layer.fmt.shape] = layer.resolve_kernel(
+                M, absmax=absmax, integer=integer, cache_path=cache_path,
+                verbose=verbose)
+    return picks

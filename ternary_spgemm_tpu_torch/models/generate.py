@@ -21,8 +21,11 @@ The decode position ``pos`` is a Python int or a 0-d int64 tensor on the
 model's device (the captured step keeps it there and bumps it in place);
 the two give the same bits. The JAX package is functional; here
 :func:`_cache_put` writes the new rows into the cache tensors in place (no
-copy of the cache per step) and returns the same dict. Serving-flag
-autotuning (``from_params(auto=True)``) comes in a later slice of the port.
+copy of the cache per step) and returns the same dict.
+
+:func:`autotune_serving_flags` measures which of the serving fast paths
+(fused SwiGLU FFN, merged QKV) one block runs fastest at the decode shape;
+``ExportedTransformerLM.from_params(auto=True)`` builds with its choice.
 """
 
 from __future__ import annotations
@@ -309,21 +312,30 @@ class ExportedTransformerLM(nn.Module):
                     format_cls=TiledBitplane, *, kernel=None,
                     fused_ffn: bool = False, fused_qkv: bool = False,
                     a8: bool = False, head_dtype=None, auto: bool = False,
-                    device="cuda", **fmt_kwargs) -> "ExportedTransformerLM":
+                    auto_rows: int = 1, cache_path=None, device="cuda",
+                    **fmt_kwargs) -> "ExportedTransformerLM":
         """From a JAX ``BitTransformerLM.init`` parameter tree as numpy
         (the counterpart of the JAX ``from_params(model, params, ...)``,
         which takes the model for its cfg), through
         :func:`~ternary_spgemm_tpu_torch.models.convert.lm_from_jax_params`:
-        ``format_cls``, ``kernel`` (a name of this port's registry), the
-        serving flags and the head's dtype; built on the card (raises
-        without one) unless ``device="cpu"``. The port is forward-only: no
-        transposed containers."""
-        if auto:
-            raise NotImplementedError(
-                "from_params(auto=True) measures the serving flags "
-                "(autotune_serving_flags), which the port does not have yet "
-                "(ROADMAP A6); pass fused_ffn / fused_qkv")
+        ``format_cls``, ``kernel`` (a name of this port's registry, or
+        ``"auto"``), the serving flags and the head's dtype; built on the
+        card (raises without one) unless ``device="cpu"``. The port is
+        forward-only: no transposed containers.
+
+        ``auto=True`` replaces ``fused_ffn`` / ``fused_qkv`` by the
+        measured choice of :func:`autotune_serving_flags` for the first
+        block at ``auto_rows`` rows, with the caller's ``kernel`` (the JAX
+        package drops it, ``models/generate.py:417`` there) and the JSON
+        ``cache_path`` shared with ``ops/autotune.py``."""
         from ternary_spgemm_tpu_torch.models.convert import lm_from_jax_params
+
+        if auto:
+            picks = autotune_serving_flags(
+                cfg, params["blocks"][0], format_cls, rows=auto_rows, a8=a8,
+                kernel=kernel, cache_path=cache_path, device=device,
+                **fmt_kwargs)
+            fused_ffn, fused_qkv = picks["fused_ffn"], picks["fused_qkv"]
 
         return lm_from_jax_params(cfg, params, a8=a8, fused_qkv=fused_qkv,
                                   fused_ffn=fused_ffn, device=device,
@@ -385,6 +397,90 @@ class ExportedTransformerLM(nn.Module):
                                  block.norm_ffn, x, cache, pos, ffn=ffn,
                                  qkv=qkv, window=self.cfg.window)
         return self._head(rms_norm(x, self.norm_out))[:, 0], caches
+
+
+#: the serving flags' choices by name, as the JAX cache file stores them
+FLAG_NAMES = {(False, False): "none", (True, False): "ffn",
+              (False, True): "qkv", (True, True): "ffn_qkv"}
+
+
+def _flags(name: str) -> dict:
+    return {"fused_ffn": "ffn" in name, "fused_qkv": "qkv" in name}
+
+
+@torch.no_grad()
+def autotune_serving_flags(cfg: BitTransformerConfig, block_params: dict,
+                           format_cls=TiledBitplane, *, rows: int = 1,
+                           a8: bool = True, cache_len: int = 256,
+                           min_seconds: float = 0.2, repeats: int = 2,
+                           cache_path=None, verbose: bool = False,
+                           builder=None, kernel=None, device="cuda",
+                           **fmt_kwargs) -> dict:
+    """Measure the serving fast-path flags for one block shape — the JAX
+    ``autotune_serving_flags`` (``models/generate.py:506-610`` there).
+
+    Builds the four variants of one :class:`ExportedTransformerBlock`
+    (fused_ffn x fused_qkv; a fused FFN whose contract does not hold is
+    skipped) from ``block_params`` (a JAX parameter block, numpy) or with
+    ``builder(ffn, qkv)``, and times each one decode step at ``rows`` rows
+    against a KV cache of ``cache_len`` positions, from a CUDA graph on the
+    card (the host clock on the CPU); returns ``{"fused_ffn": bool,
+    "fused_qkv": bool}`` of the fastest. The probe attends with the
+    model's heads (``cfg.head_tuple``: GQA too, where the JAX probe passes
+    ``cfg.n_heads`` and fails, ``models/generate.py:580`` there) and
+    builds the blocks with ``kernel``. Memoized per (device type, format,
+    d_model, n_heads, d_ff, rows, a8) in ``ops/autotune.py``'s memo and
+    JSON file, whose key string is the JAX package's; K/V heads other than
+    ``n_heads`` and a ``kernel`` other than None are appended to it
+    (``kv_heads=8``, ``kernel=`` the JAX registry's name)."""
+    from ternary_spgemm_tpu_torch.ops import autotune as at
+    from ternary_spgemm_tpu_torch.ops.api import jax_name
+    from ternary_spgemm_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    key = (dev.type, "servingflags",
+           getattr(format_cls, "__name__", "builder"),
+           cfg.d_model, cfg.n_heads, cfg.d_ff, rows, bool(a8))
+    # what the JAX probe leaves out extends its key only where it differs
+    # from what that probe runs, so the common key stays the JAX one
+    if cfg.kv_heads != cfg.n_heads:
+        key += (f"kv_heads={cfg.kv_heads}",)
+    if kernel is not None:
+        key += (f"kernel={jax_name(kernel)}",)
+    same = lambda v: v
+    hit = at.memoized(key, cache_path, same, same)
+    if hit is not None:
+        return _flags(hit)
+
+    B = max(1, rows)
+    cache = init_cache(cfg, B, cache_len, device=dev)[0]
+    x1 = torch.zeros((B, 1, cfg.d_model), device=dev)
+    best_name, best_t = "none", float("inf")
+    for ffn, qkv in FLAG_NAMES:
+        blk = (builder(ffn, qkv) if builder is not None else
+               ExportedTransformerBlock.from_params(
+                   cfg, block_params, format_cls, kernel=kernel,
+                   fused_ffn=ffn, fused_qkv=qkv, a8=a8, device=dev,
+                   **fmt_kwargs))
+        if ffn and not blk._fused_ffn_applicable():
+            continue
+
+        def block_fn(x, bk=blk):
+            lin = lambda n, z: bk.linears[n](z.reshape(B, -1))[:, None, :]
+            f, q = _fused_hooks(bk, B, lambda z: (B, 1))
+            return _block_decode(cfg.head_tuple, lin, bk.norm_attn,
+                                 bk.norm_ffn, x, cache, cache_len - 1,
+                                 ffn=f, qkv=q, window=cfg.window)[0]
+
+        t = at.time_call(block_fn, x1, min_seconds=min_seconds,
+                         repeats=repeats, graph=True)
+        name = FLAG_NAMES[(ffn, qkv)]
+        if verbose:
+            print(f"serving flags {name}: {t * 1e6:.1f} us", flush=True)
+        if t < best_t:
+            best_name, best_t = name, t
+    at.remember(key, best_name, cache_path, same)
+    return _flags(best_name)
 
 
 @torch.no_grad()

@@ -272,6 +272,14 @@ class ExportedTransformerBlock(nn.Module):
         return self.linears["w_down"](
             silu(self.linears["w_gate"](h)) * self.linears["w_up"](h))
 
+    def _qkv_kernel(self, x, fmt):
+        """The merged QKV's kernel: ``kernel="auto"`` measured on the first
+        call's activations (what the kernel receives) and kept, as an
+        :class:`ExportedBitLinear` keeps it."""
+        from ternary_spgemm_tpu_torch.ops.autotune import resolve
+
+        return resolve(self, x, fmt, self.qkv.zero_bias)
+
     def _qkv(self, h):
         """(rows, d) -> q, k, v. With the merged container: ONE SpMM over
         (d, d + 2*kv_width); in the A8 regime one shared requantize."""
@@ -280,14 +288,14 @@ class ExportedTransformerBlock(nn.Module):
             fmt = self.qkv.fmt
             if self.a8:
                 hq, s = _requantize_a8(h)
-                kname = self.kernel or _default_a8_kernel(fmt)
+                kname = self._qkv_kernel(hq, fmt) or _default_a8_kernel(fmt)
                 out = ternary_spgemm(hq, fmt, self.qkv.zero_bias, None,
                                      kernel=kname)
                 out = (out * s) * self.qkv.scale[None, :] \
                     + self.qkv.bias[None, :]
             else:
                 out = ternary_spgemm(h, fmt, self.qkv.zero_bias, None,
-                                     kernel=self.kernel)
+                                     kernel=self._qkv_kernel(h, fmt))
                 out = out * self.qkv.scale[None, :] + self.qkv.bias[None, :]
             return out[:, :d], out[:, d:d + kvw], out[:, d + kvw:]
         return (self.linears["wq"](h), self.linears["wk"](h),

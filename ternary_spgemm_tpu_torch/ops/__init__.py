@@ -13,7 +13,7 @@ from ternary_spgemm_tpu_torch.ops.api import (
     ternary_spgemm,
     unported,
 )
-from ternary_spgemm_tpu_torch.ops import xla_kernels  # noqa: F401  (registers BaseTCSC)
+from ternary_spgemm_tpu_torch.ops import xla_kernels  # noqa: F401  (registers the 13 torch-op formulations)
 from ternary_spgemm_tpu_torch.ops import cuda_kernels  # noqa: F401  (registers kernels)
 from ternary_spgemm_tpu_torch.ops.fused_ffn import (
     fused_bitplane_ffn,

@@ -24,24 +24,23 @@ _KERNEL_REGISTRY: Dict[str, "KernelSpec"] = {}
 BASELINE_KERNEL_NAME = "BaseTCSC"
 
 #: The JAX package's kernel registry (``ternary_spgemm_tpu.ops.all_kernels()``,
-#: in its order), each name with its counterpart in this registry, or None
-#: where that kernel is not ported yet (``ROADMAP.md`` queues A and B). The
-#: port's benchmark sweeps only the counterparts; :func:`unported` names the
-#: rest.
+#: in its order), each name with its counterpart in this registry (a name
+#: maps to None where a kernel is not ported; none is now, so
+#: :func:`unported` is empty and the port's benchmark sweeps all 31).
 REFERENCE_KERNELS: Dict[str, Optional[str]] = {
     "BaseTCSC": "BaseTCSC",
-    "BaseTCSR": None,
-    "BlockedTCSC": None,
-    "InterleavedTCSC": None,
-    "InterleavedBlockedTCSC": None,
-    "EllTCSC": None,
+    "BaseTCSR": "BaseTCSR",
+    "BlockedTCSC": "BlockedTCSC",
+    "InterleavedTCSC": "InterleavedTCSC",
+    "InterleavedBlockedTCSC": "InterleavedBlockedTCSC",
+    "EllTCSC": "EllTCSC",
     "BlockedEllTCSC": "BlockedEllTCSC",
     "DenseMXU": "DenseMXU",
     "DenseMXU_bf16": "DenseMXU_bf16",
     "DenseMXU_x8": "DenseMXU_x8",
     "PackedMXU_2bit": "PackedMXU_2bit",
     "PackedMXU_base3": "PackedMXU_base3",
-    "PackedCSC": None,
+    "PackedCSC": "PackedCSC",
     "PallasDense": "CudaDense",
     "PallasDense_bf16": "CudaDense_bf16",
     "PallasPacked2Bit": "CudaPacked2Bit",
@@ -61,6 +60,28 @@ REFERENCE_KERNELS: Dict[str, Optional[str]] = {
     "PallasTiledEllGather": "CudaTiledEllGather",
     "PallasEllGather": "CudaEllGather",
 }
+
+
+def jax_name(name: Optional[str]) -> Optional[str]:
+    """A kernel name of this port -> the JAX registry's (None and
+    ``"auto"``, the measured choice, stay): the name files store."""
+    if name is None or name == "auto":
+        return name
+    for jax, port in REFERENCE_KERNELS.items():
+        if port == name:
+            return jax
+    raise ValueError(f"kernel {name!r} has no counterpart in the JAX "
+                     "registry, so a file cannot name it")
+
+
+def port_name(name: Optional[str]) -> Optional[str]:
+    """A JAX registry name read from a file -> this port's kernel (None and
+    ``"auto"`` stay)."""
+    if name is None or name == "auto":
+        return name
+    if name not in REFERENCE_KERNELS:
+        raise ValueError(f"kernel {name!r} is not in the JAX registry")
+    return REFERENCE_KERNELS[name]
 
 
 def unported(names: Optional[Iterable[str]] = None) -> List[str]:
@@ -193,7 +214,13 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
     format has only restricted-domain kernels it takes the widest domain
     (_i8 over _x8) and warns that non-integer X is rounded — the JAX
     package's default dispatch (``ops/api.py:130-158`` there). Among the
-    candidates :func:`dispatch_rank` decides."""
+    candidates :func:`dispatch_rank` decides. ``kernel="auto"`` measures
+    the candidates once for this (shape, container, activation domain) and
+    memoizes the winner (``ops/autotune.py``; not while a CUDA stream is
+    capturing)."""
+    if kernel == "auto":
+        from ternary_spgemm_tpu_torch.ops.autotune import autotune
+        kernel = autotune(X, fmt, bias, alpha)
     if kernel is not None:
         spec = get_kernel(kernel)
         if not isinstance(fmt, spec.format_cls):

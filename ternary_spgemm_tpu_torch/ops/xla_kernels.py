@@ -1,10 +1,14 @@
 """The XLA formulations of the JAX registry as torch ops — counterpart of
-``ternary_spgemm_tpu/ops/xla_kernels.py``: the speedup denominator
-``BaseTCSC`` (``:67-160`` there), the masked gather ``BlockedEllTCSC``
-(``:242-264``), the three dense products over ``DenseTernary``,
-``DenseMXU``, ``DenseMXU_bf16`` and ``DenseMXU_x8`` (``:267-305``), and the
-two decode-then-dot products over the stride-packed containers,
-``PackedMXU_2bit`` and ``PackedMXU_base3`` (``:308-356``).
+``ternary_spgemm_tpu/ops/xla_kernels.py``, all thirteen: the speedup
+denominator ``BaseTCSC`` (``:67-160`` there), the scatter ``BaseTCSR``
+(``:163-176``), the blocked partial sums ``BlockedTCSC`` (``:179-197``),
+the signed streams ``InterleavedTCSC`` and ``InterleavedBlockedTCSC``
+(``:200-223``), the padded gather ``EllTCSC`` (``:226-240``), the masked
+gather ``BlockedEllTCSC`` (``:242-264``), the three dense products over
+``DenseTernary``, ``DenseMXU``, ``DenseMXU_bf16`` and ``DenseMXU_x8``
+(``:267-305``), the two decode-then-dot products over the stride-packed
+containers, ``PackedMXU_2bit`` and ``PackedMXU_base3`` (``:308-356``), and
+the packed-value CSC ``PackedCSC`` (``:359-372``).
 
 In the JAX package these are XLA, not Pallas, so the port writes them with
 torch ops and no kernel of its own; they are registered kernels, not plain
@@ -36,23 +40,48 @@ BaseTCSC (in JAX a gather plus a sorted segment sum) is an
 chunks over the container's padded per-column gather tables instead (a pure
 gather and a sum over the slot axis, no scatter).
 
+The stream formulations keep the JAX package's structure, so that their
+f32 sums on non-integer X round as JAX's do as far as torch lets them:
+
+* ``BaseTCSR``: the row-major stream's ``index_add_`` into unsorted
+  columns (JAX's unsorted ``segment_sum``, a real scatter);
+* ``BlockedTCSC`` / ``InterleavedBlockedTCSC``: ``index_add_`` into one
+  partial sum per (K-block, column), then a sum over the blocks (a flat
+  sum would round differently);
+* ``InterleavedTCSC`` / ``PackedCSC``: one signed stream (the signs
+  decoded from the packed base-3 digits, cut at ``_nnz``, for
+  ``PackedCSC``), ``index_add_`` into its columns;
+* ``EllTCSC``: X with a zero column appended (the sentinel ``K`` reads
+  it), one ``(M, CAP, N_pad)`` gather a sign summed over the slot axis;
+  the gather is walked in M-chunks so that it stays under
+  ``_CHUNK_BUDGET_FLOATS`` (rows are independent, so the result is the
+  unchunked one).
+
 Sums are exact for the integer test distribution (|partial sums| < 2**24).
 On a CUDA tensor ``index_add_`` adds with atomics, so on non-integer X the
-f32 result can differ from run to run in the last bits.
+f32 result can differ from run to run in the last bits (a few ULPs of the
+largest partial sum of a column).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ternary_spgemm_tpu_torch.formats.blocked import (
+    BlockedTCSC,
+    InterleavedBlockedTCSC,
+)
 from ternary_spgemm_tpu_torch.formats.blocked_ell import BlockedEllTCSC
+from ternary_spgemm_tpu_torch.formats.ell import EllTCSC
+from ternary_spgemm_tpu_torch.formats.interleaved import InterleavedTCSC
 from ternary_spgemm_tpu_torch.formats.packed import (
     DenseTernary,
+    PackedCSC,
     PackedTernary2Bit,
     PackedTernary53,
     decode_fields,
 )
-from ternary_spgemm_tpu_torch.formats.tcsc import TCSC
+from ternary_spgemm_tpu_torch.formats.tcsc import TCSC, TCSR
 from ternary_spgemm_tpu_torch.ops.api import (
     finish,
     matmul_dense,
@@ -121,6 +150,101 @@ def tcsc_kernel(X, fmt: TCSC, bias, alpha=None):
     neg = _segment_cols(X.index_select(1, fmt.row_index_neg),
                         fmt.col_ids_neg, fmt.N)
     return finish(pos - neg, bias, alpha)
+
+
+@register_kernel(
+    "BaseTCSR", TCSR,
+    description="row-major scatter formulation (index_add_ into unsorted "
+                "columns) as torch ops",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:167")
+def tcsr_kernel(X, fmt: TCSR, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    # entry i adds X[:, row_ids[i]] into column col_index[i], the columns
+    # in no order: the reference's scatter hazard (comp.h:490-527)
+    pos = _segment_cols(X.index_select(1, fmt.row_ids_pos),
+                        fmt.col_index_pos, fmt.N)
+    neg = _segment_cols(X.index_select(1, fmt.row_ids_neg),
+                        fmt.col_index_neg, fmt.N)
+    return finish(pos - neg, bias, alpha)
+
+
+def _block_partials(data: torch.Tensor, rows: torch.Tensor,
+                    cols: torch.Tensor, nb: int, N: int,
+                    B: int) -> torch.Tensor:
+    """Sum ``data[:, i]`` into the partial sum of (block ``rows[i] // B``,
+    column ``cols[i]``), then the partials over the blocks: (M, nnz) ->
+    (M, N)."""
+    seg = (rows // B) * N + cols
+    part = _segment_cols(data, seg, nb * N)
+    return part.view(data.shape[0], nb, N).sum(dim=1)
+
+
+@register_kernel(
+    "BlockedTCSC", BlockedTCSC,
+    description="per-K-block partial column sums, reduced over blocks, as "
+                "torch ops",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:183")
+def blocked_tcsc_kernel(X, fmt: BlockedTCSC, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    nb, N, B = fmt.num_blocks, fmt.N, fmt.block_size
+
+    def plane(rows, cols):
+        return _block_partials(X.index_select(1, rows), rows, cols, nb, N, B)
+
+    return finish(plane(fmt.row_index_pos, fmt.col_ids_pos)
+                  - plane(fmt.row_index_neg, fmt.col_ids_neg), bias, alpha)
+
+
+def _signed_stream(X: torch.Tensor, rows: torch.Tensor,
+                   signs: torch.Tensor) -> torch.Tensor:
+    """``X[:, rows[i]] * signs[i]``: the (M, nnz) signed stream."""
+    return X.index_select(1, rows) * signs.to(torch.float32)[None, :]
+
+
+@register_kernel(
+    "InterleavedTCSC", InterleavedTCSC,
+    description="one branch-free signed stream + index_add_ as torch ops",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:204")
+def interleaved_tcsc_kernel(X, fmt: InterleavedTCSC, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    vals = _signed_stream(X, fmt.all_indices, fmt.signs)
+    return finish(_segment_cols(vals, fmt.col_ids, fmt.N), bias, alpha)
+
+
+@register_kernel(
+    "InterleavedBlockedTCSC", InterleavedBlockedTCSC,
+    description="blocked signed stream (per-block partial sums of one "
+                "stream) as torch ops",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:215")
+def interleaved_blocked_kernel(X, fmt: InterleavedBlockedTCSC, bias,
+                               alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    vals = _signed_stream(X, fmt.all_indices, fmt.signs)
+    return finish(_block_partials(vals, fmt.all_indices, fmt.col_ids,
+                                  fmt.num_blocks, fmt.N, fmt.block_size),
+                  bias, alpha)
+
+
+@register_kernel(
+    "EllTCSC", EllTCSC,
+    description="rectangular padded gather over the slot axis (sentinel K "
+                "reads an appended zero column) as torch ops, in M-chunks",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:230")
+def ell_tcsc_kernel(X, fmt: EllTCSC, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    M = X.shape[0]
+    Xp = torch.nn.functional.pad(X, (0, 1))          # zero column at K
+    n_pad = fmt.idx_pos.shape[1]
+    cap = max(fmt.idx_pos.shape[0], fmt.idx_neg.shape[0])
+    MC = max(1, _CHUNK_BUDGET_FLOATS // (cap * n_pad))
+    out = torch.empty((M, n_pad), dtype=torch.float32, device=X.device)
+    for m0 in range(0, M, MC):
+        xc = Xp[m0:m0 + MC]
+        pos, neg = (xc.index_select(1, idx.reshape(-1)).view(
+            xc.shape[0], idx.shape[0], n_pad).sum(dim=1)
+            for idx in (fmt.idx_pos, fmt.idx_neg))
+        out[m0:m0 + MC] = pos - neg
+    return finish(out[:, :fmt.N], bias, alpha)
 
 
 @register_kernel(
@@ -207,3 +331,14 @@ def packed53_mxu_kernel(X, fmt: PackedTernary53, bias, alpha=None):
     X = to_f32(torch.as_tensor(X))
     return finish(matmul_dense(X, decode_base3(fmt.packed, X.shape[1])),
                   bias, alpha)
+
+
+@register_kernel(
+    "PackedCSC", PackedCSC,
+    description="CSC stream with base-3 packed value codes, decoded in the "
+                "kernel, as torch ops",
+    reference="ternary_spgemm_tpu/ops/xla_kernels.py:363")
+def packed_csc_kernel(X, fmt: PackedCSC, bias, alpha=None):
+    X = to_f32(torch.as_tensor(X))
+    vals = _signed_stream(X, fmt.row_index, fmt.signs())
+    return finish(_segment_cols(vals, fmt.col_ids, fmt.N), bias, alpha)

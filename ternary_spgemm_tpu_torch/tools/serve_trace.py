@@ -50,7 +50,6 @@ from ternary_spgemm_tpu_torch.bench.harness import device_name
 from ternary_spgemm_tpu_torch.models import serving
 from ternary_spgemm_tpu_torch.models.generate import init_cache
 from ternary_spgemm_tpu_torch.models.graphs import captured
-from ternary_spgemm_tpu_torch.models.transformer import BitTransformerConfig
 from ternary_spgemm_tpu_torch.tools import emit
 from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
@@ -138,7 +137,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = BitTransformerConfig(**serving.PRESETS[args.preset])
+    cfg = serving.preset_config(args.preset)
     lm = serving.build_serving_lm(cfg, s=2, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(42)
     B, T0 = BATCH, PROMPT

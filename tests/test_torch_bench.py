@@ -26,12 +26,18 @@ from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS, all_kernels, unporte
 #: port kernel -> the JAX kernel it replaces
 PAIRS = {
     "BaseTCSC": "BaseTCSC",
+    "BaseTCSR": "BaseTCSR",
+    "BlockedTCSC": "BlockedTCSC",
+    "InterleavedTCSC": "InterleavedTCSC",
+    "InterleavedBlockedTCSC": "InterleavedBlockedTCSC",
+    "EllTCSC": "EllTCSC",
     "BlockedEllTCSC": "BlockedEllTCSC",
     "DenseMXU": "DenseMXU",
     "DenseMXU_bf16": "DenseMXU_bf16",
     "DenseMXU_x8": "DenseMXU_x8",
     "PackedMXU_2bit": "PackedMXU_2bit",
     "PackedMXU_base3": "PackedMXU_base3",
+    "PackedCSC": "PackedCSC",
     "CudaTiledBitplane_x8": "PallasTiledBitplane_x8",
     "CudaTiledBitplane_i8": "PallasTiledBitplane_i8",
     "CudaTiledBitplane_bf16": "PallasTiledBitplane_bf16",
@@ -118,8 +124,13 @@ def test_headline_default_follows_bench_py():
     assert unported(headline.BENCH_PY_DEFAULT_KERNELS) == []
 
 
+#: the torch-op formulations of the containers that need K a multiple of
+#: their 512-row block (the harness builds them at their default block)
+BLOCKED_KERNELS = ("BlockedTCSC", "InterleavedBlockedTCSC")
+
+
 @pytest.mark.parametrize("name, says", [
-    ("PackedCSC", "not ported yet"),
+    ("PallasEllGather", "'CudaEllGather'"),
     ("PallasDense", "'CudaDense'"),
     ("PallasTiledBitplane_i8", "'CudaTiledBitplane_i8'"),
     ("NoSuchKernel", "registered: "),
@@ -158,13 +169,34 @@ def test_instrument_matches_jax(cls, prelu, x_bytes):
 def test_run_config_matches_jax_schema():
     kw = dict(M=4, K=64, N=256, s=4, prelu=True, min_seconds=0.001,
               correctness=True, timer="wall")
-    tcfg = tbench.BenchConfig(kernels=list(PAIRS), device="cpu", **kw)
-    jcfg = jbench.BenchConfig(kernels=list(PAIRS.values()), **kw)
+    _schema_matches_jax({n: j for n, j in PAIRS.items()
+                         if n not in BLOCKED_KERNELS}, kw)
+
+
+def test_run_config_blocked_kernels_match_jax_schema():
+    """The blocked containers at K = 512, one block of the harness's
+    default, and a K they cannot take recorded as the kernels' error in
+    both harnesses."""
+    kw = dict(M=3, K=512, N=130, s=3, prelu=True, min_seconds=0.001,
+              correctness=True, timer="wall")
+    _schema_matches_jax({n: n for n in ("BaseTCSC", *BLOCKED_KERNELS)}, kw)
+    kw["K"] = 100
+    tcfg = tbench.BenchConfig(kernels=list(BLOCKED_KERNELS), device="cpu",
+                              **kw)
+    jcfg = jbench.BenchConfig(kernels=list(BLOCKED_KERNELS), **kw)
+    for results in (tbench.run_config(tcfg), jbench.run_config(jcfg)):
+        assert [r.name for r in results] == list(BLOCKED_KERNELS)
+        assert all("divisible by block_size" in r.error for r in results)
+
+
+def _schema_matches_jax(pairs: dict, kw: dict):
+    tcfg = tbench.BenchConfig(kernels=list(pairs), device="cpu", **kw)
+    jcfg = jbench.BenchConfig(kernels=list(pairs.values()), **kw)
     trec = tbench.to_reference_json(tcfg, tbench.run_config(tcfg))
     jrec = jbench.to_reference_json(jcfg, jbench.run_config(jcfg))
     assert trec["test_case"] == jrec["test_case"]
     assert set(trec) == set(jrec)
-    for name, jname in PAIRS.items():
+    for name, jname in pairs.items():
         t, j = trec["results"][name], jrec["results"][jname]
         assert set(t) == set(j), name
         assert t["correct"] is True and j["correct"] is True, (name, t, j)
@@ -187,20 +219,43 @@ def test_run_config_clips_restricted_domains():
     assert all(r.error is None and r.max_abs_err == 0.0 for r in results)
 
 
-def test_cli_runs_on_cpu(capsys):
-    rc = cli.main(["-M", "3", "-K", "48", "-N", "140", "-s", "3",
+BLOCKED = ("BlockedTCSC", "InterleavedBlockedTCSC")
+
+
+def _cli_sweep(capsys, K):
+    rc = cli.main(["-M", "3", "-K", str(K), "-N", "140", "-s", "3",
                    "-correctness", "-prelu", "--device", "cpu"])
     out = capsys.readouterr().out
     assert rc == 0, out
     lines = out.splitlines()
     assert lines[0].endswith("device=cpu")
-    # the JAX kernels this sweep leaves out are named, not skipped quietly
-    assert lines[1] == (f"# {len(all_kernels())} kernels, the port's "
-                        "registry; not ported yet, so not swept: "
-                        + ", ".join(unported()))
-    for name in all_kernels():
-        mine = [ln for ln in lines if ln.split()[:1] == [name]]
-        assert len(mine) == 1 and mine[0].endswith("correct=True"), mine
+    # the sweep is the whole JAX registry, each kernel by its counterpart
+    assert unported() == [] and len(all_kernels()) == 31
+    assert lines[1] == ("# 31 kernels, the port's registry: a counterpart "
+                        "of every kernel of the JAX registry")
+    return out, {name: [ln for ln in lines if ln.split()[:1] == [name]]
+                 for name in all_kernels()}
+
+
+def test_cli_runs_on_cpu(capsys):
+    # K = 48, off the blocked containers' 512-row block: they print ERROR,
+    # as the JAX CLI prints it, and the run does not fail for it
+    out, mine = _cli_sweep(capsys, 48)
+    for name, got in mine.items():
+        if name in BLOCKED:
+            assert got == [f"{name:28s} ERROR ValueError: K=48 must be "
+                           "divisible by block_size=512 (reference asserts "
+                           "the same, BlockedTCSC.h:5)"], got
+        else:
+            assert len(got) == 1 and got[0].endswith("correct=True"), got
+    assert out.count("ERROR") == len(BLOCKED)
+
+
+def test_cli_runs_on_cpu_at_the_blocked_block(capsys):
+    # K = 512: the blocked containers' default block, every kernel runs
+    out, mine = _cli_sweep(capsys, 512)
+    for got in mine.values():
+        assert len(got) == 1 and got[0].endswith("correct=True"), got
     assert "ERROR" not in out
 
 

@@ -2,7 +2,7 @@
 a serving bundle and an ``.npz`` pytree written by either package load in
 the other with the same array bytes.
 
-* Containers: each of the 12 ported containers, both ways, every array
+* Containers: each of the 18 containers, both ways, every array
   byte for byte (against the JAX package's device arrays: its packer keeps
   column sums as int64 on the host, which both packages' kernels see as
   int32) and the static fields equal.
@@ -85,8 +85,8 @@ def _files_equal(a: str, b: str) -> None:
 
 def test_format_registry_names_the_ported_containers():
     names = set(all_formats())
-    assert len(names) == 12
-    assert names <= set(jformats.all_formats())
+    assert len(names) == 18
+    assert names == set(jformats.all_formats())
     for name, cls in all_formats().items():
         assert cls.ARRAY_FIELDS == jformats.all_formats()[name].ARRAY_FIELDS
 
@@ -103,10 +103,13 @@ def test_config_fields_are_jax_config_fields():
 
 def _pair(name: str):
     """One ternary matrix packed by both packages (TCSC with its gather
-    tables, without which the JAX loader cannot read it back)."""
+    tables, without which the JAX loader cannot read it back; the blocked
+    containers at 128-row blocks, which K = 256 holds)."""
     W = jformats.generate_ternary(256, 384, 3, seed=1)
-    j = jformats.all_formats()[name].from_dense(W)
-    t = all_formats()[name].from_dense(W)
+    kw = {"block_size": 128} if name in ("BlockedTCSC",
+                                         "InterleavedBlockedTCSC") else {}
+    j = jformats.all_formats()[name].from_dense(W, **kw)
+    t = all_formats()[name].from_dense(W, **kw)
     if name == "TCSC":
         j, t = j.with_ell_tables(), t.with_ell_tables()
     return j, t

@@ -32,7 +32,11 @@ bits as each other. The captured generate loop (``models/graphs.py``; ``-k
 greedy and sampled, and with a ring cache (``-k ring_graph``). A serving
 bundle loaded with ``device="cuda"`` holds the saved tensors (``-k
 bundle``); the bf16 head gives f32 logits within 0.05 of the f32 head
-(``-k bf16``).
+(``-k bf16``). The six torch-op formulations ported last run on CUDA
+tensors as on CPU ones (``-k xla_formulation``); autotune measures on the
+card, refuses a capturing stream and raises, naming it, a candidate that
+fails other than by refusing the shape (``-k autotune_on_card``); the serving
+tool serves its ``test`` preset captured (``-k serving_tool``).
 """
 
 import dataclasses
@@ -1532,3 +1536,131 @@ def test_bf16_head_on_card(dev):
     p = _prompt(dev, 9)
     want = generate(lm, p, 8, graph=False, cache_dtype=torch.int8)
     assert torch.equal(generate(lm, p, 8, cache_dtype=torch.int8), want)
+
+
+#: the six torch-op formulations of the last XLA kernels, with their
+#: containers' packer arguments (K = 512: the blocked ones' default block)
+XLA_FORMULATIONS = {"BaseTCSR": {}, "BlockedTCSC": {},
+                    "InterleavedTCSC": {}, "InterleavedBlockedTCSC":
+                    {"group": 6}, "EllTCSC": {}, "PackedCSC": {}}
+
+
+@pytest.mark.parametrize("name", sorted(XLA_FORMULATIONS))
+def test_xla_formulation_on_card(dev, name):
+    """Each formulation on CUDA tensors (containers packed on the card)
+    against its CPU result: bitwise on integer X (the sums are exact),
+    within rtol=1e-5, atol=1e-4 on non-integer X (``index_add_`` adds in
+    atomic order on the card); the containers' bytes equal the CPU
+    packer's."""
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+
+    spec = all_kernels()[name]
+    kw = XLA_FORMULATIONS[name]
+    W = generate_ternary(512, 300, 3, seed=8)
+    cpu = spec.format_cls.from_dense(W, **kw)
+    gpu = spec.format_cls.from_dense(torch.from_numpy(W).to(dev), **kw)
+    for f in cpu.ARRAY_FIELDS:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    b, a = torch.from_numpy(generate_bias(300)), \
+        torch.from_numpy(generate_alpha(300))
+    rng = np.random.default_rng(2)
+    for X in (generate_x(9, 512, seed=3),
+              rng.uniform(-2, 2, (9, 512)).astype(np.float32)):
+        X = torch.from_numpy(X)
+        for al in (None, a):
+            want = spec.fn(X, cpu, b, al)
+            got = spec.fn(X.to(dev), gpu, b.to(dev),
+                          None if al is None else al.to(dev))
+            assert got.is_cuda
+            if bool((X == X.round()).all()):
+                assert torch.equal(got.cpu(), want)
+            else:
+                torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                           atol=1e-4)
+
+
+def test_autotune_on_card(dev, tmp_path):
+    """``autotune`` on CUDA tensors returns a registered candidate, keys
+    the file by ``cuda``, warns of no failed candidate, and refuses to
+    measure while a stream is capturing."""
+    import importlib
+    import json
+    import warnings
+
+    from ternary_spgemm_tpu_torch.ops import ternary_spgemm
+
+    at = importlib.import_module("ternary_spgemm_tpu_torch.ops.autotune")
+    at._CACHE.clear()
+    W = generate_ternary(1024, 4096, 4, seed=0)
+    fmt = TiledBitplane.from_dense(torch.from_numpy(W).to(dev))
+    X = torch.from_numpy(generate_x(32, 1024, seed=1)).to(dev)
+    b = torch.from_numpy(generate_bias(4096)).to(dev)
+    cache = str(tmp_path / "tune.json")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        name = at.autotune(X, fmt, b, cache_path=cache)
+    assert name in {s.name for s in at.candidates_for(fmt, 512.0, True)}
+    assert list(json.load(open(cache))) == [
+        "cuda|TiledBitplane|32|1024|4096|512.0|True|False"]
+    y = ternary_spgemm(X, fmt, b, kernel="auto")
+    assert torch.equal(y, cuda_kernels.bitplane_i8_plain(X, fmt, b))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capturing"):
+        with torch.cuda.graph(graph, stream=side):
+            at.autotune(X, fmt, b)
+    at._CACHE.clear()
+
+
+@pytest.mark.parametrize("err", [RuntimeError, ValueError])
+def test_autotune_on_card_raises_a_failed_kernel(dev, monkeypatch, err):
+    """On CUDA tensors a candidate that fails to build or launch stops
+    autotune with the kernel's name; only one that refuses the shape (its
+    precondition's ValueError) is skipped, with a warning."""
+    import importlib
+
+    from ternary_spgemm_tpu_torch.ops import api
+
+    at = importlib.import_module("ternary_spgemm_tpu_torch.ops.autotune")
+    at._CACHE.clear()
+    spec = api.get_kernel("CudaTiledBitplane_i8")
+
+    def broken(*a, **k):
+        raise err("no launch")
+
+    monkeypatch.setitem(api._KERNEL_REGISTRY, spec.name,
+                        dataclasses.replace(spec, fn=broken))
+    W = generate_ternary(256, 512, 4, seed=0)
+    fmt = TiledBitplane.from_dense(torch.from_numpy(W).to(dev))
+    X = torch.from_numpy(np.clip(generate_x(8, 256, seed=1), -127,
+                                 127)).to(dev)
+    b = torch.from_numpy(generate_bias(512)).to(dev)
+    if err is RuntimeError:
+        with pytest.raises(RuntimeError, match="candidate "
+                           "CudaTiledBitplane_i8 failed on the card"):
+            at.autotune(X, fmt, b, min_seconds=0.001)
+    else:
+        with pytest.warns(UserWarning, match="CudaTiledBitplane_i8 failed"):
+            name = at.autotune(X, fmt, b, min_seconds=0.001)
+        assert name != spec.name
+    at._CACHE.clear()
+
+
+def test_serving_tool_test_preset_on_card(dev, capsys):
+    """The serving tool at its ``test`` preset on the card: captured
+    prefill and decode, the kernels counted, no plain version on a CUDA
+    tensor."""
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import serving_bench as sb
+
+    for fast in ("both", "none"):
+        assert sb.main(["--preset", "test", "--repeats", "1", "--fast-paths",
+                        fast, "--batch", "2"]) == 0
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rec["prefill"]["seconds"] > 0 and not rec["plain_on_cuda"]
+        assert rec["launches"].get("CudaTiledBitplane_x8", 0) > 0
+        assert (rec["launches"].get(fused_ffn.KERNEL_NAME, 0) > 0) == \
+            (fast == "both")
+        assert rec["peak_memory_bytes"] > 0

@@ -27,6 +27,12 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.ops.cuda_kernels",
                  "ternary_spgemm_tpu_torch.ops.xla_kernels",
                  "ternary_spgemm_tpu_torch.ops.fused_ffn",
+                 "ternary_spgemm_tpu_torch.ops.autotune",
+                 "ternary_spgemm_tpu_torch.formats.blocked",
+                 "ternary_spgemm_tpu_torch.formats.interleaved",
+                 "ternary_spgemm_tpu_torch.formats.ell",
+                 "ternary_spgemm_tpu_torch.bench.stacked",
+                 "ternary_spgemm_tpu_torch.tools.serving_bench",
                  "ternary_spgemm_tpu_torch.formats.tcsc",
                  "ternary_spgemm_tpu_torch.formats.tiled",
                  "ternary_spgemm_tpu_torch.formats.packed",

@@ -214,13 +214,19 @@ def test_ring_errors(models):
 
 def test_from_params_is_lm_from_jax_params(models):
     """``ExportedTransformerLM.from_params`` builds what the converter
-    builds; ``auto=True`` (the measured serving flags) is ROADMAP A6."""
+    builds; with ``auto=True`` it builds what the measured serving flags
+    (``autotune_serving_flags``) choose."""
+    from ternary_spgemm_tpu_torch.models import autotune_serving_flags
+
     _, tlm, _, tree = models
     lm = ExportedTransformerLM.from_params(
         tlm.cfg, tree, a8=True, fused_qkv=True, fused_ffn=True, device="cpu")
     a, b = lm.state_dict(), tlm.state_dict()
     assert list(a) == list(b)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="A6"):
-        ExportedTransformerLM.from_params(tlm.cfg, tree, auto=True,
-                                          device="cpu")
+    auto = ExportedTransformerLM.from_params(
+        tlm.cfg, tree, a8=True, auto=True, device="cpu")
+    picks = autotune_serving_flags(tlm.cfg, tree["blocks"][0], a8=True,
+                                   device="cpu")       # the memo's answer
+    assert [(b.fused_ffn, b.qkv is not None) for b in auto.blocks] == \
+        [(picks["fused_ffn"], picks["fused_qkv"])] * tlm.cfg.n_layers
