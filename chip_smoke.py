@@ -201,7 +201,36 @@ result line if any fails, or if no GPU is visible):
     winner printed; the result equal to ``X @ W + b``), then
     ``autotune_serving_flags`` at bitnet3b, 4 rows, with a cache file
     under ``build/``, and a second call that the file answers without a
-    probe; any candidate that raised fails the phase.
+    probe; any candidate that raised fails the phase;
+14. training, counted: (a) QAT at bitnet3b's widths, the depth cut from 26
+    to 4 layers, a fixed batch of 4 x 512 seeded tokens: 3 steps of
+    ``make_lm_train_step`` with ``torch.optim.Adam(lr=1e-3)`` (every loss
+    finite, the third below the first), then from the same parameters 3
+    steps with ``remat=True`` (the first step's loss within 1e-5 relative
+    of the plain one's) and 3 with ``compute_dtype="bfloat16"`` (within
+    5%); for each the ms of the two steps after the first (CUDA events),
+    the peak memory and the peak above what was resident when they began;
+    one plain step traced (``torch.profiler``, device time by aten op);
+    (b) block 0 of the trained
+    tree exported A8 into TiledBitplane with its transposed containers, no
+    fast paths, ``(block(x)**2).sum()`` backpropagated to x at 4 rows and
+    at 2048: each backward SpMM (the x8 kernel on ``fmt_t``, decode body at
+    4 rows, tensor cores at 2048) bitwise equal to the f32 product of its
+    integer-valued cotangent by the decoded ``Wq^T``, the 4-row x grad
+    against the same block on the CPU (plain versions) within rtol=atol=
+    2e-3, the 2048-row one against an f32 dense mirror of the A8 block
+    (exact cotangent) within 5e-2 relative L2, its share of elements
+    within 1% printed; (c) the exact path: 3 ``make_train_step`` (mse)
+    steps of ``TernaryMLP([1024, 4096, 1024])``, exported into DenseTernary
+    as ``ExportedMLP``, its x, bias and slope grads at 32 and 2048 rows
+    against f32 dense autodiff at rtol=1e-4, atol=1e-3, on the PReLU
+    branch the kernels' forward took (the pre-activations on the other side
+    of 0 in the dense forward counted). The wrappers' launches in one
+    backward of (b) and of (c) counted (one a linear, the x8 kernel's
+    ``/mma`` too at 2048 rows; one ``CudaDense`` a dense layer), and the
+    kernels a launch runs named by ``torch.profiler`` (x8's decode body,
+    or its pre-pass and ``mma.sync``; the dense tile), with the trace's
+    kernel records against its launch calls.
 
 Each phase's seconds are printed as it ends, and all of them before the
 last lines.
@@ -351,6 +380,28 @@ XLA_FORMULATIONS = ("BaseTCSR", "BlockedTCSC", "InterleavedTCSC",
 STACKED_KEYS = ("stacked_marginal_seconds", "stacked_spread",
                 "stacked_depths", "stacked_gflops",
                 "stacked_roofline_fraction", "stacked_kernel")
+#: phase 14's QAT model: bitnet3b's widths, its depth cut from 26 layers to
+#: 4; a batch of 4 x 512 tokens; Adam at lr 1e-3
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_T = 4, 512
+TRAIN_LR = 1e-3
+#: phase 14 (a): the remat step's loss against the plain step's (relative),
+#: the bf16 step's (the JAX test's 0.05)
+REMAT_TOL, BF16_LOSS_TOL = 1e-5, 0.05
+#: phase 14 (b): the rows a bitnet3b block backpropagates at (decode's 4,
+#: the batch's 2048), the tolerance of the 4-row x grad against the same
+#: block on the CPU (the CPU tests' block tolerance), and the bound on the
+#: relative L2 error of the 2048-row x grad against the f32 dense mirror
+#: (an exact, unquantized cotangent), stated in PERF.md before the run
+TRAIN_BLOCK_ROWS = ((1, 4), (TRAIN_BATCH, TRAIN_T))
+BLOCK_CPU_TOL = dict(rtol=2e-3, atol=2e-3)
+MIRROR_REL_L2 = 5e-2
+#: phase 14 (c): the exact path, a TernaryMLP at the PReLU FFN's shapes,
+#: exported into DenseTernary; its grads at these rows, against f32 dense
+#: autodiff at the JAX test's tolerance (``tests/test_models.py:149``)
+TRAIN_MLP = (1024, 4096, 1024)
+TRAIN_MLP_ROWS = (32, 2048)
+EXACT_GRAD_TOL = dict(rtol=1e-4, atol=1e-3)
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -2504,6 +2555,389 @@ def phase_autotune(dev, card: str) -> dict:
     return dict(ck.launches)
 
 
+#: the runtime calls that launch a kernel, in a chrome trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def traced_ops(fn, dev, kinds=()) -> tuple:
+    """``fn()`` under ``torch.profiler``, synchronised -> (the port's
+    kernels by name, from the trace's kernel records; ``{aten op: device
+    ms of the kernels it launched}``; the traces taken; the trace's kernel
+    records and its kernel-launch calls). The profiler (torch 2.11 on an
+    H100) delivers fewer kernel records than launch calls in some traces
+    (phase 14's block backward: 133 for 159), so a trace in which a kernel
+    of ``kinds`` (name fragments) has no record at all is taken again, up
+    to three times, ``fn`` called again each time (it must be
+    repeatable)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ternary_spgemm_tpu_torch.tools.serve_trace import PORT_NAMESPACE
+
+    for n in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        records = [e for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        kernels = collections.Counter(e["name"] for e in records
+                                      if PORT_NAMESPACE in e["name"])
+        calls = sum(1 for e in events if e.get("ph") == "X"
+                    and e.get("cat") == "cuda_runtime"
+                    and e.get("name") in LAUNCH_CALLS)
+        if records and all(any(k in name for name in kernels)
+                           for k in kinds):
+            break
+    # the aten ops that launched kernels (each kernel's time once: the
+    # kernels' own rows and the annotations' ranges are left out)
+    ops = {a.key: a.self_device_time_total / 1e3
+           for a in prof.key_averages()
+           if a.key.startswith("aten::") and a.self_device_time_total > 0}
+    return kernels, ops, n, (len(records), calls)
+
+
+def check_traced(kern, kinds, launched: int, what: str) -> str:
+    """The port's kernels a trace delivered for ``launched`` wrapper
+    launches (``ck.launches``, the count that decides): each of ``kinds``
+    (name fragments: the kernels one launch runs) present, no other port
+    kernel, and no more than ``launched`` of each; returns a summary."""
+    check(all(any(k in n for n in kern) for k in kinds)
+          and all(any(k in n for k in kinds) for n in kern)
+          and sum(kern.values()) <= launched * len(kinds),
+          f"{what}: the port's kernels in the trace {dict(kern)}, not "
+          f"{launched} each of {kinds}")
+    return (f"{dict(kern)}: {sum(kern.values())} of the "
+            f"{launched * len(kinds)} kernels of {launched} launches")
+
+
+#: phase 14's trace of a QAT step, its aten ops by what they compute
+STEP_PARTS = (("matmuls (linears, head)", ("aten::mm", "aten::addmm")),
+              ("attention dots", ("aten::bmm",)),
+              ("softmax", ("softmax",)),
+              ("Adam", ("aten::_foreach", "aten::_fused_adam")))
+
+
+def step_breakdown(ops: dict) -> dict:
+    """A traced step's self device ms by :data:`STEP_PARTS`; the rest is
+    the glue (quantizers, norms, rotary, elementwise, copies)."""
+    out = {part: 0.0 for part, _ in STEP_PARTS}
+    out["glue"] = 0.0
+    for op, ms in ops.items():
+        part = next((p for p, keys in STEP_PARTS
+                     if any(k in op for k in keys)), "glue")
+        out[part] += ms
+    return out
+
+
+def dense_mirror(lin):
+    """An A8 linear of phase 14's f32 dense mirror: ``lin``'s forward on
+    its decoded weights (the same requantize, an exact f32 product), and
+    the straight-through backward ``gamma * (g @ Wq^T)`` on the exact f32
+    cotangent: what the kernels' backward computes but for the
+    cotangent's per-row requantization."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models.exported import _requantize_a8
+
+    W = lin.fmt.to_dense().to(torch.float32)
+    WT = W.t().contiguous()
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            xq, s = _requantize_a8(x)
+            return (xq @ W) * (s * lin.gamma) + lin.bias
+
+        @staticmethod
+        def backward(ctx, g):
+            return (g @ WT) * lin.gamma
+
+    mirror = torch.nn.Module()
+    mirror.bias = lin.bias
+    mirror.forward = Fn.apply
+    return mirror
+
+
+def phase_train(dev, card: str) -> dict:
+    """Phase 14: QAT steps at bitnet3b width (4 of its 26 layers), the
+    exported block's backward through the x8 kernel on the transposed
+    containers, and the exact path through the dense kernel (module
+    docstring). Returns the launch counts."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.formats import DenseTernary, TiledBitplane
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerLM, ExportedBitLinear, ExportedMLP,
+        ExportedTransformerBlock, TernaryMLP, jax_tree, make_lm_train_step,
+        make_train_step)
+    from ternary_spgemm_tpu_torch.models import exported as ex
+    from ternary_spgemm_tpu_torch.models.serving import preset_config
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = dataclasses.replace(preset_config("bitnet3b"),
+                              n_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_T), generator=gen,
+                         device=dev)
+    ck.reset_counts()
+
+    # (a) QAT: plain, remat and bf16 from the same parameters
+    lm = BitTransformerLM(cfg, generator=gen, device=dev)
+    init = {k: v.clone() for k, v in lm.state_dict().items()}
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    def train(model, steps):
+        """(step, losses, step ms, peak, peak above the memory resident at
+        the timed steps' start: the parameters, grads and moments there)"""
+        step = make_lm_train_step(model, torch.optim.Adam(
+            model.parameters(), lr=TRAIN_LR))
+        losses = [float(step(toks))]        # the warm-up step
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        ms = []
+        for _ in range(steps - 1):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            loss = step(toks)
+            s1.record()
+            s1.synchronize()
+            ms.append(s0.elapsed_time(s1))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated(dev)
+        return step, losses, ms, peak, peak - resident
+
+    step, losses, ms, peak, above = train(lm, 3)
+    check(all(math.isfinite(v) for v in losses) and losses[2] < losses[0],
+          f"QAT losses {losses}")
+    print(f"QAT bitnet3b widths (d={cfg.d_model}, {cfg.n_heads} heads, "
+          f"ff={cfg.d_ff}, vocab {cfg.vocab}), {TRAIN_LAYERS} of 26 layers, "
+          f"{n_params} parameters, batch {TRAIN_BATCH}x{TRAIN_T}, Adam "
+          f"lr={TRAIN_LR}, f32 (TF32 off): losses {losses}; step ms "
+          f"{[round(v, 3) for v in ms]}; peak {peak / 2**30:.3f} GiB, "
+          f"{above / 2**30:.3f} above the resident [{card}]", flush=True)
+    _, ops, _, _ = traced_ops(lambda: step(toks), dev)
+    parts = step_breakdown(ops)
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+    print("QAT step traced (torch.profiler, self device ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f", total {sum(ops.values()):.3f}; top ops "
+          + ", ".join(f"{k} {v:.3f}" for k, v in top) + f" [{card}]",
+          flush=True)
+    del step
+    lm.zero_grad(set_to_none=True)
+    for what, variant in (("remat", dict(remat=True)),
+                          ("bf16", dict(compute_dtype="bfloat16"))):
+        model = BitTransformerLM(dataclasses.replace(cfg, **variant),
+                                 generator=gen, device=dev)
+        model.load_state_dict(init)
+        vstep, vl, vms, vpeak, vabove = train(model, 3)
+        del vstep, model        # the step holds the optimizer's moments
+        torch.cuda.empty_cache()
+        tol = REMAT_TOL if what == "remat" else BF16_LOSS_TOL
+        rel = abs(vl[0] - losses[0]) / abs(losses[0])
+        check(all(math.isfinite(v) for v in vl) and rel <= tol,
+              f"{what} loss {vl[0]} against the plain {losses[0]} "
+              f"(relative {rel:.3g}, tolerance {tol})")
+        print(f"QAT {what}: first-step loss {vl[0]} (plain {losses[0]}, "
+              f"relative {rel:.3g} <= {tol}); step ms "
+              f"{[round(v, 3) for v in vms]}; peak {vpeak / 2**30:.3f} GiB, "
+              f"{vabove / 2**30:.3f} above the resident [{card}]", flush=True)
+    del init
+
+    # (b) block 0 of the trained tree, exported A8 with its transposes
+    block = ExportedTransformerBlock.from_params(
+        cfg, jax_tree(lm.blocks[0], numpy=False), TiledBitplane, a8=True,
+        with_transpose=True, device=dev)
+    del lm
+    torch.cuda.empty_cache()
+    mirror = ExportedTransformerBlock(
+        cfg, {n: dense_mirror(l) for n, l in block.linears.items()},
+        block.norm_attn, block.norm_ffn, a8=True)
+    cpu_block = copy.deepcopy(block).to("cpu")
+    seen = []
+    spgemm = ex.ternary_spgemm
+
+    def recording(X, fmt, bias, alpha=None, *, kernel=None):
+        Y = spgemm(X, fmt, bias, alpha, kernel=kernel)
+        seen.append((X, fmt, kernel, Y))
+        return Y
+
+    for B, T in TRAIN_BLOCK_ROWS:
+        rows = B * T
+        x0 = torch.randn((B, T, cfg.d_model), generator=gen, device=dev)
+        x = x0.clone().requires_grad_()
+        loss = (block(x) ** 2).sum()
+        got = collections.Counter()
+
+        def backward():
+            x.grad = None
+            seen.clear()
+            before = collections.Counter(ck.launches)
+            loss.backward(retain_graph=True)
+            got.clear()
+            got.update(collections.Counter(ck.launches) - before)
+
+        mma = rows > ck.X8_MMA_MIN_M
+        kinds = (("mma8::stage_kernel", "mma8::mma_kernel") if mma
+                 else ("gemv::gemv_kernel",))
+        ex.ternary_spgemm = recording
+        try:
+            kern, _, traces, (recs, calls) = traced_ops(backward, dev, kinds)
+        finally:
+            ex.ternary_spgemm = spgemm
+        want = {"CudaTiledBitplane_x8": 7, **({ck.X8_MMA_COUNT: 7} if mma
+                                               else {})}
+        check(dict(got) == want, f"block backward at {rows} rows launched "
+              f"{dict(got)}, not {want}")
+        traced = check_traced(kern, kinds, 7,
+                              f"block backward at {rows} rows")
+        check(len(seen) == 7, f"{len(seen)} backward SpMMs, not 7")
+        for X, fmt, kname, Y in seen:
+            check(kname == "CudaTiledBitplane_x8"
+                  and bool((X == torch.round(X)).all())
+                  and float(X.abs().max()) <= 127.0,
+                  f"backward SpMM {kname} on a cotangent that is not int8")
+            W = fmt.to_dense().to(torch.float32)
+            check(torch.equal(Y, X @ W), f"backward SpMM {rows}x"
+                  f"{fmt.shape[0]}x{fmt.shape[1]} != the integer product")
+        del seen[:]
+        if rows == TRAIN_BLOCK_ROWS[0][0] * TRAIN_BLOCK_ROWS[0][1]:
+            xc = x0.cpu().requires_grad_()
+            (cpu_block(xc) ** 2).sum().backward()
+            gd = (x.grad.cpu() - xc.grad).abs()
+            check(bool((gd <= BLOCK_CPU_TOL["atol"] + BLOCK_CPU_TOL["rtol"]
+                        * xc.grad.abs()).all()),
+                  f"block x grad at {rows} rows: card against CPU max |diff| "
+                  f"{float(gd.max())}")
+            vs = f"the CPU block's within rtol=atol=2e-3 (max |diff| " \
+                 f"{float(gd.max()):.3g})"
+        else:
+            xm = x0.clone().requires_grad_()
+            (mirror(xm) ** 2).sum().backward()
+            ref = xm.grad
+            diff = (x.grad - ref).abs()
+            rel = float(torch.linalg.vector_norm(x.grad - ref)
+                        / torch.linalg.vector_norm(ref))
+            rms = float(torch.sqrt(torch.mean(ref ** 2)))
+            within = float((diff <= 0.01 * ref.abs() + 0.01 * rms)
+                           .float().mean())
+            check(rel <= MIRROR_REL_L2, f"block x grad at {rows} rows: "
+                  f"relative L2 {rel:.4g} against the dense mirror")
+            vs = (f"the f32 dense mirror: relative L2 {rel:.4g} <= "
+                  f"{MIRROR_REL_L2}, {within:.4%} of elements within 1% "
+                  f"(+1% of the rms)")
+        print(f"exported bitnet3b block backward, {rows} rows: 7 x8 SpMMs on "
+              f"fmt_t bitwise the integer products; launches {dict(got)}; "
+              f"torch.profiler: {traced} (traces taken {traces}; the "
+              f"trace's kernel records {recs} for {calls} launch calls); x "
+              f"grad against {vs} [{card}]", flush=True)
+        del x, loss
+    del block, mirror, cpu_block
+    torch.cuda.empty_cache()
+
+    # (c) the exact path: TernaryMLP -> ExportedMLP over DenseTernary
+    mlp = TernaryMLP(TRAIN_MLP, generator=gen, device=dev)
+    xs = torch.randn((TRAIN_MLP_ROWS[-1], TRAIN_MLP[0]), generator=gen,
+                     device=dev)
+    ys = torch.randn((TRAIN_MLP_ROWS[-1], TRAIN_MLP[-1]), generator=gen,
+                     device=dev)
+    step = make_train_step(mlp, torch.optim.Adam(mlp.parameters(),
+                                                 lr=TRAIN_LR))
+    mse = [float(step(xs, ys)) for _ in range(3)]
+    check(all(math.isfinite(v) for v in mse), f"mse losses {mse}")
+    exp = ExportedMLP.from_params(jax_tree(mlp, numpy=False), DenseTernary,
+                                  device=dev)
+    dense = [l.fmt.to_dense().to(torch.float32) * l.gamma
+             for l in exp.layers]
+    for rows in TRAIN_MLP_ROWS:
+        x0 = torch.randn((rows, TRAIN_MLP[0]), generator=gen, device=dev)
+        leaves = [x0.clone().requires_grad_()] + [
+            t.detach().clone().requires_grad_()
+            for l in exp.layers for t in (l.bias, l.alpha) if t is not None]
+        refs = [t.detach().clone().requires_grad_() for t in leaves]
+
+        def net(ls):
+            it = iter(ls[1:])
+            layers = [ExportedBitLinear(l.fmt, l.gamma, next(it),
+                                        next(it) if l.alpha is not None
+                                        else None, fmt_t=l.fmt_t)
+                      for l in exp.layers]
+            return ExportedMLP(layers)(ls[0])
+
+        # the kernels' forward pre-activations pick the PReLU branch the
+        # mirror differentiates: where the two forwards, rounded in other
+        # orders, straddle the kink at 0, neither derivative is wrong, and
+        # the grads would differ by (1 - alpha) g there
+        with torch.no_grad():
+            masks, z = [], x0
+            for l in exp.layers:
+                y, _ = l._linear(z, l.bias)
+                masks.append(y > 0)
+                z = (torch.where(masks[-1], y, l.alpha * y)
+                     if l.alpha is not None else y)
+        flips = 0
+
+        def mirror_net(ls):
+            nonlocal flips
+            it = iter(ls[1:])
+            z = ls[0]
+            for l, W, mask in zip(exp.layers, dense, masks):
+                z = z @ W + next(it)
+                if l.alpha is not None:
+                    flips += int((mask != (z > 0)).sum())
+                    z = torch.where(mask, z, next(it) * z)
+            return z
+
+        loss = (net(leaves) ** 2).sum()
+        got = collections.Counter()
+
+        def backward():
+            for t in leaves:
+                t.grad = None
+            before = collections.Counter(ck.launches)
+            loss.backward(retain_graph=True)
+            got.clear()
+            got.update(collections.Counter(ck.launches) - before)
+
+        kinds = ("dmma::dense_kernel",)
+        kern, _, traces, (recs, calls) = traced_ops(backward, dev, kinds)
+        check(dict(got) == {"CudaDense": len(exp.layers)},
+              f"ExportedMLP backward at {rows} rows: launches {dict(got)}")
+        traced = check_traced(kern, kinds, len(exp.layers),
+                              f"ExportedMLP backward at {rows} rows")
+        (mirror_net(refs) ** 2).sum().backward()
+        worst = 0.0
+        for t, r, what in zip(leaves, refs, ("x", "b0", "alpha0", "b1")):
+            d = (t.grad - r.grad).abs()
+            bad = d > EXACT_GRAD_TOL["atol"] + EXACT_GRAD_TOL["rtol"] \
+                * r.grad.abs()
+            check(not bool(bad.any()), f"ExportedMLP {what} grad at {rows} "
+                  f"rows: {int(bad.sum())} outside, max |diff| "
+                  f"{float(d.max())}")
+            worst = max(worst, float(d.max()))
+        print(f"ExportedMLP {TRAIN_MLP} over DenseTernary (mse losses {mse}), "
+              f"{rows} rows: x, bias and slope grads within rtol=1e-4, "
+              f"atol=1e-3 of f32 dense autodiff on the kernels' PReLU "
+              f"branch (max |diff| {worst:.3g}; {flips} pre-activations on "
+              f"the other side of 0 in the dense forward); launches "
+              f"{dict(got)}; torch.profiler: {traced} (traces taken "
+              f"{traces}; the trace's kernel records {recs} for {calls} "
+              f"launch calls) [{card}]", flush=True)
+    check(not ck.plain_on_cuda, "a plain version ran on a CUDA tensor: "
+          f"{dict(ck.plain_on_cuda)}")
+    torch.cuda.empty_cache()
+    return dict(ck.launches)
+
+
 def main() -> int:
     import torch
 
@@ -2578,12 +3012,13 @@ def main() -> int:
     stats.update(ring_stats)
     serve3b_counts = timed("12", phase_serve_3b, dev, card)
     tune_counts = timed("13", phase_autotune, dev, card)
+    train_counts = timed("14", phase_train, dev, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
             probe_counts, ragged_counts, ring_counts, serve3b_counts,
-            tune_counts)
+            tune_counts, train_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

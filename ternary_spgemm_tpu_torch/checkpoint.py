@@ -189,7 +189,7 @@ def _linear_restore(hdr: dict, prefix: str, data, device):
         data[f"{prefix}.alpha"] if hdr["has_alpha"] else None,
         kernel=port_name(hdr["kernel"]), a8=hdr.get("a8", False),
         fmt_t=(None if hdr["fmt_t"] is None else
-               _fmt_restore(hdr["fmt_t"], f"{prefix}.fmt_t.", data, "cpu")))
+               _fmt_restore(hdr["fmt_t"], f"{prefix}.fmt_t.", data, device)))
 
 
 def _split_qkv(block) -> dict:
@@ -230,7 +230,7 @@ def save_lm_bundle(path: str, lm) -> None:
 
     The header's ``cfg`` has the JAX ``BitTransformerConfig``'s fields,
     each linear's and block's ``kernel`` the JAX registry's name, ``fmt_t``
-    the transposed container a loaded bundle brought (else null); a bf16
+    the linear's transposed container (else null); a bf16
     embedding is stored as its raw ``uint16`` bits with ``embed_dtype:
     "bfloat16"``. A merged-QKV block without ``wq``/``wk``/``wv`` gets them
     from :func:`_split_qkv`, listed under the block's ``"derived"`` key
@@ -269,9 +269,10 @@ def save_lm_bundle(path: str, lm) -> None:
 def load_lm_bundle(path: str, device="cuda"):
     """Load a serving bundle (either package's) -> ``ExportedTransformerLM``
     built on ``device`` (the card unless ``device="cpu"``; raises without
-    one). Transposed containers stay on the host (the port is forward-only
-    and keeps them for a re-save); the ``"derived"`` ``wq``/``wk``/``wv``
-    that :func:`save_lm_bundle` wrote are dropped. MoE bundles raise."""
+    one). Transposed containers are placed with the rest of their linear,
+    so a bundle that has them backpropagates (one without stays
+    forward-only); the ``"derived"`` ``wq``/``wk``/``wv`` that
+    :func:`save_lm_bundle` wrote are dropped. MoE bundles raise."""
     from ternary_spgemm_tpu_torch.models.generate import ExportedTransformerLM
     from ternary_spgemm_tpu_torch.models.transformer import (
         BitTransformerConfig, ExportedTransformerBlock, MergedQKV)

@@ -1,10 +1,27 @@
-"""Model layer of the port: exported BitNet W1.58-A8 layers, the exported
-transformer and its KV-cached serving loop."""
+"""Model layer of the port: the QAT layers and transformer with their
+``torch.optim`` steps, the exported BitNet W1.58-A8 layers (differentiable
+through their transposed containers), the exported transformer and its
+KV-cached serving loop."""
 
-from ternary_spgemm_tpu_torch.models.bitlinear import ternary_quantize
-from ternary_spgemm_tpu_torch.models.convert import lm_from_jax_params
+from ternary_spgemm_tpu_torch.models.bitlinear import (
+    BitLinear,
+    TernaryMLP,
+    apply_exported,
+    apply_exported_a8,
+    export_layer,
+    ternary_quantize,
+    ternary_quantize_ste,
+)
+from ternary_spgemm_tpu_torch.models.convert import (
+    jax_tree,
+    lm_from_jax_params,
+    mlp_from_flax_params,
+    mlp_from_jax_params,
+    qat_lm_from_jax_params,
+)
 from ternary_spgemm_tpu_torch.models.exported import (
     ExportedBitLinear,
+    ExportedMLP,
     autotune_exported,
 )
 from ternary_spgemm_tpu_torch.models.generate import (
@@ -12,17 +29,30 @@ from ternary_spgemm_tpu_torch.models.generate import (
     autotune_serving_flags,
     generate,
     init_cache,
+    lm_decode_step,
+    lm_prefill,
 )
 from ternary_spgemm_tpu_torch.models.serving import build_serving_lm
+from ternary_spgemm_tpu_torch.models.train import make_train_step, mse_loss
 from ternary_spgemm_tpu_torch.models.transformer import (
+    BitTransformerBlock,
     BitTransformerConfig,
+    BitTransformerLM,
     ExportedTransformerBlock,
     MergedQKV,
+    lm_loss,
+    make_lm_train_step,
 )
 
 __all__ = [
-    "ternary_quantize", "ExportedBitLinear", "BitTransformerConfig",
+    "ternary_quantize", "ternary_quantize_ste", "BitLinear", "TernaryMLP",
+    "export_layer", "apply_exported", "apply_exported_a8",
+    "ExportedBitLinear", "ExportedMLP", "BitTransformerConfig",
+    "BitTransformerBlock", "BitTransformerLM", "lm_loss",
+    "make_lm_train_step", "mse_loss", "make_train_step",
     "ExportedTransformerBlock", "MergedQKV", "ExportedTransformerLM",
-    "generate", "init_cache", "lm_from_jax_params", "build_serving_lm",
+    "generate", "init_cache", "lm_prefill", "lm_decode_step",
+    "lm_from_jax_params", "qat_lm_from_jax_params", "mlp_from_jax_params",
+    "mlp_from_flax_params", "jax_tree", "build_serving_lm",
     "autotune_exported", "autotune_serving_flags",
 ]

@@ -9,6 +9,9 @@
   one-token decode step; every projection runs on the kernel registry;
   an f32 or a bf16 tied head (``head_dtype``); :meth:`~ExportedTransformerLM.
   from_params` from a JAX parameter tree;
+* :func:`lm_prefill` and :func:`lm_decode_step` — the same prefill and
+  decode step for the QAT :class:`~ternary_spgemm_tpu_torch.models.
+  transformer.BitTransformerLM`;
 * :func:`chunked_prefill` — a long prompt in fixed-size chunks, each
   attending to the cache the chunks before it filled;
 * :func:`sample` — the JAX ``_make_sampler``'s temperature, top-k and
@@ -39,6 +42,7 @@ from ternary_spgemm_tpu_torch.ops.fused_ffn import true_div
 from ternary_spgemm_tpu_torch.models.transformer import (
     F64,
     BitTransformerConfig,
+    BitTransformerLM,
     ExportedTransformerBlock,
     _norm_heads,
     cos_sin,
@@ -313,6 +317,7 @@ class ExportedTransformerLM(nn.Module):
                     fused_ffn: bool = False, fused_qkv: bool = False,
                     a8: bool = False, head_dtype=None, auto: bool = False,
                     auto_rows: int = 1, cache_path=None, device="cuda",
+                    with_transpose: bool = True,
                     **fmt_kwargs) -> "ExportedTransformerLM":
         """From a JAX ``BitTransformerLM.init`` parameter tree as numpy
         (the counterpart of the JAX ``from_params(model, params, ...)``,
@@ -320,8 +325,9 @@ class ExportedTransformerLM(nn.Module):
         :func:`~ternary_spgemm_tpu_torch.models.convert.lm_from_jax_params`:
         ``format_cls``, ``kernel`` (a name of this port's registry, or
         ``"auto"``), the serving flags and the head's dtype; built on the
-        card (raises without one) unless ``device="cpu"``. The port is
-        forward-only: no transposed containers.
+        card (raises without one) unless ``device="cpu"``. Each linear
+        keeps its transposed container, so the model backpropagates, unless
+        ``with_transpose=False`` (serving).
 
         ``auto=True`` replaces ``fused_ffn`` / ``fused_qkv`` by the
         measured choice of :func:`autotune_serving_flags` for the first
@@ -340,7 +346,8 @@ class ExportedTransformerLM(nn.Module):
         return lm_from_jax_params(cfg, params, a8=a8, fused_qkv=fused_qkv,
                                   fused_ffn=fused_ffn, device=device,
                                   format_cls=format_cls, kernel=kernel,
-                                  head_dtype=head_dtype, **fmt_kwargs)
+                                  head_dtype=head_dtype,
+                                  with_transpose=with_transpose, **fmt_kwargs)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens].to(torch.float32)
@@ -397,6 +404,42 @@ class ExportedTransformerLM(nn.Module):
                                  block.norm_ffn, x, cache, pos, ffn=ffn,
                                  qkv=qkv, window=self.cfg.window)
         return self._head(rms_norm(x, self.norm_out))[:, 0], caches
+
+
+def _qat_lin(block):
+    return lambda n, z: getattr(block, n)(z)
+
+
+@torch.no_grad()
+def lm_prefill(model: BitTransformerLM, tokens: torch.Tensor, caches,
+               start=None):
+    """QAT backend prompt prefill: ``tokens (B, T0) -> (logits (B, T0,
+    vocab), caches)``, the caches filled at positions 0..T0-1 (with
+    ``start``, one chunk at ``start..start+T0-1``); the counterpart of the
+    JAX ``lm_prefill`` (``models/generate.py:309-332`` there), at f32 as
+    that serves, on the exported model's block prefill."""
+    x = model.embed[tokens]
+    for block, cache in zip(model.blocks, caches):
+        x, _ = _block_prefill(model.cfg.head_tuple, _qat_lin(block),
+                              block.norm_attn, block.norm_ffn, x, cache,
+                              start=start, window=model.cfg.window)
+    x = rms_norm(x, model.norm_out)
+    return torch.einsum("btd,vd->btv", x, model.embed), caches
+
+
+@torch.no_grad()
+def lm_decode_step(model: BitTransformerLM, tokens: torch.Tensor, caches,
+                   pos):
+    """QAT backend decode step: ``tokens (B,) -> (logits (B, vocab),
+    caches)`` at position ``pos`` (the JAX ``lm_decode_step``,
+    ``models/generate.py:335-353`` there)."""
+    x = model.embed[tokens][:, None, :]
+    for block, cache in zip(model.blocks, caches):
+        x, _ = _block_decode(model.cfg.head_tuple, _qat_lin(block),
+                             block.norm_attn, block.norm_ffn, x, cache, pos,
+                             window=model.cfg.window)
+    x = rms_norm(x, model.norm_out)
+    return torch.einsum("btd,vd->btv", x, model.embed)[:, 0], caches
 
 
 #: the serving flags' choices by name, as the JAX cache file stores them
@@ -461,7 +504,7 @@ def autotune_serving_flags(cfg: BitTransformerConfig, block_params: dict,
                ExportedTransformerBlock.from_params(
                    cfg, block_params, format_cls, kernel=kernel,
                    fused_ffn=ffn, fused_qkv=qkv, a8=a8, device=dev,
-                   **fmt_kwargs))
+                   with_transpose=False, **fmt_kwargs))
         if ffn and not blk._fused_ffn_applicable():
             continue
 

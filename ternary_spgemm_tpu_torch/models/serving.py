@@ -87,7 +87,7 @@ def build_serving_lm(cfg: BitTransformerConfig, *, s: int = 2, seed: int = 0,
     def lin_of(W):
         return ExportedBitLinear.from_dense(
             W.contiguous(), TiledBitplane, gamma=GAMMA,
-            bias=torch.zeros(W.shape[1]), a8=True)
+            bias=torch.zeros(W.shape[1]), a8=True, with_transpose=False)
 
     def lin(K, N):
         return lin_of(random_ternary(K, N, s, gen, device))

@@ -1,11 +1,19 @@
-"""BitNet-b1.58-style ternary transformer, exported inference — counterpart
-of ``ternary_spgemm_tpu/models/transformer.py``.
+"""BitNet-b1.58-style ternary transformer: QAT blocks and exported
+inference — counterpart of ``ternary_spgemm_tpu/models/transformer.py``.
 
 The LLaMA topology BitNet b1.58 keeps: RMSNorm -> ternary QKV/O attention
 with rotary embeddings -> RMSNorm -> ternary SwiGLU FFN, residuals around
-both. Every projection runs on the kernel registry; attention, norms and
-rotary are plain PyTorch. The QAT model (``BitTransformerLM``) is not ported
-yet: its parameter tree comes over through ``models/convert.py``.
+both. Two regimes:
+
+* QAT (:class:`BitTransformerLM`): every linear a latent-f32
+  :class:`~ternary_spgemm_tpu_torch.models.bitlinear.BitLinear`, trained
+  with ``torch.optim`` through :func:`make_lm_train_step`; attention in
+  the JAX formulation (:func:`causal_attend_f32`);
+* exported (:class:`ExportedTransformerBlock`): every projection frozen
+  into a container and run on the kernel registry, differentiable through
+  the transposed containers (``models/exported.py``).
+
+Attention, norms and rotary are plain PyTorch.
 
 Device-independent glue: the glue that reduces or calls a transcendental
 function (RMSNorm's mean square and rsqrt, rotary cos/sin, the attention
@@ -23,6 +31,7 @@ from typing import Optional, Type
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ternary_spgemm_tpu_torch.formats.base import (
     TernaryFormat,
@@ -31,7 +40,11 @@ from ternary_spgemm_tpu_torch.formats.base import (
     register_format_buffers,
 )
 from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
-from ternary_spgemm_tpu_torch.models.bitlinear import ternary_quantize
+from ternary_spgemm_tpu_torch.models.bitlinear import (
+    BitLinear,
+    default_generator,
+    ternary_quantize,
+)
 from ternary_spgemm_tpu_torch.models.exported import (
     ExportedBitLinear,
     _default_a8_kernel,
@@ -42,14 +55,16 @@ from ternary_spgemm_tpu_torch.ops.fused_ffn import (
     fused_bitplane_swiglu,
     requantize_rows,
     sigmoid_f32,
+    true_div,
 )
+from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
 F64 = torch.float64
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)``, the formula of ``jax.nn.silu``."""
-    return x * sigmoid_f32(x)
+    """``x * sigmoid(x)``, the formula of ``jax.nn.silu``, at x's dtype."""
+    return x * sigmoid_f32(x).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -76,7 +91,9 @@ def rotary_embed(x: torch.Tensor, *, base: float = 10000.0, offset=0):
     """Rotary position embeddings over the last axis of ``(..., T, D)``
     (half-split pairing, positions ``offset..offset+T-1``; ``offset`` an
     int or a 0-d tensor, the same bits: an integer position is exact in
-    f32, so a row's angles are those of ``_rotary_at`` at its position)."""
+    f32, so a row's angles are those of ``_rotary_at`` at its position).
+    The f32 cos and sin are cast to x's dtype, as the JAX package casts
+    them."""
     T, D = x.shape[-2], x.shape[-1]
     half = D // 2
     freqs = rope_freqs(half, x.device, base)
@@ -85,7 +102,7 @@ def rotary_embed(x: torch.Tensor, *, base: float = 10000.0, offset=0):
         pos = pos + offset.to(torch.float32)
     elif offset:
         pos = pos + float(offset)
-    cos, sin = cos_sin(pos[:, None] * freqs[None, :])
+    cos, sin = (c.to(x.dtype) for c in cos_sin(pos[:, None] * freqs[None, :]))
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -96,6 +113,16 @@ def _norm_heads(n_heads):
         return n_heads, n_heads
     nq, nkv = n_heads
     return int(nq), int(nkv)
+
+
+def causal_mask(T: int, window: int, device) -> torch.Tensor:
+    """(T, T) bool: query i sees key j <= i, and with ``window > 0`` only
+    the last ``window`` of them."""
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
+    if window:
+        qi = torch.arange(T, device=device)[:, None]
+        mask = mask & (qi - torch.arange(T, device=device)[None, :] < window)
+    return mask
 
 
 def causal_attend(n_heads, q, k, v, window: int = 0):
@@ -112,11 +139,7 @@ def causal_attend(n_heads, q, k, v, window: int = 0):
     q, k = rotary_embed(q), rotary_embed(k)
     q5 = q.reshape(B, nkv, G, T, hd).to(F64)
     logits = torch.einsum("bngqd,bnkd->bngqk", q5, k.to(F64)) / (hd ** 0.5)
-    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
-    if window:
-        qi = torch.arange(T, device=q.device)[:, None]
-        mask = mask & (qi - torch.arange(T, device=q.device)[None, :] < window)
-    logits = torch.where(mask, logits, -torch.inf)
+    logits = torch.where(causal_mask(T, window, q.device), logits, -torch.inf)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngqk,bnkd->bngqd", probs, v.to(F64))
     return out.reshape(B, nq, T, hd).transpose(1, 2).reshape(B, T, d).to(
@@ -233,13 +256,17 @@ class ExportedTransformerBlock(nn.Module):
     def from_params(cls, cfg: BitTransformerConfig, params: dict,
                     format_cls: Type[TernaryFormat], *,
                     kernel: Optional[str] = None, fused_ffn: bool = False,
-                    fused_qkv: bool = False, a8: bool = False, device=None,
-                    **fmt_kwargs):
+                    fused_qkv: bool = False, with_transpose: bool = True,
+                    a8: bool = False, device=None, **fmt_kwargs):
         """From one block of the JAX ``BitTransformerLM.init`` tree (numpy
-        or torch leaves), quantized and packed on ``device``."""
+        or torch leaves), quantized and packed on ``device``; each linear
+        with its transposed container unless ``with_transpose=False``
+        (serving). The merged QKV and the fused FFN bypass the linears'
+        backward, as in the JAX package: a block built to backpropagate
+        leaves them off."""
         linears = {n: ExportedBitLinear.from_params(
             params[n], format_cls, kernel=kernel, a8=a8, device=device,
-            **fmt_kwargs) for n in LINEARS}
+            with_transpose=with_transpose, **fmt_kwargs) for n in LINEARS}
         qkv = (MergedQKV.from_params(params, format_cls, device=device,
                                      **fmt_kwargs) if fused_qkv else None)
         return cls(cfg, linears, params["norm_attn"], params["norm_ffn"],
@@ -311,3 +338,162 @@ class ExportedTransformerBlock(nn.Module):
                                          window=self.cfg.window))
         h = rms_norm(x, self.norm_ffn)
         return x + self._ffn(h.reshape(B * T, d)).reshape(B, T, d)
+
+
+def causal_attend_f32(n_heads, q, k, v, window: int = 0):
+    """The QAT forward's attention, JAX's formulation
+    (``ternary_spgemm_tpu/models/transformer.py:83-112``): q and k at the
+    compute dtype after rotary, logits and softmax in f32 (the bf16 q and k
+    widened: their products are exact in f32), the probabilities cast to
+    v's dtype and the output at v's dtype. The serving forward's
+    :func:`causal_attend` runs the dots and softmax in f64 for bits that
+    match across devices; for training those f64 probabilities would be
+    kept for the backward at twice the bytes (0.27 GB a layer at bitnet3b
+    width, 4 x 512 tokens)."""
+    B, T, d = q.shape
+    nq, nkv = _norm_heads(n_heads)
+    hd = d // nq
+    G = nq // nkv
+    q = q.reshape(B, T, nq, hd).transpose(1, 2)
+    kv = lambda z: z.reshape(B, T, nkv, hd).transpose(1, 2)
+    k, v = kv(k), kv(v)
+    q, k = rotary_embed(q), rotary_embed(k)
+    q5 = q.reshape(B, nkv, G, T, hd).to(torch.float32)
+    logits = true_div(torch.einsum("bngqd,bnkd->bngqk", q5,
+                                   k.to(torch.float32)), hd ** 0.5)
+    logits = torch.where(causal_mask(T, window, q.device), logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bngqk,bnkd->bngqd", probs, v)
+    return out.reshape(B, nq, T, hd).transpose(1, 2).reshape(B, T, d)
+
+
+def _compute_dtype(cfg: BitTransformerConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+class BitTransformerBlock(nn.Module):
+    """One pre-norm QAT block: ternary attention and a ternary SwiGLU FFN.
+
+    Its linears are :class:`BitLinear` attributes named as the JAX block's
+    params (``wq``/``wk``/``wv`` d -> d or the K/V width, ``wo``,
+    ``w_gate``/``w_up`` d -> ff, ``w_down`` ff -> d), beside the RMSNorm
+    scales ``norm_attn`` / ``norm_ffn``, so that its ``state_dict()`` keys
+    are the JAX block tree's paths. Under a compute dtype other than f32
+    the activations ride at it and each linear casts its quantized weights
+    down at use; the norms and softmax keep f32 (or f64) inside."""
+
+    def __init__(self, cfg: BitTransformerConfig, *, generator=None,
+                 device="cuda"):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP A7b)")
+        dev = resolve_device(device)
+        gen = generator or default_generator(dev)
+        self.cfg = cfg
+        d, ff, kvw = cfg.d_model, cfg.d_ff, cfg.kv_width
+        shapes = {"wq": (d, d), "wk": (d, kvw), "wv": (d, kvw),
+                  "wo": (d, d), "w_gate": (d, ff), "w_up": (d, ff),
+                  "w_down": (ff, d)}
+        for n in LINEARS:
+            setattr(self, n, BitLinear(*shapes[n], generator=gen, device=dev))
+        self.norm_attn = nn.Parameter(torch.ones(d, device=dev))
+        self.norm_ffn = nn.Parameter(torch.ones(d, device=dev))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(x)[0]
+
+    def forward_with_aux(self, x: torch.Tensor):
+        """``(x', aux)``; aux, the MoE balance loss, is 0 for the dense
+        FFN."""
+        x = x.to(_compute_dtype(self.cfg))
+        h = rms_norm(x, self.norm_attn)
+        attn = self.wo(causal_attend_f32(self.cfg.head_tuple, self.wq(h),
+                                         self.wk(h), self.wv(h),
+                                         window=self.cfg.window))
+        x = x + attn
+        h = rms_norm(x, self.norm_ffn)
+        ffn = self.w_down(silu(self.w_gate(h)) * self.w_up(h))
+        return x + ffn, torch.zeros((), device=x.device)
+
+
+class BitTransformerLM(nn.Module):
+    """Ternary-backbone causal LM for QAT: an f32 embedding (BitNet keeps
+    embeddings and head full precision), :class:`BitTransformerBlock`s and
+    a tied head; ``state_dict()`` keys are the JAX tree's paths
+    (``embed``, ``blocks.<i>.wq.w``, ..., ``norm_out``).
+
+    Built on the card unless ``device="cpu"``; ``generator`` (on that
+    device; None: one seeded with 0) draws the embedding from N(0, 1/d) and
+    then each block's linears in order. ``cfg.remat`` recomputes each
+    block's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``cfg.compute_dtype`` is
+    the blocks' dtype (the embedding lookup, the final norm and the logits
+    stay f32)."""
+
+    def __init__(self, cfg: BitTransformerConfig, *, generator=None,
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator or default_generator(dev)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.randn(
+            (cfg.vocab, cfg.d_model), generator=gen, device=dev)
+            * cfg.d_model ** -0.5)
+        self.blocks = nn.ModuleList(
+            BitTransformerBlock(cfg, generator=gen, device=dev)
+            for _ in range(cfg.n_layers))
+        self.norm_out = nn.Parameter(torch.ones(cfg.d_model, device=dev))
+
+    def forward(self, tokens: torch.Tensor, *, constrain=None):
+        """``tokens (B, T) -> logits (B, T, vocab)``."""
+        return self.forward_with_aux(tokens, constrain=constrain)[0]
+
+    def forward_with_aux(self, tokens: torch.Tensor, *, constrain=None):
+        """``(logits, aux)``, aux the mean MoE balance loss (0 here).
+        ``constrain``: an ``x -> x`` hook on the ``(B, T, d)`` activations
+        after the embedding and after every block (the JAX package's
+        sequence-parallel sharding constraint goes there)."""
+        con = constrain or (lambda z: z)
+        cdtype = _compute_dtype(self.cfg)
+        x = con(self.embed[tokens]).to(cdtype)
+        aux = torch.zeros((), device=x.device)
+        for block in self.blocks:
+            if self.cfg.remat:
+                x, a = checkpoint(block.forward_with_aux, x,
+                                  use_reentrant=False)
+            else:
+                x, a = block.forward_with_aux(x)
+            x = con(x.to(cdtype))
+            aux = aux + a
+        x = rms_norm(x.to(torch.float32), self.norm_out)
+        logits = torch.einsum("btd,vd->btv", x, self.embed)
+        return logits, aux / max(1, self.cfg.n_layers)
+
+
+def lm_loss(model: BitTransformerLM, tokens: torch.Tensor, *,
+            aux_coef: float = 0.01, constrain=None) -> torch.Tensor:
+    """Next-token cross-entropy over ``tokens (B, T)`` plus ``aux_coef``
+    times the MoE balance loss (0 without MoE)."""
+    logits, aux = model.forward_with_aux(tokens, constrain=constrain)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    ce = -torch.mean(torch.take_along_dim(logp, targets[..., None], dim=-1))
+    return ce + aux_coef * aux
+
+
+def make_lm_train_step(model: BitTransformerLM, optimizer, *,
+                       constrain=None):
+    """``step(tokens) -> loss``: one ``torch.optim`` step of ``optimizer``
+    (over ``model``'s parameters) on :func:`lm_loss`, the parameters
+    updated in place; the loss returned is the one before the update, as
+    the JAX step returns it."""
+
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens, constrain=constrain)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

@@ -228,6 +228,23 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
                 f"kernel {kernel!r} expects {spec.format_cls.__name__}, "
                 f"got {type(fmt).__name__}")
         return spec.fn(X, fmt, bias, alpha)
+    spec = default_kernel(fmt)
+    if spec.x_absmax is not None:
+        warnings.warn(
+            f"{type(fmt).__name__}'s only exact kernels are integer-"
+            "activation (_i8) paths: non-integer X is ROUNDED. Pass an "
+            "integer-valued X, or use a container with a fully-exact "
+            "f32 kernel.",
+            stacklevel=3)
+    return spec.fn(X, fmt, bias, alpha)
+
+
+def default_kernel(fmt: TernaryFormat) -> KernelSpec:
+    """The kernel :func:`ternary_spgemm` takes for ``fmt`` when none is
+    named: a fully-exact kernel for ``type(fmt)``; where the format has
+    only restricted-domain kernels, one of the widest domain (_i8 over
+    _x8, which round non-integer X). Among the candidates
+    :func:`dispatch_rank` decides."""
     candidates = [s for s in _KERNEL_REGISTRY.values()
                   if isinstance(fmt, s.format_cls) and not s.approximate
                   and s.x_absmax is None]
@@ -237,13 +254,6 @@ def ternary_spgemm(X, fmt: TernaryFormat, bias, alpha=None, *,
         if candidates:
             widest = max(s.x_absmax for s in candidates)
             candidates = [s for s in candidates if s.x_absmax == widest]
-            warnings.warn(
-                f"{type(fmt).__name__}'s only exact kernels are integer-"
-                "activation (_i8) paths: non-integer X is ROUNDED. Pass an "
-                "integer-valued X, or use a container with a fully-exact "
-                "f32 kernel.",
-                stacklevel=3)
     if not candidates:
         raise TypeError(f"no registered kernel for format {type(fmt).__name__}")
-    spec = min(candidates, key=dispatch_rank)
-    return spec.fn(X, fmt, bias, alpha)
+    return min(candidates, key=dispatch_rank)

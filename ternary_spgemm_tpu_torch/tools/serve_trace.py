@@ -105,23 +105,29 @@ def summarize(events, wall_s: float, on_device: bool) -> dict:
 
 def traced(fn, dev) -> dict:
     """One call of ``fn`` under the profiler, synchronised on the card ->
-    :func:`summarize`'s figures."""
+    :func:`summarize`'s figures. On the card a trace that holds no kernel
+    record at all is taken once more (``fn`` called again): the profiler
+    (torch 2.11 on an H100) delivers fewer kernel records than launches in
+    some traces, and a short trace can lose all of them."""
     from torch.profiler import ProfilerActivity, profile
 
     on_device = dev.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_device
                                      else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        if on_device:
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    for _ in range(2 if on_device else 1):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            if on_device:
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        if any(e.get("cat") == "kernel" for e in events):
+            break
     return summarize(events, wall, on_device)
 
 

@@ -36,7 +36,9 @@ bundle``); the bf16 head gives f32 logits within 0.05 of the f32 head
 tensors as on CPU ones (``-k xla_formulation``); autotune measures on the
 card, refuses a capturing stream and raises, naming it, a candidate that
 fails other than by refusing the shape (``-k autotune_on_card``); the serving
-tool serves its ``test`` preset captured (``-k serving_tool``).
+tool serves its ``test`` preset captured (``-k serving_tool``). An exported
+layer's backward runs the x8 and dense kernels on its transposed container
+bitwise their plain versions (``-k backward_on_transpose``).
 """
 
 import dataclasses
@@ -1664,3 +1666,75 @@ def test_serving_tool_test_preset_on_card(dev, capsys):
         assert (rec["launches"].get(fused_ffn.KERNEL_NAME, 0) > 0) == \
             (fast == "both")
         assert rec["peak_memory_bytes"] > 0
+
+
+def _backward_spgemms(monkeypatch):
+    """Record the SpMMs an exported layer's backward runs on its transposed
+    container: ``(X, fmt_t, kernel, Y)`` each."""
+    from ternary_spgemm_tpu_torch.models import exported
+
+    seen = []
+    spgemm = exported.ternary_spgemm
+
+    def record(X, fmt, bias, alpha=None, *, kernel=None):
+        Y = spgemm(X, fmt, bias, alpha, kernel=kernel)
+        seen.append((X, fmt, kernel, Y))
+        return Y
+
+    monkeypatch.setattr(exported, "ternary_spgemm", record)
+    return seen
+
+
+@pytest.mark.parametrize("M", [4, 2048])
+def test_x8_backward_on_transpose_bitwise(dev, M, monkeypatch):
+    """Row 1's backward at bitnet3b's gate (3200 -> 8640): the A8 layer's
+    cotangent requantized and run through the x8 kernel on ``fmt_t``
+    (8640 -> 3200; the decode body at 4 rows, the tensor cores at 2048),
+    bitwise its plain version; the x grad bitwise the same layer's on the
+    CPU."""
+    import copy
+
+    from ternary_spgemm_tpu_torch.models import ExportedBitLinear
+
+    K, N = 3200, 8640
+    g = torch.Generator(device=dev).manual_seed(M)
+    lin = ExportedBitLinear.from_dense(
+        generate_ternary(K, N, 2, seed=20), TiledBitplane, gamma=0.03,
+        bias=generate_bias(N), a8=True, device=dev)
+    x = torch.randn((M, K), generator=g, device=dev).requires_grad_()
+    v = torch.randn((M, N), generator=g, device=dev)
+    y = lin(x)
+    seen = _backward_spgemms(monkeypatch)
+    y.backward(v)
+    assert len(seen) == 1
+    X, fmt, kernel, Y = seen[0]
+    assert kernel == "CudaTiledBitplane_x8" and fmt.shape == (N, K)
+    assert torch.equal(Y, ck.bitplane_x8_plain(X, fmt, lin.zero_bias_t))
+    cpu = copy.deepcopy(lin).to("cpu")
+    xc = x.detach().cpu().requires_grad_()
+    cpu(xc).backward(v.cpu())
+    assert torch.equal(x.grad.cpu(), xc.grad)
+
+
+def test_dense_backward_on_transpose_bitwise(dev, monkeypatch):
+    """Row 9's backward: a DenseTernary layer with PReLU (slope 0.25) and an
+    integer cotangent, so that every value the dense kernel sums on
+    ``fmt_t`` is a multiple of 0.25 and every partial sum exact: the
+    kernel's product bitwise its plain version at 32 rows."""
+    from ternary_spgemm_tpu_torch.models import ExportedBitLinear
+
+    K, N, M = 1024, 4096, 32
+    g = torch.Generator(device=dev).manual_seed(9)
+    lin = ExportedBitLinear.from_dense(
+        generate_ternary(K, N, 2, seed=21), DenseTernary,
+        alpha=torch.full((N,), 0.25), device=dev)
+    x = torch.randn((M, K), generator=g, device=dev).requires_grad_()
+    v = torch.randint(-50, 51, (M, N), generator=g, device=dev).float()
+    y = lin(x)
+    seen = _backward_spgemms(monkeypatch)
+    y.backward(v)
+    assert len(seen) == 1
+    X, fmt, kernel, Y = seen[0]
+    assert kernel == "CudaDense" and fmt.shape == (N, K)
+    assert torch.equal(Y, ck.dense_plain(X, fmt, lin.zero_bias_t))
+    assert torch.equal(x.grad, Y)    # gamma = 1

@@ -40,6 +40,11 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.bench.headline",
                  "ternary_spgemm_tpu_torch.__main__",
                  "ternary_spgemm_tpu_torch.models.generate",
+                 "ternary_spgemm_tpu_torch.models.bitlinear",
+                 "ternary_spgemm_tpu_torch.models.train",
+                 "ternary_spgemm_tpu_torch.models.convert",
+                 "ternary_spgemm_tpu_torch.models.exported",
+                 "ternary_spgemm_tpu_torch.models.transformer",
                  "ternary_spgemm_tpu_torch.models.graphs",
                  "ternary_spgemm_tpu_torch.models.serving",
                  "ternary_spgemm_tpu_torch.utils.device",

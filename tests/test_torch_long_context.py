@@ -214,13 +214,16 @@ def test_ring_errors(models):
 
 def test_from_params_is_lm_from_jax_params(models):
     """``ExportedTransformerLM.from_params`` builds what the converter
-    builds; with ``auto=True`` it builds what the measured serving flags
-    (``autotune_serving_flags``) choose."""
+    builds (a serving export: ``with_transpose=False``, which the
+    converter's default is and ``from_params``' is not); with ``auto=True``
+    it builds what the measured serving flags (``autotune_serving_flags``)
+    choose."""
     from ternary_spgemm_tpu_torch.models import autotune_serving_flags
 
     _, tlm, _, tree = models
     lm = ExportedTransformerLM.from_params(
-        tlm.cfg, tree, a8=True, fused_qkv=True, fused_ffn=True, device="cpu")
+        tlm.cfg, tree, a8=True, fused_qkv=True, fused_ffn=True, device="cpu",
+        with_transpose=False)
     a, b = lm.state_dict(), tlm.state_dict()
     assert list(a) == list(b)
     assert all(torch.equal(a[k], b[k]) for k in a)
