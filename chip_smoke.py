@@ -230,7 +230,24 @@ result line if any fails, or if no GPU is visible):
     ``/mma`` too at 2048 rows; one ``CudaDense`` a dense layer), and the
     kernels a launch runs named by ``torch.profiler`` (x8's decode body,
     or its pre-pass and ``mma.sync``; the dense tile), with the trace's
-    kernel records against its launch calls.
+    kernel records against its launch calls;
+15. the MoE FFN, counted, at bitnet3b's widths with 8 experts routed top
+    2 and a capacity factor of 4 (C = S: no token dropped): (a) QAT, the
+    depth cut to 2 layers, 3 ``make_lm_train_step`` Adam steps on one
+    seeded 4 x 256 batch (losses finite and falling, the balance loss
+    finite before and after), ms a step and peak memory; (b) the trained
+    tree exported into DenseTernary (``ExportedTransformerLM.from_params``,
+    the dense kernel): its full forward within rtol=atol=1e-5 of the QAT
+    forward, its prefill and 4 decode steps within 2e-4 of ``lm_prefill``
+    / ``lm_decode_step``, 28 dense launches a layer a forward; (c) a fresh
+    4-layer model exported A8 over TiledBitplane with the merged QKV,
+    serving 4 requests of 128 prompt tokens, 32 new, greedy, int8 cache:
+    the captured tokens the eager loop's, 26 x8 launches a layer a decode
+    step (the merged QKV, wo and 8 x 3 experts, all on the decode body) and
+    each capture's launches one eager prefill's and step's, E G G E
+    prefill tokens/s and decode ms a step, peak memory; then one expert's
+    gate (3200 -> 8640) on the x8 kernel at 4 and 512 rows bitwise its
+    plain version, beside ``library_ms`` and ``bound_ms``.
 
 Each phase's seconds are printed as it ends, and all of them before the
 last lines.
@@ -243,7 +260,8 @@ module (``ops/fused_ffn.py``), the study tools' modules
 
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
-QKV at M = 512; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
+QKV at M = 512, ``moe`` and ``moe_prefill`` objects for an expert's gate
+at 4 and 512 rows; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
 the i8 kernel's: the north star and a ``u`` object at 32x4096x11008;
 phase 6's: the north star, ``u`` and an ``l`` object at 512x4096x4096, the
 block-packed ones at factor 4), the card line, and ``{"ok": true,
@@ -402,6 +420,22 @@ MIRROR_REL_L2 = 5e-2
 TRAIN_MLP = (1024, 4096, 1024)
 TRAIN_MLP_ROWS = (32, 2048)
 EXACT_GRAD_TOL = dict(rtol=1e-4, atol=1e-3)
+#: phase 15's MoE configuration: bitnet3b's widths with Mixtral's expert
+#: count and routing (8 experts, top 2, arXiv:2401.04088) and a capacity
+#: factor of E / top_k, which makes C = S: no token is dropped, so the
+#: prefill equals stepwise decode. Its QAT model keeps 2 of the 26 layers
+#: (~1.5 G parameters: with grads, Adam's moments and the STE weights ~35
+#: GiB), its serve 4; the batches: 4 x 256 tokens for training, 4 requests
+#: of 128 prompt tokens and 32 new for the serve
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 4.0
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS = 2, 4
+MOE_TRAIN_BATCH, MOE_TRAIN_T = 4, 256
+MOE_SERVE_B, MOE_SERVE_T0, MOE_SERVE_NEW = 4, 128, 32
+#: phase 15 (b): the exact export's full forward against the QAT forward
+#: (``tests/test_moe.py:170-182``), its prefill and decode steps against
+#: the QAT backend's (``tests/test_decode.py:110-125``)
+MOE_EXPORT_TOL = dict(rtol=1e-5, atol=1e-5)
+MOE_DECODE_TOL = dict(rtol=2e-4, atol=2e-4)
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -1181,22 +1215,14 @@ def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
     eager for one seed, then E G G E timings of prefill and decode."""
     import torch
 
-    from ternary_spgemm_tpu_torch.models import generate, init_cache
+    from ternary_spgemm_tpu_torch.models import generate
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.ops import fused_ffn
 
     cfg = lm.cfg
     L = cfg.n_layers
     (B, T0), int8 = prompt.shape, torch.int8
-    # one eager prefill's and one eager decode step's launches
-    with torch.no_grad():
-        caches = init_cache(cfg, B, T0 + n_new, int8, device=dev)
-        ck.reset_counts()
-        logits, caches = lm.prefill(prompt, caches)
-        eager = {"prefill": dict(ck.launches)}
-        ck.reset_counts()
-        lm.decode_step(torch.argmax(logits[:, -1], dim=-1), caches, T0)
-        eager["step"] = dict(ck.launches)
+    eager = eager_launches(lm, prompt, n_new, int8)
     check(eager["step"] == {"CudaTiledBitplane_x8": 2 * L,
                             "fused_bitplane_swiglu": L},
           f"one eager decode step launched {eager['step']}")
@@ -1248,49 +1274,7 @@ def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
           f"{int((sampled[0][:, T0:] != toks[:, T0:]).sum())} of "
           f"{B * n_new} differ from greedy", flush=True)
 
-    def time_eager():
-        with torch.no_grad():
-            caches = init_cache(cfg, B, T0 + n_new, int8, device=dev)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, caches = lm.prefill(prompt, caches)
-            cur = torch.argmax(logits[:, -1], dim=-1)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t
-            check(bool(torch.isfinite(logits).all()),
-                  "prefill logits not finite")
-            t = time.perf_counter()
-            for pos in range(T0, T0 + n_new - 1):
-                logits, caches = lm.decode_step(cur, caches, pos)
-                cur = torch.argmax(logits, dim=-1)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(logits).all()),
-                  "decode logits not finite")
-        return prefill_s, (time.perf_counter() - t) / (n_new - 1)
-
-    def time_graph():
-        loop.load(prompt)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loop.call("prefill")
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t
-        t = time.perf_counter()
-        for _ in range(n_new - 1):
-            loop.call("step")
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t) / (n_new - 1)
-        check(torch.equal(loop.tokens[:, T0:T0 + n_new], toks[:, T0:]),
-              "the timed replays gave other tokens")
-        return prefill_s, step_s
-
-    runs = []
-    for name, fn in (("eager", time_eager), ("graph", time_graph),
-                     ("graph", time_graph), ("eager", time_eager)):
-        prefill_s, step_s = fn()
-        runs.append(f"{name} prefill {prefill_s * 1e3:.2f} ms = "
-                    f"{B * T0 / prefill_s:.1f} tokens/s, decode "
-                    f"{step_s * 1e3:.3f} ms a step")
+    runs = egge_runs(lm, loop, prompt, toks, n_new, int8)
     print(f"serve bitnet7b, batch {B}, prompt {T0}, {n_new} new tokens, int8 "
           f"cache, E G G E: " + "; ".join(runs) + f"; captured generate "
           f"{first_s:.3f} s the first call (capture included), "
@@ -1298,6 +1282,91 @@ def phase_serve_graph(dev, card: str, lm, prompt, toks, n_new: int,
           f"{eager_peak / 2**30:.3f} GiB, captured {graph_peak / 2**30:.3f} "
           f"GiB [{card}]", flush=True)
     lm._captured.clear()
+
+
+def eager_launches(lm, prompt, n_new: int, cache_dtype) -> dict:
+    """The launches of one eager prefill of ``prompt`` and of the decode
+    step after it: ``{"prefill": counts, "step": counts}``."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import init_cache
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+
+    B, T0 = prompt.shape
+    with torch.no_grad():
+        caches = init_cache(lm.cfg, B, T0 + n_new, cache_dtype,
+                            device=prompt.device)
+        ck.reset_counts()
+        logits, caches = lm.prefill(prompt, caches)
+        out = {"prefill": dict(ck.launches)}
+        ck.reset_counts()
+        lm.decode_step(torch.argmax(logits[:, -1], dim=-1), caches, T0)
+        out["step"] = dict(ck.launches)
+    return out
+
+
+def eager_serve_s(lm, prompt, n_new: int, cache_dtype) -> tuple:
+    """(prefill s, decode s a step) of ``lm``'s eager loop on ``prompt``
+    (host clock around synchronized calls)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.models import init_cache
+
+    B, T0 = prompt.shape
+    with torch.no_grad():
+        caches = init_cache(lm.cfg, B, T0 + n_new, cache_dtype,
+                            device=prompt.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = lm.prefill(prompt, caches)
+        cur = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        t = time.perf_counter()
+        for pos in range(T0, T0 + n_new - 1):
+            logits, caches = lm.decode_step(cur, caches, pos)
+            cur = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    return prefill_s, (time.perf_counter() - t) / (n_new - 1)
+
+
+def graph_serve_s(loop, prompt, toks, n_new: int) -> tuple:
+    """(prefill s, decode s a step) of the captured ``loop``'s replays on
+    ``prompt``; its tokens must be ``toks``'."""
+    import torch
+
+    T0 = prompt.shape[1]
+    loop.load(prompt)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop.call("prefill")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(n_new - 1):
+        loop.call("step")
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / (n_new - 1)
+    check(torch.equal(loop.tokens[:, T0:T0 + n_new], toks[:, T0:]),
+          "the timed replays gave other tokens")
+    return prefill_s, step_s
+
+
+def egge_runs(lm, loop, prompt, toks, n_new: int, cache_dtype) -> list:
+    """The eager and captured loops timed in the order eager, graph, graph,
+    eager: one line each, prefill ms and tokens/s, decode ms a step."""
+    B, T0 = prompt.shape
+    timers = {"eager": lambda: eager_serve_s(lm, prompt, n_new, cache_dtype),
+              "graph": lambda: graph_serve_s(loop, prompt, toks, n_new)}
+    runs = []
+    for name in ("eager", "graph", "graph", "eager"):
+        prefill_s, step_s = timers[name]()
+        runs.append(f"{name} prefill {prefill_s * 1e3:.2f} ms = "
+                    f"{B * T0 / prefill_s:.1f} tokens/s, decode "
+                    f"{step_s * 1e3:.3f} ms a step")
+    return runs
 
 
 def path_launches(counts: dict) -> dict:
@@ -2938,6 +3007,213 @@ def phase_train(dev, card: str) -> dict:
     return dict(ck.launches)
 
 
+def moe_lm_config(layers: int):
+    """Phase 15's MoE model: bitnet3b's widths, ``layers`` of its 26."""
+    from ternary_spgemm_tpu_torch.models.serving import preset_config
+
+    return dataclasses.replace(
+        preset_config("bitnet3b"), n_layers=layers, moe_experts=MOE_EXPERTS,
+        moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_CAPACITY)
+
+
+def within(got, want, tol: dict) -> tuple:
+    """(every element of ``got`` within ``tol`` of ``want``, max |diff|)."""
+    d = (got - want).abs()
+    return (bool((d <= tol["atol"] + tol["rtol"] * want.abs()).all()),
+            float(d.max()))
+
+
+def phase_moe(dev, card: str) -> tuple:
+    """Phase 15: the MoE FFN at bitnet3b width with 8 experts, top 2. (a)
+    QAT, 2 of 26 layers, 3 Adam steps on one seeded 4 x 256 batch; (b) the
+    trained tree exported exactly (DenseTernary, the dense kernel) against
+    the QAT forward and the QAT backend's prefill and decode steps; (c) a
+    fresh 4-layer model exported A8 over TiledBitplane (merged QKV, A8
+    experts on the x8 kernel) serving 4 requests of 128 tokens, 32 new,
+    captured against eager, and one expert's x8 call at decode and prefill
+    rows against its plain version. Returns (the x8 kernel's expert
+    figures, the launch counts of the MoE path's runs)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import DenseTernary, TiledBitplane
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerLM, ExportedTransformerLM, generate, init_cache,
+        jax_tree, lm_decode_step, lm_prefill, make_lm_train_step)
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import requantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    counts = collections.Counter()
+    E = MOE_EXPERTS
+    what = (f"bitnet3b widths, {E} experts top {MOE_TOP_K}, capacity "
+            f"factor {MOE_CAPACITY}")
+
+    # (a) QAT
+    cfg = moe_lm_config(MOE_TRAIN_LAYERS)
+    L = cfg.n_layers
+    toks = torch.randint(0, cfg.vocab, (MOE_TRAIN_BATCH, MOE_TRAIN_T),
+                         generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = BitTransformerLM(cfg, generator=gen, device=dev)
+    n_params = sum(p.numel() for p in lm.parameters())
+    step = make_lm_train_step(lm, torch.optim.Adam(lm.parameters(),
+                                                   lr=TRAIN_LR))
+
+    def aux_now():
+        with torch.no_grad():
+            return float(lm.forward_with_aux(toks)[1])
+
+    auxes, losses, ms = [aux_now()], [], []
+    for i in range(3):
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        loss = step(toks)
+        s1.record()
+        s1.synchronize()
+        losses.append(float(loss))
+        if i:
+            ms.append(s0.elapsed_time(s1))
+    auxes.append(aux_now())
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(v) for v in losses + auxes)
+          and losses[2] < losses[0], f"MoE QAT losses {losses}, aux {auxes}")
+    print(f"MoE QAT ({what}), {L} of 26 layers, {n_params} parameters, "
+          f"batch {MOE_TRAIN_BATCH}x{MOE_TRAIN_T}, Adam lr={TRAIN_LR}, f32: "
+          f"losses {losses}; aux before and after {auxes}; step ms "
+          f"{[round(v, 3) for v in ms]} (steps 2-3); peak "
+          f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
+    del step
+    lm.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # (b) the exact export of the trained tree, on the dense kernel
+    exp = ExportedTransformerLM.from_params(cfg, jax_tree(lm, numpy=False),
+                                            DenseTernary, device=dev)
+    t, T0 = toks[:2, :64], 60
+    with torch.no_grad():
+        want = lm(t)
+        got, c = counted(lambda: exp(t))
+        counts.update(c)
+        ok, fwd_diff = within(got, want, MOE_EXPORT_TOL)
+        check(ok, f"MoE DenseTernary export against the QAT forward: max "
+                  f"|diff| {fwd_diff} outside {MOE_EXPORT_TOL}")
+        cq = init_cache(cfg, 2, 64, device=dev)
+        ce = init_cache(cfg, 2, 64, device=dev)
+        lq, cq = lm_prefill(lm, t[:, :T0], cq)
+        (le, ce), c = counted(lambda: exp.prefill(t[:, :T0], ce))
+        counts.update(c)
+        diffs = [within(le, lq, MOE_DECODE_TOL)]
+        for pos in range(T0, 64):
+            lq, cq = lm_decode_step(lm, t[:, pos], cq, pos)
+            (le, ce), c = counted(
+                lambda: exp.decode_step(t[:, pos], ce, pos))
+            counts.update(c)
+            diffs.append(within(le, lq, MOE_DECODE_TOL))
+    check(all(ok for ok, _ in diffs), f"MoE export prefill / decode "
+          f"against the QAT backend: {diffs} ({MOE_DECODE_TOL})")
+    per_fwd = 4 + 3 * E                  # wq, wk, wv, wo and the experts
+    want_c = {"CudaDense": per_fwd * L * (2 + 64 - T0)}
+    check(dict(counts) == want_c, f"MoE export launched {dict(counts)}, "
+          f"not {want_c}")
+    print(f"MoE DenseTernary export of the trained tree: full forward 2x64 "
+          f"within {MOE_EXPORT_TOL} of the QAT forward (max |diff| "
+          f"{fwd_diff:.3g}); prefill 2x{T0} and {64 - T0} decode steps "
+          f"within {MOE_DECODE_TOL} of lm_prefill / lm_decode_step (max "
+          f"|diff| {max(d for _, d in diffs):.3g}); launches {dict(counts)} "
+          f"({per_fwd} a layer a forward) [{card}]", flush=True)
+    del exp, lm, want, got, cq, ce
+    torch.cuda.empty_cache()
+
+    # (c) the A8 serve: merged QKV and A8 experts on the x8 kernel
+    cfg = moe_lm_config(MOE_SERVE_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    qat = BitTransformerLM(cfg, generator=gen, device=dev)
+    lm = ExportedTransformerLM.from_params(
+        cfg, jax_tree(qat, numpy=False), TiledBitplane, a8=True,
+        fused_qkv=True, with_transpose=False, device=dev)
+    del qat
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(all(lin.a8 for b in lm.blocks for ex in b.moe.experts
+              for lin in ex.values()), "an expert of the A8 export is not A8")
+    B, T0, n_new, int8 = (MOE_SERVE_B, MOE_SERVE_T0, MOE_SERVE_NEW,
+                          torch.int8)
+    prompt = torch.randint(0, cfg.vocab, (B, T0), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, c = counted(lambda: generate(lm, prompt, n_new, cache_dtype=int8,
+                                       graph=False))
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    counts.update(c)
+    per_layer = 2 + 3 * E                # merged QKV, wo, the experts
+    check(B * T0 > ck.X8_MMA_MIN_M >= B, "the x8 split does not part the "
+          "prefill's expert rows from decode's")
+    want_c = {"CudaTiledBitplane_x8": per_layer * L * n_new,
+              ck.X8_MMA_COUNT: per_layer * L}
+    check(c == want_c, f"MoE A8 serve launched {c}, not {want_c}")
+    check(tuple(toks.shape) == (B, T0 + n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all())
+          and torch.equal(toks[:, :T0], prompt), "MoE serve tokens")
+    eager = eager_launches(lm, prompt, n_new, int8)
+    check(eager["step"] == {"CudaTiledBitplane_x8": per_layer * L},
+          f"one eager MoE decode step launched {eager['step']}, not "
+          f"{per_layer} x8 a layer")
+    lm._captured.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    got, c = counted(lambda: generate(lm, prompt, n_new, cache_dtype=int8))
+    graph_peak = torch.cuda.max_memory_allocated(dev)
+    counts.update(c)
+    check(torch.equal(got, toks), "captured MoE greedy tokens differ from "
+          f"the eager loop's:\n{got.cpu()}\n{toks.cpu()}")
+    (loop,) = lm._captured.values()
+    captured = {k: dict(v) for k, v in loop.launches.items()}
+    check(captured == eager, f"the MoE captures launched {captured}, one "
+          f"eager prefill and step {eager}")
+    runs = egge_runs(lm, loop, prompt, toks, n_new, int8)
+    print(f"MoE A8 serve ({what}), {L} layers, TiledBitplane, merged QKV, "
+          f"build {build_s:.2f} s; batch {B}, prompt {T0}, {n_new} new, int8 "
+          f"cache, greedy: captured tokens equal the eager loop's; x8 "
+          f"launches a decode step {eager['step']} ({per_layer} a layer: "
+          f"the merged QKV, wo and {E} x 3 experts at {B} rows), a prefill "
+          f"{eager['prefill']}; E G G E: " + "; ".join(runs)
+          + f"; max_memory_allocated eager {eager_peak / 2**30:.3f} GiB, "
+          f"captured {graph_peak / 2**30:.3f} GiB [{card}]", flush=True)
+    lm._captured.clear()
+
+    # one expert's x8 call at decode's and the prefill's rows
+    f = lm.blocks[0].moe.experts[0]["w_gate"].fmt
+    K, N = f.shape
+    zeros = torch.zeros((N,), device=dev)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
+    stats = {}
+    for M, key in ((B, "moe"), (B * T0, "moe_prefill")):
+        x, _ = requantize_rows(torch.randn((M, K), generator=gen, device=dev))
+        kern = lambda: ck.cuda_tiled_bitplane_x8_kernel(x, f, zeros, None)
+        plain = lambda: ck.bitplane_x8_plain(x, f, zeros, None)
+        y, yp = kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(y, yp), f"x8 MoE expert {M}x{K}x{N}: kernel != "
+              f"plain (max |diff| {float((y - yp).abs().max())})")
+        bms, by = spmm_bound(M, f)
+        stats[key] = dict(ms=event_ms(kern, flush=flush),
+                          plain_ms=event_ms(plain, flush=flush),
+                          library_ms=library_ms(x, f, flush), bound_ms=bms,
+                          bound_by=by)
+        r = stats[key]
+        print(f"kernel CudaTiledBitplane_x8 MoE expert gate {M}x{K}x{N} "
+              f"({'decode body' if M <= ck.X8_MMA_MIN_M else 'tensor cores'}"
+              f"): bitwise equal; {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}) [{card}]", flush=True)
+    del lm, flush
+    torch.cuda.empty_cache()
+    return stats, dict(counts)
+
+
 def main() -> int:
     import torch
 
@@ -3013,19 +3289,22 @@ def main() -> int:
     serve3b_counts = timed("12", phase_serve_3b, dev, card)
     tune_counts = timed("13", phase_autotune, dev, card)
     train_counts = timed("14", phase_train, dev, card)
+    moe_stats, moe_counts = timed("15", phase_moe, dev, card)
+    stats["CudaTiledBitplane_x8"].update(moe_stats)
     check("jax" not in sys.modules, "jax was imported")
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
             probe_counts, ragged_counts, ring_counts, serve3b_counts,
-            tune_counts, train_counts)
+            tune_counts, train_counts, moe_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),
                 **{k: stats[name][k] for k in ("max_abs_err", *keys)},
                 **{extra: {k: stats[name][extra][k] for k in keys}
-                   for extra in ("prefill", "u", "l") if extra in stats[name]}}
+                   for extra in ("prefill", "u", "l", "moe", "moe_prefill")
+                   if extra in stats[name]}}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -234,7 +234,11 @@ def save_lm_bundle(path: str, lm) -> None:
     embedding is stored as its raw ``uint16`` bits with ``embed_dtype:
     "bfloat16"``. A merged-QKV block without ``wq``/``wk``/``wv`` gets them
     from :func:`_split_qkv`, listed under the block's ``"derived"`` key
-    (which the JAX loader ignores and :func:`load_lm_bundle` drops)."""
+    (which the JAX loader ignores and :func:`load_lm_bundle` drops). An
+    MoE block adds ``b{i}.moe.router`` and its ``"moe"`` list, a linear
+    record an expert under ``b{i}.moe.e{e}.{w_gate, w_up, w_down}``."""
+    from ternary_spgemm_tpu_torch.models.moe import EXPERT_LINEARS
+
     emb = lm.embed.detach().cpu()
     if emb.dtype == torch.bfloat16:
         embed_dtype = "bfloat16"
@@ -259,6 +263,11 @@ def save_lm_bundle(path: str, lm) -> None:
             arrays[f"b{i}.qkv.bias"] = _numpy(blk.qkv.bias)
         arrays[f"b{i}.norm_attn"] = _numpy(blk.norm_attn)
         arrays[f"b{i}.norm_ffn"] = _numpy(blk.norm_ffn)
+        if blk.moe is not None:
+            arrays[f"b{i}.moe.router"] = _numpy(blk.moe.router)
+            bh["moe"] = [{n: _linear_record(ex[n], f"b{i}.moe.e{e}.{n}",
+                                            arrays) for n in EXPERT_LINEARS}
+                         for e, ex in enumerate(blk.moe.experts)]
         blocks.append(bh)
     arrays["header"] = _encode({
         "version": BUNDLE_VERSION, "cfg": dataclasses.asdict(lm.cfg),
@@ -272,8 +281,13 @@ def load_lm_bundle(path: str, device="cuda"):
     one). Transposed containers are placed with the rest of their linear,
     so a bundle that has them backpropagates (one without stays
     forward-only); the ``"derived"`` ``wq``/``wk``/``wv`` that
-    :func:`save_lm_bundle` wrote are dropped. MoE bundles raise."""
+    :func:`save_lm_bundle` wrote are dropped. An MoE block's experts come
+    from its ``"moe"`` list (one ``{w_gate, w_up, w_down}`` linear record
+    an expert, each with its ``a8`` flag) and its ``b{i}.moe.router``; a
+    block whose list does not hold ``cfg.moe_experts`` experts raises."""
     from ternary_spgemm_tpu_torch.models.generate import ExportedTransformerLM
+    from ternary_spgemm_tpu_torch.models.moe import (
+        EXPERT_LINEARS, ExportedMoE, moe_config)
     from ternary_spgemm_tpu_torch.models.transformer import (
         BitTransformerConfig, ExportedTransformerBlock, MergedQKV)
 
@@ -284,9 +298,6 @@ def load_lm_bundle(path: str, device="cuda"):
             raise ValueError(f"bundle version {header.get('version')!r}; "
                              f"this loader reads {BUNDLE_VERSION}")
         cfg = BitTransformerConfig(**header["cfg"])
-        if cfg.moe_experts or any("moe" in bh for bh in header["blocks"]):
-            raise NotImplementedError("MoE bundles need the port's MoE "
-                                      "blocks, which are ROADMAP A7")
         blocks = []
         for i, bh in enumerate(header["blocks"]):
             derived = set(bh.get("derived", ()))
@@ -298,11 +309,22 @@ def load_lm_bundle(path: str, device="cuda"):
                 qkv = MergedQKV(
                     _fmt_restore(bh["qkv"], f"b{i}.qkv.fmt.", data, device),
                     data[f"b{i}.qkv.scale"], data[f"b{i}.qkv.bias"])
+            experts = bh.get("moe", [])
+            if len(experts) != cfg.moe_experts:
+                raise ValueError(f"block {i} of the bundle holds "
+                                 f"{len(experts)} experts; its cfg has "
+                                 f"moe_experts={cfg.moe_experts}")
+            moe = None
+            if experts:
+                moe = ExportedMoE(moe_config(cfg), data[f"b{i}.moe.router"], [
+                    {n: _linear_restore(eh[n], f"b{i}.moe.e{e}.{n}", data,
+                                        device) for n in EXPERT_LINEARS}
+                    for e, eh in enumerate(experts)])
             blocks.append(ExportedTransformerBlock(
                 cfg, linears, data[f"b{i}.norm_attn"], data[f"b{i}.norm_ffn"],
                 fused_ffn=bh.get("fused_ffn", False), qkv=qkv,
                 kernel=port_name(bh.get("kernel")),
-                a8=hdrs.get("wq", {}).get("a8", False)))
+                a8=hdrs.get("wq", {}).get("a8", False), moe=moe))
         embed, head_dtype = data["embed"], None
         edt = header.get("embed_dtype", "float32")
         if edt == "bfloat16":

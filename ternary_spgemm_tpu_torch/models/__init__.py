@@ -1,7 +1,7 @@
 """Model layer of the port: the QAT layers and transformer with their
-``torch.optim`` steps, the exported BitNet W1.58-A8 layers (differentiable
-through their transposed containers), the exported transformer and its
-KV-cached serving loop."""
+``torch.optim`` steps, the ternary Mixture-of-Experts FFN, the exported
+BitNet W1.58-A8 layers (differentiable through their transposed
+containers), the exported transformer and its KV-cached serving loop."""
 
 from ternary_spgemm_tpu_torch.models.bitlinear import (
     BitLinear,
@@ -32,6 +32,12 @@ from ternary_spgemm_tpu_torch.models.generate import (
     lm_decode_step,
     lm_prefill,
 )
+from ternary_spgemm_tpu_torch.models.moe import (
+    BitMoE,
+    BitMoEConfig,
+    ExportedMoE,
+    moe_route,
+)
 from ternary_spgemm_tpu_torch.models.serving import build_serving_lm
 from ternary_spgemm_tpu_torch.models.train import make_train_step, mse_loss
 from ternary_spgemm_tpu_torch.models.transformer import (
@@ -54,5 +60,6 @@ __all__ = [
     "generate", "init_cache", "lm_prefill", "lm_decode_step",
     "lm_from_jax_params", "qat_lm_from_jax_params", "mlp_from_jax_params",
     "mlp_from_flax_params", "jax_tree", "build_serving_lm",
-    "autotune_exported", "autotune_serving_flags",
+    "autotune_exported", "autotune_serving_flags", "BitMoE", "BitMoEConfig",
+    "ExportedMoE", "moe_route",
 ]

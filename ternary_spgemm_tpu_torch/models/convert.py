@@ -3,7 +3,9 @@
 * :func:`lm_from_jax_params` takes the tree ``BitTransformerLM.init`` gives
   (``ternary_spgemm_tpu/models/transformer.py:256-265``) as numpy arrays —
   ``{"embed": (vocab, d), "blocks": [{"wq": {"w", "b"}, ..., "norm_attn",
-  "norm_ffn"}, ...], "norm_out": (d,)}`` — and builds the port's serving
+  "norm_ffn"}, ...], "norm_out": (d,)}``, an MoE block's FFN the subtree
+  ``"moe": {"router", "w_gate", "w_up", "w_down"}`` in the place of the
+  three FFN linears — and builds the port's serving
   export, quantizing with the same absmean formula and packing with the
   port's ``TiledBitplane`` (byte-identical planes). No JAX is needed: the
   tree can come from ``np.savez`` of the JAX params, or be drawn in its
@@ -47,9 +49,6 @@ def lm_from_jax_params(cfg: BitTransformerConfig, params_np: dict, *,
     ``device="cpu"``. ``kernel`` names a kernel of this port's registry
     (None: dispatch as the JAX package does)."""
     device = resolve_device(device)
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP A7b)")
     if len(params_np["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params_np['blocks'])} blocks, "
                          f"cfg.n_layers={cfg.n_layers}")

@@ -33,6 +33,8 @@ copy of the cache per step) and returns the same dict.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 from torch import nn
 
@@ -266,9 +268,12 @@ def _block_prefill(n_heads, lin, norm_attn, norm_ffn, x, cache, ffn=None,
 def _fused_hooks(block: ExportedTransformerBlock, rows: int, bt):
     """(ffn, qkv) overrides for an exported block's serving fast paths: the
     fused SwiGLU kernel when its contract holds, and the merged-QKV
-    container when present. ``bt(z)`` gives the (B, T) of 3-D activations."""
+    container when present; an MoE block's FFN is its experts. ``bt(z)``
+    gives the (B, T) of 3-D activations."""
     ffn = qkv = None
-    if block.fused_ffn and block._fused_ffn_applicable():
+    if block.moe is not None:
+        ffn = block.moe
+    elif block.fused_ffn and block._fused_ffn_applicable():
         def ffn(h, b_=block):
             B, T = bt(h)
             return b_._ffn(h.reshape(rows, -1)).reshape(B, T, -1)
@@ -333,10 +338,19 @@ class ExportedTransformerLM(nn.Module):
         measured choice of :func:`autotune_serving_flags` for the first
         block at ``auto_rows`` rows, with the caller's ``kernel`` (the JAX
         package drops it, ``models/generate.py:417`` there) and the JSON
-        ``cache_path`` shared with ``ops/autotune.py``."""
+        ``cache_path`` shared with ``ops/autotune.py``. An MoE model has no
+        fused FFN to choose: ``auto=True`` warns and keeps the caller's
+        flags (the JAX package skips the probe without a word,
+        ``models/generate.py:416`` there)."""
         from ternary_spgemm_tpu_torch.models.convert import lm_from_jax_params
 
-        if auto:
+        if auto and cfg.moe_experts:
+            warnings.warn(
+                "from_params(auto=True): the serving-flag probe times a dense "
+                "FFN block, so it is skipped for this MoE model; the given "
+                f"fused_ffn={fused_ffn}, fused_qkv={fused_qkv} stand",
+                stacklevel=2)
+        elif auto:
             picks = autotune_serving_flags(
                 cfg, params["blocks"][0], format_cls, rows=auto_rows, a8=a8,
                 kernel=kernel, cache_path=cache_path, device=device,
@@ -378,7 +392,12 @@ class ExportedTransformerLM(nn.Module):
         """Prompt prefill: ``tokens (B, T0) -> (logits (B, T0, vocab),
         caches)``, the caches filled at positions 0..T0-1; with ``start``
         (an int or a 0-d tensor) one chunk of a longer prompt at positions
-        ``start..start+T0-1`` (:func:`chunked_prefill`)."""
+        ``start..start+T0-1`` (:func:`chunked_prefill`).
+
+        MoE caveat: an expert's capacity comes from the tokens of the call
+        (S = B * T0 here, S = B in a decode step), so the prefill equals T0
+        decode steps only where ``moe_capacity_factor`` is large enough
+        that routing binds in neither (``docs/serving.md``)."""
         B, T = tokens.shape
         x = self._embed(tokens)
         for block, cache in zip(self.blocks, caches):
@@ -410,6 +429,12 @@ def _qat_lin(block):
     return lambda n, z: getattr(block, n)(z)
 
 
+def _qat_ffn(block):
+    """A QAT MoE block's FFN, its experts' output without the balance loss
+    (None: the block's dense SwiGLU)."""
+    return None if block.moe is None else (lambda h: block.moe(h)[0])
+
+
 @torch.no_grad()
 def lm_prefill(model: BitTransformerLM, tokens: torch.Tensor, caches,
                start=None):
@@ -417,12 +442,14 @@ def lm_prefill(model: BitTransformerLM, tokens: torch.Tensor, caches,
     vocab), caches)``, the caches filled at positions 0..T0-1 (with
     ``start``, one chunk at ``start..start+T0-1``); the counterpart of the
     JAX ``lm_prefill`` (``models/generate.py:309-332`` there), at f32 as
-    that serves, on the exported model's block prefill."""
+    that serves, on the exported model's block prefill; the MoE caveat of
+    :meth:`ExportedTransformerLM.prefill` holds."""
     x = model.embed[tokens]
     for block, cache in zip(model.blocks, caches):
         x, _ = _block_prefill(model.cfg.head_tuple, _qat_lin(block),
                               block.norm_attn, block.norm_ffn, x, cache,
-                              start=start, window=model.cfg.window)
+                              ffn=_qat_ffn(block), start=start,
+                              window=model.cfg.window)
     x = rms_norm(x, model.norm_out)
     return torch.einsum("btd,vd->btv", x, model.embed), caches
 
@@ -437,7 +464,7 @@ def lm_decode_step(model: BitTransformerLM, tokens: torch.Tensor, caches,
     for block, cache in zip(model.blocks, caches):
         x, _ = _block_decode(model.cfg.head_tuple, _qat_lin(block),
                              block.norm_attn, block.norm_ffn, x, cache, pos,
-                             window=model.cfg.window)
+                             ffn=_qat_ffn(block), window=model.cfg.window)
     x = rms_norm(x, model.norm_out)
     return torch.einsum("btd,vd->btv", x, model.embed)[:, 0], caches
 
@@ -476,7 +503,8 @@ def autotune_serving_flags(cfg: BitTransformerConfig, block_params: dict,
     JSON file, whose key string is the JAX package's; K/V heads other than
     ``n_heads`` and a ``kernel`` other than None are appended to it
     (``kv_heads=8``, ``kernel=`` the JAX registry's name)."""
-    from ternary_spgemm_tpu_torch.ops import autotune as at
+    from ternary_spgemm_tpu_torch.ops.autotune import (
+        memoized, remember, time_call)
     from ternary_spgemm_tpu_torch.ops.api import jax_name
     from ternary_spgemm_tpu_torch.utils.device import resolve_device
 
@@ -491,7 +519,7 @@ def autotune_serving_flags(cfg: BitTransformerConfig, block_params: dict,
     if kernel is not None:
         key += (f"kernel={jax_name(kernel)}",)
     same = lambda v: v
-    hit = at.memoized(key, cache_path, same, same)
+    hit = memoized(key, cache_path, same, same)
     if hit is not None:
         return _flags(hit)
 
@@ -515,14 +543,14 @@ def autotune_serving_flags(cfg: BitTransformerConfig, block_params: dict,
                                  bk.norm_ffn, x, cache, cache_len - 1,
                                  ffn=f, qkv=q, window=cfg.window)[0]
 
-        t = at.time_call(block_fn, x1, min_seconds=min_seconds,
-                         repeats=repeats, graph=True)
+        t = time_call(block_fn, x1, min_seconds=min_seconds, repeats=repeats,
+                      graph=True)
         name = FLAG_NAMES[(ffn, qkv)]
         if verbose:
             print(f"serving flags {name}: {t * 1e6:.1f} us", flush=True)
         if t < best_t:
             best_name, best_t = name, t
-    at.remember(key, best_name, cache_path, same)
+    remember(key, best_name, cache_path, same)
     return _flags(best_name)
 
 

@@ -186,6 +186,8 @@ class BitTransformerConfig:
 
 
 LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: an MoE block's linears: its FFN is the experts
+ATTN_LINEARS = ("wq", "wk", "wv", "wo")
 
 
 class MergedQKV(nn.Module):
@@ -226,15 +228,19 @@ class ExportedTransformerBlock(nn.Module):
     ``fused_ffn``: run the SwiGLU FFN as one :func:`fused_bitplane_swiglu`
     call when its contract holds (:meth:`_fused_ffn_applicable`, the JAX
     rule). ``a8``: the W1.58-A8 regime of the projections (default: that of
-    ``linears["wq"]``, as the JAX block decides it)."""
+    ``linears["wq"]``, as the JAX block decides it). ``moe``: an MoE
+    block's :class:`~ternary_spgemm_tpu_torch.models.moe.ExportedMoE`,
+    which is its FFN (its linears then are the attention's alone)."""
 
     def __init__(self, cfg: BitTransformerConfig, linears: dict, norm_attn,
                  norm_ffn, *, fused_ffn: bool = False,
                  qkv: Optional[MergedQKV] = None,
-                 kernel: Optional[str] = None, a8: Optional[bool] = None):
+                 kernel: Optional[str] = None, a8: Optional[bool] = None,
+                 moe: Optional[nn.Module] = None):
         super().__init__()
         self.cfg = cfg
         self.linears = nn.ModuleDict(linears)
+        self.moe = moe
         dev = next(iter(self.linears.values())).bias.device
         self.register_buffer("norm_attn", as_f32(norm_attn, dev))
         self.register_buffer("norm_ffn", as_f32(norm_ffn, dev))
@@ -263,20 +269,38 @@ class ExportedTransformerBlock(nn.Module):
         with its transposed container unless ``with_transpose=False``
         (serving). The merged QKV and the fused FFN bypass the linears'
         backward, as in the JAX package: a block built to backpropagate
-        leaves them off."""
+        leaves them off.
+
+        With ``cfg.moe_experts`` the FFN is an ``ExportedMoE`` of
+        ``params["moe"]`` (its experts with their transposes, as the JAX
+        package builds them) and the linears the attention's. The experts
+        follow the block's ``a8``, as ``docs/serving.md`` says every
+        projection of an A8 export does; the JAX block does not pass it on
+        (``models/transformer.py:397-401`` there)."""
+        moe = None
+        if cfg.moe_experts:
+            from ternary_spgemm_tpu_torch.models.moe import (
+                ExportedMoE, moe_config)
+
+            moe = ExportedMoE.from_params(
+                moe_config(cfg), params["moe"], format_cls, kernel=kernel,
+                a8=a8, device=device, **fmt_kwargs)
+        names = ATTN_LINEARS if cfg.moe_experts else LINEARS
         linears = {n: ExportedBitLinear.from_params(
             params[n], format_cls, kernel=kernel, a8=a8, device=device,
-            with_transpose=with_transpose, **fmt_kwargs) for n in LINEARS}
+            with_transpose=with_transpose, **fmt_kwargs) for n in names}
         qkv = (MergedQKV.from_params(params, format_cls, device=device,
                                      **fmt_kwargs) if fused_qkv else None)
         return cls(cfg, linears, params["norm_attn"], params["norm_ffn"],
-                   fused_ffn=fused_ffn, qkv=qkv, kernel=kernel, a8=a8)
+                   fused_ffn=fused_ffn, qkv=qkv, kernel=kernel, a8=a8,
+                   moe=moe)
 
     def _fused_ffn_applicable(self) -> bool:
-        """The JAX rule (``models/transformer.py:439-457`` there):
-        TiledBitplane containers, biasless projections, and an output
-        projection that fits one storage tile."""
-        if not self._ffn_biasless:
+        """The JAX rule (``models/transformer.py:439-457`` there): a dense
+        FFN (not an MoE block), TiledBitplane containers, biasless
+        projections, and an output projection that fits one storage
+        tile."""
+        if self.moe is not None or not self._ffn_biasless:
             return False
         for n in ("w_gate", "w_up", "w_down"):
             if not isinstance(self.linears[n].fmt, TiledBitplane):
@@ -337,6 +361,8 @@ class ExportedTransformerBlock(nn.Module):
         x = x + flat("wo", causal_attend(self.cfg.head_tuple, q, kk, v,
                                          window=self.cfg.window))
         h = rms_norm(x, self.norm_ffn)
+        if self.moe is not None:
+            return x + self.moe(h)
         return x + self._ffn(h.reshape(B * T, d)).reshape(B, T, d)
 
 
@@ -378,16 +404,16 @@ class BitTransformerBlock(nn.Module):
     params (``wq``/``wk``/``wv`` d -> d or the K/V width, ``wo``,
     ``w_gate``/``w_up`` d -> ff, ``w_down`` ff -> d), beside the RMSNorm
     scales ``norm_attn`` / ``norm_ffn``, so that its ``state_dict()`` keys
-    are the JAX block tree's paths. Under a compute dtype other than f32
-    the activations ride at it and each linear casts its quantized weights
-    down at use; the norms and softmax keep f32 (or f64) inside."""
+    are the JAX block tree's paths. With ``cfg.moe_experts`` the FFN is a
+    :class:`~ternary_spgemm_tpu_torch.models.moe.BitMoE` at ``moe`` in the
+    place of the three FFN linears (the JAX ``params["moe"]``). Under a
+    compute dtype other than f32 the activations ride at it and each linear
+    casts its quantized weights down at use; the norms and softmax keep f32
+    (or f64) inside."""
 
     def __init__(self, cfg: BitTransformerConfig, *, generator=None,
                  device="cuda"):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP A7b)")
         dev = resolve_device(device)
         gen = generator or default_generator(dev)
         self.cfg = cfg
@@ -395,8 +421,13 @@ class BitTransformerBlock(nn.Module):
         shapes = {"wq": (d, d), "wk": (d, kvw), "wv": (d, kvw),
                   "wo": (d, d), "w_gate": (d, ff), "w_up": (d, ff),
                   "w_down": (ff, d)}
-        for n in LINEARS:
+        for n in ATTN_LINEARS if cfg.moe_experts else LINEARS:
             setattr(self, n, BitLinear(*shapes[n], generator=gen, device=dev))
+        self.moe = None
+        if cfg.moe_experts:
+            from ternary_spgemm_tpu_torch.models.moe import BitMoE, moe_config
+
+            self.moe = BitMoE(moe_config(cfg), generator=gen, device=dev)
         self.norm_attn = nn.Parameter(torch.ones(d, device=dev))
         self.norm_ffn = nn.Parameter(torch.ones(d, device=dev))
 
@@ -413,6 +444,9 @@ class BitTransformerBlock(nn.Module):
                                          window=self.cfg.window))
         x = x + attn
         h = rms_norm(x, self.norm_ffn)
+        if self.moe is not None:
+            ffn, aux = self.moe(h)
+            return x + ffn, aux
         ffn = self.w_down(silu(self.w_gate(h)) * self.w_up(h))
         return x + ffn, torch.zeros((), device=x.device)
 
@@ -450,7 +484,8 @@ class BitTransformerLM(nn.Module):
         return self.forward_with_aux(tokens, constrain=constrain)[0]
 
     def forward_with_aux(self, tokens: torch.Tensor, *, constrain=None):
-        """``(logits, aux)``, aux the mean MoE balance loss (0 here).
+        """``(logits, aux)``, aux the MoE balance loss averaged over the
+        blocks (0 without MoE).
         ``constrain``: an ``x -> x`` hook on the ``(B, T, d)`` activations
         after the embedding and after every block (the JAX package's
         sequence-parallel sharding constraint goes there)."""

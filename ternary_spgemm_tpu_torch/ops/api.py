@@ -145,6 +145,14 @@ def all_kernels() -> Dict[str, KernelSpec]:
     return dict(_KERNEL_REGISTRY)
 
 
+def kernels_for_format(format_cls: Type[TernaryFormat]
+                       ) -> Dict[str, KernelSpec]:
+    """The kernels registered for exactly ``format_cls`` (not for its
+    subclasses), by name: the JAX ``kernels_for_format``."""
+    return {n: s for n, s in _KERNEL_REGISTRY.items()
+            if s.format_cls is format_cls}
+
+
 def get_kernel(name: str) -> KernelSpec:
     try:
         return _KERNEL_REGISTRY[name]

@@ -52,10 +52,10 @@ from ternary_spgemm_tpu_torch.models import (
 )
 from ternary_spgemm_tpu_torch.ops import REFERENCE_KERNELS, ternary_spgemm
 from ternary_spgemm_tpu_torch.ops import api
-from ternary_spgemm_tpu_torch.ops import autotune as tat
 
-#: the JAX package's autotune module (its ``ops`` exports the function
-#: of that name)
+#: both packages' autotune modules (each package's ``ops`` exports the
+#: function of that name)
+tat = importlib.import_module("ternary_spgemm_tpu_torch.ops.autotune")
 jat = importlib.import_module("ternary_spgemm_tpu.ops.autotune")
 #: both packages' ``models/generate.py`` (``models`` exports the function)
 jgen = importlib.import_module("ternary_spgemm_tpu.models.generate")

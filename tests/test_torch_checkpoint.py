@@ -365,14 +365,27 @@ def test_bf16_head_matches_jax_and_round_trips(tmp_path):
 
 
 def test_moe_bundle_is_refused(tmp_path):
+    """A JAX MoE bundle loads (its experts, byte for byte, in
+    ``tests/test_torch_moe.py``); one whose blocks hold another number of
+    experts than its ``cfg.moe_experts`` is refused."""
     jcfg = JConfig(moe_experts=2, **dict(SHAPE, n_layers=1))
     params = BitTransformerLM(jcfg).init(jax.random.key(0))
     jlm = JLM.from_params(BitTransformerLM(jcfg), params, JTiledBitplane,
                           with_transpose=False)
     path = str(tmp_path / "moe.npz")
     jck.save_lm_bundle(path, jlm)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tck.load_lm_bundle(path, device="cpu")
+    assert len(tck.load_lm_bundle(path, device="cpu").blocks[0].moe.experts) \
+        == 2
+    with np.load(path) as data:
+        arrays = dict(data)
+    header = tck._decode(arrays)
+    header["cfg"]["moe_experts"] = 3
+    arrays["header"] = tck._encode(header)
+    bad = str(tmp_path / "bad.npz")
+    np.savez(bad, **arrays)
+    with pytest.raises(ValueError, match="2 experts; its cfg has "
+                                         "moe_experts=3"):
+        tck.load_lm_bundle(bad, device="cpu")
 
 
 # --------------------------------------------------------------- pytrees

@@ -38,7 +38,9 @@ card, refuses a capturing stream and raises, naming it, a candidate that
 fails other than by refusing the shape (``-k autotune_on_card``); the serving
 tool serves its ``test`` preset captured (``-k serving_tool``). An exported
 layer's backward runs the x8 and dense kernels on its transposed container
-bitwise their plain versions (``-k backward_on_transpose``).
+bitwise their plain versions (``-k backward_on_transpose``). An MoE
+block's experts run those kernels on the card as on the CPU, and the
+captured loop holds its decode step (``-k moe``).
 """
 
 import dataclasses
@@ -1738,3 +1740,78 @@ def test_dense_backward_on_transpose_bitwise(dev, monkeypatch):
     assert kernel == "CudaDense" and fmt.shape == (N, K)
     assert torch.equal(Y, ck.dense_plain(X, fmt, lin.zero_bias_t))
     assert torch.equal(x.grad, Y)    # gamma = 1
+
+
+_MOE = {}
+
+
+def _moe_lm(dev, format_cls=TiledBitplane, a8=True):
+    """A small MoE model (2 layers at d = 256, 4 experts top 2, capacity
+    factor 2: C = S) exported on the card, built once a format."""
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerConfig, BitTransformerLM, ExportedTransformerLM,
+        jax_tree)
+
+    key = (format_cls.__name__, a8)
+    if key not in _MOE:
+        cfg = BitTransformerConfig(vocab=64, d_model=256, n_heads=4,
+                                   d_ff=512, n_layers=2, moe_experts=4,
+                                   moe_top_k=2, moe_capacity_factor=2.0)
+        qat = BitTransformerLM(cfg, generator=torch.Generator(
+            device=dev).manual_seed(21), device=dev)
+        _MOE[key] = ExportedTransformerLM.from_params(
+            cfg, jax_tree(qat, numpy=False), format_cls, a8=a8,
+            fused_qkv=a8, with_transpose=False, device=dev)
+    return _MOE[key]
+
+
+@pytest.mark.parametrize("fmt", ["a8_bitplane", "dense"])
+def test_moe_block_on_card_matches_cpu(dev, fmt):
+    """An MoE block exported on the card against the same block on the CPU
+    (plain versions): the A8 experts over TiledBitplane (the x8 kernel, 3
+    launches an expert) bitwise, the exact experts over DenseTernary (the
+    dense kernel, which sums f32 X in another order) within rtol=1e-5,
+    atol=1e-5; the whole block within the CPU tests' 2e-3."""
+    import copy
+
+    lm = (_moe_lm(dev) if fmt == "a8_bitplane"
+          else _moe_lm(dev, DenseTernary, a8=False))
+    blk = lm.blocks[0]
+    cpu = copy.deepcopy(blk).to("cpu")
+    g = torch.Generator(device=dev).manual_seed(4)
+    for rows in (4, 96):
+        h = torch.randn((1, rows, 256), generator=g, device=dev)
+        ck.reset_counts()
+        with torch.no_grad():
+            got = blk.moe(h)
+        torch.cuda.synchronize()
+        name = ("CudaTiledBitplane_x8" if fmt == "a8_bitplane"
+                else "CudaDense")
+        assert ck.launches[name] == 3 * 4 and not ck.plain_on_cuda
+        want = cpu.moe(h.cpu())
+        if fmt == "a8_bitplane":
+            assert torch.equal(got.cpu(), want)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        with torch.no_grad():
+            torch.testing.assert_close(blk(h).cpu(), cpu(h.cpu()),
+                                       rtol=2e-3, atol=2e-3)
+
+
+def test_moe_graph_generate_equals_eager(dev):
+    """The captured generate loop holds an MoE decode step: the eager
+    loop's greedy tokens, and the step's capture launched one eager
+    step's x8 calls, 2 + 3 x 4 a layer (the merged QKV, wo and the
+    experts), all on the decode body."""
+    from ternary_spgemm_tpu_torch.models import generate
+
+    lm = _moe_lm(dev)
+    p = _prompt(dev, 7)
+    want = generate(lm, p, 10, graph=False, cache_dtype=torch.int8)
+    lm._captured.clear()
+    got = generate(lm, p, 10, cache_dtype=torch.int8)
+    assert torch.equal(got, want)
+    (loop,) = lm._captured.values()
+    assert loop.launches["step"] == {
+        "CudaTiledBitplane_x8": (2 + 3 * 4) * lm.cfg.n_layers}
+    lm._captured.clear()

@@ -45,6 +45,7 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.models.convert",
                  "ternary_spgemm_tpu_torch.models.exported",
                  "ternary_spgemm_tpu_torch.models.transformer",
+                 "ternary_spgemm_tpu_torch.models.moe",
                  "ternary_spgemm_tpu_torch.models.graphs",
                  "ternary_spgemm_tpu_torch.models.serving",
                  "ternary_spgemm_tpu_torch.utils.device",
@@ -75,3 +76,30 @@ def test_no_jax_import(extra):
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_ops_exports_the_autotune_function():
+    """``ternary_spgemm_tpu_torch.ops.autotune`` is the function after
+    ``import ternary_spgemm_tpu_torch.ops``, whichever module was imported
+    first, and ``ops.kernels_for_format`` exists, as in the JAX package's
+    ``ops`` (``ternary_spgemm_tpu/ops/__init__.py:9,14``)."""
+    code = ("import importlib, inspect, sys\n"
+            "first = sys.argv[1]\n"
+            "if first:\n"
+            "    importlib.import_module(first)\n"
+            "import ternary_spgemm_tpu_torch.ops as ops\n"
+            "mod = importlib.import_module("
+            "'ternary_spgemm_tpu_torch.ops.autotune')\n"
+            "assert inspect.isfunction(ops.autotune), ops.autotune\n"
+            "assert ops.autotune is mod.autotune\n"
+            "from ternary_spgemm_tpu_torch.ops import kernels_for_format\n"
+            "assert kernels_for_format is ops.api.kernels_for_format\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for first in ("", "ternary_spgemm_tpu_torch.ops.autotune",
+                  "ternary_spgemm_tpu_torch.models"):
+        out = subprocess.run([sys.executable, "-c", code, first], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=240)
+        assert out.returncode == 0, (first, out.stderr)
+        assert out.stdout.startswith("ok")

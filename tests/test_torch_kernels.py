@@ -522,3 +522,17 @@ def test_compare_results_nan_parity_with_jax():
     want = np.ones((1, 2), np.float32)
     assert bool(jref.compare_results(got, want)) == \
         bool(tref.compare_results(got, want))
+
+
+@pytest.mark.parametrize("name", sorted(tf.all_formats()))
+def test_kernels_for_format_matches_jax(name):
+    """``ops.kernels_for_format``: the kernels registered for exactly one
+    container, under the JAX registry's names, are the JAX
+    ``kernels_for_format``'s (``ternary_spgemm_tpu/ops/api.py:95``)."""
+    from ternary_spgemm_tpu.ops import kernels_for_format as jkernels
+    from ternary_spgemm_tpu_torch.ops import api, kernels_for_format
+
+    got = kernels_for_format(tf.all_formats()[name])
+    assert all(s.format_cls is tf.all_formats()[name] for s in got.values())
+    assert {api.jax_name(n) for n in got} == \
+        set(jkernels(jf.all_formats()[name]))

@@ -349,8 +349,14 @@ def test_bf16_policy_against_jax():
 
 
 def test_qat_model_refuses_moe():
-    with pytest.raises(NotImplementedError, match="A7b"):
-        BitTransformerLM(BitTransformerConfig(**BASE, moe_experts=2), **CPU)
+    """An MoE model builds (its parity in ``tests/test_torch_moe.py``); one
+    that routes each token to more experts than it has is refused, as the
+    JAX ``BitMoEConfig`` refuses it."""
+    assert BitTransformerLM(BitTransformerConfig(**BASE, moe_experts=2),
+                            **CPU).blocks[0].moe is not None
+    with pytest.raises(ValueError, match="top_k=3 outside 1..2"):
+        BitTransformerLM(BitTransformerConfig(**BASE, moe_experts=2,
+                                              moe_top_k=3), **CPU)
 
 
 @pytest.mark.parametrize("cache", ["f32", "int8"])
