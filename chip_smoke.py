@@ -247,7 +247,36 @@ result line if any fails, or if no GPU is visible):
     each capture's launches one eager prefill's and step's, E G G E
     prefill tokens/s and decode ms a step, peak memory; then one expert's
     gate (3200 -> 8640) on the x8 kernel at 4 and 512 rows bitwise its
-    plain version, beside ``library_ms`` and ``bound_ms``.
+    plain version, beside ``library_ms`` and ``bound_ms``;
+16. the parallel layer (``parallel/``, the sharded train step and
+    checkpoints) on one card: (a) an NCCL group of one rank on a TCP
+    store at 127.0.0.1, ``make_mesh({"model": 1})`` on ``cuda``; counted,
+    at bitnet7b widths (d 4096, ff 11008): the column-sharded x8 merged
+    QKV (4 x 4096 -> 12288), the row-sharded x8 wo (4096 -> 4096, with
+    and without ``scatter_output``), ``overlapped_gather_spgemm`` at 512
+    rows and ``tensor_parallel_fused_swiglu`` (gate and up at tile_n 128,
+    down at tkb 16) at 4 and 512 rows, each bitwise the single-device call
+    (as is the column scheme over ``container_from_local_shard``), their
+    launches exactly x8 4 (1 on the tensor cores) and the SwiGLU 2 (1),
+    each scheme's ms beside the single call's; then
+    ``make_sharded_lm_train_step`` with sequence parallelism and ZeRO-1
+    on a data 1 x model 1 mesh at phase 14's configuration, 3 steps from
+    the parameters of 3 unsharded steps in the same call: losses within
+    rtol 1e-5, the ms of steps 2-3 of each; its parameters saved with
+    ``save_sharded_pytree`` and restored byte-equal; the same step pair
+    over MoE blocks at phase 15's training configuration (losses within
+    rtol 1e-5); (b) the shard shapes
+    of d-way splits rank by rank in this process, at 4 and 512 rows: the
+    QKV by columns over 4 (3072 columns a rank, tile_n 3072), wo by rows
+    over 4 (1024 rows), the SwiGLU FFN over 2 (5504 hidden, down at tkb
+    16): each rank's call bitwise its plain version (the SwiGLU by phase
+    3's rule), the columns assembled bitwise the unsharded kernel, the
+    wo partials summed in rank order plus the bias bitwise it (integer
+    X), the FFN shards' sum bitwise the per-shard plain reference where no
+    hq value flips and by phase 3's rule on the rows with none where some
+    do; each rank's ms and ``bound_ms`` beside the unsharded
+    call's, with the card's name and power limit. Collectives between
+    cards are not measured (one card).
 
 Each phase's seconds are printed as it ends, and all of them before the
 last lines.
@@ -256,7 +285,8 @@ The hand-written kernels, their CUDA sources and plain versions come from
 the registry (``KernelSpec.source``, ``KernelSpec.plain``), the fused FFNs'
 module (``ops/fused_ffn.py``), the study tools' modules
 (``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``,
-``ragged_probe.py``) and ``parallel/ring_kernel.py``.
+``ragged_probe.py``) and ``parallel/ring_kernel.py``; phase 16 adds none
+(its schemes run the x8 and SwiGLU kernels on shards).
 
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
@@ -436,6 +466,23 @@ MOE_SERVE_B, MOE_SERVE_T0, MOE_SERVE_NEW = 4, 128, 32
 #: the QAT backend's (``tests/test_decode.py:110-125``)
 MOE_EXPORT_TOL = dict(rtol=1e-5, atol=1e-5)
 MOE_DECODE_TOL = dict(rtol=2e-4, atol=2e-4)
+#: phase 16: the parallel layer on one card at bitnet7b's widths
+#: (``models/serving.py`` ``PRESETS["bitnet7b"]``: d 4096, ff 11008), at
+#: decode's 4 rows and the prefill's 512; (b)'s d-way splits, rank by rank:
+#: the merged QKV by columns over 4 (3072 columns a rank, one storage tile
+#: a rank), wo by rows over 4 (1024 rows a rank, one K-block), the SwiGLU
+#: FFN over 2 (5504 hidden a rank: gate and up at tile_n 128, 43 tiles a
+#: rank; down at tkb 16, 128-row K-blocks: 5504 is no multiple of 1024).
+#: The FFN's containers at tile_n 128 and tkb 16 in (a) too: its width at
+#: the default tile (4096) pads 11008 to 12288, which JAX's TP check
+#: refuses at any d
+PAR_ROWS = (4, 512)
+PAR_QKV_D = 4
+PAR_WO_D = 4
+PAR_FFN_D, PAR_FFN_TILE, PAR_FFN_TKB = 2, 128, 16
+#: phase 16 (a): the sharded train step's losses against the unsharded
+#: step's from the same parameters (relative)
+PAR_TRAIN_TOL = 1e-5
 #: phase 9's membench sweep (MB, tiles; both layouts): every geometry it
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
@@ -550,8 +597,7 @@ def phase_kernels(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.ops import fused_ffn
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
         FFN_KERNEL_NAME, KERNEL_NAME, _swiglu_lanes, _swiglu_mma,
-        requantize_rows, swiglu_hidden_plain, swiglu_launch, swiglu_plain,
-        true_div)
+        requantize_rows, swiglu_launch, swiglu_plain)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -630,22 +676,9 @@ def phase_kernels(dev, card: str) -> dict:
         del lanes, mma
         y, h, rmax = swiglu_launch(xq, sx, fg, fu, fd, **kw)
         want = swiglu_plain(xq, sx, fg, fu, fd, **kw)
-        hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
-        hq_plain, _ = requantize_rows(swiglu_hidden_plain(
-            xq, sx, fg, fu, gamma_gate=0.03, gamma_up=0.03))
-        torch.cuda.synchronize()
-        diff = (hq - hq_plain).abs()
-        flips = int((diff > 0).sum())
-        check(float(diff.max()) <= 1.0, f"SwiGLU M={M}: hq differs by > 1")
-        check(flips <= 1e-4 * diff.numel(),
-              f"SwiGLU M={M}: {flips} of {diff.numel()} hq values flip")
-        clean = ~(diff > 0).any(dim=1)
-        yc, wc = y[clean], want[clean]
-        bad = (yc - wc).abs() > 0.01 + 1e-5 * wc.abs()
-        check(not bool(bad.any()),
-              f"SwiGLU M={M}: {int(bad.sum())} outputs outside rtol=1e-5, "
-              f"atol=0.01")
-        err = float((yc - wc).abs().max()) if yc.numel() else 0.0
+        flips, n_hq, err, clean = swiglu_rule(
+            y, want, h, rmax, xq, sx, fg, fu, f"SwiGLU M={M}", **kw)
+        n_clean = int(clean.sum())
         stats[KERNEL_NAME]["max_abs_err"] = max(
             stats[KERNEL_NAME]["max_abs_err"], err)
         ms = event_ms(lambda: swiglu_launch(xq, sx, fg, fu, fd, **kw),
@@ -656,8 +689,8 @@ def phase_kernels(dev, card: str) -> dict:
                   else "decode")
         print(f"kernel fused_bitplane_swiglu M={M} 4096->11008->4096 "
               f"({branch} branch; y, h and rmax of both branches bitwise "
-              f"equal): {flips} of {diff.numel()} hq flips, max |err| "
-              f"{err:.3g} in {int(clean.sum())}/{M} clean rows; {ms:.4f} ms "
+              f"equal): {flips} of {n_hq} hq flips, max |err| "
+              f"{err:.3g} in {n_clean}/{M} clean rows; {ms:.4f} ms "
               f"vs plain {pms:.4f} ms [{card}]", flush=True)
         # three planes, xq and y (M, 4096) f32, sx; gate, up and down
         # products; no single PyTorch call computes the fused FFN
@@ -2479,8 +2512,8 @@ def phase_3b_kernels(dev, card: str) -> None:
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
-        _swiglu_lanes, _swiglu_mma, requantize_rows, swiglu_hidden_plain,
-        swiglu_launch, swiglu_plain, true_div)
+        _swiglu_lanes, _swiglu_mma, requantize_rows, swiglu_launch,
+        swiglu_plain)
 
     gen = torch.Generator(device=dev).manual_seed(3200)
     d, ff = 3200, 8640
@@ -2518,20 +2551,10 @@ def phase_3b_kernels(dev, card: str) -> None:
         del lanes, mma
         y, h, rmax = swiglu_launch(xq, sx, fg, fu, fd, **kw)
         want = swiglu_plain(xq, sx, fg, fu, fd, **kw)
-        hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
-        hq_plain, _ = requantize_rows(swiglu_hidden_plain(
-            xq, sx, fg, fu, gamma_gate=0.03, gamma_up=0.03))
-        torch.cuda.synchronize()
-        diff = (hq - hq_plain).abs()
-        flips = int((diff > 0).sum())
-        check(float(diff.max()) <= 1.0 and flips <= 1e-4 * diff.numel(),
-              f"SwiGLU bitnet3b M={M}: {flips} hq flips, max {diff.max()}")
-        clean = ~(diff > 0).any(dim=1)
-        bad = (y[clean] - want[clean]).abs() > 0.01 + 1e-5 * want[clean].abs()
-        check(not bool(bad.any()), f"SwiGLU bitnet3b M={M}: "
-              f"{int(bad.sum())} outputs outside rtol=1e-5, atol=0.01")
+        flips, n_hq, _, _ = swiglu_rule(y, want, h, rmax, xq, sx, fg, fu,
+                                        f"SwiGLU bitnet3b M={M}", **kw)
         print(f"kernel fused_bitplane_swiglu bitnet3b {d}->{ff}->{d} M={M}: "
-              f"branches bitwise; {flips} of {diff.numel()} hq values flip "
+              f"branches bitwise; {flips} of {n_hq} hq values flip "
               f"against the plain version (by 1) [{card}]", flush=True)
 
 
@@ -3214,6 +3237,358 @@ def phase_moe(dev, card: str) -> tuple:
     return stats, dict(counts)
 
 
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def swiglu_rule(y, want, h, rmax, xq, sx, fg, fu, what: str, **kw):
+    """Phase 3's rule for the fused SwiGLU's output ``y`` (hidden state
+    ``h``, its row maxima ``rmax``) against its plain version ``want``:
+    the requantized hidden values flip by at most 1 in at most 1e-4 of
+    them, and every row without a flip agrees within rtol=1e-5,
+    atol=0.01. Returns (flips, hidden values, max |err| on the clean rows,
+    the mask of clean rows)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        requantize_rows, swiglu_hidden_plain, true_div)
+
+    hq = torch.round(h / true_div(rmax[:, None] + 1e-12, 127.0))
+    hq_plain, _ = requantize_rows(swiglu_hidden_plain(
+        xq, sx, fg, fu, gamma_gate=kw["gamma_gate"], gamma_up=kw["gamma_up"]))
+    torch.cuda.synchronize()
+    diff = (hq - hq_plain).abs()
+    flips = int((diff > 0).sum())
+    check(float(diff.max()) <= 1.0, f"{what}: hq differs by > 1")
+    check(flips <= 1e-4 * diff.numel(),
+          f"{what}: {flips} of {diff.numel()} hq values flip")
+    clean = ~(diff > 0).any(dim=1)
+    yc, wc = y[clean], want[clean]
+    bad = (yc - wc).abs() > 0.01 + 1e-5 * wc.abs()
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} outputs outside "
+          "rtol=1e-5, atol=0.01")
+    err = float((yc - wc).abs().max()) if yc.numel() else 0.0
+    return flips, diff.numel(), err, clean
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """Phase 16: the parallel layer (``parallel/``, the sharded train step
+    and checkpoints) on one card through the real collectives (an NCCL
+    group of one rank), and the shard shapes of d-way splits rank by rank
+    (module docstring). Returns the launch counts of the schemes' run."""
+    import torch
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.checkpoint import (
+        _leaves, restore_sharded_pytree, save_sharded_pytree)
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerLM, make_lm_train_step, make_sharded_lm_train_step)
+    from ternary_spgemm_tpu_torch.models.convert import _unflat
+    from ternary_spgemm_tpu_torch.models.serving import (
+        preset_config, random_ternary)
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops.fused_ffn import (
+        fused_bitplane_swiglu, requantize_rows, swiglu_launch, swiglu_plain)
+    from ternary_spgemm_tpu_torch.parallel import (
+        column_sharded_spgemm, container_from_local_shard, init_distributed,
+        make_mesh, overlapped_gather_spgemm, row_sharded_spgemm,
+        tensor_parallel_fused_swiglu)
+    from ternary_spgemm_tpu_torch.parallel.ffn import swiglu_local
+    from ternary_spgemm_tpu_torch.parallel.spgemm import column_local, row_local
+
+    x8 = "CudaTiledBitplane_x8"
+    cfg7 = preset_config("bitnet7b")
+    d, ff = cfg7.d_model, cfg7.d_ff
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tern = lambda K, N: random_ternary(K, N, 2, gen, dev)
+    W_qkv, W_o = tern(d, 3 * d), tern(d, d)
+    W_g, W_u, W_d = tern(d, ff), tern(d, ff), tern(ff, d)
+    f_qkv, f_o = TiledBitplane.from_dense(W_qkv), TiledBitplane.from_dense(W_o)
+    f_g, f_u = (TiledBitplane.from_dense(W, tile_n=PAR_FFN_TILE)
+                for W in (W_g, W_u))
+    f_d = TiledBitplane.from_dense(W_d, tkb=PAR_FFN_TKB)
+    b_qkv = torch.round(4.0 * torch.randn((3 * d,), generator=gen,
+                                          device=dev))
+    b_o = torch.round(4.0 * torch.randn((d,), generator=gen, device=dev))
+    kw = dict(gamma_gate=0.03, gamma_up=0.03, gamma_down=0.03)
+    xs = {M: torch.round(60.0 * torch.randn((M, d), generator=gen,
+                                            device=dev)).clamp_(-127, 127)
+          for M in PAR_ROWS}
+    qs = {M: requantize_rows(torch.randn((M, d), generator=gen, device=dev))
+          for M in PAR_ROWS}
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32, device=dev)
+    lo, hi = PAR_ROWS
+
+    init_distributed(0, 1, f"tcp://127.0.0.1:{free_port()}", dev.type)
+    try:
+        check(dev.type != "cuda" or dist.get_backend() == "nccl",
+              "the card's group is not NCCL")
+        mesh = make_mesh({"model": 1}, device_type=dev.type)
+        col = lambda M, f=f_qkv: column_sharded_spgemm(
+            xs[M], f, b_qkv, mesh=mesh, axis="model", kernel=x8)
+        row = lambda M, sc: row_sharded_spgemm(
+            xs[M], f_o, b_o, mesh=mesh, axis="model", scatter_output=sc,
+            kernel=x8)
+        ring = lambda M: overlapped_gather_spgemm(
+            xs[M], f_qkv, b_qkv, mesh=mesh, axis="model", kernel=x8)
+        tp = lambda M: tensor_parallel_fused_swiglu(
+            *qs[M], f_g, f_u, f_d, mesh=mesh, axis="model", **kw)
+
+        # (a) the schemes, counted: the main path of this phase
+        def schemes():
+            return {"column": col(lo), "row": row(lo, False),
+                    "row_scatter": row(lo, True), "ring": ring(hi),
+                    "tp_lo": tp(lo), "tp_hi": tp(hi)}
+
+        outs, counts = counted(schemes)
+        want_c = {x8: 4, ck.X8_MMA_COUNT: 1,
+                  "fused_bitplane_swiglu": 2, "fused_bitplane_swiglu/mma": 1}
+        check(counts == want_c, f"the schemes launched {counts}, not "
+              f"{want_c}")
+        single = {
+            "column": ck.cuda_tiled_bitplane_x8_kernel(xs[lo], f_qkv, b_qkv),
+            "row": ck.cuda_tiled_bitplane_x8_kernel(xs[lo], f_o, b_o),
+            "ring": ck.cuda_tiled_bitplane_x8_kernel(xs[hi], f_qkv, b_qkv),
+            "tp_lo": fused_bitplane_swiglu(*qs[lo], f_g, f_u, f_d, **kw),
+            "tp_hi": fused_bitplane_swiglu(*qs[hi], f_g, f_u, f_d, **kw)}
+        single["row_scatter"] = single["row"]
+        # a container whose leaves are DTensors from the rank's own shard
+        # (on one rank the shard is all of W)
+        f_dt = container_from_local_shard(f_qkv, mesh, "model", dim="N",
+                                          K=d, N=3 * d)
+        outs["local_shard"] = col(lo, f_dt)
+        single["local_shard"] = single["column"]
+        for k, y in outs.items():
+            y = y.full_tensor()
+            check(torch.equal(y, single[k]), f"the {k} scheme at d = 1 "
+                  f"differs from the single-device call (max |diff| "
+                  f"{float((y - single[k]).abs().max())})")
+        sms = {k: event_ms(fn, flush=flush) for k, fn in (
+            ("column", lambda: col(lo)), ("row", lambda: row(lo, False)),
+            ("ring", lambda: ring(hi)), ("tp_hi", lambda: tp(hi)))}
+        one = {k: event_ms(fn, flush=flush) for k, fn in (
+            ("column", lambda: ck.cuda_tiled_bitplane_x8_kernel(
+                xs[lo], f_qkv, b_qkv)),
+            ("row", lambda: ck.cuda_tiled_bitplane_x8_kernel(xs[lo], f_o,
+                                                             b_o)),
+            ("ring", lambda: ck.cuda_tiled_bitplane_x8_kernel(
+                xs[hi], f_qkv, b_qkv)),
+            ("tp_hi", lambda: fused_bitplane_swiglu(*qs[hi], f_g, f_u, f_d,
+                                                    **kw)))}
+        print(f"parallel (a), NCCL group of 1, mesh model=1, bitnet7b "
+              f"widths: column x8 QKV {lo}x{d}->{3 * d}, row x8 wo "
+              f"{d}->{d} (all_reduce and reduce_scatter), ring at {hi} rows, "
+              f"TP SwiGLU {d}->{ff}->{d} at {lo} and {hi} rows, the column "
+              f"scheme over container_from_local_shard: each bitwise the "
+              f"single-device call; launches {counts}; scheme vs single "
+              f"call ms " + ", ".join(f"{k} {sms[k]:.4f}/{one[k]:.4f}"
+                                      for k in sms) + f" [{card}]",
+              flush=True)
+
+        # (a) the sharded train step at phase 14's configuration
+        cfg3 = dataclasses.replace(preset_config("bitnet3b"),
+                                   n_layers=TRAIN_LAYERS)
+        toks = torch.randint(0, cfg3.vocab, (TRAIN_BATCH, TRAIN_T),
+                             generator=gen, device=dev)
+
+        def steps(step, batch):
+            losses, ms = [float(step(batch))], []
+            for _ in range(2):
+                s0 = torch.cuda.Event(enable_timing=True)
+                s1 = torch.cuda.Event(enable_timing=True)
+                s0.record()
+                loss = step(batch)
+                s1.record()
+                s1.synchronize()
+                ms.append(s0.elapsed_time(s1))
+                losses.append(float(loss))
+            return losses, ms
+
+        mesh2 = make_mesh({"data": 1, "model": 1}, device_type=dev.type)
+
+        def plain_and_sharded(cfg, toks):
+            """Three Adam steps unsharded, then three sharded (SP, ZeRO-1)
+            from the same init; returns the sharded model, the losses and
+            the ms of both."""
+            lm = BitTransformerLM(cfg, generator=gen, device=dev)
+            init = {k: v.clone() for k, v in lm.state_dict().items()}
+            plain, plain_ms = steps(make_lm_train_step(lm, torch.optim.Adam(
+                lm.parameters(), lr=TRAIN_LR)), toks)
+            del lm
+            torch.cuda.empty_cache()
+            lm = BitTransformerLM(cfg, generator=gen, device=dev)
+            lm.load_state_dict(init)
+            del init
+            opt = torch.optim.Adam(lm.parameters(), lr=TRAIN_LR)
+            step, place = make_sharded_lm_train_step(
+                lm, opt, mesh2, sequence_parallel=True, zero1=True)
+            sharded, sharded_ms = steps(step, place(toks))
+            rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, plain))
+            check(rel <= PAR_TRAIN_TOL, f"sharded losses {sharded} against "
+                  f"the unsharded {plain}")
+            return lm, (sharded, plain, rel), (sharded_ms, plain_ms)
+
+        lm, (sharded, plain, rel), (sharded_ms, plain_ms) = \
+            plain_and_sharded(cfg3, toks)
+        print(f"parallel (a) make_sharded_lm_train_step(sequence_parallel, "
+              f"zero1) on a data 1 x model 1 mesh, bitnet3b widths, "
+              f"{TRAIN_LAYERS} layers, batch {TRAIN_BATCH}x{TRAIN_T}, Adam "
+              f"lr={TRAIN_LR}, f32: losses {sharded} against the unsharded "
+              f"step's {plain} (max rel {rel:.3g}); step ms (steps 2-3) "
+              f"sharded {[round(v, 3) for v in sharded_ms]}, unsharded "
+              f"{[round(v, 3) for v in plain_ms]} [{card}]", flush=True)
+        tree = _unflat(dict(lm.named_parameters()))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            save_sharded_pytree(os.path.join(tmp, "params"), tree)
+            t1 = time.perf_counter()
+            back = restore_sharded_pytree(os.path.join(tmp, "params"), tree)
+            t2 = time.perf_counter()
+            nbytes = os.path.getsize(os.path.join(tmp, "params.shard0.npz"))
+        same = all(b.placements == a.placements
+                   and torch.equal(a.to_local(), b.to_local())
+                   for a, b in zip(_leaves(tree), _leaves(back)))
+        check(same, "restored parameters differ from the saved ones")
+        print(f"parallel (a) save_sharded_pytree / restore_sharded_pytree "
+              f"of the trained parameters: {nbytes / 2**30:.3f} GiB in "
+              f"params.shard0.npz, byte-equal after the round trip; save "
+              f"{t1 - t0:.2f} s, restore {t2 - t1:.2f} s (host clock, warm "
+              f"page cache)", flush=True)
+        del lm, tree, back
+        torch.cuda.empty_cache()
+
+        # (a) the sharded step over MoE blocks at phase 15's configuration
+        # (the expert stacks' route, gather and combine on DTensors)
+        cfg_m = moe_lm_config(MOE_TRAIN_LAYERS)
+        toks = torch.randint(0, cfg_m.vocab, (MOE_TRAIN_BATCH, MOE_TRAIN_T),
+                             generator=gen, device=dev)
+        lm, (sharded, plain, rel), (sharded_ms, plain_ms) = \
+            plain_and_sharded(cfg_m, toks)
+        print(f"parallel (a) make_sharded_lm_train_step(sequence_parallel, "
+              f"zero1) over MoE blocks ({MOE_EXPERTS} experts, top "
+              f"{MOE_TOP_K}, {MOE_TRAIN_LAYERS} layers, batch "
+              f"{MOE_TRAIN_BATCH}x{MOE_TRAIN_T}) on the data 1 x model 1 "
+              f"mesh: losses {sharded} against the unsharded step's "
+              f"{plain} (max rel {rel:.3g}); step ms sharded "
+              f"{[round(v, 3) for v in sharded_ms]}, unsharded "
+              f"{[round(v, 3) for v in plain_ms]} [{card}]", flush=True)
+        del lm
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the shard shapes of d-way splits, rank by rank in this process
+    def report(what, M, rank, shape, fn, f):
+        bms, by = spmm_bound(M, f)
+        ms = event_ms(fn, flush=flush)
+        print(f"  {what} M={M} rank {rank}: {tuple(shape)} bitwise its "
+              f"plain version; {ms:.4f} ms, bound {bms:.4f} ms ({by})",
+              flush=True)
+
+    for M in PAR_ROWS:
+        x = xs[M]
+        whole = lambda: ck.cuda_tiled_bitplane_x8_kernel(x, f_qkv, b_qkv)
+        unsharded, parts = whole(), []
+        w = 3 * d // PAR_QKV_D
+        print(f"parallel (b) column x8 QKV over {PAR_QKV_D} ranks "
+              f"({w} columns, tile_n {w}); unsharded {M}x{d}->{3 * d} "
+              f"{event_ms(whole, flush=flush):.4f} ms, bound "
+              f"{spmm_bound(M, f_qkv)[0]:.4f} ms [{card}]", flush=True)
+        for r in range(PAR_QKV_D):
+            cols = slice(r * w, (r + 1) * w)
+            f = TiledBitplane.from_dense(W_qkv[:, cols], tile_n=w)
+            y = column_local(x, f, b_qkv[cols], kernel=x8)
+            yp = ck.bitplane_x8_plain(x, f, b_qkv[cols], None)
+            check(torch.equal(y, yp), f"QKV rank {r} M={M}: kernel != plain")
+            report("QKV column shard", M, r, y.shape, lambda: column_local(
+                x, f, b_qkv[cols], kernel=x8), f)
+            parts.append(y)
+        check(torch.equal(torch.cat(parts, dim=1), unsharded),
+              f"QKV M={M}: the columns assembled differ from the unsharded "
+              "kernel")
+        k = d // PAR_WO_D
+        whole = lambda: ck.cuda_tiled_bitplane_x8_kernel(x, f_o, b_o)
+        unsharded, total = whole(), None
+        print(f"parallel (b) row x8 wo over {PAR_WO_D} ranks ({k} rows); "
+              f"unsharded {M}x{d}->{d} {event_ms(whole, flush=flush):.4f} "
+              f"ms, bound {spmm_bound(M, f_o)[0]:.4f} ms [{card}]",
+              flush=True)
+        for r in range(PAR_WO_D):
+            rows = slice(r * k, (r + 1) * k)
+            f = TiledBitplane.from_dense(W_o[rows])
+            xr = x[:, rows].contiguous()
+            y = row_local(xr, f, kernel=x8)
+            yp = ck.bitplane_x8_plain(xr, f, torch.zeros(d, device=dev),
+                                      None)
+            check(torch.equal(y, yp), f"wo rank {r} M={M}: kernel != plain")
+            report("wo row shard", M, r, y.shape,
+                   lambda: row_local(xr, f, kernel=x8), f)
+            total = y if total is None else total + y
+        check(torch.equal(total + b_o, unsharded), f"wo M={M}: the partial "
+              "sums in rank order plus the bias differ from the unsharded "
+              "kernel (integer X: exact)")
+        h = ff // PAR_FFN_D
+        xq, sx = qs[M]
+        ys, plains, flips, clean = [], [], 0, None
+        whole = lambda: fused_bitplane_swiglu(xq, sx, f_g, f_u, f_d, **kw)
+        print(f"parallel (b) TP SwiGLU over {PAR_FFN_D} ranks ({h} hidden, "
+              f"gate/up tile_n {PAR_FFN_TILE}, down tkb {PAR_FFN_TKB}); "
+              f"unsharded {M}x{d}->{ff}->{d} "
+              f"{event_ms(whole, flush=flush):.4f} ms [{card}]", flush=True)
+        for r in range(PAR_FFN_D):
+            hid = slice(r * h, (r + 1) * h)
+            fg = TiledBitplane.from_dense(W_g[:, hid], tile_n=PAR_FFN_TILE)
+            fu = TiledBitplane.from_dense(W_u[:, hid], tile_n=PAR_FFN_TILE)
+            fd = TiledBitplane.from_dense(W_d[hid], tkb=PAR_FFN_TKB)
+            y = swiglu_local(xq, sx, fg, fu, fd, d, **kw)
+            yk, hk, rk = swiglu_launch(xq, sx, fg, fu, fd, **kw)
+            yp = swiglu_plain(xq, sx, fg, fu, fd, **kw)
+            check(torch.equal(y, yk[:, :d]), f"SwiGLU rank {r} M={M}: the "
+                  "local call differs from the kernel")
+            nf, _, _, ck_r = swiglu_rule(yk, yp, hk, rk, xq, sx, fg, fu,
+                                         f"SwiGLU rank {r} M={M}", **kw)
+            flips += nf
+            clean = ck_r if clean is None else clean & ck_r
+            bms, by = bound(sum(weight_bytes(t) for t in (fg, fu, fd))
+                            + 4 * (2 * M * d + M),
+                            sum(spmm_ops(M, t) for t in (fg, fu, fd)))
+            ms = event_ms(lambda: swiglu_local(xq, sx, fg, fu, fd, d, **kw),
+                          flush=flush)
+            print(f"  SwiGLU shard M={M} rank {r}: {ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by})", flush=True)
+            ys.append(y)
+            plains.append(yp[:, :d])
+        got, want = ys[0] + ys[1], plains[0] + plains[1]
+        if flips == 0:
+            check(torch.equal(got, want), f"SwiGLU M={M}: the shards' sum "
+                  "differs from the per-shard plain reference")
+            how = "bitwise"
+        else:
+            # phase 3's rule on the sum: the rows with no flip in any
+            # shard agree within rtol=1e-5, atol=0.01
+            gc, wc = got[clean], want[clean]
+            bad = (gc - wc).abs() > 0.01 + 1e-5 * wc.abs()
+            check(not bool(bad.any()), f"SwiGLU M={M}: {int(bad.sum())} "
+                  "summed outputs on the clean rows outside rtol=1e-5, "
+                  "atol=0.01")
+            err = float((gc - wc).abs().max()) if gc.numel() else 0.0
+            how = (f"within phase 3 rule ({int(clean.sum())}/{M} clean "
+                   f"rows, max |err| {err:.3g}) of")
+        print(f"parallel (b) TP SwiGLU M={M}: the shards' sum {how} the "
+              f"per-shard plain reference ({flips} hq flips) [{card}]",
+              flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3291,12 +3666,13 @@ def main() -> int:
     train_counts = timed("14", phase_train, dev, card)
     moe_stats, moe_counts = timed("15", phase_moe, dev, card)
     stats["CudaTiledBitplane_x8"].update(moe_stats)
+    par_counts = timed("16", phase_parallel, dev, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
             probe_counts, ragged_counts, ring_counts, serve3b_counts,
-            tune_counts, train_counts, moe_counts)
+            tune_counts, train_counts, moe_counts, par_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

@@ -14,8 +14,12 @@ array bytes:
   ``leaf_<i>`` in ``jax.tree_util``'s flatten order (a dict's values by
   sorted key, lists and tuples in order, None no leaf), the layout the JAX
   package writes where orbax is not importable. An orbax directory cannot
-  be read here. The sharded forms wait for the port's parallel schemes
-  (ROADMAP A8).
+  be read here;
+* :func:`save_sharded_pytree` / :func:`restore_sharded_pytree`: each rank
+  writes only the blocks it holds, ``path.shard{rank}.npz`` (arrays
+  ``l{i}s{j}``, a JSON ``header`` of each leaf's shape, dtype and the
+  global index ranges of its blocks, keyed as the JAX ``_index_key``
+  writes them), and reads back the blocks its target layout needs.
 
 Names on disk are the JAX package's: a container's class name (looked up
 in :func:`~ternary_spgemm_tpu_torch.formats.all_formats`) and a kernel's
@@ -66,7 +70,9 @@ def _numpy(x) -> np.ndarray:
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(
+        np.shape(a)).to(device)
 
 
 #: 64-bit host arrays as the JAX package's device arrays hold them (64-bit
@@ -353,7 +359,8 @@ def _leaves(tree) -> list:
 
 def _rebuild(like, leaves):
     """``like``'s structure with its leaves taken in turn from the iterator
-    ``leaves`` (the order of :func:`_leaves`)."""
+    ``leaves`` (the order of :func:`_leaves`); an array where ``like`` has a
+    tensor becomes a tensor on its device."""
     if like is None:
         return None
     if isinstance(like, dict):
@@ -366,7 +373,7 @@ def _rebuild(like, leaves):
             return type(like)(*children)
         return type(like)(children)
     arr = next(leaves)
-    if isinstance(like, torch.Tensor):
+    if isinstance(like, torch.Tensor) and isinstance(arr, np.ndarray):
         return _tensor(arr, like.device)
     return arr
 
@@ -402,3 +409,104 @@ def restore_pytree(path: str, like):
                              f"`like` has {n}")
         leaves = [data[f"leaf_{i}"] for i in range(n)]
     return _rebuild(like, iter(leaves))
+
+
+def _index_key(ranges) -> str:
+    """The JAX package's key of a block: ``[[start, stop], ...]`` a dim, as
+    JSON."""
+    return json.dumps([[int(a), int(b)] for a, b in ranges])
+
+
+def _block_ranges(t) -> list:
+    """The global ``[start, stop)`` of each dim of the block this rank
+    holds of ``t``: a DTensor's local block (its Shard placements applied
+    in mesh-dim order, with ``torch.chunk``'s sizes), the whole of
+    anything else."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(np.shape(t))
+    start, length = [0] * len(shape), list(shape)
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        for i, p in enumerate(t.placements):
+            if p.is_partial():
+                raise ValueError("a Partial DTensor has no blocks to save: "
+                                 "redistribute it first")
+            if p.is_shard():
+                d, n = p.dim, mesh.size(i)
+                c = mesh.get_local_rank(i)
+                chunk = -(-length[d] // n)
+                start[d] += c * chunk
+                length[d] = max(0, min(chunk, length[d] - c * chunk))
+    return [(a, a + n) for a, n in zip(start, length)]
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def save_sharded_pytree(path: str, tree) -> None:
+    """Every rank writes only the blocks it holds of ``tree``'s leaves
+    (DTensors, tensors or arrays, in :func:`save_pytree`'s order) to
+    ``path.shard{rank}.npz``; no rank gathers a whole array. A rank holds
+    one block of each leaf (a leaf that is not a DTensor: all of it), so
+    its record ``j`` is 0; the JAX package writes the blocks of all of a
+    process's devices, a replicated block once. The blocks of the ranks'
+    files together are the JAX file's for the same layout, key for key and
+    byte for byte."""
+    from torch.distributed.tensor import DTensor
+
+    arrays, header = {}, []
+    for i, leaf in enumerate(_leaves(tree)):
+        local = leaf.to_local() if isinstance(leaf, DTensor) else leaf
+        a = _numpy(local)
+        arrays[f"l{i}s0"] = a
+        header.append({"shape": list(np.shape(leaf)), "dtype": str(a.dtype),
+                       "indices": [_index_key(_block_ranges(leaf))]})
+    arrays["header"] = _encode(header)
+    np.savez(f"{path}.shard{_rank()}.npz", **arrays)
+
+
+def restore_sharded_pytree(path: str, like):
+    """Restore a :func:`save_sharded_pytree` checkpoint (either package's)
+    into ``like``'s structure and layout: each rank reads only its own
+    ``path.shard{rank}.npz`` and takes, for each leaf, the saved block
+    whose global index range is the one its target holds (a DTensor leaf
+    of ``like``: its local block, rebuilt as a DTensor of the same
+    placements; a tensor: the whole array on its device; anything else: a
+    numpy array). Blocks are matched by index range, not by rank, so the
+    target layout must hold the same index set a rank as the save; JAX's
+    two errors otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    leaves_like = _leaves(like)
+    with np.load(f"{path}.shard{_rank()}.npz") as data:
+        header = _decode(data)
+        out = []
+        for i, ref in enumerate(leaves_like):
+            shape = tuple(header[i]["shape"])
+            if shape != tuple(np.shape(ref)):
+                raise ValueError(
+                    f"leaf {i}: checkpoint shape {shape} != target "
+                    f"{tuple(np.shape(ref))}")
+            saved = {key: f"l{i}s{j}"
+                     for j, key in enumerate(header[i]["indices"])}
+            key = _index_key(_block_ranges(ref))
+            if key not in saved:
+                dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
+                raise ValueError(
+                    f"leaf {i}: no saved shard covers index {key} needed by "
+                    f"device {dev} — restore layout must match the saved "
+                    "shard index set per process")
+            a = data[saved[key]]
+            if isinstance(ref, DTensor):
+                out.append(DTensor.from_local(
+                    _tensor(a, ref.to_local().device), ref.device_mesh,
+                    ref.placements, run_check=False, shape=ref.shape,
+                    stride=ref.stride()))
+            else:
+                out.append(a)
+    return _rebuild(like, iter(out))
+

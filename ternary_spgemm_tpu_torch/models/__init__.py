@@ -1,7 +1,8 @@
 """Model layer of the port: the QAT layers and transformer with their
-``torch.optim`` steps, the ternary Mixture-of-Experts FFN, the exported
-BitNet W1.58-A8 layers (differentiable through their transposed
-containers), the exported transformer and its KV-cached serving loop."""
+``torch.optim`` steps and the mesh-sharded forms of those steps, the
+ternary Mixture-of-Experts FFN, the exported BitNet W1.58-A8 layers
+(differentiable through their transposed containers), the exported
+transformer and its KV-cached serving loop."""
 
 from ternary_spgemm_tpu_torch.models.bitlinear import (
     BitLinear,
@@ -36,10 +37,17 @@ from ternary_spgemm_tpu_torch.models.moe import (
     BitMoE,
     BitMoEConfig,
     ExportedMoE,
+    moe_param_shardings,
     moe_route,
 )
 from ternary_spgemm_tpu_torch.models.serving import build_serving_lm
-from ternary_spgemm_tpu_torch.models.train import make_train_step, mse_loss
+from ternary_spgemm_tpu_torch.models.train import (
+    make_sharded_lm_train_step,
+    make_sharded_train_step,
+    make_train_step,
+    mse_loss,
+    param_shardings,
+)
 from ternary_spgemm_tpu_torch.models.transformer import (
     BitTransformerBlock,
     BitTransformerConfig,
@@ -47,6 +55,7 @@ from ternary_spgemm_tpu_torch.models.transformer import (
     ExportedTransformerBlock,
     MergedQKV,
     lm_loss,
+    lm_param_shardings,
     make_lm_train_step,
 )
 
@@ -61,5 +70,7 @@ __all__ = [
     "lm_from_jax_params", "qat_lm_from_jax_params", "mlp_from_jax_params",
     "mlp_from_flax_params", "jax_tree", "build_serving_lm",
     "autotune_exported", "autotune_serving_flags", "BitMoE", "BitMoEConfig",
-    "ExportedMoE", "moe_route",
+    "ExportedMoE", "moe_route", "param_shardings", "lm_param_shardings",
+    "moe_param_shardings", "make_sharded_train_step",
+    "make_sharded_lm_train_step",
 ]

@@ -55,6 +55,46 @@ def ternary_quantize_ste(W: torch.Tensor) -> torch.Tensor:
     return W + (Wq * gamma - W).detach()
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def gather_rows(x):
+    """A DTensor ``x (rows..., features)`` with every split of a middle
+    dim (the sequence, under sequence parallelism) gathered, the batch and
+    feature splits kept: Megatron's all-gather before a tensor-parallel
+    product, and the layout a product that flattens the rows can take. The
+    redistribution is made even where nothing moves, so that the gradient
+    comes back in this layout too (DTensor cannot flatten a sequence split
+    in the backward either). Anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard() and 0 < p.dim < x.dim() - 1 else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
+def reduce_partial(y, out_placements=None):
+    """A DTensor product ``y``'s partial sums reduced into
+    ``out_placements`` on their mesh dims (the residual stream's layout:
+    under sequence parallelism its sequence split, so the reduction is a
+    reduce-scatter) or, without it, replicated (an all-reduce); the other
+    mesh dims kept. The redistribution is made even where nothing moves,
+    so that the gradient comes back in this layout too. Anything else as
+    it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate
+
+    pl = [(Replicate() if out_placements is None else out_placements[i])
+          if p.is_partial() else p for i, p in enumerate(y.placements)]
+    return y.redistribute(y.device_mesh, pl)
+
+
 def default_generator(device: torch.device) -> torch.Generator:
     """A generator on ``device`` seeded with 0 (the JAX package's
     ``key(0)`` default), where the caller gives none."""
@@ -102,9 +142,15 @@ class BitLinear(nn.Module):
             if self.alpha is not None:
                 self.alpha.fill_(0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_placements=None) -> torch.Tensor:
+        """``out_placements``: for DTensor operands, where a row-parallel
+        product's partial sums go (:func:`reduce_partial`); the bias and
+        PReLU follow the reduction."""
+        x = gather_rows(x)
         wq = ternary_quantize_ste(self.w).to(x.dtype)
-        y = torch.matmul(x.to(torch.float32), wq.to(torch.float32)) + self.b
+        y = reduce_partial(torch.matmul(x.to(torch.float32),
+                                        wq.to(torch.float32)),
+                           out_placements) + self.b
         if self.alpha is not None:
             y = torch.where(y > 0, y, self.alpha * y)
         return y.to(x.dtype)

@@ -22,7 +22,8 @@ branch. Glue that reduces or calls a transcendental function (the router's
 logits and softmax, the balance loss, the combine's sum over a token's
 top-k slots) runs in f64 and is rounded once to f32, so the CPU and the
 card agree bit for bit; the dispatch product only selects rows and is
-exact. ``moe_param_shardings`` comes with the port's parallel schemes.
+exact. :func:`moe_param_shardings` lays the experts out for expert
+parallelism (the sharded train steps).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from torch import nn
 from ternary_spgemm_tpu_torch.formats.base import TernaryFormat, as_f32
 from ternary_spgemm_tpu_torch.models.bitlinear import (
     default_generator,
+    is_dtensor,
     ternary_quantize_ste,
 )
 from ternary_spgemm_tpu_torch.models.exported import ExportedBitLinear
@@ -169,20 +171,90 @@ class BitMoE(nn.Module):
         self.w_up = draw((E, d, ff), (2.0 / d) ** 0.5)
         self.w_down = draw((E, ff, d), (2.0 / ff) ** 0.5)
 
-    def _quantized(self, name: str, dtype) -> torch.Tensor:
-        """Expert stack ``name`` through the STE, one gamma an expert."""
-        return torch.stack([ternary_quantize_ste(w)
-                            for w in getattr(self, name)]).to(dtype)
-
     def forward(self, x: torch.Tensor):
+        if is_dtensor(x):
+            return self._forward_sharded(x)
         d = x.shape[-1]
         xs = x.reshape(-1, d)
-        dispatch, combine, aux = moe_route(self.cfg, self.router, xs)
-        expert_in = _dispatch(dispatch, xs)
-        wq = {n: self._quantized(n, x.dtype) for n in EXPERT_LINEARS}
-        h = silu(_bmm(expert_in, wq["w_gate"])) * _bmm(expert_in, wq["w_up"])
-        out = _bmm(h, wq["w_down"])
-        return _combine(combine, out).reshape(x.shape), aux
+        stacks = {n: getattr(self, n) for n in EXPERT_LINEARS}
+        y, aux = _moe_local(self.cfg, xs, xs, self.router, stacks,
+                            slice(None))
+        return y.reshape(x.shape), aux
+
+    def _forward_sharded(self, x):
+        """The layer on DTensors (the sharded train steps), with the JAX
+        package's global semantics. The tokens are gathered whole on every
+        rank, so the route (capacity, slot order, balance loss) is the
+        unsharded one, computed alike everywhere on local tensors; each
+        rank runs its own experts (the stacks split on E over one mesh
+        axis, expert parallelism; whole where they are not split) on its
+        slice of that dispatch, their outputs are all-gathered over the
+        expert axis, and every rank combines all E experts, whose result
+        goes back to the batch split of ``x``. So the route's gradient
+        (gates, balance loss, router) is whole on every rank, as its
+        replicated layout says; the expert input's is partial over the
+        expert axis (each rank's experts' share)."""
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+
+        mesh, d = x.device_mesh, x.shape[-1]
+        stacks = {n: getattr(self, n) for n in EXPERT_LINEARS}
+        pl = list(stacks["w_gate"].placements)
+        axes = [i for i, p in enumerate(pl) if p.is_shard()]
+        if any(not pl[i].is_shard(0) for i in axes) or len(axes) > 1:
+            raise ValueError(f"the expert stacks may split only on their "
+                             f"expert dim over one mesh axis, got {pl}")
+        rep = [Replicate()] * mesh.ndim
+        over_experts = [Partial() if i in axes else Replicate()
+                        for i in range(mesh.ndim)]
+        xr = x.redistribute(mesh, rep)
+        xs = xr.to_local().reshape(-1, d)
+        xe = xr.to_local(grad_placements=over_experts).reshape(-1, d)
+        router = self.router.to_local() if is_dtensor(self.router) \
+            else self.router
+        local = {n: w.to_local() for n, w in stacks.items()}
+        E_loc = local["w_gate"].shape[0]
+        e0 = mesh.get_local_rank(axes[0]) * E_loc if axes else 0
+        split = [Shard(0) if i in axes else Replicate()
+                 for i in range(mesh.ndim)]
+        gather = lambda out: DTensor.from_local(
+            out, mesh, split, run_check=False).redistribute(
+            mesh, rep).to_local()
+        y, aux = _moe_local(self.cfg, xs, xe, router, local,
+                            slice(e0, e0 + E_loc), gather)
+        # the rows back to x's batch split; the redistribution kept after
+        # the reshape brings the gradient back to that layout too (DTensor
+        # cannot unflatten a sequence split)
+        rows = [p if p.is_shard(0) else Replicate() for p in x.placements]
+        y = DTensor.from_local(y, mesh, rep, run_check=False)
+        y = y.redistribute(mesh, rows).reshape(x.shape).redistribute(
+            mesh, rows)
+        return y, DTensor.from_local(aux, mesh, rep, run_check=False)
+
+
+def _moe_local(cfg: BitMoEConfig, xs, xe, router, stacks: dict, mine: slice,
+               gather=lambda out: out):
+    """The layer's body on plain tensors, flat tokens ``(S, d)``: the route
+    on ``xs``, the experts ``mine`` (``stacks`` holds just those) on their
+    dispatch of ``xe``, ``gather`` turning their outputs into all E
+    experts', and the combine of every expert. Returns ``(y (S, d),
+    aux)``. Unsharded, ``xs`` and ``xe`` are one tensor, ``mine`` every
+    expert and ``gather`` the identity."""
+    dispatch, combine, aux = moe_route(cfg, router, xs)
+    wq = {n: _quantize_stack(w).to(xe.dtype) for n, w in stacks.items()}
+    out = gather(_experts(_dispatch(dispatch[:, mine], xe), wq))
+    return _combine(combine, out), aux
+
+
+def _quantize_stack(ws: torch.Tensor) -> torch.Tensor:
+    """An expert stack through the STE, one absmean gamma an expert."""
+    return torch.stack([ternary_quantize_ste(w) for w in ws])
+
+
+def _experts(expert_in: torch.Tensor, wq: dict) -> torch.Tensor:
+    """The experts' SwiGLU on their capacity rows ``(E, C, d)``."""
+    h = silu(_bmm(expert_in, wq["w_gate"])) * _bmm(expert_in, wq["w_up"])
+    return _bmm(h, wq["w_down"])
 
 
 class ExportedMoE(nn.Module):
@@ -228,3 +300,18 @@ class ExportedMoE(nn.Module):
             h = silu(ex["w_gate"](expert_in[e])) * ex["w_up"](expert_in[e])
             outs.append(ex["w_down"](h))
         return _combine(combine, torch.stack(outs)).reshape(x.shape)
+
+
+def moe_param_specs(axis: str = "expert") -> dict:
+    """Expert-parallel specs keyed by parameter name: the expert stacks
+    split on their leading E dim, the router replicated (every rank routes
+    its own tokens)."""
+    return {"router": (), "w_gate": (axis, None, None),
+            "w_up": (axis, None, None), "w_down": (axis, None, None)}
+
+
+def moe_param_shardings(mesh, axis: str = "expert") -> dict:
+    """:func:`moe_param_specs` as DTensor placements on ``mesh``."""
+    from ternary_spgemm_tpu_torch.parallel.sharding import placements
+
+    return {k: placements(mesh, s) for k, s in moe_param_specs(axis).items()}

@@ -43,6 +43,8 @@ from ternary_spgemm_tpu_torch.formats.bitplane import TiledBitplane
 from ternary_spgemm_tpu_torch.models.bitlinear import (
     BitLinear,
     default_generator,
+    gather_rows,
+    is_dtensor,
     ternary_quantize,
 )
 from ternary_spgemm_tpu_torch.models.exported import (
@@ -366,6 +368,32 @@ class ExportedTransformerBlock(nn.Module):
         return x + self._ffn(h.reshape(B * T, d)).reshape(B, T, d)
 
 
+def _attend_local(attend, n_heads, q, k, v, window: int):
+    """``attend`` over DTensor ``q, k, v (B, T, width)`` on each rank's own
+    heads: the batch stays split where it is, the width stays split where
+    the KV heads divide over the mesh dim (whole heads and whole GQA groups
+    a rank), anything else (the sequence, partial sums, a split inside a
+    head) is gathered first. The result is a DTensor laid out as the
+    inputs were redistributed."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    nq, nkv = _norm_heads(n_heads)
+    mesh = q.device_mesh
+    pl, parts = [], 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0):
+            pl.append(p)
+        elif p.is_shard(2) and nkv % (parts * mesh.size(i)) == 0:
+            pl.append(p)
+            parts *= mesh.size(i)
+        else:
+            pl.append(Replicate())
+    ql, kl, vl = (z.redistribute(mesh, pl).to_local() for z in (q, k, v))
+    out = attend((nq // parts, nkv // parts), ql, kl, vl, window)
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=q.shape,
+                              stride=q.stride())
+
+
 def causal_attend_f32(n_heads, q, k, v, window: int = 0):
     """The QAT forward's attention, JAX's formulation
     (``ternary_spgemm_tpu/models/transformer.py:83-112``): q and k at the
@@ -375,7 +403,10 @@ def causal_attend_f32(n_heads, q, k, v, window: int = 0):
     :func:`causal_attend` runs the dots and softmax in f64 for bits that
     match across devices; for training those f64 probabilities would be
     kept for the backward at twice the bytes (0.27 GB a layer at bitnet3b
-    width, 4 x 512 tokens)."""
+    width, 4 x 512 tokens). DTensor inputs (the sharded train steps) run
+    on each rank's heads (:func:`_attend_local`)."""
+    if is_dtensor(q):
+        return _attend_local(causal_attend_f32, n_heads, q, k, v, window)
     B, T, d = q.shape
     nq, nkv = _norm_heads(n_heads)
     hd = d // nq
@@ -438,16 +469,19 @@ class BitTransformerBlock(nn.Module):
         """``(x', aux)``; aux, the MoE balance loss, is 0 for the dense
         FFN."""
         x = x.to(_compute_dtype(self.cfg))
+        # a DTensor branch's row-parallel sums land in the residual's
+        # layout: a reduce-scatter under sequence parallelism
+        res = x.placements if is_dtensor(x) else None
         h = rms_norm(x, self.norm_attn)
         attn = self.wo(causal_attend_f32(self.cfg.head_tuple, self.wq(h),
                                          self.wk(h), self.wv(h),
-                                         window=self.cfg.window))
+                                         window=self.cfg.window), res)
         x = x + attn
         h = rms_norm(x, self.norm_ffn)
         if self.moe is not None:
             ffn, aux = self.moe(h)
             return x + ffn, aux
-        ffn = self.w_down(silu(self.w_gate(h)) * self.w_up(h))
+        ffn = self.w_down(silu(self.w_gate(h)) * self.w_up(h), res)
         return x + ffn, torch.zeros((), device=x.device)
 
 
@@ -491,7 +525,12 @@ class BitTransformerLM(nn.Module):
         sequence-parallel sharding constraint goes there)."""
         con = constrain or (lambda z: z)
         cdtype = _compute_dtype(self.cfg)
-        x = con(self.embed[tokens]).to(cdtype)
+        # a DTensor table looks up through aten.embedding, which DTensor
+        # shards in both directions (indexing's backward, index_put, it
+        # does not everywhere); the same rows either way
+        x = (torch.nn.functional.embedding(tokens, self.embed)
+             if is_dtensor(self.embed) else self.embed[tokens])
+        x = con(x).to(cdtype)
         aux = torch.zeros((), device=x.device)
         for block in self.blocks:
             if self.cfg.remat:
@@ -501,7 +540,7 @@ class BitTransformerLM(nn.Module):
                 x, a = block.forward_with_aux(x)
             x = con(x.to(cdtype))
             aux = aux + a
-        x = rms_norm(x.to(torch.float32), self.norm_out)
+        x = rms_norm(gather_rows(x).to(torch.float32), self.norm_out)
         logits = torch.einsum("btd,vd->btv", x, self.embed)
         return logits, aux / max(1, self.cfg.n_layers)
 
@@ -515,6 +554,43 @@ def lm_loss(model: BitTransformerLM, tokens: torch.Tensor, *,
     targets = tokens[:, 1:].long()
     ce = -torch.mean(torch.take_along_dim(logp, targets[..., None], dim=-1))
     return ce + aux_coef * aux
+
+
+def lm_param_specs(model: BitTransformerLM,
+                   axis: str = "model") -> dict:
+    """Megatron-style TP specs keyed by ``state_dict()`` path (``()`` is
+    replicated, as ``P()``): QKV, gate and
+    up column parallel (output features on ``axis``), O and down row
+    parallel (input features on ``axis``), norms and embedding replicated;
+    an MoE block's expert stacks split on their leading E dim over the same
+    axis (expert parallelism), its router replicated."""
+    from ternary_spgemm_tpu_torch.models.moe import moe_param_specs
+
+    col = {"w": (None, axis), "b": (axis,)}
+    row = {"w": (axis, None), "b": ()}
+    block = {"wq": col, "wk": col, "wv": col, "wo": row}
+    if model.cfg.moe_experts:
+        block["moe"] = moe_param_specs(axis)
+    else:
+        block.update({"w_gate": col, "w_up": col, "w_down": row})
+    specs = {"embed": (), "norm_out": ()}
+    for i in range(model.cfg.n_layers):
+        specs[f"blocks.{i}.norm_attn"] = ()
+        specs[f"blocks.{i}.norm_ffn"] = ()
+        for name, sub in block.items():
+            for leaf, spec in sub.items():
+                specs[f"blocks.{i}.{name}.{leaf}"] = spec
+    return specs
+
+
+def lm_param_shardings(model: BitTransformerLM, mesh,
+                       axis: str = "model") -> dict:
+    """:func:`lm_param_specs` as DTensor placements on ``mesh`` — one
+    reduce per attention and one per FFN."""
+    from ternary_spgemm_tpu_torch.parallel.sharding import placements
+
+    return {k: placements(mesh, s)
+            for k, s in lm_param_specs(model, axis).items()}
 
 
 def make_lm_train_step(model: BitTransformerLM, optimizer, *,

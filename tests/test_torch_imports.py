@@ -57,11 +57,16 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.tools.ragged_probe",
                  "ternary_spgemm_tpu_torch.tools.serve_trace",
                  "ternary_spgemm_tpu_torch.parallel",
-                 "ternary_spgemm_tpu_torch.parallel.ring_kernel"):
+                 "ternary_spgemm_tpu_torch.parallel.ring_kernel",
+                 "ternary_spgemm_tpu_torch.parallel.sharding",
+                 "ternary_spgemm_tpu_torch.parallel.spgemm",
+                 "ternary_spgemm_tpu_torch.parallel.ffn",
+                 "ternary_spgemm_tpu_torch.parallel.pipeline"):
         assert must in names
 
 
-@pytest.mark.parametrize("extra", [[], ["chip_smoke"]], ids=["package", "smoke"])
+@pytest.mark.parametrize("extra", [[], ["chip_smoke"], ["torch_mp_worker"]],
+                         ids=["package", "smoke", "worker"])
 def test_no_jax_import(extra):
     mods = _modules() + extra
     code = ("import importlib, sys\n"
@@ -71,7 +76,8 @@ def test_no_jax_import(extra):
             "('jax', 'orbax', 'ml_dtypes', 'ternary_spgemm_tpu'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
@@ -103,3 +109,23 @@ def test_ops_exports_the_autotune_function():
                              timeout=240)
         assert out.returncode == 0, (first, out.stderr)
         assert out.stdout.startswith("ok")
+
+
+def test_mesh_and_group_raise_without_a_card():
+    """``make_mesh`` and ``init_distributed`` on their default ``"cuda"``
+    raise where torch sees no card, rather than building a CPU mesh or a
+    gloo group; a CPU mesh needs a process group first."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.parallel import init_distributed, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh({"model": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed(0, 1, "tcp://127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        make_mesh({"model": 1}, device_type="cpu")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        make_mesh({"model": 1}, device_type="tpu")
