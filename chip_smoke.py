@@ -276,7 +276,33 @@ result line if any fails, or if no GPU is visible):
     hq value flips and by phase 3's rule on the rows with none where some
     do; each rank's ms and ``bound_ms`` beside the unsharded
     call's, with the card's name and power limit. Collectives between
-    cards are not measured (one card).
+    cards are not measured (one card);
+17. the tooling, each part counted from 0 around the path it drives:
+    (a) ``profiling.trace`` around one ``CudaTiledBitplane_x8`` call at
+    the bitnet7b merged QKV's decode shape (4 x 4096 -> 12288) inside a
+    ``profiling.annotate`` region, in a child process (this long process's
+    profiler delivered that trace without kernel records): the Chrome
+    trace names the decode body's kernel and the region (a trace without
+    the kernel's record is taken again, up to three), and
+    ``device_memory_stats`` has the JAX keys, peak >= in use; (b) ``tools.export_model``: a seeded QAT tree at
+    bitnet3b widths, the depth cut to 2 layers, saved with
+    ``save_pytree``, exported (``--a8 --fused-ffn --fused-qkv``, with the
+    transposed containers), served by the CLI's ``generate --int8-kv``
+    (greedy, captured) on 4 prompts of 128 tokens, 16 new: the tokens of
+    ``from_params`` + ``generate`` in this process, the x8 and SwiGLU
+    launches, the bundle's bytes, export and load seconds and the
+    captured decode ms a step; (c) ``tools.sweep`` at M in {1, 32},
+    1024 x 4096, s = 4, correctness on, over all 31 kernels: every record
+    correct or a documented skip (printed), each hand-written SpMM kernel
+    launched; ``sweep_sanitize`` scrubs nothing, ``grid_summary``, and the
+    three plots where matplotlib is installed (the card's machine has
+    none: said so); (d) ``tools.model_bench`` at bitnet7b (QAT step and
+    forward, exported on ``CudaTiledBitplane_i8`` and ``CudaDense``, the
+    measured dispatch, the fused decode block, A8) and
+    ``tools.fused_block_bench`` at bitnet7b, each ms with the spread of 3
+    estimates; (e) the five ``examples_torch/`` scripts, each in a child
+    process started together (03 with one NCCL rank), exit 0 each, their
+    launches counted in the child.
 
 Each phase's seconds are printed as it ends, and all of them before the
 last lines.
@@ -285,8 +311,9 @@ The hand-written kernels, their CUDA sources and plain versions come from
 the registry (``KernelSpec.source``, ``KernelSpec.plain``), the fused FFNs'
 module (``ops/fused_ffn.py``), the study tools' modules
 (``tools/membench.py``, ``decode_roofline.py``, ``deposit_study.py``,
-``ragged_probe.py``) and ``parallel/ring_kernel.py``; phase 16 adds none
-(its schemes run the x8 and SwiGLU kernels on shards).
+``ragged_probe.py``) and ``parallel/ring_kernel.py``; phases 16 and 17
+add none (they run the kernels above through the parallel layer and the
+tools).
 
 The last lines are the headline JSON, the kernels JSON (the x8 kernel's
 entry: its decode figures at M = 4 and a ``prefill`` object for the merged
@@ -487,6 +514,37 @@ PAR_TRAIN_TOL = 1e-5
 #: times is first held against the plain version
 SWEEP_SIZES_MB = (16, 64, 256, 512)
 SWEEP_TILES = ((256, 4096), (512, 4096))
+#: phase 17 (a): the x8 kernel traced at the bitnet7b merged QKV's decode
+#: shape (M, K, N), inside this ``profiling.annotate`` region
+TOOL_QKV = (4, 4096, 12288)
+TOOL_ANNOTATION = "chip_smoke/x8_qkv_decode"
+#: phase 17 (b): bitnet3b widths, the depth cut from 26 layers; 4 prompts
+#: of 128 tokens, 16 new, greedy, int8 cache
+TOOL_LAYERS = 2
+TOOL_PROMPTS, TOOL_T0, TOOL_NEW = 4, 128, 16
+#: phase 17 (c): the sweep's grid (every kernel of the registry)
+TOOL_SWEEP = ["--m-values", "1", "32", "--kn", "1024x4096", "--s-values",
+              "4", "--correctness"]
+#: phase 17 (d): the block benchmarks' preset and estimates
+TOOL_BENCH_PRESET = "bitnet7b"
+TOOL_BENCH_REPEATS = "3"
+#: phase 17 (e): each example with the CPU tests' fast arguments
+#: (``tests/test_torch_examples.py``); 03 with one NCCL rank
+EXAMPLES = {"01_spmm_quickstart.py": [],
+            "02_train_export_serve.py": ["--steps", "40"],
+            "03_sharded_training.py": ["--steps", "2", "--devices", "1"],
+            "04_generate.py": ["--new-tokens", "4"],
+            "05_fused_serving.py": []}
+#: runs an example in a child process, then prints its launch counts
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.path.insert(0, {root!r})\n"
+    "from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck\n"
+    "sys.argv = [{script!r}] + {args!r}\n"
+    "try:\n"
+    "    runpy.run_path({script!r}, run_name='__main__')\n"
+    "finally:\n"
+    "    print('LAUNCHES ' + json.dumps(dict(ck.launches)), flush=True)\n")
 
 
 def _is_ell(fmt) -> bool:
@@ -3589,6 +3647,299 @@ def phase_parallel(dev, card: str) -> dict:
     return counts
 
 
+def phase_tooling(dev, card: str) -> dict:
+    """Phase 17: the tooling (module docstring), (a) to (e), each part's
+    launches counted from 0 around the path it drives. Returns their sum."""
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (tooling_profile, tooling_export, tooling_sweep,
+                     tooling_bench, tooling_examples):
+            t = time.perf_counter()
+            counts = part(dev, card, tmp)
+            print(f"phase 17 {part.__name__}: {time.perf_counter() - t:.1f} "
+                  f"s, launches {counts}", flush=True)
+            total.update(counts)
+    return dict(total)
+
+
+def trace_x8(log_dir: str) -> dict:
+    """Phase 17 (a)'s trace, in the process that calls it: one x8 call at
+    the merged QKV's decode shape inside ``profiling.annotate``, under
+    ``profiling.trace`` (taken again, up to 3 times, while it holds no
+    record of the decode body's kernel). Returns the launches counted
+    around the traced call, the trace's kernel names, whether it holds the
+    region, the traces taken and the file's bytes."""
+    import torch
+
+    from ternary_spgemm_tpu_torch import profiling
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+
+    dev = torch.device("cuda", 0)
+    M, K, N = TOOL_QKV
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fmt = TiledBitplane.from_dense(random_ternary(K, N, 2, gen, dev))
+    x = torch.round(60.0 * torch.randn((M, K), generator=gen, device=dev)
+                    ).clamp_(-127, 127)
+    b = torch.zeros(N, device=dev)
+    fn = all_kernels()["CudaTiledBitplane_x8"].fn
+    fn(x, fmt, b)
+    torch.cuda.synchronize(dev)
+
+    def traced():
+        with profiling.trace(log_dir, device=dev) as t:
+            with profiling.annotate(TOOL_ANNOTATION):
+                fn(x, fmt, b)
+        return profiling.trace_events(t.path), t.path
+
+    for tries in range(1, 4):
+        (events, path), counts = counted(traced)
+        kernels = [e["name"] for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if any("gemv::gemv_kernel" in k for k in kernels):
+            break
+    return {"counts": counts, "kernels": kernels, "tries": tries,
+            "region": any(e.get("name") == TOOL_ANNOTATION for e in events),
+            "bytes": os.path.getsize(path)}
+
+
+def tooling_profile(dev, card: str, tmp: str) -> dict:
+    """Phase 17 (a): :func:`trace_x8` in a child process (in this long
+    process ``torch.profiler`` delivered the trace without its kernel
+    records, three times in a row: PERF.md §6 and §7), whose trace must
+    name the decode body's kernel and the region; then this process's
+    ``device_memory_stats``."""
+    from ternary_spgemm_tpu_torch import profiling
+
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "import chip_smoke\n"
+            "print('RESULT ' + json.dumps(chip_smoke.trace_x8(sys.argv[1])))")
+    proc = subprocess.run([sys.executable, "-c", code,
+                           os.path.join(tmp, "trace")], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    check(proc.returncode == 0, f"the traced child exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    (line,) = [ln for ln in proc.stdout.splitlines()
+               if ln.startswith("RESULT ")]
+    res = json.loads(line.split(" ", 1)[1])
+    counts, kernels = res["counts"], res["kernels"]
+    check(counts == {"CudaTiledBitplane_x8": 1},
+          f"the traced call launched {counts}, not one x8")
+    check(any("gemv::gemv_kernel" in k for k in kernels),
+          f"the trace names no x8 decode-body kernel: {kernels}")
+    check(res["region"], f"the trace has no {TOOL_ANNOTATION!r} region")
+    stats = profiling.device_memory_stats(dev)
+    check({"bytes_in_use", "peak_bytes_in_use", "bytes_limit"} <= set(stats)
+          and stats["peak_bytes_in_use"] >= stats["bytes_in_use"] > 0,
+          f"device_memory_stats {stats}")
+    M, K, N = TOOL_QKV
+    print(f"tooling (a) profiling.trace of x8 {M}x{K}x{N} in a child "
+          f"process, {res['tries']} trace(s): {res['bytes']} bytes, kernels "
+          f"{[k[:60] for k in kernels]}, region {TOOL_ANNOTATION!r}; this "
+          f"process's device_memory_stats {stats} [{card}]", flush=True)
+    return counts
+
+
+def tooling_export(dev, card: str, tmp: str) -> dict:
+    """Phase 17 (b): a seeded QAT tree at bitnet3b widths (2 layers) saved
+    with ``save_pytree``, exported by ``tools.export_model`` (A8, fused FFN
+    and QKV) and served by its ``generate`` (int8 cache, greedy, captured):
+    the tokens those of ``from_params`` + ``generate`` in this process.
+    Returns the launches of the CLI's generate."""
+    import torch
+
+    from ternary_spgemm_tpu_torch import checkpoint
+    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerLM, ExportedTransformerLM, generate, jax_tree)
+    from ternary_spgemm_tpu_torch.models.serving import preset_config
+    from ternary_spgemm_tpu_torch.tools import export_model
+
+    cfg = dataclasses.replace(preset_config("bitnet3b"),
+                              n_layers=TOOL_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tree = jax_tree(BitTransformerLM(cfg, generator=gen, device=dev))
+    ckpt, cfg_path = (os.path.join(tmp, n) for n in ("qat", "cfg.json"))
+    bundle = os.path.join(tmp, "bundle.npz")
+    checkpoint.save_pytree(ckpt, tree)
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    flags = ["--format", "TiledBitplane", "--a8", "--fused-ffn",
+             "--fused-qkv"]
+    t = time.perf_counter()
+    rc, out = run_main(export_model.main, [
+        "export", "--checkpoint", ckpt, "--cfg", cfg_path, "--out", bundle,
+        *flags])
+    export_s = time.perf_counter() - t
+    check(rc == 0, f"export exited {rc}: {out}")
+    prompt = torch.randint(0, cfg.vocab, (TOOL_PROMPTS, TOOL_T0),
+                           generator=gen, device=dev)
+    text = ",".join(" ".join(map(str, row)) for row in prompt.tolist())
+    (rc, printed), counts = counted(lambda: run_main(export_model.main, [
+        "generate", "--bundle", bundle, "--prompt", text, "--new-tokens",
+        str(TOOL_NEW), "--int8-kv"]))
+    check(rc == 0, f"generate exited {rc}")
+    got = [[int(v) for v in line.split()] for line in printed.splitlines()]
+    t = time.perf_counter()
+    loaded = checkpoint.load_lm_bundle(bundle, device=dev)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t
+    del loaded
+    lm = ExportedTransformerLM.from_params(
+        cfg, tree, TiledBitplane, a8=True, fused_ffn=True, fused_qkv=True,
+        device=dev)
+    want = generate(lm, prompt, TOOL_NEW, cache_dtype=torch.int8)
+    check(got == want[:, TOOL_T0:].tolist(),
+          f"the CLI's tokens {got} are not from_params + generate's "
+          f"{want[:, TOOL_T0:].tolist()}")
+    check(counts.get("CudaTiledBitplane_x8", 0) > 0
+          and counts.get("fused_bitplane_swiglu", 0) > 0,
+          f"the CLI's generate launched {counts}")
+    step_ms = graph_step_ms(lm, prompt, TOOL_NEW)
+    print(f"tooling (b) export_model at bitnet3b widths, {TOOL_LAYERS} "
+          f"layers: {out.strip()}; bundle {os.path.getsize(bundle)} bytes, "
+          f"export {export_s:.2f} s (read, pack, save), load "
+          f"{load_s:.2f} s; generate --int8-kv, {TOOL_PROMPTS} x "
+          f"{TOOL_T0} prompts, {TOOL_NEW} new: the tokens of from_params "
+          f"+ generate in this process; captured decode {step_ms:.3f} ms a "
+          f"step; launches (warm-ups and captures) "
+          f"{path_launches(counts)} [{card}]", flush=True)
+    del lm
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tooling_sweep(dev, card: str, tmp: str) -> dict:
+    """Phase 17 (c): ``tools.sweep`` over every kernel of the registry,
+    correctness on, then ``sweep_sanitize``, ``grid_summary`` and the
+    three plots. Returns the sweep's launches."""
+    import importlib.util
+
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.tools import (
+        grid_summary, plot_perf, plot_roofline, plot_speedup, sweep,
+        sweep_sanitize)
+
+    out = os.path.join(tmp, "sweep.json")
+    names = list(all_kernels())
+    (rc, printed), counts = counted(lambda: run_main(sweep.main, [
+        *TOOL_SWEEP, "--kernels", ",".join(names), "--output", out]))
+    check(rc == 0, f"the sweep exited {rc}:\n{printed}")
+    with open(out) as f:
+        records = json.load(f)
+    check(len(records) == 2, f"{len(records)} sweep records, not 2")
+    skips = []
+    for rec in records:
+        res, tc = rec["results"], rec["test_case"]
+        check(set(res) == set(names), f"sweep record {tc} holds {set(res)}")
+        for name, r in res.items():
+            if "error" in r:
+                check(r["error"].startswith("skipped:"),
+                      f"{name} at {tc}: {r['error']}")
+                skips.append(f"{name} at M={tc['M']}: {r['error']}")
+            else:
+                check(r["correct"] is True, f"{name} at {tc} not correct")
+    for name in spmm_kernels():
+        check(counts.get(name, 0) > 0, f"the sweep did not launch {name}")
+    rc, text = run_main(sweep_sanitize.main, [out])
+    check(rc == 0 and "all 2 records sane" in text, f"sanitize: {text}")
+    rc, text = run_main(grid_summary.main, [out])
+    summary = json.loads(text)
+    check(rc == 0 and summary["records"] == 2, f"grid_summary: {text}")
+    plots = "not run: matplotlib is not installed here"
+    if importlib.util.find_spec("matplotlib") is not None:
+        for tool in (plot_perf, plot_speedup, plot_roofline):
+            png = os.path.join(tmp, tool.__name__.split(".")[-1] + ".png")
+            rc, _ = run_main(tool.main, [out, "--output", png])
+            check(rc == 0 and os.path.getsize(png) > 0, f"{png} not written")
+        plots = "the three PNGs written"
+    print(f"tooling (c) sweep {' '.join(TOOL_SWEEP)} over {len(names)} "
+          f"kernels: every record correct, skips {skips or 'none'}; "
+          f"sanitize: all sane; grid_summary winners "
+          f"{summary['overall_winner_counts']}, flagship vs BaseTCSC "
+          f"{summary['flagship_speedup_vs_basetcsc']}; plots {plots} "
+          f"[{card}]", flush=True)
+    return counts
+
+
+def tooling_bench(dev, card: str, tmp: str) -> dict:
+    """Phase 17 (d): ``tools.model_bench`` (QAT, exported on the i8 and
+    dense kernels, A8) and ``tools.fused_block_bench``, each at
+    ``TOOL_BENCH_PRESET``. Returns their launches."""
+    from ternary_spgemm_tpu_torch.tools import fused_block_bench, model_bench
+
+    def run():
+        mb = run_main(model_bench.main, [
+            "--preset", TOOL_BENCH_PRESET, "--kernels",
+            "CudaTiledBitplane_i8,CudaDense", "--repeats",
+            TOOL_BENCH_REPEATS, "--min-seconds", "0.05"])
+        fb = run_main(fused_block_bench.main, [
+            "--preset", TOOL_BENCH_PRESET, "--repeats", TOOL_BENCH_REPEATS])
+        return mb, fb
+
+    ((rc_m, out_m), (rc_f, out_f)), counts = counted(run)
+    check(rc_m == 0 and rc_f == 0, f"the block benchmarks exited "
+          f"{rc_m}, {rc_f}:\n{out_m}\n{out_f}")
+    mb = json.loads(out_m.strip().splitlines()[-1])["results"]
+    bad = {k: v for k, v in mb.items() if "error" in v}
+    check(not bad, f"model_bench failed: {bad}")
+    print(f"tooling (d) model_bench --preset {TOOL_BENCH_PRESET} (ms, "
+          f"spread of {TOOL_BENCH_REPEATS}): " + ", ".join(
+              f"{k} {v['seconds'] * 1e3:.4f} ({v['seconds_spread']:.1%})"
+              for k, v in mb.items()) + f" [{card}]", flush=True)
+    fb = json.loads(out_f.strip().splitlines()[-1])
+    print(f"tooling (d) fused_block_bench --preset {TOOL_BENCH_PRESET}: "
+          + ", ".join(f"{k} {v['us'] / 1e3:.4f} ms ({v['seconds_spread']:.1%})"
+                      for k, v in fb["variants"].items())
+          + f"; auto {fb['auto_equivalent_variant']}, within spread of the "
+          f"best {fb['auto_within_spread_of_best']}; fused vs fixed "
+          f"{fb['end_to_end_win_pct']}% [{card}]", flush=True)
+    for name in ("CudaTiledBitplane_i8", "CudaDense",
+                 "CudaTiledBitplane_x8", "fused_bitplane_swiglu"):
+        check(counts.get(name, 0) > 0, f"the block benchmarks did not "
+              f"launch {name}: {counts}")
+    return counts
+
+
+def tooling_examples(dev, card: str, tmp: str) -> dict:
+    """Phase 17 (e): the five scripts of ``examples_torch/``, each in a
+    child process on the card (started together), exit 0 each. Returns
+    the launches they counted."""
+    import torch
+
+    counts = collections.Counter()
+    procs = {}
+    for script, args in EXAMPLES.items():
+        path = os.path.join(ROOT, "examples_torch", script)
+        code = EXAMPLE_RUNNER.format(root=ROOT, script=path, args=args)
+        procs[script] = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    for script, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise
+        check(proc.returncode == 0,
+              f"{script} exited {proc.returncode}:\n{out[-3000:]}")
+        (line,) = [ln for ln in out.splitlines()
+                   if ln.startswith("LAUNCHES ")]
+        mine = json.loads(line.split(" ", 1)[1])
+        counts.update(mine)
+        print(f"tooling (e) {script} {' '.join(EXAMPLES[script])}: exit 0, "
+              f"launches {mine}; its last line: "
+              f"{out.splitlines()[-2] if len(out.splitlines()) > 1 else ''}",
+              flush=True)
+    check(counts.get("CudaTiledBitplane_x8", 0) > 0
+          and counts.get("CudaDense", 0) > 0, f"examples launched {counts}")
+    torch.cuda.synchronize(dev)
+    return dict(counts)
+
+
 def main() -> int:
     import torch
 
@@ -3667,12 +4018,13 @@ def main() -> int:
     moe_stats, moe_counts = timed("15", phase_moe, dev, card)
     stats["CudaTiledBitplane_x8"].update(moe_stats)
     par_counts = timed("16", phase_parallel, dev, card)
+    tool_counts = timed("17", phase_tooling, dev, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
             probe_counts, ragged_counts, ring_counts, serve3b_counts,
-            tune_counts, train_counts, moe_counts, par_counts)
+            tune_counts, train_counts, moe_counts, par_counts, tool_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

@@ -163,4 +163,42 @@ def time_wall(fn: Callable, x: torch.Tensor, *, aux=(),
     return _result([s / n for s in samples], n)
 
 
+def time_calls(fn: Callable[[], object], dev: torch.device, runs: int,
+               repeats: int = 1) -> TimingResult:
+    """Seconds a call of ``fn()`` (no arguments) takes, ``repeats``
+    estimates of ``runs`` calls back to back: CUDA events around them on
+    the card (what a caller that issues the calls in a row sees: host gaps
+    the card waits on included), the host clock on the CPU."""
+    estimates = []
+    for _ in range(max(1, repeats)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(runs):
+                fn()
+            end.record()
+            torch.cuda.synchronize(dev)
+            estimates.append(start.elapsed_time(end) / 1e3 / runs)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            estimates.append((time.perf_counter() - t0) / runs)
+    return _result(estimates, runs)
+
+
+def time_for(fn: Callable[[], object], dev: torch.device,
+             min_seconds: float = MIN_SECONDS,
+             repeats: int = 1) -> TimingResult:
+    """:func:`time_calls` after a warm-up call, with ``runs`` set from one
+    timed call, so that one estimate's calls add up to about
+    ``min_seconds``."""
+    fn()
+    one = time_calls(fn, dev, 1).seconds
+    runs = max(1, min(MAX_RUNS, math.ceil(min_seconds / max(one, 1e-6))))
+    return time_calls(fn, dev, runs, repeats)
+
+
 TIMERS = {"cuda_events": time_cuda_events, "wall": time_wall}

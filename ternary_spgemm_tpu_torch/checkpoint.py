@@ -14,7 +14,8 @@ array bytes:
   ``leaf_<i>`` in ``jax.tree_util``'s flatten order (a dict's values by
   sorted key, lists and tuples in order, None no leaf), the layout the JAX
   package writes where orbax is not importable. An orbax directory cannot
-  be read here;
+  be read here. :func:`restore_pytree_key` reads one key's subtree of a
+  saved dict (the params of a training state) and leaves the rest unread;
 * :func:`save_sharded_pytree` / :func:`restore_sharded_pytree`: each rank
   writes only the blocks it holds, ``path.shard{rank}.npz`` (arrays
   ``l{i}s{j}``, a JSON ``header`` of each leaf's shape, dtype and the
@@ -409,6 +410,26 @@ def restore_pytree(path: str, like):
                              f"`like` has {n}")
         leaves = [data[f"leaf_{i}"] for i in range(n)]
     return _rebuild(like, iter(leaves))
+
+
+def restore_pytree_key(path: str, like: dict, key: str):
+    """``like[key]`` from a :func:`save_pytree` file of a dict shaped like
+    ``like``, reading only that subtree's leaves (the rest of the file,
+    such as an optimizer's moments beside the params, is left unread).
+    Raises ``KeyError`` for a key ``like`` lacks and ``ValueError`` where
+    the file does not hold ``like``'s leaves."""
+    keys = list(like if isinstance(like, OrderedDict) else sorted(like))
+    if key not in keys:
+        raise KeyError(key)
+    start = sum(len(_leaves(like[k])) for k in keys[:keys.index(key)])
+    n, total = len(_leaves(like[key])), len(_leaves(like))
+    with np.load(_npz(path)) as data:
+        stored = sum(k.startswith("leaf_") for k in data.files)
+        if stored != total:
+            raise ValueError(f"{path} holds {stored} leaves; the tree given "
+                             f"as `like` has {total}")
+        leaves = [data[f"leaf_{start + i}"] for i in range(n)]
+    return _rebuild(like[key], iter(leaves))
 
 
 def _index_key(ranges) -> str:

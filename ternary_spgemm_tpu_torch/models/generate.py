@@ -610,12 +610,17 @@ def sample(logits: torch.Tensor, gumbel, temperature: float, top_k: int = 0,
     return torch.argmax(logits + gumbel, dim=-1)
 
 
-def draw_uniform(u: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def draw_uniform(u: torch.Tensor, generator) -> torch.Tensor:
     """Fill ``u`` with uniform [0, 1) draws from ``generator`` (never the
-    global generator), in place: the noise of one sampled token."""
+    global generator), in place: the noise of one sampled token.
+    ``generator`` is a ``torch.Generator``, or a
+    :class:`~ternary_spgemm_tpu_torch.models.threefry.KeyStream`, which
+    draws the JAX package's noise for the next position."""
     if generator is None:
         raise ValueError("sampling draws from an explicit torch.Generator")
-    return torch.rand(u.shape, generator=generator, out=u)
+    if isinstance(generator, torch.Generator):
+        return torch.rand(u.shape, generator=generator, out=u)
+    return generator.fill_(u)
 
 
 @torch.no_grad()
@@ -637,7 +642,10 @@ def generate(lm: ExportedTransformerLM, prompt: torch.Tensor, n_new: int, *,
     ``torch.Generator`` on the prompt's device (None: one seeded with 0,
     as the JAX package defaults to ``key(0)``); the global generator is
     never used. JAX folds its key with the position, so the two packages
-    sample one distribution, not the same tokens.
+    sample one distribution, not the same tokens, unless ``generator`` is a
+    :class:`~ternary_spgemm_tpu_torch.models.threefry.KeyStream` of the
+    JAX seed, started at ``T0 - 1`` (0 without the prefill): that draws
+    JAX's noise.
 
     ``graph=None`` runs captured on a CUDA prompt and eagerly on a CPU one;
     ``graph=True`` raises on the CPU; ``graph=False`` is the eager loop.

@@ -8,13 +8,25 @@ int``::
     python -m ternary_spgemm_tpu_torch.tools.deposit_study    [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.serve_trace      [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.sass_compare     PARENT_CSRC
+    python -m ternary_spgemm_tpu_torch.tools.serving_bench    [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.export_model     export|generate ...
+    python -m ternary_spgemm_tpu_torch.tools.sweep            [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.sweep_remeasure  SWEEP.json --kernels ...
+    python -m ternary_spgemm_tpu_torch.tools.sweep_sanitize   SWEEP.json
+    python -m ternary_spgemm_tpu_torch.tools.grid_summary     SWEEP.json
+    python -m ternary_spgemm_tpu_torch.tools.plot_perf        SWEEP.json
+    python -m ternary_spgemm_tpu_torch.tools.plot_speedup     SWEEP.json
+    python -m ternary_spgemm_tpu_torch.tools.plot_roofline    SWEEP.json
+    python -m ternary_spgemm_tpu_torch.tools.model_bench      [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.fused_block_bench [--device cpu]
 
 Each runs on the card by default (and raises without one); ``--device
 cpu`` runs the plain versions, with host-clock times. ``sass_compare``
 needs the CUDA toolkit, not a card: it holds two trees' compiled kernel
-bodies against each other. Each prints its rows
-and one JSON object, and writes a file only when given ``--out``, never
-under the repository's ``bench_artifacts/`` (the JAX tools' TPU records).
+bodies against each other; ``sweep_sanitize``, ``grid_summary`` and the
+plots read a sweep's JSON on the host. Each writes a file only where its
+``--out`` / ``--output`` says, never under the repository's
+``bench_artifacts/`` (the JAX tools' TPU records).
 """
 
 from __future__ import annotations
@@ -30,16 +42,24 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 TPU_RECORDS = os.path.join(_REPO, "bench_artifacts")
 
 
-def write_json(path: str, obj) -> None:
-    """Write ``obj`` to ``path`` as JSON; refuses a path under
-    :data:`TPU_RECORDS`."""
+def check_out(path: str) -> str:
+    """``path``, refused when it lies under :data:`TPU_RECORDS`."""
     real = os.path.realpath(path)
     if os.path.commonpath([real, os.path.realpath(TPU_RECORDS)]) == \
             os.path.realpath(TPU_RECORDS):
         raise ValueError(f"{path} lies in bench_artifacts/, the JAX tools' "
                          "TPU records; give another --out")
-    with open(path, "w") as f:
+    return path
+
+
+def write_json(path: str, obj) -> None:
+    """Write ``obj`` to ``path`` as JSON, atomically (a temporary file
+    renamed over it, so that a reader never sees a torn file); refuses a
+    path under :data:`TPU_RECORDS`."""
+    tmp = check_out(path) + ".tmp"
+    with open(tmp, "w") as f:
         json.dump(obj, f, indent=1)
+    os.replace(tmp, path)
 
 
 def timer(dev: torch.device, *, graph: bool = False):

@@ -38,14 +38,13 @@ are the plain versions' host time; ``--graph`` raises there.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import sys
 import tempfile
 import time
 
 import torch
 
+from ternary_spgemm_tpu_torch import profiling
 from ternary_spgemm_tpu_torch.bench.harness import device_name
 from ternary_spgemm_tpu_torch.models import serving
 from ternary_spgemm_tpu_torch.models.generate import init_cache
@@ -109,23 +108,16 @@ def traced(fn, dev) -> dict:
     record at all is taken once more (``fn`` called again): the profiler
     (torch 2.11 on an H100) delivers fewer kernel records than launches in
     some traces, and a short trace can lose all of them."""
-    from torch.profiler import ProfilerActivity, profile
-
     on_device = dev.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_device
-                                     else [])
     for _ in range(2 if on_device else 1):
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            if on_device:
-                torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
+            with profiling.trace(tmp, device=dev) as t:
+                t0 = time.perf_counter()
+                fn()
+                if on_device:
+                    torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+            events = profiling.trace_events(t.path)
         if any(e.get("cat") == "kernel" for e in events):
             break
     return summarize(events, wall, on_device)

@@ -46,7 +46,7 @@ import time
 import torch
 
 from ternary_spgemm_tpu_torch.bench.harness import device_name
-from ternary_spgemm_tpu_torch.bench.timing import _result
+from ternary_spgemm_tpu_torch.bench.timing import time_calls
 from ternary_spgemm_tpu_torch.models import serving
 from ternary_spgemm_tpu_torch.models.generate import (
     _block_decode,
@@ -67,30 +67,6 @@ FAST_PATHS = {"both": (True, True), "ffn": (True, False),
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _seconds(fn, dev, runs: int, repeats: int):
-    """Seconds a call of ``fn()`` (no arguments), ``repeats`` estimates of
-    ``runs`` calls back to back: CUDA events around them on the card, the
-    host clock on the CPU."""
-    estimates = []
-    for _ in range(max(1, repeats)):
-        _sync(dev)
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(runs):
-                fn()
-            end.record()
-            torch.cuda.synchronize(dev)
-            estimates.append(start.elapsed_time(end) / 1e3 / runs)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(runs):
-                fn()
-            estimates.append((time.perf_counter() - t0) / runs)
-    return _result(estimates, runs)
 
 
 def main(argv=None) -> int:
@@ -177,7 +153,7 @@ def main(argv=None) -> int:
                              device=dev))
         loop.load(prompt)
         prefill, step = loop.calls["prefill"], loop.calls["step"]
-        r_fill = _seconds(prefill, dev, runs=2, repeats=args.repeats)
+        r_fill = time_calls(prefill, dev, runs=2, repeats=args.repeats)
         print(f"prefill: {r_fill.seconds * 1e3:.3f} ms "
               f"({B * T0 / r_fill.seconds:.1f} tokens/s)", flush=True)
 
@@ -186,7 +162,7 @@ def main(argv=None) -> int:
             for _ in range(n_new):
                 step()
 
-        r_dec = _seconds(decode, dev, runs=1, repeats=args.repeats)
+        r_dec = time_calls(decode, dev, runs=1, repeats=args.repeats)
         step_s = r_dec.seconds / n_new
         print(f"decode: {step_s * 1e3:.3f} ms a step "
               f"({B / step_s:.1f} tokens/s)", flush=True)

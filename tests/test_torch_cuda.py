@@ -40,7 +40,10 @@ tool serves its ``test`` preset captured (``-k serving_tool``). An exported
 layer's backward runs the x8 and dense kernels on its transposed container
 bitwise their plain versions (``-k backward_on_transpose``). An MoE
 block's experts run those kernels on the card as on the CPU, and the
-captured loop holds its decode step (``-k moe``).
+captured loop holds its decode step (``-k moe``). The tooling (``-k
+tooling``): ``profiling.trace`` names the x8 kernel, the export CLI's
+``generate`` gives the in-process tokens, and a one-config sweep is
+correct for every kernel.
 """
 
 import dataclasses
@@ -1815,3 +1818,101 @@ def test_moe_graph_generate_equals_eager(dev):
     assert loop.launches["step"] == {
         "CudaTiledBitplane_x8": (2 + 3 * 4) * lm.cfg.n_layers}
     lm._captured.clear()
+
+
+def test_tooling_trace_names_the_x8_kernel(dev, tmp_path):
+    """``profiling.trace`` records the card: one x8 call at the bitnet7b
+    merged QKV's decode shape shows as the decode body's kernel, inside
+    the ``annotate`` region; ``device_memory_stats`` has JAX's keys."""
+    from ternary_spgemm_tpu_torch import profiling
+
+    W = torch.from_numpy(generate_ternary(4096, 12288, 2, seed=3)).to(dev)
+    fmt = TiledBitplane.from_dense(W)
+    x = torch.from_numpy(generate_x(4, 4096, value_range=127, seed=4)).to(dev)
+    b = torch.zeros(12288, device=dev)
+    want = ck.cuda_tiled_bitplane_x8_kernel(x, fmt, b)
+    for _ in range(3):      # the profiler can drop a short trace's kernels
+        with profiling.trace(str(tmp_path), device=dev) as t:
+            with profiling.annotate("tooling/x8"):
+                got = ck.cuda_tiled_bitplane_x8_kernel(x, fmt, b)
+        events = profiling.trace_events(t.path)
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    assert torch.equal(got, want)
+    assert any("gemv::gemv_kernel" in k for k in kernels), kernels
+    assert any(e.get("name") == "tooling/x8" for e in events)
+    stats = profiling.device_memory_stats(dev)
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] > 0
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        dev).total_memory
+
+
+def test_tooling_export_generate_equals_in_process(dev, tmp_path):
+    """``tools.export_model``: a saved QAT tree exported A8 with both fast
+    paths and served by the CLI's ``generate`` (captured, int8 cache)
+    gives the tokens of ``from_params`` + ``generate`` in this process."""
+    import contextlib
+    import io
+    import json
+
+    from ternary_spgemm_tpu_torch import checkpoint
+    from ternary_spgemm_tpu_torch.models import (
+        BitTransformerConfig, BitTransformerLM, ExportedTransformerLM,
+        generate, jax_tree)
+    from ternary_spgemm_tpu_torch.tools import export_model
+
+    cfg_kw = dict(vocab=64, d_model=256, n_heads=4, d_ff=512, n_layers=2)
+    cfg = BitTransformerConfig(**cfg_kw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    tree = jax_tree(BitTransformerLM(cfg, generator=g, device=dev))
+    checkpoint.save_pytree(str(tmp_path / "qat"), tree)
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg_kw))
+    bundle = str(tmp_path / "b.npz")
+    assert export_model.main([
+        "export", "--checkpoint", str(tmp_path / "qat"), "--cfg",
+        str(tmp_path / "cfg.json"), "--out", bundle, "--format",
+        "TiledBitplane", "--a8", "--fused-ffn", "--fused-qkv"]) == 0
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert export_model.main([
+            "generate", "--bundle", bundle, "--new-tokens", "8",
+            "--int8-kv", "--prompt",
+            ",".join(" ".join(map(str, r)) for r in prompt.tolist())]) == 0
+    got = [[int(v) for v in ln.split()] for ln in buf.getvalue().splitlines()]
+    lm = ExportedTransformerLM.from_params(
+        cfg, tree, TiledBitplane, a8=True, fused_ffn=True, fused_qkv=True,
+        device=dev)
+    want = generate(lm, prompt, 8, cache_dtype=torch.int8)
+    assert got == want[:, 16:].tolist()
+
+
+def test_tooling_sweep_every_kernel_correct(dev, tmp_path):
+    """``tools.sweep`` at one config over every kernel of the registry:
+    each record correct (or a documented skip), each hand-written kernel
+    launched."""
+    import contextlib
+    import io
+    import json
+
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.tools import sweep
+
+    out = str(tmp_path / "s.json")
+    names = list(all_kernels())
+    ck.reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert sweep.main(["--m-values", "32", "--kn", "1024x4096",
+                           "--s-values", "4", "--correctness",
+                           "--min-seconds", "0.01", "--kernels",
+                           ",".join(names), "--output", out]) == 0
+    (rec,) = json.load(open(out))
+    assert set(rec["results"]) == set(names)
+    for name, r in rec["results"].items():
+        assert r.get("correct") is True or \
+            r.get("error", "").startswith("skipped:"), (name, r)
+    for name in names:
+        if name.startswith("Cuda"):
+            assert ck.launches[name] > 0, name
+    assert not ck.plain_on_cuda

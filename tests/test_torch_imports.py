@@ -1,7 +1,10 @@
 """The port imports no JAX: every module of ``ternary_spgemm_tpu_torch`` and
 ``chip_smoke.py`` load in a fresh interpreter that never sees ``jax``,
-``orbax``, ``ml_dtypes`` or the JAX package (the checkpoint module reads
-and writes the JAX package's files without any of them)."""
+``orbax``, ``ml_dtypes``, the JAX package or the repository's ``tools/``
+(the checkpoint module reads and writes the JAX package's files without
+any of them); no script of ``examples_torch/`` names them either
+(``tests/test_torch_examples.py`` runs each one and checks what it
+loaded)."""
 
 import os
 import pkgutil
@@ -61,7 +64,19 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.parallel.sharding",
                  "ternary_spgemm_tpu_torch.parallel.spgemm",
                  "ternary_spgemm_tpu_torch.parallel.ffn",
-                 "ternary_spgemm_tpu_torch.parallel.pipeline"):
+                 "ternary_spgemm_tpu_torch.parallel.pipeline",
+                 "ternary_spgemm_tpu_torch.profiling",
+                 "ternary_spgemm_tpu_torch.models.threefry",
+                 "ternary_spgemm_tpu_torch.tools.export_model",
+                 "ternary_spgemm_tpu_torch.tools.sweep",
+                 "ternary_spgemm_tpu_torch.tools.sweep_sanitize",
+                 "ternary_spgemm_tpu_torch.tools.sweep_remeasure",
+                 "ternary_spgemm_tpu_torch.tools.grid_summary",
+                 "ternary_spgemm_tpu_torch.tools.plot_perf",
+                 "ternary_spgemm_tpu_torch.tools.plot_speedup",
+                 "ternary_spgemm_tpu_torch.tools.plot_roofline",
+                 "ternary_spgemm_tpu_torch.tools.model_bench",
+                 "ternary_spgemm_tpu_torch.tools.fused_block_bench"):
         assert must in names
 
 
@@ -73,7 +88,7 @@ def test_no_jax_import(extra):
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'orbax', 'ml_dtypes', 'ternary_spgemm_tpu'))\n"
+            "('jax', 'orbax', 'ml_dtypes', 'ternary_spgemm_tpu', 'tools'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -82,6 +97,25 @@ def test_no_jax_import(extra):
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "examples_torch"])
+def test_no_source_names_jax(path):
+    """No line of ``chip_smoke.py`` or of ``examples_torch/`` imports JAX,
+    the JAX package or the repository's ``tools/``."""
+    import re
+
+    full = os.path.join(ROOT, path)
+    files = ([full] if os.path.isfile(full) else
+             [os.path.join(full, f) for f in sorted(os.listdir(full))
+              if f.endswith(".py")])
+    bad = re.compile(r"^\s*(import|from)\s+(jax|ternary_spgemm_tpu|tools)"
+                     r"\b(?!_torch)")
+    assert files
+    for f in files:
+        with open(f) as fh:
+            hits = [ln for ln in fh if bad.match(ln)]
+        assert not hits, (f, hits)
 
 
 def test_ops_exports_the_autotune_function():
