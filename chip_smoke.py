@@ -24,7 +24,8 @@ result line if any fails, or if no GPU is visible):
    phase-6 shape, PReLU on and off, on integer X with the +-512 edges and
    on non-integer X, and its crossover: both timed, each bitwise, at the
    north star and 32x4096x11008's K and N for M in {4, 8, 16, 32, 48, 64,
-   128, 512}; the x8 and i8 decode body (``csrc/gemv_core.cuh``): both kernels'
+   128, 512}, each M beside its ``bound_ms`` and ``library_ms``; the x8
+   and i8 decode body (``csrc/gemv_core.cuh``): both kernels'
    branches bitwise on random plane bytes (pos and neg both set in
    places; tile_n 4096, 96 and 30, M in {1, 4, 7, 16, 33}, PReLU on and
    off), the body's split-K parts S swept at the merged QKV and wo (M = 4)
@@ -117,7 +118,8 @@ result line if any fails, or if no GPU is visible):
    rtol=1e-5, atol=1e-3 (the x8 and i8 rules round or floor it as the plain
    versions do; the f32 and bf16 kernels sum it in another order than the
    plain matmul; each shape's max |diff| there is printed); the
-   yardsticks of phase 3 for every kernel at every shape; then the
+   yardsticks of phase 3 for every kernel at every shape (the bound to
+   six decimals); then the
    kernels on ``csrc/dense_mma.cuh``'s bf16 tensor-core tile
    (``DENSE_KERNELS``: dense f32 and bf16, the int8-X tiled-dense, dense,
    block-packed, tiled block-packed and stride-packed ones, the f32
@@ -274,9 +276,9 @@ result line if any fails, or if no GPU is visible):
     wo partials summed in rank order plus the bias bitwise it (integer
     X), the FFN shards' sum bitwise the per-shard plain reference where no
     hq value flips and by phase 3's rule on the rows with none where some
-    do; each rank's ms and ``bound_ms`` beside the unsharded
-    call's, with the card's name and power limit. Collectives between
-    cards are not measured (one card);
+    do; each rank's ms, ``bound_ms`` and (the x8 shards) ``library_ms``
+    beside the unsharded call's, with the card's name and power limit.
+    Collectives between cards are not measured (one card);
 17. the tooling, each part counted from 0 around the path it drives:
     (a) ``profiling.trace`` around one ``CudaTiledBitplane_x8`` call at
     the bitnet7b merged QKV's decode shape (4 x 4096 -> 12288) inside a
@@ -302,7 +304,27 @@ result line if any fails, or if no GPU is visible):
     ``tools.fused_block_bench`` at bitnet7b, each ms with the spread of 3
     estimates; (e) the five ``examples_torch/`` scripts, each in a child
     process started together (03 with one NCCL rank), exit 0 each, their
-    launches counted in the child.
+    launches counted in the child;
+18. the study tools, each part counted from 0 around it and printed on one
+    line beside the card: (a) ``tools.run_all`` (``chipgate`` at
+    384x2048x8192 s=16 and at the hostile 333x2048x2560 s=8, both with
+    PReLU, every one of the 31 kernels correct against the f32 reference,
+    itself bitwise the f64 product; ``bytes_validation``'s 15 rows, those
+    off the model by more than 10% named; the bitnet sweep at
+    ``STUDY_LIMIT`` configs; the plots, said to be skipped where
+    matplotlib is missing; the headline), every hand-written SpMM kernel
+    launched; (b) ``tools.chain_bench`` at depths 1-16, each stack one
+    CUDA graph: the marginal a layer, independent and chained, against
+    its bound; (c) ``tools.trace_validation`` (traced in a child process):
+    the decode calls' and a bare add's kernel time against their CUDA-event
+    span, the chains' traced marginal against their replays'; (d)
+    ``tools.kernel_v4b_study``: the nibble pair bitwise the bit planes at
+    four shapes, the i8 kernel bitwise at tkb 128, 64 and 32; (e)
+    ``tools.compiler_sweep`` over the baseline and ``-maxrregcount=128``
+    (a second build of every source, in a child process): no SpMM bit
+    changed, the fused FFNs' flips counted; (f) ``tools.scaling_bench``
+    (column, overlapped) at d = 1 on its own NCCL group of one rank, and
+    ``tools.scaling_projection`` from the shard kernel's measured times.
 
 Each phase's seconds are printed as it ends, and all of them before the
 last lines.
@@ -353,7 +375,8 @@ SERVE_KERNELS = ("CudaTiledBitplane_x8", "CudaTiledBitplane_i8")
 BENCH_SHAPES = [(32, 1024, 4096, 4), (32, 4096, 11008, 2),
                 (512, 4096, 4096, 2), (7, 999, 1000, 3)]
 #: the H100 SXM's device-memory rate at its 700 W limit (NVIDIA's data
-#: sheet); its int8 peak is the port's ``bench.instrument.INT8_OPS_PER_S``
+#: sheet; ``bench.instrument.HBM_BYTES_PER_S``, the bound's byte rate); its
+#: int8 peak is ``bench.instrument.INT8_OPS_PER_S``
 HBM_BYTES_PER_S = 3.35e12
 #: the H100 SXM's f32 rate outside the tensor cores at 700 W (NVIDIA's data
 #: sheet): phase 11 prints the ring's bound at it too (2*M*nnz), the bound
@@ -535,6 +558,17 @@ EXAMPLES = {"01_spmm_quickstart.py": [],
             "03_sharded_training.py": ["--steps", "2", "--devices", "1"],
             "04_generate.py": ["--new-tokens", "4"],
             "05_fused_serving.py": []}
+#: phase 18: the sweep's configs in ``tools.run_all``, the chain depths
+#: and estimates of ``tools.chain_bench``, the traced calls a target of
+#: ``tools.trace_validation``, the estimates of ``tools.kernel_v4b_study``
+#: and ``tools.scaling_projection``, and ``tools.compiler_sweep``'s sets
+#: (the baseline and one variant: a second build of every source)
+STUDY_LIMIT = 1
+STUDY_DEPTHS = ["1", "2", "4", "8", "16"]
+STUDY_REPEATS = "1"
+STUDY_TRACE_RUNS = "50"
+STUDY_SETS = "baseline,maxrregcount_128"
+STUDY_SCHEMES = ("column", "overlapped")
 #: runs an example in a child process, then prints its launch counts
 EXAMPLE_RUNNER = (
     "import json, runpy, sys\n"
@@ -547,59 +581,34 @@ EXAMPLE_RUNNER = (
     "    print('LAUNCHES ' + json.dumps(dict(ck.launches)), flush=True)\n")
 
 
-def _is_ell(fmt) -> bool:
-    from ternary_spgemm_tpu_torch.formats import (
-        BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC)
-
-    return isinstance(fmt, (BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC))
-
-
 def weight_bytes(fmt) -> int:
-    """The weight bytes a kernel over ``fmt`` must read once, for the K x N
-    weights alone: a container's padding of K to its blocks and of N to its
-    tiles is never read. For an ELL container one byte a nonzero plus the
-    cap tables (the slots the nonzeros need, not the cap padding); for the
-    others each column's K rows at the container's density: one byte a row
-    (the int8 containers), one byte a group of ``factor`` rows (the packed
-    codes), and for each group of 8 rows two bytes (the bit planes) or four
-    (the nibble-pair words)."""
-    from ternary_spgemm_tpu_torch.formats import (
-        TiledBitplane, TiledNibblePair)
+    """``bench.instrument.weight_bytes``: the weight bytes of the bound."""
+    from ternary_spgemm_tpu_torch.bench.instrument import weight_bytes as model
 
-    if _is_ell(fmt):
-        return fmt.nnz + sum(4 * t.numel() for n, t in fmt.arrays().items()
-                             if "cap" in n)
-    K, N = fmt.shape
-    if isinstance(fmt, (TiledBitplane, TiledNibblePair)):
-        return (2 if isinstance(fmt, TiledBitplane) else 4) * -(-K // 8) * N
-    rows = getattr(fmt, "factor", None) or getattr(fmt, "FACTOR", 1)
-    return -(-K // rows) * N
+    return model(fmt)
 
 
 def spmm_ops(M: int, fmt) -> int:
-    """Operations that Y = X.W over ``fmt`` needs: a multiply-add for each
-    nonzero weight and row of X, 2*M*nnz (a zero weight needs none, whether
-    or not a kernel skips it)."""
-    return 2 * M * fmt.nnz
+    """``bench.instrument.spmm_ops``: 2*M*nnz."""
+    from ternary_spgemm_tpu_torch.bench.instrument import spmm_ops as model
+
+    return model(M, fmt)
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = None):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of ``nbytes`` at the memory rate and ``ops`` at ``ops_per_s`` (default
-    the int8 peak)."""
-    from ternary_spgemm_tpu_torch.bench.instrument import INT8_OPS_PER_S
+    """``bench.instrument.bound``: (bound_ms, bound_by), the larger of
+    ``nbytes`` at the memory rate and ``ops`` at ``ops_per_s`` (default the
+    int8 peak)."""
+    from ternary_spgemm_tpu_torch.bench.instrument import bound as model
 
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / (ops_per_s or INT8_OPS_PER_S)
-    return 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+    return model(nbytes, ops, ops_per_s)
 
 
 def spmm_bound(M: int, fmt):
-    """:func:`bound` of one SpMM call: the weights, f32 X and Y, the bias."""
-    K, N = fmt.shape
-    return bound(weight_bytes(fmt) + 4 * (M * K + M * N + N),
-                 spmm_ops(M, fmt))
+    """``bench.instrument.spmm_bound``: :func:`bound` of one SpMM call."""
+    from ternary_spgemm_tpu_torch.bench.instrument import spmm_bound as model
+
+    return model(M, fmt)
 
 
 def library_ms(xs, fmt, flush) -> float:
@@ -854,8 +863,10 @@ def phase_i8_branches(dev, card: str, gen, flush) -> None:
                 check(torch.equal(got, want),
                       f"i8 {branch} branch {M}x{K}x{N}: kernel != plain")
                 times[branch] = event_ms(lambda: fn(x, f, b), flush=flush)
+            bms, by = spmm_bound(M, f)
             rows.append(f"M={M} {times['decode']:.4f} vs {times['mma']:.4f} "
-                        "ms")
+                        f"ms (bound {bms:.6f} {by}, library "
+                        f"{library_ms(x, f, flush):.4f})")
         print(f"i8 crossover at Mx{K}x{N}, decode vs tensor-core branch, both "
               f"bitwise equal to plain: " + "; ".join(rows)
               + f" (I8_MMA_MIN_M = {ck.I8_MMA_MIN_M}) [{card}]", flush=True)
@@ -1894,7 +1905,7 @@ def phase_bench_kernels(dev, card: str) -> dict:
                       f"{M}x{K}x{N} s={s}: bitwise equal on integer X (PReLU "
                       f"on/off), non-integer X within tolerance (max |diff| "
                       f"{shape_err:.3g}); {ms:.4f} ms vs plain {pms:.4f} ms"
-                      f", library {lms:.4f} ms, bound {bms:.4f} ms ({by}) "
+                      f", library {lms:.4f} ms, bound {bms:.6f} ms ({by}) "
                       f"[{card}]", flush=True)
         del W, fmts
     del flush
@@ -3543,12 +3554,12 @@ def phase_parallel(dev, card: str) -> dict:
         dist.destroy_process_group()
 
     # (b) the shard shapes of d-way splits, rank by rank in this process
-    def report(what, M, rank, shape, fn, f):
+    def report(what, M, rank, shape, fn, f, xin):
         bms, by = spmm_bound(M, f)
         ms = event_ms(fn, flush=flush)
         print(f"  {what} M={M} rank {rank}: {tuple(shape)} bitwise its "
-              f"plain version; {ms:.4f} ms, bound {bms:.4f} ms ({by})",
-              flush=True)
+              f"plain version; {ms:.4f} ms, bound {bms:.6f} ms ({by}), "
+              f"library {library_ms(xin, f, flush):.4f} ms", flush=True)
 
     for M in PAR_ROWS:
         x = xs[M]
@@ -3566,7 +3577,7 @@ def phase_parallel(dev, card: str) -> dict:
             yp = ck.bitplane_x8_plain(x, f, b_qkv[cols], None)
             check(torch.equal(y, yp), f"QKV rank {r} M={M}: kernel != plain")
             report("QKV column shard", M, r, y.shape, lambda: column_local(
-                x, f, b_qkv[cols], kernel=x8), f)
+                x, f, b_qkv[cols], kernel=x8), f, x)
             parts.append(y)
         check(torch.equal(torch.cat(parts, dim=1), unsharded),
               f"QKV M={M}: the columns assembled differ from the unsharded "
@@ -3587,7 +3598,7 @@ def phase_parallel(dev, card: str) -> dict:
                                       None)
             check(torch.equal(y, yp), f"wo rank {r} M={M}: kernel != plain")
             report("wo row shard", M, r, y.shape,
-                   lambda: row_local(xr, f, kernel=x8), f)
+                   lambda: row_local(xr, f, kernel=x8), f, xr)
             total = y if total is None else total + y
         check(torch.equal(total + b_o, unsharded), f"wo M={M}: the partial "
               "sums in rank order plus the bias differ from the unsharded "
@@ -3940,6 +3951,174 @@ def tooling_examples(dev, card: str, tmp: str) -> dict:
     return dict(counts)
 
 
+def phase_studies(dev, card: str) -> dict:
+    """Phase 18: the study tools (module docstring), each in-process (the
+    traces and the option sets in the tools' own child processes), each
+    part's launches counted from 0 around it, one line each. Returns their
+    sum."""
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (studies_run_all, studies_chain, studies_trace,
+                     studies_v4b, studies_compiler, studies_scaling):
+            t = time.perf_counter()
+            counts = part(dev, card, tmp)
+            print(f"phase 18 {part.__name__}: {time.perf_counter() - t:.1f} "
+                  f"s, launches {counts}", flush=True)
+            total.update(counts)
+    return dict(total)
+
+
+def last_json(text: str) -> dict:
+    """The JSON object a tool printed on its last line."""
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def studies_run_all(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (a): ``tools.run_all`` (both chipgates, bytes_validation,
+    the sweep at ``STUDY_LIMIT`` configs, the plots where matplotlib is,
+    the headline): exit 0, every kernel correct at both gate shapes, every
+    hand-written SpMM kernel launched."""
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.tools import run_all
+
+    out = os.path.join(tmp, "run_all")
+    (rc, text), counts = counted(lambda: run_main(run_all.main, [
+        "--out", out, "--limit", str(STUDY_LIMIT)]))
+    check(rc == 0, f"run_all exited {rc}:\n{text[-3000:]}")
+    gates = []
+    for name in ("chipgate.json", "chipgate_hostile.json"):
+        with open(os.path.join(out, name)) as f:
+            (rec,) = json.load(f)
+        res, gate = rec["results"], rec["gate"]
+        n_ok = sum(r.get("correct") is True for r in res.values())
+        check(n_ok == len(res) == len(all_kernels()) and not gate["failed"]
+              and not gate["errors"] and gate["reference"]["f32_equals_f64"],
+              f"{name}: {n_ok}/{len(res)} correct, {gate}")
+        tc = rec["test_case"]
+        gates.append(f"{tc['M']}x{tc['K']}x{tc['N']} s={tc['s']} PReLU "
+                     f"{n_ok}/{len(res)}")
+    with open(os.path.join(out, "bytes_validation.json")) as f:
+        rows = json.load(f)["rows"]
+    check(not any("error" in r for r in rows), f"bytes_validation: {rows}")
+    explain = [f"{r['kernel']} {r['M']}x{r['K']}x{r['N']} "
+               f"{r['ratio_compiled_over_model']} temp "
+               f"{r['compiled_temp_bytes']}" for r in rows
+               if r["verdict"] == "explain"]
+    temps = {f"{r['kernel']} {r['M']}x{r['K']}x{r['N']}":
+             r["compiled_temp_bytes"] for r in rows
+             if r["compiled_temp_bytes"]}
+    for name in spmm_kernels():
+        check(counts.get(name, 0) > 0, f"run_all did not launch {name}")
+    head = json.loads([ln for ln in text.splitlines()
+                       if ln.startswith('{"metric"')][-1])
+    skipped = [ln for ln in text.splitlines() if "skipped:" in ln]
+    print(f"studies (a) run_all --limit {STUDY_LIMIT}: chipgate {gates} "
+          f"correct (f32 reference = f64); bytes_validation "
+          f"{len(rows) - len(explain)}/{len(rows)} within 10%, explain "
+          f"{explain}, temp bytes {temps}; sweep {STUDY_LIMIT} config(s); "
+          f"plots "
+          f"{'skipped (no matplotlib)' if skipped else 'written'}; headline "
+          f"{head['value']} GFLOP/s ({head['best_kernel']}) [{card}]",
+          flush=True)
+    return counts
+
+
+def studies_chain(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (b): ``tools.chain_bench`` at ``STUDY_DEPTHS``, each stack
+    one CUDA graph: both variants' marginal a layer against its bound."""
+    from ternary_spgemm_tpu_torch.tools import chain_bench
+
+    (rc, text), counts = counted(lambda: run_main(chain_bench.main, [
+        "--depths", *STUDY_DEPTHS, "--repeats", STUDY_REPEATS]))
+    check(rc == 0, f"chain_bench exited {rc}")
+    line = last_json(text)
+    for name, v in line["chain_bench"].items():
+        check(v["marginal_us"] > 0, f"chain_bench {name}: {v}")
+    check(counts.get("CudaTiledBitplane_i8", 0) > 0,
+          f"chain_bench launched {counts}")
+    print(f"studies (b) chain_bench depths {STUDY_DEPTHS}: {line} [{card}]",
+          flush=True)
+    return counts
+
+
+def studies_trace(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (c): ``tools.trace_validation`` (its traces in a child
+    process): every decode call split into kernel and floor, the chains'
+    traced marginal against their replays'."""
+    from ternary_spgemm_tpu_torch.tools import trace_validation
+
+    rc, text = run_main(trace_validation.main, ["--runs", STUDY_TRACE_RUNS])
+    check(rc == 0, f"trace_validation exited {rc}")
+    line = last_json(text)
+    v = line["trace_validation"]
+    for name in ("bare_add", "flagship", "flagship_qkv"):
+        check(v.get(f"{name}_kernel_us", 0) > 0,
+              f"no kernel record of {name} in the traces: {line}")
+    check("trace_stacked_marginal_us" in v, f"no chain marginal: {line}")
+    print(f"studies (c) trace_validation --runs {STUDY_TRACE_RUNS}: {line} "
+          f"[{card}]", flush=True)
+    return {}
+
+
+def studies_v4b(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (d): ``tools.kernel_v4b_study``: the nibble pair bitwise the
+    bit planes at its four shapes, the i8 kernel bitwise at tkb 64 and 32."""
+    from ternary_spgemm_tpu_torch.tools import kernel_v4b_study
+
+    (rc, text), counts = counted(lambda: run_main(kernel_v4b_study.main, [
+        "--repeats", STUDY_REPEATS]))
+    line = last_json(text)
+    check(rc == 0 and line["kernel_v4b_study"]["bitwise"],
+          f"kernel_v4b_study exited {rc}: {line}")
+    for name in ("CudaTiledBitplane_i8", "CudaTiledNibblePair_i8"):
+        check(counts.get(name, 0) > 0, f"kernel_v4b_study: no {name}")
+    print(f"studies (d) kernel_v4b_study: {line} [{card}]", flush=True)
+    return counts
+
+
+def studies_compiler(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (e): ``tools.compiler_sweep`` over ``STUDY_SETS``, each set
+    its own build in a child process: no SpMM bit changed."""
+    from ternary_spgemm_tpu_torch.tools import compiler_sweep
+
+    rc, text = run_main(compiler_sweep.main, ["--sets", STUDY_SETS])
+    line = last_json(text)
+    check(rc == 0 and not line["failed"],
+          f"compiler_sweep exited {rc}:\n{text[-3000:]}")
+    print(f"studies (e) compiler_sweep {STUDY_SETS}: {line} [{card}]",
+          flush=True)
+    return {}
+
+
+def studies_scaling(dev, card: str, tmp: str) -> dict:
+    """Phase 18 (f): ``tools.scaling_bench`` at d = 1 (its own NCCL group
+    of one rank, ended after) for ``STUDY_SCHEMES``, then
+    ``tools.scaling_projection``."""
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.tools import (
+        scaling_bench, scaling_projection)
+
+    total = collections.Counter()
+    for scheme in STUDY_SCHEMES:
+        (rc, text), counts = counted(lambda: run_main(scaling_bench.main, [
+            "--scheme", scheme]))
+        check(rc == 0 and not dist.is_initialized() and sum(counts.values()),
+              f"scaling_bench {scheme} exited {rc}, launched {counts}")
+        total.update(counts)
+        print(f"studies (f) scaling_bench --scheme {scheme}: "
+              f"{last_json(text)} [{card}]", flush=True)
+    (rc, text), counts = counted(lambda: run_main(scaling_projection.main, [
+        "--repeats", STUDY_REPEATS]))
+    check(rc == 0, f"scaling_projection exited {rc}")
+    total.update(counts)
+    print(f"studies (f) scaling_projection: {last_json(text)} [{card}]",
+          flush=True)
+    check(counts.get("CudaTiledBitplane_i8", 0) > 0,
+          f"scaling_projection launched {counts}")
+    return dict(total)
+
+
 def main() -> int:
     import torch
 
@@ -4019,12 +4198,14 @@ def main() -> int:
     stats["CudaTiledBitplane_x8"].update(moe_stats)
     par_counts = timed("16", phase_parallel, dev, card)
     tool_counts = timed("17", phase_tooling, dev, card)
+    study_counts = timed("18", phase_studies, dev, card)
     check("jax" not in sys.modules, "jax was imported")
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
             probe_counts, ragged_counts, ring_counts, serve3b_counts,
-            tune_counts, train_counts, moe_counts, par_counts, tool_counts)
+            tune_counts, train_counts, moe_counts, par_counts, tool_counts,
+            study_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,

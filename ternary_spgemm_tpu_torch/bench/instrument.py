@@ -10,6 +10,12 @@ These formulas are device-free and identical to the JAX package's.
 The roofline's bandwidth is the card's: :func:`advertised_hbm_bandwidth`
 knows only NVIDIA cards, by ``torch.cuda.get_device_name``, and raises for
 any other device; :func:`measure_hbm_bandwidth` times a streaming pass.
+
+:func:`bound` / :func:`spmm_bound` are the least time an H100 SXM could take
+for a call (``chip_smoke.py``'s ``bound_ms``): the larger of the bytes it
+must move once (:func:`weight_bytes` of the weights, f32 X and Y, the bias)
+at :data:`HBM_BYTES_PER_S` and the operations its data needs
+(:func:`spmm_ops`) at :data:`INT8_OPS_PER_S`.
 """
 
 from __future__ import annotations
@@ -68,6 +74,9 @@ ADVERTISED_HBM_GBPS = {
 #: second, dense; NVIDIA's data sheet): the fastest rate the card computes
 #: at, which bounds any kernel's operations.
 INT8_OPS_PER_S = 1979e12
+#: The H100 SXM's device-memory rate at its 700 W limit (NVIDIA's data
+#: sheet), the bound's byte rate.
+HBM_BYTES_PER_S = ADVERTISED_HBM_GBPS["H100 80GB HBM3"] * 1e9
 
 
 def advertised_hbm_bandwidth(device=None) -> float:
@@ -115,3 +124,56 @@ def own_roofline_fraction(inst: Instrumentation, seconds: float,
     bandwidth)."""
     ideal = inst.own_bytes / bandwidth_bytes_per_s
     return ideal / seconds if seconds > 0 else 0.0
+
+
+def _is_ell(fmt) -> bool:
+    from ternary_spgemm_tpu_torch.formats import (
+        BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC)
+
+    return isinstance(fmt, (BlockedEllTCSC, TiledEllDeposit, TiledEllTCSC))
+
+
+def weight_bytes(fmt) -> int:
+    """The weight bytes a kernel over ``fmt`` must read once, for the K x N
+    weights alone: a container's padding of K to its blocks and of N to its
+    tiles is never read. For an ELL container one byte a nonzero plus the
+    cap tables (the slots the nonzeros need, not the cap padding); for the
+    others each column's K rows at the container's density: one byte a row
+    (the int8 containers), one byte a group of ``factor`` rows (the packed
+    codes), and for each group of 8 rows two bytes (the bit planes) or four
+    (the nibble-pair words)."""
+    from ternary_spgemm_tpu_torch.formats import (
+        TiledBitplane, TiledNibblePair)
+
+    if _is_ell(fmt):
+        return fmt.nnz + sum(4 * t.numel() for n, t in fmt.arrays().items()
+                             if "cap" in n)
+    K, N = fmt.shape
+    if isinstance(fmt, (TiledBitplane, TiledNibblePair)):
+        return (2 if isinstance(fmt, TiledBitplane) else 4) * -(-K // 8) * N
+    rows = getattr(fmt, "factor", None) or getattr(fmt, "FACTOR", 1)
+    return -(-K // rows) * N
+
+
+def spmm_ops(M: int, fmt) -> int:
+    """Operations that Y = X.W over ``fmt`` needs: a multiply-add for each
+    nonzero weight and row of X, 2*M*nnz (a zero weight needs none, whether
+    or not a kernel skips it)."""
+    return 2 * M * fmt.nnz
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float = None):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``nbytes`` at the memory rate and ``ops`` at ``ops_per_s`` (default
+    the int8 peak)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (ops_per_s or INT8_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def spmm_bound(M: int, fmt):
+    """:func:`bound` of one SpMM call: the weights, f32 X and Y, the bias."""
+    K, N = fmt.shape
+    return bound(weight_bytes(fmt) + 4 * (M * K + M * N + N),
+                 spmm_ops(M, fmt))

@@ -24,6 +24,20 @@ from typing import Optional, Sequence
 import torch
 
 
+def make_chain(spec, fmts: Sequence, biases: Sequence, K: int):
+    """The chained stack ``x -> y``: layer i runs ``spec`` on ``fmts[i]``
+    and ``biases[i]``, and the next layer takes ``clamp(y[:, :K], -512,
+    512)`` (the glue between layers; the integer clip keeps X in the i8
+    kernels' exact domain). Returns the last layer's y."""
+    def fn(x):
+        cur, y = x, None
+        for fmt, b in zip(fmts, biases):
+            y = spec.fn(cur, fmt, b, None)
+            cur = torch.clamp(y[:, :K], -512.0, 512.0)
+        return y
+    return fn
+
+
 def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
                              s: int = 4, *,
                              kernel: str = "CudaTiledBitplane_i8",
@@ -62,17 +76,9 @@ def measure_stacked_marginal(M: int = 32, K: int = 1024, N: int = 4096,
         biases.append(torch.from_numpy(generate_bias(N)).to(dev))
     X = torch.from_numpy(generate_x(M, K, seed=1)).to(dev)
 
-    def make_chain(L):
-        def fn(x):
-            cur, y = x, None
-            for i in range(L):
-                y = spec.fn(cur, fmts[i], biases[i], None)
-                cur = torch.clamp(y[:, :K], -512.0, 512.0)
-            return y
-        return fn
-
     timer = time_cuda_graph if dev.type == "cuda" else time_wall
-    rows = {L: timer(make_chain(L), X, repeats=repeats) for L in depths}
+    rows = {L: timer(make_chain(spec, fmts[:L], biases[:L], K), X,
+                     repeats=repeats) for L in depths}
     L1, L2 = min(depths), max(depths)
     marginal = (rows[L2].seconds - rows[L1].seconds) / (L2 - L1)
     # the pairwise difference's spread, propagated conservatively

@@ -55,6 +55,11 @@ from ternary_spgemm_tpu_torch.parallel.sharding import (
 )
 
 
+#: the profiler range around the waits of a step of
+#: :func:`overlapped_gather_local`
+WAIT_RANGE = "overlapped_gather/wait"
+
+
 def _check_tiled_alignment(fmt, dim: str, nshards: int = 1):
     """Blocked and tiled containers pad N (and K) to tile multiples; a
     shard along a padded dim lines up with the true-N bias and X shards
@@ -252,8 +257,12 @@ def overlapped_gather_local(x_chunk: torch.Tensor, f_local, b_local,
         owner = (rank - t) % d
         y[owner * m:(owner + 1) * m] = column_local(
             chunk, f_local, b_local, a_local, kernel=kernel)
-        for r in reqs:
-            r.wait()
+        if reqs:
+            # named, so that a profiler trace shows where each transfer
+            # window closes (``tools.overlap_evidence``)
+            with torch.profiler.record_function(WAIT_RANGE):
+                for r in reqs:
+                    r.wait()
         if nxt is not None:
             chunk = nxt
     return y

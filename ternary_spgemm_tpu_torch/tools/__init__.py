@@ -19,9 +19,22 @@ int``::
     python -m ternary_spgemm_tpu_torch.tools.plot_roofline    SWEEP.json
     python -m ternary_spgemm_tpu_torch.tools.model_bench      [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.fused_block_bench [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.chipgate         [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.run_all          --out DIR [--limit N]
+    python -m ternary_spgemm_tpu_torch.tools.bytes_validation [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.chain_bench      [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.trace_validation [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.kernel_v4b_study [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.compiler_sweep   [--sets a,b]
+    python -m ternary_spgemm_tpu_torch.tools.scaling_bench    [--scheme ...]
+    python -m ternary_spgemm_tpu_torch.tools.scaling_projection [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.overlap_evidence [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.format_diagram   --outdir DIR
 
 Each runs on the card by default (and raises without one); ``--device
-cpu`` runs the plain versions, with host-clock times. ``sass_compare``
+cpu`` runs the plain versions, with host-clock times (``scaling_bench``
+and ``overlap_evidence`` over gloo processes, ``format_diagram`` packing
+its figures' matrices on the host). ``sass_compare``
 needs the CUDA toolkit, not a card: it holds two trees' compiled kernel
 bodies against each other; ``sweep_sanitize``, ``grid_summary`` and the
 plots read a sweep's JSON on the host. Each writes a file only where its
@@ -33,6 +46,8 @@ from __future__ import annotations
 
 import json
 import os
+import socket
+import subprocess
 
 import torch
 
@@ -80,3 +95,23 @@ def emit(obj, out: str = None) -> None:
     print(json.dumps(obj), flush=True)
     if out:
         write_json(out, obj)
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1, for a process group's store."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def card_line(dev: torch.device):
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the first card's), the
+    line every measurement stands beside; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return out.splitlines()[0]

@@ -43,7 +43,9 @@ block's experts run those kernels on the card as on the CPU, and the
 captured loop holds its decode step (``-k moe``). The tooling (``-k
 tooling``): ``profiling.trace`` names the x8 kernel, the export CLI's
 ``generate`` gives the in-process tokens, and a one-config sweep is
-correct for every kernel.
+correct for every kernel. The study tools (``-k studies``): each runs on
+the card, chipgate correct at the hostile shape, the nibble pair and the
+tkb variants bitwise, the traces holding the card's kernel records.
 """
 
 import dataclasses
@@ -1916,3 +1918,172 @@ def test_tooling_sweep_every_kernel_correct(dev, tmp_path):
         if name.startswith("Cuda"):
             assert ck.launches[name] > 0, name
     assert not ck.plain_on_cuda
+
+
+def _quiet(main, argv):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def test_studies_chipgate_hostile_shape(dev, tmp_path):
+    """``tools.chipgate`` at the hostile 333x2048x2560 s=8 with PReLU:
+    every kernel correct, the f32 reference bitwise the f64 one."""
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import chipgate
+
+    out = tmp_path / "g.json"
+    rc, text = _quiet(chipgate.main, [
+        "--M", "333", "--K", "2048", "--N", "2560", "--s", "8", "--prelu",
+        "--min-seconds", "0.001", "--repeats", "1", "--output", str(out)])
+    assert rc == 0, text
+    gate = json.loads(out.read_text())[0]["gate"]
+    assert gate["reference"]["f32_equals_f64"] and gate["card"]
+
+
+def test_studies_run_all_tiny(dev, tmp_path, monkeypatch):
+    """``tools.run_all`` through every step at small shapes; the plots
+    skipped (and said so) where matplotlib is missing."""
+    import importlib.util
+    import os
+
+    from ternary_spgemm_tpu_torch.tools import bytes_validation, run_all
+
+    small = ["--min-seconds", "0.001", "--repeats", "1"]
+    monkeypatch.setattr(run_all, "CHIPGATE", [
+        ["--M", "40", "--K", "1024", "--N", "4224", "--prelu", *small],
+        ["--M", "7", "--K", "1024", "--N", "136", "--s", "8", "--prelu",
+         *small]])
+    monkeypatch.setattr(bytes_validation, "SHAPES", [(4, 1024, 4096, 4)])
+    monkeypatch.setattr(run_all, "HEADLINE", ["--stacked", "off",
+                                              "--repeats", "1"])
+    rc, text = _quiet(run_all.main, ["--out", str(tmp_path), "--limit", "1"])
+    assert rc == 0, text
+    assert "headline.json" in os.listdir(tmp_path)
+    if importlib.util.find_spec("matplotlib") is None:
+        assert text.count("skipped: matplotlib is not installed") == 3
+
+
+def test_studies_bytes_validation_temp(dev):
+    """The x8 kernel's tensor-core branch stages X as int8 in a scratch:
+    ``compiled_memory``'s temp at 512 rows holds at least M*K bytes; the
+    bound bytes are the model's."""
+    from ternary_spgemm_tpu_torch.ops import all_kernels
+    from ternary_spgemm_tpu_torch.tools import bytes_validation
+
+    W = torch.from_numpy(generate_ternary(4096, 4096, 4, seed=0)).to(dev)
+    row = bytes_validation.validate(all_kernels()["CudaTiledBitplane_x8"],
+                                    512, 4096, 4096, 4, W, dev)
+    assert row["verdict"] == "ok", row
+    assert row["compiled_temp_bytes"] >= 512 * 4096
+
+
+def test_studies_chain_bench(dev):
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import chain_bench
+
+    rc, text = _quiet(chain_bench.main, ["--depths", "1", "2", "4",
+                                         "--repeats", "1"])
+    assert rc == 0
+    line = json.loads(text.splitlines()[-1])
+    for v in line["chain_bench"].values():
+        assert v["marginal_us"] > 0 and 0 < v["bound_fraction"] < 1.5
+
+
+def test_studies_trace_validation(dev):
+    """The child's traces hold the card's kernel records: every target has
+    a device time and a floor; the chains' traced marginal is positive."""
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import trace_validation
+
+    rc, text = _quiet(trace_validation.main, ["--runs", "20"])
+    assert rc == 0
+    v = json.loads(text.splitlines()[-1])["trace_validation"]
+    for name in ("bare_add", "flagship", "flagship_qkv"):
+        assert v[f"{name}_kernel_us"] > 0, v
+    assert v["trace_stacked_marginal_us"] > 0
+
+
+def test_studies_kernel_v4b_study(dev):
+    """The nibble pair bitwise the bit planes at the four shapes, and the
+    i8 kernel bitwise across tkb 128, 64 and 32."""
+    from ternary_spgemm_tpu_torch.tools import kernel_v4b_study
+
+    rc, text = _quiet(kernel_v4b_study.main, ["--repeats", "1"])
+    assert rc == 0, text
+
+
+def test_studies_compiler_sweep_baseline(dev):
+    """The baseline set in its child process: the headline's kernels
+    correct, its library the one every entry point loads."""
+    import json
+
+    from ternary_spgemm_tpu_torch.ops import _build
+    from ternary_spgemm_tpu_torch.tools import compiler_sweep
+
+    rc, text = _quiet(compiler_sweep.main, ["--sets", "baseline"])
+    assert rc == 0, text
+    res = json.loads(text.splitlines()[-1])["compiler_sweep"]["baseline"]
+    assert res["spmm_flips"] == 0 and res["us"]
+    assert compiler_sweep.library_path("baseline") == _build.library_path()
+
+
+@pytest.mark.parametrize("scheme", ["column", "overlapped"])
+def test_studies_scaling_bench_one_rank(dev, scheme):
+    """One NCCL rank of the tool's own group, d = 1, the group ended."""
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.tools import scaling_bench
+
+    rc, _ = _quiet(scaling_bench.main, ["--scheme", scheme, "--runs", "5"])
+    assert rc == 0 and not dist.is_initialized()
+
+
+def test_studies_scaling_projection(dev):
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import scaling_projection
+
+    rc, text = _quiet(scaling_projection.main, ["--repeats", "1"])
+    assert rc == 0
+    line = json.loads(text.splitlines()[-1])
+    assert line["rows"] == 42 and line["scaling_projection"]["hosts"] == 2
+
+
+def test_studies_overlap_evidence_one_card(dev):
+    """On one card: one NCCL rank, no transfer window, said so."""
+    import json
+
+    from ternary_spgemm_tpu_torch.tools import overlap_evidence
+
+    rc, text = _quiet(overlap_evidence.main, ["--devices", "1"])
+    assert rc == 0
+    line = json.loads(text.splitlines()[-1])
+    assert line["overlap_evidence"].startswith("NO TRANSFER")
+    assert line["windows"] == [0]
+
+
+def test_studies_format_diagram_packers(dev):
+    """The figures' four containers packed on the card hold the CPU
+    packers' arrays (the drawing itself needs matplotlib, which the
+    card's machine lacks)."""
+    from ternary_spgemm_tpu_torch.formats import TCSC, BlockedTCSC
+    from ternary_spgemm_tpu_torch.tools.format_diagram import host
+
+    W = generate_ternary(12, 6, 3, seed=11)
+    for cls, kw in ((TCSC, {}), (TiledBitplane, {"tkb": 1, "tile_n": 128}),
+                    (BlockedTCSC, {"block_size": 4}),
+                    (TiledEllDeposit, {"tile_n": 128})):
+        Wk = W[:8] if cls is not TiledEllDeposit else W
+        a = vars(host(cls.from_dense(Wk, device=dev, **kw)))
+        b = vars(host(cls.from_dense(Wk, device="cpu", **kw)))
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=(cls, k))

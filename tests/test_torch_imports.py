@@ -76,7 +76,18 @@ def test_every_module_is_listed():
                  "ternary_spgemm_tpu_torch.tools.plot_speedup",
                  "ternary_spgemm_tpu_torch.tools.plot_roofline",
                  "ternary_spgemm_tpu_torch.tools.model_bench",
-                 "ternary_spgemm_tpu_torch.tools.fused_block_bench"):
+                 "ternary_spgemm_tpu_torch.tools.fused_block_bench",
+                 "ternary_spgemm_tpu_torch.tools.chipgate",
+                 "ternary_spgemm_tpu_torch.tools.run_all",
+                 "ternary_spgemm_tpu_torch.tools.bytes_validation",
+                 "ternary_spgemm_tpu_torch.tools.chain_bench",
+                 "ternary_spgemm_tpu_torch.tools.trace_validation",
+                 "ternary_spgemm_tpu_torch.tools.kernel_v4b_study",
+                 "ternary_spgemm_tpu_torch.tools.compiler_sweep",
+                 "ternary_spgemm_tpu_torch.tools.scaling_bench",
+                 "ternary_spgemm_tpu_torch.tools.scaling_projection",
+                 "ternary_spgemm_tpu_torch.tools.overlap_evidence",
+                 "ternary_spgemm_tpu_torch.tools.format_diagram"):
         assert must in names
 
 

@@ -8,7 +8,8 @@ checkpoint shard file).
 
 Not a pytest module (no ``test_`` prefix). Run as a script:
 ``python torch_mp_worker.py <suite> <rank> <world> <port> <dir>``; the
-suites are ``parallel``, ``ffn``, ``pipeline`` and ``train``.
+suites are ``parallel``, ``ffn``, ``pipeline``, ``train`` and
+``scaling``.
 """
 
 import json
@@ -582,8 +583,35 @@ def suite_train(res, inputs, tmp):
     res.run("zero1_moe", zero1_moe)
 
 
+def suite_scaling(res, inputs, tmp):
+    """``tools.scaling_bench``'s four schemes at d = 1 and 2, each d's
+    sharded output beside the same computation on one device
+    (tests/test_torch_scaling.py)."""
+    import argparse
+
+    import torch
+
+    from ternary_spgemm_tpu_torch.tools import scaling_bench
+
+    for scheme in ("column", "overlapped", "pipeline", "moe"):
+        args = argparse.Namespace(scheme=scheme, n_per_device=256, M=8, K=128,
+                                  s=4, fmt="BlockPackedTernary", kernel=None,
+                                  runs=2)
+
+        def run(scheme=scheme, args=args):
+            keep = {}
+            res.note(scheme, records=scaling_bench.scale(
+                args, torch.device("cpu"), keep))
+            for d, (sharded, single) in keep.items():
+                res.put(f"{scheme}/{d}", sharded)
+                res.put(f"{scheme}/{d}/single", single)
+
+        res.run(scheme, run)
+
+
 SUITES = {"parallel": suite_parallel, "ffn": suite_ffn,
-          "pipeline": suite_pipeline, "train": suite_train}
+          "pipeline": suite_pipeline, "train": suite_train,
+          "scaling": suite_scaling}
 
 
 def main(argv):
