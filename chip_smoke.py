@@ -36,11 +36,13 @@ result line if any fails, or if no GPU is visible):
    and rmax bitwise equal; at most 1e-4 of the requantized hidden values
    may flip against the plain version, each by 1, and every row without a
    flip agrees within rtol=1e-5, atol=0.01) and its crossover: both
-   branches timed, bitwise equal to each other, at M in {4, 8, 16, 32, 64,
-   128}; the SwiGLU's decode branch, a split walk, at M in {1, 4}: y, h
-   and rmax bitwise equal to the tensor-core branch for the rule's parts
-   (``fused_ffn.split_parts``) and for every other count of parts timed,
-   each phase's parts swept with the other phase unsplit; the PReLU
+   branches timed, bitwise equal to each other, at M in {4, 8, 12, 16, 24,
+   32, 48, 64, 128}; the SwiGLU's decode branch (both phases on
+   ``csrc/gemv_core.cuh``, gate and up on two plane sets) at M in {1, 4}:
+   y, h and rmax bitwise equal to the tensor-core branch at the rule's
+   parts (``fused_ffn.gemv_parts``) and at every other count of parts
+   timed, each phase's parts swept with the other phase at the rule's; the
+   PReLU
    FFN kernel (both phases on ``csrc/gemv_core.cuh``) at the ffn_bench
    blocks (M = 32, 1024 -> 4096 -> 1024 and 2048 -> 4096 -> 2048) and at M
    in {1, 33, 128}, PReLU2 off and on, with a random bias and slope per
@@ -427,13 +429,15 @@ GEMV_SPLIT_CASES = (("x8", 4, 4096, 12288), ("x8", 4, 4096, 4096),
 GEMV_SPLIT_S = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 #: phase 3's SwiGLU crossover: the M at which both branches are timed at
 #: 4096 -> 11008 -> 4096
-SWIGLU_CROSSOVER_M = (4, 8, 16, 32, 64, 128)
-#: phase 3's SwiGLU split walk: the decode M at which its parts are timed,
-#: and the parts swept for gate and up (S1, a walk of 16 chunks at 7B width)
-#: and for down (S2, 44 chunks), the other phase unsplit
+SWIGLU_CROSSOVER_M = (4, 8, 12, 16, 24, 32, 48, 64, 128)
+#: phase 3's SwiGLU decode branch: the decode M at which each phase's parts
+#: are swept (gate and up a walk of 512 byte-rows at 7B width, down 1408),
+#: the other phase at the rule's parts
 SWIGLU_SPLIT_M = (1, 4)
-SWIGLU_SPLIT_S1 = (1, 2, 3, 4, 6, 8, 16)
-SWIGLU_SPLIT_S2 = (1, 2, 4, 6, 8, 11, 16, 22, 44)
+SWIGLU_SPLIT_S = (1, 2, 3, 4, 6, 8, 12, 16)
+#: the decode branch's time at M = 4, 4096 -> 11008 -> 4096 before it
+#: moved onto gemv_core.cuh (the split chunk walk; PERF.md §6 row 2)
+SWIGLU_SPLIT_WALK_MS = 0.1308
 #: phase 11's ring sizes, at the JAX test's shape and at full width, and
 #: the full width (M, K, N): the serve's 4 x 128 prefill rows through
 #: BitNet-7B's merged QKV
@@ -754,17 +758,19 @@ def phase_kernels(dev, card: str) -> dict:
                        flush=flush)
         branch = ("tensor-core" if M > fused_ffn.SWIGLU_MMA_MIN_M
                   else "decode")
-        print(f"kernel fused_bitplane_swiglu M={M} 4096->11008->4096 "
-              f"({branch} branch; y, h and rmax of both branches bitwise "
-              f"equal): {flips} of {n_hq} hq flips, max |err| "
-              f"{err:.3g} in {n_clean}/{M} clean rows; {ms:.4f} ms "
-              f"vs plain {pms:.4f} ms [{card}]", flush=True)
         # three planes, xq and y (M, 4096) f32, sx; gate, up and down
         # products; no single PyTorch call computes the fused FFN
         bms, by = bound(sum(weight_bytes(t) for t in (fg, fu, fd))
                         + 4 * (2 * M * 4096 + M),
                         sum(spmm_ops(M, t) for t in (fg, fu, fd)))
-        print(f"  SwiGLU M={M} bound {bms:.4f} ms ({by})", flush=True)
+        was = (f" (the split chunk walk before: {SWIGLU_SPLIT_WALK_MS} ms)"
+               if M == 4 and branch == "decode" else "")
+        print(f"kernel fused_bitplane_swiglu M={M} 4096->11008->4096 "
+              f"({branch} branch; y, h and rmax of both branches bitwise "
+              f"equal): {flips} of {n_hq} hq flips, max |err| "
+              f"{err:.3g} in {n_clean}/{M} clean rows; {ms:.4f} ms{was} "
+              f"vs plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]",
+              flush=True)
         rec = dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
                    bound_by=by)
         if M == 4:
@@ -1000,12 +1006,13 @@ def phase_swiglu_crossover(card: str, fg, fu, fd, kw, gen, flush) -> None:
 
 
 def phase_swiglu_split(card: str, fg, fu, fd, kw, gen, flush) -> None:
-    """Phase 3, the SwiGLU decode branch's split walk at each
-    ``SWIGLU_SPLIT_M`` over the 4096 -> 11008 -> 4096 block: the rule's
-    parts (S1, S2) against the unsplit kernel, each phase split alone, and
-    each phase's sweep (``SWIGLU_SPLIT_S1`` with S2 = 1,
-    ``SWIGLU_SPLIT_S2`` with S1 = 1); every run's y, h and rmax bitwise
-    equal to the tensor-core branch's."""
+    """Phase 3, the SwiGLU decode branch's parts (``csrc/gemv_core.cuh``'s
+    split walk a phase) at each ``SWIGLU_SPLIT_M`` over the 4096 -> 11008
+    -> 4096 block: the rule's parts (S1, S2) (``fused_ffn.gemv_parts``,
+    phase 1 on two plane sets), and each phase's sweep of
+    ``SWIGLU_SPLIT_S`` (those its walk and staged X allow) with the other
+    phase at the rule's; every run's y, h and rmax bitwise equal to the
+    tensor-core branch's."""
     import torch
 
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
@@ -1013,16 +1020,23 @@ def phase_swiglu_split(card: str, fg, fu, fd, kw, gen, flush) -> None:
     from ternary_spgemm_tpu_torch.utils.device import sm_count
 
     dev = fg.plane.device
+    sms = sm_count(dev)
     for M in SWIGLU_SPLIT_M:
         x = torch.randn((M, fg.K), generator=gen, device=dev)
         xq, sx = fused_ffn.requantize_rows(x)
         want = fused_ffn._swiglu_mma(xq, sx, fg, fu, fd, **kw)
-        rule = tuple(fused_ffn.split_parts(M, f.N, f.plane.shape[0], f.tkb,
-                                           sm_count(dev)) for f in (fg, fd))
+        walks, allowed, rule = [], [], []
+        for f, sets in ((fg, 2), (fd, 1)):
+            nb = f.plane.shape[0]
+            walk = nb * f.tkb
+            lo = -(-walk // fused_ffn.gemv_part_max(M, 1, sets))
+            walks.append(walk)
+            rule.append(fused_ffn.gemv_parts(M, f.N, nb, f.tkb, sms, 1, sets))
+            allowed.append([t for t in SWIGLU_SPLIT_S if lo <= t <= walk])
+        rule = tuple(rule)
         times = {}
-        for parts in {(1, 1), rule, (rule[0], 1), (1, rule[1]),
-                      *((s, 1) for s in SWIGLU_SPLIT_S1),
-                      *((1, s) for s in SWIGLU_SPLIT_S2)}:
+        for parts in {rule, *((t, rule[1]) for t in allowed[0]),
+                      *((rule[0], t) for t in allowed[1])}:
             got = fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts,
                                           **kw)
             torch.cuda.synchronize()
@@ -1031,18 +1045,17 @@ def phase_swiglu_split(card: str, fg, fu, fd, kw, gen, flush) -> None:
                       f" {what} differs from the tensor-core branch")
             times[parts] = event_ms(lambda: fused_ffn._swiglu_lanes(
                 xq, sx, fg, fu, fd, parts=parts, **kw), flush=flush)
-        t11 = times[(1, 1)]
-        print(f"SwiGLU decode split M={M} 4096->11008->4096, y, h and rmax "
-              f"bitwise equal to the tensor-core branch at every parts: rule "
-              f"(S1, S2) = {rule} {times[rule]:.4f} ms vs unsplit {t11:.4f} "
-              f"ms; gate and up alone (S1 = {rule[0]}, 1) "
-              f"{times[(rule[0], 1)]:.4f} ms (saves "
-              f"{t11 - times[(rule[0], 1)]:.4f}), down alone (1, S2 = "
-              f"{rule[1]}) {times[(1, rule[1])]:.4f} ms (saves "
-              f"{t11 - times[(1, rule[1])]:.4f}); sweep S1 (S2 = 1): "
-              + ", ".join(f"{s} {times[(s, 1)]:.4f}" for s in SWIGLU_SPLIT_S1)
-              + "; sweep S2 (S1 = 1): "
-              + ", ".join(f"{s} {times[(1, s)]:.4f}" for s in SWIGLU_SPLIT_S2)
+        best = min(times, key=times.get)
+        print(f"SwiGLU decode parts M={M} 4096->11008->4096 (walks of "
+              f"{walks[0]} and {walks[1]} byte-rows), y, h and rmax bitwise "
+              f"equal to the tensor-core branch at every parts: rule (S1, "
+              f"S2) = {rule} {times[rule]:.4f} ms, fastest {best} "
+              f"{times[best]:.4f} ms; sweep S1 (S2 = {rule[1]}): "
+              + ", ".join(f"{t} {times[(t, rule[1])]:.4f}"
+                          for t in allowed[0])
+              + f"; sweep S2 (S1 = {rule[0]}): "
+              + ", ".join(f"{t} {times[(rule[0], t)]:.4f}"
+                          for t in allowed[1])
               + f" ms [{card}]", flush=True)
 
 
@@ -2574,12 +2587,15 @@ def phase_3b_kernels(dev, card: str) -> None:
     bitwise against each other and against its plain version within phase
     3's rule (hq flips by at most 1 in at most 1e-4 of the values; rows
     without one within rtol=1e-5, atol=0.01), at decode's 4 rows and the
-    prefill's 512 (both sides of each split)."""
+    prefill's 512 (both sides of each split); the decode branch timed
+    beside its bound."""
     import torch
 
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.formats import TiledBitplane
     from ternary_spgemm_tpu_torch.models.serving import random_ternary
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops import fused_ffn
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
         _swiglu_lanes, _swiglu_mma, requantize_rows, swiglu_launch,
         swiglu_plain)
@@ -2622,9 +2638,22 @@ def phase_3b_kernels(dev, card: str) -> None:
         want = swiglu_plain(xq, sx, fg, fu, fd, **kw)
         flips, n_hq, _, _ = swiglu_rule(y, want, h, rmax, xq, sx, fg, fu,
                                         f"SwiGLU bitnet3b M={M}", **kw)
+        timed = ""
+        if M <= fused_ffn.SWIGLU_MMA_MIN_M:
+            flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32,
+                                device=dev)
+            ms = event_ms(lambda: swiglu_launch(xq, sx, fg, fu, fd, **kw),
+                          flush=flush)
+            del flush
+            bms, by = bound(sum(weight_bytes(t) for t in (fg, fu, fd))
+                            + 4 * (2 * M * d + M),
+                            sum(spmm_ops(M, t) for t in (fg, fu, fd)))
+            timed = (f"; decode branch {ms:.4f} ms, bound {bms:.4f} ms "
+                     f"({by})")
         print(f"kernel fused_bitplane_swiglu bitnet3b {d}->{ff}->{d} M={M}: "
               f"branches bitwise; {flips} of {n_hq} hq values flip "
-              f"against the plain version (by 1) [{card}]", flush=True)
+              f"against the plain version (by 1){timed} [{card}]",
+              flush=True)
 
 
 def phase_autotune(dev, card: str) -> dict:

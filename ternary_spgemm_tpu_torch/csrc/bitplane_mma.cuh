@@ -14,8 +14,8 @@
 // fused_bitplane_swiglu (:384, body _swiglu_kernel :316), which decode the
 // two halves of each K-block to int8 and issue int8 MXU dots into int32
 // accumulators. The same functions here, every sum an exact int32, every
-// epilogue the decode kernel's expression in its op order (bitplane_core.cuh
-// :247-277; multiplies or one add, nothing that contracts into an FMA), so
+// epilogue the decode body's expression in its op order (bitplane_core.cuh
+// epi_*; multiplies or one add, nothing that contracts into an FMA), so
 // Y, the SwiGLU's h and its row absmax are bitwise the decode branch's and
 // the integer products bitwise the plain versions' (ops/cuda_kernels.py,
 // ops/fused_ffn.py):
@@ -39,9 +39,9 @@
 // 12288) the bytes are ~14 us at 3.35 TB/s but the product is 51.5 G int8
 // operations as a tensor core runs them (zeros included): 26 us at the
 // 1,979 TOP/s peak. So the operations bound it, and they must run on the
-// tensor cores; the decode kernel (bitplane_core.cuh) spends ~(3 + MT)
-// scalar instructions per weight and decodes all of W again for each
-// 32-row tile.
+// tensor cores; the decode body (gemv_core.cuh) spends a __dp4a per four
+// weights and row on the CUDA cores and decodes all of W again for each
+// row tile of 16 (8 with the SwiGLU's two plane sets).
 //
 // Design, simple first (no cp.async or TMA pipeline, no wgmma, no split-K:
 // later work; each block walks its chunks of K in series, synchronously,
@@ -321,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(const Args a) {
 
   // the fragment layout: acc[p][i][f][r] is row wm + 16i + g + 8(r >> 1),
   // column wn + 8f + 2t4 + (r & 1) of the block's tile; the expressions are
-  // the decode kernel's (bitplane_core.cuh, epi_*)
+  // the decode body's (bitplane_core.cuh, epi_*)
 #pragma unroll
   for (int i = 0; i < T::MF; ++i) {
     const int row0 = m0 + wm + 16 * i + g;

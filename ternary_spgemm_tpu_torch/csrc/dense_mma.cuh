@@ -132,10 +132,10 @@
 // peak, and the bytes ~14 us: the operations. At M <= 32 (the north star,
 // 32 x 1024 x 4096) the W bytes (8, 4, 2 or 1.6 bits a weight; 1.25 us at
 // 3.35 TB/s for one byte a weight), under the latency of the chunks each
-// block walks in series. A CUDA-core body (bitplane_core.cuh's, which the
-// small-M branches of the x8, i8 and fused FFN kernels still run) spends MT
-// multiply-adds and MT/4 shared loads a weight and lane, zeros included:
-// only the tensor cores take the product under one f32 torch.matmul. This
+// block walks in series. A CUDA-core body (gemv_core.cuh's, which the
+// small-M branches of the x8, i8 and fused FFN kernels run) spends a
+// __dp4a per four weights and row, zeros included: only the tensor cores
+// take the product under one f32 torch.matmul. This
 // first tile still pays each chunk's round trip to memory in series, and
 // its staging (X split again for every tile of N) does not overlap its
 // mma: a cp.async or TMA pipeline and wgmma are what would take it toward

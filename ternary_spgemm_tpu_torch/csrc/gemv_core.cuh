@@ -1,12 +1,15 @@
 // The streaming decode body over the bit-plane container at small M: Y =
 // stage(X) . W + epilogue, the decode branches of CudaTiledBitplane_x8 and
-// CudaTiledBitplane_i8 (bitplane.cu: ternary_bitplane_x8, _i8; epi_bias)
-// and both phases of the fused PReLU FFN block (ffn.cu: the i8 rule with
-// kEpiBiasRmax, then the requantizing rule with kEpiScaleBias). One
-// templated kernel, one launch a product; the X rule and the epilogue are
-// its only differences. Above the wrappers' X8_MMA_MIN_M / I8_MMA_MIN_M
-// rows the int8 tensor-core core (bitplane_mma.cuh) takes the x8 and i8
-// kernels over.
+// CudaTiledBitplane_i8 (bitplane.cu: ternary_bitplane_x8, _i8; epi_bias),
+// both phases of the fused PReLU FFN block (ffn.cu: the i8 rule with
+// kEpiBiasRmax, then the requantizing rule with kEpiScaleBias) and both
+// phases of the fused SwiGLU's decode branch (swiglu.cu: the truncating
+// rule on two plane sets, gate and up, with kEpiSwiglu, then the
+// requantizing rule with kEpiScale). One templated kernel, one launch a
+// product; the X rule, the epilogue and the plane sets are its only
+// differences. Above the wrappers' X8_MMA_MIN_M / I8_MMA_MIN_M /
+// SWIGLU_MMA_MIN_M rows the int8 tensor-core core (bitplane_mma.cuh) takes
+// the x8, i8 and SwiGLU kernels over.
 //
 // The container (formats/bitplane.py): plane (nb, gn, 2*tkb, tile_n)
 // uint8; byte-row t of slab (kb, g) is tile_n contiguous bytes, one a
@@ -19,7 +22,7 @@
 // What bounds it on an H100: at M <= 16 a product is a matrix-vector walk
 // far below the card's ops-per-byte line; the floor is the plane bytes, 2
 // bits a weight at 3.35 TB/s (3.8 us for the 7B merged QKV, 1.3 us for
-// wo). The bitplane_core.cuh body it replaces walked 16 chunks a block in
+// wo). The bitplane_core.cuh body it replaced walked 16 chunks a block in
 // series, each re-staging f32 X between two __syncthreads, with one byte
 // of each plane a lane (32-byte sectors a warp) and cdiv(N, 32) blocks: ~16
 // chunk round trips whatever the size. This design streams the planes:
@@ -31,31 +34,39 @@
 //     the first two issued before X is staged, and each set refilled while
 //     the other is consumed; no __syncthreads and no staging inside the
 //     weight loop;
+//   * two plane sets (kEpiSwiglu: the gate's plane and the up
+//     projection's, one geometry; their arguments Args2): a lane loads
+//     both planes' words of a byte-row at one offset, and each staged X
+//     word feeds both accumulator sets; a register set holds kBatch / 2
+//     byte-rows, as many words as one plane's, and the M-tiles stop at 8
+//     rows (grid y holds more row tiles above 8), so that the two sets'
+//     accumulators fit 2 blocks an SM without a spill;
 //   * X staged once a block, before the loop, for the block's K range only:
 //     the MT rows of each byte-row's two halves as int8 words in shared
-//     memory, kStageX8 rounded and clamped (one plane), kStageI8 as two
+//     memory, kStageX8 rounded and clamped (one plane), kStageTrunc
+//     truncated (one plane: the SwiGLU's int8-valued xq), kStageI8 as two
 //     planes hi = int8(v >> 5), lo = v & 31 with v = floor(x + 512) - 512,
 //     as bitplane_mma.cuh's stage_kernel stages them (32*hi + lo == v for
 //     v in [-4096, 4095]; beyond, hi wraps as it does there), so the i8
 //     kernel's two branches give the same bits on every input, not only
-//     on its domain; kStageRequant (the FFN's phase 2, X its f32 hidden
+//     on its domain; kStageRequant (the FFNs' phase 2, X their f32 hidden
 //     state) as one plane rint(h / scale), the staging thread's row scale
 //     (rmax + 1e-12) / 127 computed once by IEEE division from rmax_in;
 //   * products with __dp4a: each nibble pair becomes four signed bytes
 //     (ternary4, ternary4.cuh: pos - neg on every byte pair, both flags
-//     set included), reused for the MT rows; x8 and the requantized rule
-//     one __dp4a a row against the staged word, i8 two, dp4a(32w, hi) +
+//     set included), reused for the MT rows; the one-plane rules one
+//     __dp4a a row against the staged word, i8 two, dp4a(32w, hi) +
 //     dp4a(w, lo) (times32); every sum an exact int32 (wrapping adds are
 //     associative, so any order gives the same bits);
 //   * split-K across blocks, exact: grid z holds S parts of the byte-row
 //     walk (W = nb * tkb byte-rows, part s taking [s*W/S, (s+1)*W/S)), so
 //     that cdiv(N, 128) column tiles fill the card (ops/fused_ffn.py
 //     gemv_parts); the 8 warps' sums are added in shared memory in warp
-//     order, each part writes its int32 sums to ``part`` (S, M, N), and the
-//     last part of a (column, row) tile to arrive, found with an atomic
-//     counter that it resets to 0, adds the S parts in part order and
-//     applies the epilogue: one launch a product. With S = 1 the block
-//     applies it in place;
+//     order, each part writes its int32 sums to ``part`` (S, NP, M, N)
+//     with NP the plane sets, and the last part of a (column, row) tile to
+//     arrive, found with an atomic counter that it resets to 0, adds the S
+//     parts in part order and applies the epilogue: one launch a product.
+//     With S = 1 the block applies it in place;
 //   * the epilogues (bitplane_core.cuh's expressions, so that Y is bitwise
 //     the plain version's and the tensor-core branch's): kEpiBias, + b
 //     [PReLU]; kEpiBiasRmax, the same written to y, then the row's absmax
@@ -63,10 +74,14 @@
 //     int bits of |y| (a warp's 32 threads hold 32 consecutive columns of
 //     one row of the block's output map), by the block that folds (or the
 //     S = 1 block) only, so rmax is the max over all N columns of the
-//     finished sums; kEpiScaleBias, acc * (scale * gamma0) + b [PReLU]
-//     with rounded multiplies and adds and no FMA, as the plain version;
-//   * M-tiles of 4, 8 and 16 rows (grid y holds more row tiles above 16),
-//     each lane holding 4 x MT accumulators.
+//     finished sums; kEpiSwiglu, epi_swiglu of the two sets' sums (f64
+//     sigmoid rounded once) with the row scale sx and the two gammas,
+//     written to y, its row absmax folded as kEpiBiasRmax folds it;
+//     kEpiScale, acc * (scale * gamma0); kEpiScaleBias, acc * (scale *
+//     gamma0) + b [PReLU]; rounded multiplies and adds and no FMA, as the
+//     plain version;
+//   * M-tiles of 4, 8 and 16 rows (grid y holds more row tiles above 16;
+//     two plane sets: 4 and 8), each lane holding NP x 4 x MT accumulators.
 // Any geometry the container can have: tile_n not a multiple of 4, or a
 // plane not 4-byte aligned, takes byte loads (VEC false); columns past N,
 // rows past M and activations past K stage or load as zeros.
@@ -75,8 +90,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bitplane_core.cuh"   // stage_value, epi_bias, requant_scale, abs_bits,
-                               // cdiv, the stages and epilogues
+#include <type_traits>
+
+#include "bitplane_core.cuh"   // stage_value, the epi_*, requant_scale,
+                               // abs_bits, cdiv, the stages and epilogues
 #include "ternary4.cuh"        // ternary4, times32
 
 namespace ternary {
@@ -89,6 +106,18 @@ constexpr int kCols = 32 * kColsLane;       // columns a block
 constexpr int kBatch = 4;                   // byte-rows a register set (two sets)
 constexpr int kXWords = 8192;               // shared words: staged X, then sums
 constexpr int kRedRows = kXWords / (kWarps * kCols);   // rows a reduction pass
+constexpr int kBatch2 = kBatch / 2;         // byte-rows a set, two plane sets
+
+// weight plane sets a block walks: the SwiGLU's gate and up two, else one
+template <int EPI>
+__host__ __device__ constexpr int wplanes() { return EPI == kEpiSwiglu ? 2 : 1; }
+
+// blocks an SM (__launch_bounds__) by the accumulators: one plane set 4 at
+// MT = 4 (64 registers), 3 at 8, 2 at 16; two plane sets 2 (128 registers)
+template <int MT, int EPI>
+__host__ __device__ constexpr int min_blocks() {
+  return wplanes<EPI>() == 2 ? 2 : (MT == 4 ? 4 : (MT == 8 ? 3 : 2));
+}
 
 // X planes a rule stages: i8 two (hi, lo), x8 one
 template <int STAGE>
@@ -115,8 +144,22 @@ struct Args {
   int* counters;            // S > 1: one a (column, row) tile, 0 between calls
   const int* rmax_in;       // kStageRequant / kEpiScaleBias: (M,) row absmax bits
   int* rmax_out;            // kEpiBiasRmax: (M,) row absmax bits, pre-zeroed
-  float gamma0;             // kEpiScaleBias: the output scale's gamma
+  float gamma0;             // kEpiScale(Bias): the output scale's gamma;
+                            // kEpiSwiglu: the gate's
 };
+
+// kEpiSwiglu's arguments: Args (``plane`` the gate's) and the second plane
+// set's. A struct of its own: three more fields in Args itself changed the
+// machine code of every one-set body, though none reads them
+struct Args2 : Args {
+  const uint8_t* plane1;    // the up projection's plane, plane's geometry
+  const float* sx;          // (M,) row scales of X
+  float gamma1;             // the up projection's gamma
+};
+
+// A body's arguments: Args2 for two plane sets, else Args
+template <int EPI>
+using KArgs = typename std::conditional<wplanes<EPI>() == 2, Args2, Args>::type;
 
 // The byte-rows of one warp in walk order: walk index w = kb*tkb + t, the
 // warp's next one kWarps on.
@@ -164,6 +207,29 @@ __device__ __forceinline__ void load_batch(uint32_t p[kBatch], uint32_t q[kBatch
       const size_t off = it.next(a, kb_stride);
       p[r] = load_word<VEC>(a.plane, off, col_off);
       q[r] = load_word<VEC>(a.plane, off + neg, col_off);
+    }
+  }
+}
+
+// Two plane sets: rows i0 .. i0 + kBatch2 - 1 of the warp (those below
+// cnt), the gate's pos and neg words into p[0], q[0] and the up
+// projection's at the same offsets into p[1], q[1].
+template <bool VEC>
+__device__ __forceinline__ void load_batch2(uint32_t p[2][kBatch2],
+                                            uint32_t q[2][kBatch2], int i0,
+                                            int cnt, RowIter& it,
+                                            const Args2& a, size_t kb_stride,
+                                            size_t neg,
+                                            const long long col_off[kColsLane]) {
+#pragma unroll
+  for (int r = 0; r < kBatch2; ++r) {
+    p[0][r] = q[0][r] = p[1][r] = q[1][r] = 0u;
+    if (i0 + r < cnt) {
+      const size_t off = it.next(a, kb_stride);
+      p[0][r] = load_word<VEC>(a.plane, off, col_off);
+      q[0][r] = load_word<VEC>(a.plane, off + neg, col_off);
+      p[1][r] = load_word<VEC>(a.plane1, off, col_off);
+      q[1][r] = load_word<VEC>(a.plane1, off + neg, col_off);
     }
   }
 }
@@ -224,32 +290,85 @@ __device__ __forceinline__ void consume(const uint32_t p[kBatch],
   }
 }
 
+// Two plane sets over one X plane: consume rows i0 .. of the warp, each
+// staged word of X feeding the gate's sums acc[0] and the up projection's
+// acc[1] (the words' bytes and nibbles as consume takes them).
+template <int MT>
+__device__ __forceinline__ void consume2(const uint32_t p[2][kBatch2],
+                                         const uint32_t q[2][kBatch2], int i0,
+                                         int cnt, int warp, const int* xs,
+                                         int (&acc)[2][kColsLane][MT]) {
+  constexpr int RW = 2 * MT;   // one X plane
+#pragma unroll
+  for (int r = 0; r < kBatch2; ++r) {
+    if (i0 + r >= cnt) break;
+    const int* xr = xs + (warp + kWarps * (i0 + r)) * RW;
+    uint32_t w[2][kColsLane][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < kColsLane; ++c) {
+        const uint32_t pb = (p[s][r] >> (8 * c)) & 0xFFu;
+        const uint32_t nb = (q[s][r] >> (8 * c)) & 0xFFu;
+        w[s][c][0] = ternary4(pb & 15u, nb & 15u);
+        w[s][c][1] = ternary4(pb >> 4, nb >> 4);
+      }
+    // an int4: (m, low), (m, high), (m + 1, low), (m + 1, high)
+#pragma unroll
+    for (int m = 0; m < MT; m += 2) {
+      const int4 xv = *reinterpret_cast<const int4*>(xr + 2 * m);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int c = 0; c < kColsLane; ++c) {
+          acc[s][c][m] = __dp4a((int)w[s][c][0], xv.x, acc[s][c][m]);
+          acc[s][c][m] = __dp4a((int)w[s][c][1], xv.y, acc[s][c][m]);
+          acc[s][c][m + 1] = __dp4a((int)w[s][c][0], xv.z, acc[s][c][m + 1]);
+          acc[s][c][m + 1] = __dp4a((int)w[s][c][1], xv.w, acc[s][c][m + 1]);
+        }
+    }
+  }
+}
+
 __device__ __forceinline__ int pack4(const int v[4]) {
   return (int)((uint32_t)(v[0] & 0xFF) | (uint32_t)(v[1] & 0xFF) << 8 |
                (uint32_t)(v[2] & 0xFF) << 16 | (uint32_t)(v[3] & 0xFF) << 24);
 }
 
-// Element (gm, gc) of the output from its int32 sum ``acc`` by the FFN's
-// epilogues. kEpiBias stays inline where it is stored, so that the x8 and
-// i8 bodies compile as they did before these epilogues. The whole warp
-// calls it: kEpiBiasRmax reduces the row's |y| bits over its 32 columns.
+// Element (gm, gc) of the output from its int32 sum ``acc`` (kEpiSwiglu:
+// the gate's, ``acc_u`` the up projection's) by the FFNs' epilogues.
+// kEpiBias stays inline where it is stored, so that the x8 and i8 bodies
+// compile as they did before these epilogues. The whole warp calls it:
+// kEpiBiasRmax and kEpiSwiglu reduce the row's |y| bits over its 32
+// columns.
 template <int EPI>
-__device__ __forceinline__ void store_ffn(const Args& a, int acc, int gm,
-                                          int gc, bool col_ok, int lane) {
+__device__ __forceinline__ void store_ffn(const KArgs<EPI>& a, int acc,
+                                          int acc_u, int gm, int gc,
+                                          bool col_ok, int lane) {
   const bool ok = col_ok && gm < a.M;
-  if constexpr (EPI == kEpiBiasRmax) {
+  if constexpr (EPI == kEpiBiasRmax || EPI == kEpiSwiglu) {
     float hv = 0.0f;
     if (ok) {
-      hv = epi_bias((float)acc, a.bias, a.alpha, gc);
+      if constexpr (EPI == kEpiSwiglu)
+        hv = epi_swiglu((float)acc, (float)acc_u, a.sx[gm], a.gamma0, a.gamma1);
+      else
+        hv = epi_bias((float)acc, a.bias, a.alpha, gc);
       a.y[(size_t)gm * a.N + gc] = hv;
     }
     const int bits = __reduce_max_sync(0xffffffffu, abs_bits(hv));
     if (lane == 0 && gm < a.M) atomicMax(a.rmax_out + gm, bits);
+  } else if constexpr (EPI == kEpiScale) {
+    // ops/fused_ffn.py:378-381 of the JAX package: acc * (((rmax + eps) /
+    // 127) * gamma_down), two rounded products
+    if (ok)
+      a.y[(size_t)gm * a.N + gc] = epi_scale((float)acc,
+                                             requant_scale(a.rmax_in, gm),
+                                             a.gamma0);
   } else {
     // ops/fused_ffn.py:189-191 of the JAX package: acc * (((rmax + eps) /
     // 127) * gamma) + b, then PReLU; rounded products and sums, never one
     // FMA, so that the card rounds twice as the plain version does
-    static_assert(EPI == kEpiScaleBias, "the FFN's epilogues");
+    static_assert(EPI == kEpiScaleBias, "the FFNs' epilogues");
     if (ok) {
       const float rs = requant_scale(a.rmax_in, gm);
       float yv = __fadd_rn(__fmul_rn((float)acc, __fmul_rn(rs, a.gamma0)),
@@ -261,11 +380,14 @@ __device__ __forceinline__ void store_ffn(const Args& a, int acc, int gm,
 }
 
 // One block: kCols columns x MT rows of Y over part blockIdx.z of the walk
-// (the file's note). Blocks an SM by the accumulators: 4 at MT = 4 (64
-// registers), 3 at 8, 2 at 16.
+// (the file's note), min_blocks an SM. The one-plane-set bodies read as
+// they did before the second set: its code sits under ``NP == 2``.
 template <int MT, int STAGE, int EPI, bool VEC>
-__global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
-    gemv_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, min_blocks<MT, EPI>())
+    gemv_kernel(const KArgs<EPI> a) {
+  constexpr int NP = wplanes<EPI>();
+  static_assert(NP == 1 || (MT <= 8 && planes<STAGE>() == 1),
+                "two plane sets: M-tiles 4 and 8, one X plane");
   constexpr int NA = planes<STAGE>();
   constexpr int RW = row_words<MT, STAGE>();
   constexpr int G = 2 * MT;                 // (row, half) groups a byte-row
@@ -304,8 +426,14 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
     it.t = w0 + warp - it.kb * a.tkb;
   }
   uint32_t p0[kBatch], q0[kBatch], p1[kBatch], q1[kBatch];
-  load_batch<VEC>(p0, q0, 0, cnt, it, a, kb_stride, neg, col_off);
-  load_batch<VEC>(p1, q1, kBatch, cnt, it, a, kb_stride, neg, col_off);
+  uint32_t g0[2][kBatch2], h0[2][kBatch2], g1[2][kBatch2], h1[2][kBatch2];
+  if constexpr (NP == 1) {
+    load_batch<VEC>(p0, q0, 0, cnt, it, a, kb_stride, neg, col_off);
+    load_batch<VEC>(p1, q1, kBatch, cnt, it, a, kb_stride, neg, col_off);
+  } else {
+    load_batch2<VEC>(g0, h0, 0, cnt, it, a, kb_stride, neg, col_off);
+    load_batch2<VEC>(g1, h1, kBatch2, cnt, it, a, kb_stride, neg, col_off);
+  }
 
   // X staged once: thread tid stages row m, half h of byte-rows tid / G,
   // + RSTEP, ...; its four activations k .. k + 3 of the block's dense
@@ -313,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
   // loads before its stores
   {
     const int m = (tid % G) >> 1, h = tid & 1, gm = m0 + m;
-    float scale = 1.0f;   // the x8 and i8 rules take none
+    float scale = 1.0f;   // the x8, i8 and truncating rules take none
     if constexpr (STAGE == kStageRequant) {
       if (gm < a.M) scale = requant_scale(a.rmax_in, gm);
     }
@@ -369,15 +497,45 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
   for (int c = 0; c < kColsLane; ++c)
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[c][m] = 0;
-  for (int i0 = 0; i0 < cnt; i0 += 2 * kBatch) {
-    consume<MT, STAGE>(p0, q0, i0, cnt, warp, xs, acc);
-    if (i0 + 2 * kBatch < cnt)
-      load_batch<VEC>(p0, q0, i0 + 2 * kBatch, cnt, it, a, kb_stride, neg, col_off);
-    if (i0 + kBatch < cnt) {
-      consume<MT, STAGE>(p1, q1, i0 + kBatch, cnt, warp, xs, acc);
-      if (i0 + 3 * kBatch < cnt)
-        load_batch<VEC>(p1, q1, i0 + 3 * kBatch, cnt, it, a, kb_stride, neg, col_off);
+  if constexpr (NP == 1) {
+    for (int i0 = 0; i0 < cnt; i0 += 2 * kBatch) {
+      consume<MT, STAGE>(p0, q0, i0, cnt, warp, xs, acc);
+      if (i0 + 2 * kBatch < cnt)
+        load_batch<VEC>(p0, q0, i0 + 2 * kBatch, cnt, it, a, kb_stride, neg, col_off);
+      if (i0 + kBatch < cnt) {
+        consume<MT, STAGE>(p1, q1, i0 + kBatch, cnt, warp, xs, acc);
+        if (i0 + 3 * kBatch < cnt)
+          load_batch<VEC>(p1, q1, i0 + 3 * kBatch, cnt, it, a, kb_stride, neg, col_off);
+      }
     }
+  }
+  // NP == 2: the gate's sums in acc, the up projection's in acc_u
+  int acc_u[kColsLane][MT];
+  if constexpr (NP == 2) {
+    int acc2[2][kColsLane][MT];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int c = 0; c < kColsLane; ++c)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) acc2[s][c][m] = 0;
+    for (int i0 = 0; i0 < cnt; i0 += 2 * kBatch2) {
+      consume2<MT>(g0, h0, i0, cnt, warp, xs, acc2);
+      if (i0 + 2 * kBatch2 < cnt)
+        load_batch2<VEC>(g0, h0, i0 + 2 * kBatch2, cnt, it, a, kb_stride, neg, col_off);
+      if (i0 + kBatch2 < cnt) {
+        consume2<MT>(g1, h1, i0 + kBatch2, cnt, warp, xs, acc2);
+        if (i0 + 3 * kBatch2 < cnt)
+          load_batch2<VEC>(g1, h1, i0 + 3 * kBatch2, cnt, it, a, kb_stride, neg, col_off);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kColsLane; ++c)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        acc[c][m] = acc2[0][c][m];
+        acc_u[c][m] = acc2[1][c][m];
+      }
   }
 
   // the 8 warps' sums, added in warp order, RG rows a pass; thread tid
@@ -405,6 +563,27 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
       out[pass][e] = s;
     }
   }
+  int out_u[PASSES][EPT];   // NP == 2: the up projection's, the same map
+  if constexpr (NP == 2) {
+#pragma unroll
+    for (int pass = 0; pass < PASSES; ++pass) {
+      __syncthreads();
+#pragma unroll
+      for (int mm = 0; mm < RG; ++mm)
+        *reinterpret_cast<int4*>(xs + (warp * RG + mm) * kCols + kColsLane * lane) =
+            make_int4(acc_u[0][pass * RG + mm], acc_u[1][pass * RG + mm],
+                      acc_u[2][pass * RG + mm], acc_u[3][pass * RG + mm]);
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int i = tid + e * kThreads;
+        int s = 0;
+#pragma unroll
+        for (int wp = 0; wp < kWarps; ++wp) s += xs[wp * RG * kCols + i];
+        out_u[pass][e] = s;
+      }
+    }
+  }
 
   const int cl = tid % kCols, gc = blockIdx.x * kCols + cl;
   const bool col_ok = gc < a.N;
@@ -419,7 +598,8 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
             a.y[(size_t)gm * a.N + gc] = epi_bias((float)out[pass][e], a.bias,
                                                   a.alpha, gc);
         } else {
-          store_ffn<EPI>(a, out[pass][e], gm, gc, col_ok, lane);
+          store_ffn<EPI>(a, out[pass][e], NP == 2 ? out_u[pass][e] : 0, gm,
+                         gc, col_ok, lane);
         }
       }
     return;
@@ -429,8 +609,13 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       const int gm = m0 + pass * RG + (tid + e * kThreads) / kCols;
-      if (col_ok && gm < a.M)
-        a.part[((size_t)blockIdx.z * a.M + gm) * a.N + gc] = out[pass][e];
+      if (col_ok && gm < a.M) {
+        // (S, NP, M, N): part z's set s at plane z * NP + s
+        a.part[((size_t)blockIdx.z * NP * a.M + gm) * a.N + gc] = out[pass][e];
+        if constexpr (NP == 2)
+          a.part[(((size_t)blockIdx.z * NP + 1) * a.M + gm) * a.N + gc] =
+              out_u[pass][e];
+      }
     }
   // the last part of this tile to arrive folds the S parts
   __threadfence();
@@ -443,11 +628,11 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  int sum[PASSES][EPT];
+  int sum[PASSES][EPT], sum_u[PASSES][EPT];
 #pragma unroll
   for (int pass = 0; pass < PASSES; ++pass)
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) sum[pass][e] = 0;
+    for (int e = 0; e < EPT; ++e) sum[pass][e] = sum_u[pass][e] = 0;
   const size_t plane_mn = (size_t)a.M * a.N;
 #pragma unroll 4
   for (int z = 0; z < S; ++z)
@@ -456,8 +641,11 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
 #pragma unroll
       for (int e = 0; e < EPT; ++e) {
         const int gm = m0 + pass * RG + (tid + e * kThreads) / kCols;
-        if (col_ok && gm < a.M)
-          sum[pass][e] += __ldcg(a.part + z * plane_mn + (size_t)gm * a.N + gc);
+        if (col_ok && gm < a.M) {
+          const int* pz = a.part + z * NP * plane_mn + (size_t)gm * a.N + gc;
+          sum[pass][e] += __ldcg(pz);
+          if constexpr (NP == 2) sum_u[pass][e] += __ldcg(pz + plane_mn);
+        }
       }
 #pragma unroll
   for (int pass = 0; pass < PASSES; ++pass)
@@ -469,16 +657,19 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 4 : (MT == 8 ? 3 : 2))
           a.y[(size_t)gm * a.N + gc] = epi_bias((float)sum[pass][e], a.bias,
                                                 a.alpha, gc);
       } else {
-        store_ffn<EPI>(a, sum[pass][e], gm, gc, col_ok, lane);
+        store_ffn<EPI>(a, sum[pass][e], sum_u[pass][e], gm, gc, col_ok,
+                       lane);
       }
     }
 }
 
 template <int MT, int STAGE, int EPI>
-int launch_tile(const Args& a, int parts, cudaStream_t stream) {
+int launch_tile(const KArgs<EPI>& a, int parts, cudaStream_t stream) {
   const dim3 grid(cdiv(a.N, kCols), cdiv(a.M, MT), parts);
-  const bool vec = a.tile_n % kColsLane == 0 &&
-                   reinterpret_cast<uintptr_t>(a.plane) % kColsLane == 0;
+  bool vec = a.tile_n % kColsLane == 0 &&
+             reinterpret_cast<uintptr_t>(a.plane) % kColsLane == 0;
+  if constexpr (wplanes<EPI>() == 2)
+    vec = vec && reinterpret_cast<uintptr_t>(a.plane1) % kColsLane == 0;
   if (cdiv(a.nb * a.tkb, parts) > part_max<MT, STAGE>())
     return (int)cudaErrorInvalidValue;   // a part's X would not fit
   if (vec)
@@ -490,13 +681,17 @@ int launch_tile(const Args& a, int parts, cudaStream_t stream) {
 
 // Y = STAGE(X) . W, then EPI (default + b [PReLU]), as ``parts`` parts of
 // the walk (1: no scratch, no counters), the smallest M-tile that holds M
-// (row tiles of 16 above 16 rows).
+// (row tiles of 16 above 16 rows; two plane sets: of 8 above 8 rows).
 template <int STAGE, int EPI = kEpiBias>
-int run(const Args& a, int parts, cudaStream_t stream) {
+int run(const KArgs<EPI>& a, int parts, cudaStream_t stream) {
   if (parts < 1) return (int)cudaErrorInvalidValue;
   if (a.M <= 4) return launch_tile<4, STAGE, EPI>(a, parts, stream);
-  if (a.M <= 8) return launch_tile<8, STAGE, EPI>(a, parts, stream);
-  return launch_tile<16, STAGE, EPI>(a, parts, stream);
+  if constexpr (wplanes<EPI>() == 2) {
+    return launch_tile<8, STAGE, EPI>(a, parts, stream);
+  } else {
+    if (a.M <= 8) return launch_tile<8, STAGE, EPI>(a, parts, stream);
+    return launch_tile<16, STAGE, EPI>(a, parts, stream);
+  }
 }
 
 }  // namespace gemv

@@ -22,45 +22,50 @@
 // Rows are independent, so there is no M <= 128 limit.
 //
 // Two entry points split by M (the wrapper's SWIGLU_MMA_MIN_M), with the
-// same contract and the same bits: ternary_swiglu, the decode kernel of
-// bitplane_core.cuh, for small M; ternary_swiglu_mma, the int8 tensor-core
-// core of bitplane_mma.cuh, above it.
+// same contract and the same bits: ternary_swiglu, the streaming split-K
+// decode body of gemv_core.cuh, for small M; ternary_swiglu_mma, the int8
+// tensor-core core of bitplane_mma.cuh, above it.
 //
-// ternary_swiglu runs each phase as a split walk of S parts
-// (bitplane_core.cuh launch_split): at decode's M = 4 and 7B width phase 2
-// is 128 blocks each walking 44 chunks in series (phase 1 344 blocks of
-// 16), which leaves most of the card's block slots empty. Part s of S
-// takes a contiguous 1/S of the (K-block, chunk) walk as a third grid
-// dimension and writes its int32 sums (both planes in phase 1) to the (S,
-// NP, M, N) buffer ``part``; a finishing kernel a phase adds the S parts
-// in order (exact integers) and applies the phase's epilogue, the
-// expressions above, so y, h and rmax keep their bits for every S. The
-// wrapper computes S1 and S2 from the grid and the card's SMs
-// (ops/fused_ffn.py split_parts); S = 1 is the unsplit kernel, its
-// epilogue in place, with no finishing kernel.
+// ternary_swiglu makes three launches on one stream: the memset of rmax;
+// phase 1 on two plane sets a block (gate and up: a lane loads both
+// planes' words of a byte-row, each staged xq word feeds both accumulator
+// sets; xq staged once a block by the truncating rule, one int8 plane;
+// M-tiles of 4 and 8 rows) with the epilogue kEpiSwiglu; phase 2, the
+// requantizing rule kStageRequant with kEpiScale. Each phase's byte-row
+// walk is split into ``parts1`` / ``parts2`` parts (ops/fused_ffn.py
+// gemv_parts, grid z), so that the column tiles fill the card; the last
+// part of a tile to arrive adds the parts' int32 sums ((S, 2, M, N1) in
+// phase 1) in part order, exact, and applies the epilogue, so y, h and
+// rmax keep their bits for every S and rmax is the max over all N1
+// finished columns. The two phases share the scratch and the counters:
+// phase 1's folding blocks leave the counters at 0 before phase 2 runs.
 //
 // ternary_swiglu_mma makes four launches on one stream: the memset of
 // rmax; the truncating pre-pass of xq into an int8 scratch and the
 // gate-and-up product (two accumulator sets) with the silu-mul epilogue;
 // the requantizing pre-pass of h into a second int8 scratch (it reads the
-// rmax the product left); the down product with the scale epilogue. Its integer sums are exact and its epilogues are the
-// decode kernel's expressions, so y, h and rmax are bitwise equal between
-// the two.
+// rmax the product left); the down product with the scale epilogue. Its
+// integer sums are exact and its epilogues are the decode body's
+// expressions (bitplane_core.cuh, epi_*), so y, h and rmax are bitwise
+// equal between the two.
 //
-// What bounds it: see bitplane_core.cuh; phase 1 decodes two planes per
-// staged activation, and the hidden round trip through L2 costs 8 bytes per
-// hidden element against ~1.3 KB of plane bytes per hidden column; the
-// split's partial sums another 4 * S * NP bytes per output element, in L2.
+// What bounds it: the plane bytes, 2 bits a weight at 3.35 TB/s (gate, up
+// and down 33.8 MB at 7B width: 10.1 us), under the decode body's floor a
+// launch (gemv_core.cuh) at decode; the hidden round trip through L2 costs
+// 8 bytes a hidden element against ~1.3 KB of plane bytes a hidden column,
+// the split's partial sums another 4 * S * NP bytes an output element, in
+// L2.
 //
 // Returns cudaGetLastError(); the Python wrapper raises on anything but 0.
 
-#include "bitplane_core.cuh"
 #include "bitplane_mma.cuh"
+#include "gemv_core.cuh"
 
 namespace {
 
-// Both entry points' two products: gate and up over xq into h, with the row
-// absmax into rmax (p1); down over h requantized by rmax into y (p2).
+// The tensor-core entry point's two products: gate and up over xq into h,
+// with the row absmax into rmax (p1); down over h requantized by rmax into
+// y (p2).
 void swiglu_args(const float* xq, const float* sx, int M, int K,
                  const uint8_t* plane_gate, const uint8_t* plane_up, int nb1,
                  int gn1, int tkb1, int tile_n1, int N1,
@@ -88,8 +93,9 @@ void swiglu_args(const float* xq, const float* sx, int M, int K,
 }  // namespace
 
 // ``part``: int32 scratch of max(parts1 * 2 * M * N1, parts2 * M * N2)
-// elements for the split walks' sums (unread where both are 1); ``parts1``,
-// ``parts2``: the parts S of phase 1 and phase 2, each in 1..its walk
+// elements (null when both are 1); ``counters``: one int32 a (column
+// tile, row tile) of the larger phase, zero, left zero; ``parts1``,
+// ``parts2``: the parts S of phase 1 and phase 2
 extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
                               const uint8_t* plane_gate,
                               const uint8_t* plane_up, int nb1, int gn1,
@@ -98,20 +104,33 @@ extern "C" int ternary_swiglu(const float* xq, const float* sx, int M, int K,
                               int tkb2, int tile_n2, int N2,
                               float gamma_gate, float gamma_up,
                               float gamma_down, float* h, int* rmax,
-                              float* y, void* stream, int* part, int parts1,
-                              int parts2) {
+                              float* y, void* stream, int* part,
+                              int* counters, int parts1, int parts2) {
+  namespace gemv = ternary::gemv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = (int)cudaMemsetAsync(rmax, 0, sizeof(int) * (size_t)M, s);
   if (err != 0) return err;
-  ternary::Args p1, p2;
-  swiglu_args(xq, sx, M, K, plane_gate, plane_up, nb1, gn1, tkb1, tile_n1, N1,
-              plane_down, nb2, gn2, tkb2, tile_n2, N2, gamma_gate, gamma_up,
-              gamma_down, h, rmax, y, &p1, &p2);
-  err = ternary::launch_split<ternary::kStageTrunc, 2, ternary::kEpiSwiglu>(
-      p1, part, parts1, s);
+
+  gemv::Args2 p1{};
+  p1.x = xq; p1.M = M; p1.K = K;
+  p1.plane = plane_gate; p1.plane1 = plane_up;
+  p1.nb = nb1; p1.gn = gn1; p1.tkb = tkb1; p1.tile_n = tile_n1; p1.N = N1;
+  p1.sx = sx; p1.gamma0 = gamma_gate; p1.gamma1 = gamma_up;
+  p1.y = h;
+  p1.part = part; p1.counters = counters;
+  p1.rmax_out = rmax;
+  err = gemv::run<ternary::kStageTrunc, ternary::kEpiSwiglu>(p1, parts1, s);
   if (err != 0) return err;
-  return ternary::launch_split<ternary::kStageRequant, 1, ternary::kEpiScale>(
-      p2, part, parts2, s);
+
+  gemv::Args p2{};
+  p2.x = h; p2.M = M; p2.K = N1;
+  p2.plane = plane_down;
+  p2.nb = nb2; p2.gn = gn2; p2.tkb = tkb2; p2.tile_n = tile_n2; p2.N = N2;
+  p2.gamma0 = gamma_down;
+  p2.y = y;
+  p2.part = part; p2.counters = counters;
+  p2.rmax_in = rmax;
+  return gemv::run<ternary::kStageRequant, ternary::kEpiScale>(p2, parts2, s);
 }
 
 // ``xq8``: int8 scratch of M x (nb1 * 2 * round_up(4*tkb1, 128)) bytes for

@@ -70,9 +70,9 @@ SIGNATURES = {
     "ternary_tiled_ell_f32": _ELL,
     "ternary_ell_deposit_i8": _ELL,
     "ternary_blocked_ell_f32": _ELL,
-    #: _SWIGLU, then the int32 scratch of the split walks' sums and the
-    #: parts of phase 1 and phase 2
-    "ternary_swiglu": [*_SWIGLU, _P, _I, _I],
+    #: _SWIGLU, then the split-K parts' int32 scratch, the tiles' counters
+    #: and the parts of phase 1 and phase 2
+    "ternary_swiglu": [*_SWIGLU, _P, _P, _I, _I],
     #: _SWIGLU, then the int8 scratches for xq and for the requantized h
     "ternary_swiglu_mma": [*_SWIGLU, _P, _P],
     #: (x, M, K, plane1, nb1, gn1, tkb1, tile_n1, N1, b1/gamma1, alpha1,

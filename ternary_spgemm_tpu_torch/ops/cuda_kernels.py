@@ -494,21 +494,23 @@ def gemv_counters(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
 
 
 def gemv_plan(name: str, M: int, N: int, nb: int, tkb: int, planes: int,
-              dev: torch.device, parts=None) -> tuple:
+              dev: torch.device, parts=None, wplanes: int = 1) -> tuple:
     """(S, tiles) of one decode-body call: S the parts of its walk of ``nb
     * tkb`` byte-rows, ``ops.fused_ffn.gemv_parts``' or ``parts``, checked
     against the walk and the staged X (ValueError); tiles its (column,
-    row) tiles."""
+    row) tiles. ``wplanes``: the weight plane sets a block walks (the
+    SwiGLU's gate and up: 2)."""
     from ternary_spgemm_tpu_torch.ops import fused_ffn   # imports this module
 
     walk = nb * tkb
     S = parts if parts is not None else fused_ffn.gemv_parts(
-        M, N, nb, tkb, sm_count(dev), planes)
-    most = fused_ffn.gemv_part_max(M, planes)
+        M, N, nb, tkb, sm_count(dev), planes, wplanes)
+    most = fused_ffn.gemv_part_max(M, planes, wplanes)
     if not 1 <= S <= max(1, walk) or cdiv(walk, S) > most:
         raise ValueError(f"{name}: {S} parts of a walk of {walk} byte-rows "
                          f"(each part at most {most})")
-    return S, cdiv(N, fused_ffn.GEMV_COLS) * cdiv(M, fused_ffn.gemv_tile(M))
+    return S, cdiv(N, fused_ffn.GEMV_COLS) * cdiv(
+        M, fused_ffn.gemv_tile(M, wplanes))
 
 
 def _bitplane_lanes(name, entry, planes, X, fmt: TiledBitplane, bias, alpha,

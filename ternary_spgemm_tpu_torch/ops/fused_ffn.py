@@ -19,12 +19,11 @@ and the reference-epilogue PReLU FFN over integer activations |X| <= 512::
 :func:`fused_bitplane_swiglu` runs the first as one call of the CUDA kernel
 in ``csrc/swiglu.cu``, :func:`fused_bitplane_ffn` the second as one call of
 ``csrc/ffn.cu``; each makes two products (the up-projection with its
-epilogue and the row absmax, then the requantizing down projection; the
-SwiGLU's up to :data:`SWIGLU_MMA_MIN_M` rows each a split walk of
-:func:`split_parts` parts and a finishing kernel, above it on the int8
-tensor cores with a pre-pass before each product; the PReLU FFN's each one
-launch of ``csrc/gemv_core.cuh``'s streaming decode body, its walk split
-into :func:`gemv_parts` parts). On a
+epilogue and the row absmax, then the requantizing down projection), each
+one launch of ``csrc/gemv_core.cuh``'s streaming decode body, its walk
+split into :func:`gemv_parts` parts (the SwiGLU's gate and up on two plane
+sets in one launch); the SwiGLU above :data:`SWIGLU_MMA_MIN_M` rows on the
+int8 tensor cores instead, with a pre-pass before each product. On a
 CPU tensor each runs its plain version (:func:`swiglu_plain`,
 :func:`ffn_plain`), the same math in PyTorch with every op in the JAX
 order. silu is ``g * sigmoid(g)`` as ``jax.nn.silu`` writes it, with the
@@ -52,7 +51,6 @@ from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     stream_handle,
 )
 from ternary_spgemm_tpu_torch.utils import cdiv, round_up
-from ternary_spgemm_tpu_torch.utils.device import sm_count
 
 #: requantization constants shared by every path (the JAX values)
 _RQ_ABSMAX = 127.0
@@ -68,101 +66,86 @@ FFN_REFERENCE = "ternary_spgemm_tpu/ops/fused_ffn.py:229"
 #: the PReLU FFN's serving-M contract (JAX's; the SwiGLU has no row limit)
 SERVING_M = 128
 #: The SwiGLU's two branches split at M: up to this many rows of xq the
-#: decode kernel (``ternary_swiglu``, ``csrc/bitplane_core.cuh``, each
-#: phase a split walk of :func:`split_parts` parts), above it the int8
-#: tensor-core kernel (``ternary_swiglu_mma``, ``csrc/bitplane_mma.cuh``).
+#: decode branch (``ternary_swiglu``: both phases on ``csrc/gemv_core.cuh``,
+#: gate and up on two plane sets, each phase split into :func:`gemv_parts`
+#: parts), above it the int8 tensor-core kernel (``ternary_swiglu_mma``,
+#: ``csrc/bitplane_mma.cuh``).
 #: The crossover, measured by ``chip_smoke.py`` phase 3 at 4096 -> 11008 ->
-#: 4096 (NVIDIA H100 80GB HBM3, 700 W), decode vs tensor-core ms: M=4
-#: 0.1311 vs 0.2566, M=8 0.2100 vs 0.2585, M=16 0.4033 vs 0.2620, M=32
-#: 0.9231 vs 0.2668, M=64 1.7924 vs 0.2742, M=128 3.6957 vs 0.2946 (the
-#: unsplit decode kernel: M=4 0.2177, M=8 0.3394). So the split falls at 8
-#: rows; decode's M = 4 keeps the decode kernel.
-SWIGLU_MMA_MIN_M = 8
+#: 4096 (NVIDIA H100 80GB HBM3, 700.00 W), decode vs tensor-core ms: M=4
+#: 0.0538 vs 0.2582, M=8 0.0673 vs 0.2599, M=12 0.1308 vs 0.2621, M=16
+#: 0.1237 vs 0.2633, M=24 0.1787 vs 0.2647, M=32 0.1860 vs 0.2649, M=48
+#: 0.2492 vs 0.2694, M=64 0.3273 vs 0.2735, M=128 0.5846 vs 0.2941. So the
+#: split falls at 48 rows: decode's 4 rows and chunks of up to 12 tokens of
+#: 4 prompts take the decode branch, the serve's prefill the tensor cores.
+SWIGLU_MMA_MIN_M = 48
 #: launches of the SwiGLU's tensor-core branch (also counted under
 #: :data:`KERNEL_NAME`)
 SWIGLU_MMA_COUNT = f"{KERNEL_NAME}/mma"
-#: The decode branch's split walk (``csrc/bitplane_core.cuh``
-#: ``launch_split``): blocks of the decode kernel an SM holds at decode's
-#: M-tile of 4 rows (256 threads of 64 registers: the unsplit kernel's
-#: count, and the split kernel's cap), so a phase's blocks run in waves of
-#: ``SPLIT_BLOCKS_PER_SM * SMs``.
-SPLIT_BLOCKS_PER_SM = 4
-#: bitplane_core.cuh's geometry: output columns a block, byte-rows a chunk,
-#: and the M-tiles it launches (the smallest that holds M)
-_CORE_COLS, _CORE_CHUNK, _CORE_MT = 32, 32, (4, 8, 16, 32)
-
-
-def split_walk(nb: int, tkb: int) -> int:
-    """The chunks each block of the decode kernel walks in series over a
-    TiledBitplane of ``nb`` K-blocks of ``tkb`` byte-rows: ``nb *
-    cdiv(tkb, 32)``."""
-    return nb * cdiv(tkb, _CORE_CHUNK)
-
-
-def split_parts(M: int, N: int, nb: int, tkb: int, sms: int) -> int:
-    """S, the parts of one phase's split walk for ``M`` rows of X, ``N``
-    output columns, ``nb`` K-blocks of ``tkb`` byte-rows on a card of
-    ``sms`` SMs. Each block waits on its chunks in series, so a phase takes
-    about (waves of blocks) x (chunks a part + 1, the block's reduction
-    and writes costing about one chunk): S minimises ``cdiv(blocks * S,
-    slots) * (cdiv(W, S) + 1)`` over 1..W (:func:`split_walk`), the fewest
-    parts on a tie, with ``blocks = cdiv(N, 32) * cdiv(M, MT)`` and
-    ``slots = SPLIT_BLOCKS_PER_SM * sms``. At 7B width and M = 4 on 132
-    SMs: 3 for gate and up (344 blocks, 16 chunks: 2 waves of 6 against 1
-    of 16), 4 for down (128 blocks, 44 chunks: 1 wave of 11)."""
-    mt = next((t for t in _CORE_MT if M <= t), _CORE_MT[-1])
-    blocks = cdiv(N, _CORE_COLS) * cdiv(M, mt)
-    slots, walk = SPLIT_BLOCKS_PER_SM * sms, split_walk(nb, tkb)
-    return min(range(1, walk + 1),
-               key=lambda S: (cdiv(blocks * S, slots) * (cdiv(walk, S) + 1),
-                              S))
 
 
 #: ``csrc/gemv_core.cuh``, the decode body of the x8 and i8 bitplane
-#: kernels: output columns a block (four a lane), warps a block, byte-rows
-#: a warp's register set, its M-tiles (the smallest that holds M; row
-#: tiles of 16 above 16 rows) and the int32 words of staged X a block holds
+#: kernels and of both FFNs: output columns a block (four a lane), warps a
+#: block, byte-rows a warp's register set, its M-tiles (the smallest that
+#: holds M; row tiles of 16 above 16 rows) and the int32 words of staged X
+#: a block holds; with two plane sets (the SwiGLU's gate and up) M-tiles of
+#: 4 and 8 (row tiles of 8 above 8 rows) and half the byte-rows a set
 GEMV_COLS, GEMV_WARPS, GEMV_BATCH, GEMV_MT = 128, 8, 4, (4, 8, 16)
+GEMV_MT2 = (4, 8)
 GEMV_X_WORDS = 8192
 #: :func:`gemv_parts`' bounds: blocks an SM and parts, from phase 3's
-#: sweep of S (PERF.md §6: fuller waves of shorter parts lost)
+#: sweep of S (PERF.md §6: fuller waves of shorter parts lost); blocks an
+#: SM with two plane sets (the body's launch bound: 128 registers a thread)
 GEMV_SLOTS_PER_SM, GEMV_MAX_PARTS = 3, 8
+GEMV_SLOTS_PER_SM2 = 2
 
 
-def gemv_tile(M: int) -> int:
-    """The decode body's M-tile for ``M`` rows of X."""
-    return next((t for t in GEMV_MT if M <= t), GEMV_MT[-1])
+def gemv_tile(M: int, wplanes: int = 1) -> int:
+    """The decode body's M-tile for ``M`` rows of X over ``wplanes`` weight
+    plane sets (1, or the SwiGLU's gate and up: 2)."""
+    tiles = GEMV_MT if wplanes == 1 else GEMV_MT2
+    return next((t for t in tiles if M <= t), tiles[-1])
 
 
-def gemv_part_max(M: int, planes: int = 1) -> int:
+def gemv_part_max(M: int, planes: int = 1, wplanes: int = 1) -> int:
     """The most byte-rows a part of the decode body may take at ``M`` rows:
     its staged X (two halves of ``planes`` int8 words a row of the M-tile,
     x8 one plane, i8 two) fills :data:`GEMV_X_WORDS`."""
-    return GEMV_X_WORDS // (2 * planes * gemv_tile(M))
+    return GEMV_X_WORDS // (2 * planes * gemv_tile(M, wplanes))
 
 
 def gemv_parts(M: int, N: int, nb: int, tkb: int, sms: int,
-               planes: int = 1) -> int:
+               planes: int = 1, wplanes: int = 1) -> int:
     """S, the parts of the decode body's byte-row walk for ``M`` rows of X,
     ``N`` columns, ``nb`` K-blocks of ``tkb`` byte-rows on a card of
-    ``sms`` SMs (``planes``: the X rule's int8 planes, x8 1, i8 2), its
-    walk the ``nb * tkb`` byte-rows of the container: the
-    largest power of two up to :data:`GEMV_MAX_PARTS` whose ``tiles * S``
-    blocks fit :data:`GEMV_SLOTS_PER_SM` an SM (``tiles = cdiv(N, 128) *
-    cdiv(M, MT)``) and whose parts give each warp a whole register set
-    (``walk // S >= 8 * 4`` byte-rows); then at least the parts whose X
-    fits (:func:`gemv_part_max`), and 1. Phase 3's sweep (PERF.md §6)
-    found such S within 8% of the fastest at every measured shape: parts of
-    a whole number of the warps' register sets beat their neighbours, and
-    more than 8 parts (shorter walks, a longer fold) lost."""
-    tiles = cdiv(N, GEMV_COLS) * cdiv(M, gemv_tile(M))
+    ``sms`` SMs (``planes``: the X rule's int8 planes, x8 1, i8 2;
+    ``wplanes``: the weight plane sets, 2 for the SwiGLU's gate and up),
+    its walk the ``nb * tkb`` byte-rows of the container. One plane set:
+    the largest power of two up to :data:`GEMV_MAX_PARTS` whose ``tiles *
+    S`` blocks fit :data:`GEMV_SLOTS_PER_SM` an SM (``tiles = cdiv(N, 128)
+    * cdiv(M, MT)``) and whose parts give each warp a whole register set
+    (``walk // S >= 8 * 4`` byte-rows); two: the largest S up to 8, any
+    count, whose blocks fit one wave of :data:`GEMV_SLOTS_PER_SM2` an SM
+    and whose parts give each warp a whole set (16 byte-rows); then at
+    least the parts whose X fits (:func:`gemv_part_max`), and 1. Phase 3's
+    sweep (PERF.md §6) found such S within 8% of the fastest at every
+    measured shape: parts of a whole number of the warps' register sets
+    beat their neighbours, more than 8 parts (shorter walks, a longer fold)
+    lost, and with two plane sets 3 parts (one wave at 86 and 68 column
+    tiles) beat 4 (a second wave)."""
+    tiles = cdiv(N, GEMV_COLS) * cdiv(M, gemv_tile(M, wplanes))
     walk = nb * tkb
-    S = 1
-    while (2 * S <= GEMV_MAX_PARTS
-           and tiles * 2 * S <= GEMV_SLOTS_PER_SM * sms
-           and walk // (2 * S) >= GEMV_WARPS * GEMV_BATCH):
-        S *= 2
-    return max(S, cdiv(walk, gemv_part_max(M, planes)), 1)
+    rows = GEMV_WARPS * GEMV_BATCH // wplanes
+    if wplanes == 2:
+        S = max((s for s in range(1, GEMV_MAX_PARTS + 1)
+                 if tiles * s <= GEMV_SLOTS_PER_SM2 * sms
+                 and walk // s >= rows), default=1)
+    else:
+        S = 1
+        while (2 * S <= GEMV_MAX_PARTS
+               and tiles * 2 * S <= GEMV_SLOTS_PER_SM * sms
+               and walk // (2 * S) >= rows):
+            S *= 2
+    return max(S, cdiv(walk, gemv_part_max(M, planes, wplanes)), 1)
 
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -267,8 +250,10 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
                 gamma_down: float = 1.0, parts: tuple = None):
     """One call of the decode (``mma`` False) or the tensor-core branch ->
     ``(y, h, rmax)``, as :func:`swiglu_launch`. The decode branch splits
-    each phase's walk into :func:`split_parts` parts, or into ``parts`` =
-    (S1, S2) where a test or a timing asks for others."""
+    each phase's byte-row walk into :func:`gemv_parts` parts (phase 1 on
+    two plane sets, both phases' X one int8 plane), or into ``parts`` =
+    (S1, S2) where a test or a timing asks for others (ValueError before
+    any launch for parts the walk or the staged X does not allow)."""
     dev = xq.device
     if dev.type != "cuda":
         raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
@@ -287,6 +272,7 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
     y = torch.empty((M, N2), dtype=torch.float32, device=dev)
     if M == 0:
         return y, h, rmax.view(torch.float32)
+    stream = stream_handle(dev)
     # held until the launches are queued
     if mma:
         entry = "ternary_swiglu_mma"
@@ -295,17 +281,18 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
         extra = [t.data_ptr() for t in scratch]
     else:
         entry = "ternary_swiglu"
-        s1, s2 = parts or (
-            split_parts(M, N1, pg.shape[0], fmt_gate.tkb, sm_count(dev)),
-            split_parts(M, N2, pd.shape[0], fmt_down.tkb, sm_count(dev)))
-        for p, f, w in ((s1, fmt_gate, pg), (s2, fmt_down, pd)):
-            if not 1 <= p <= split_walk(w.shape[0], f.tkb):
-                raise ValueError(f"{KERNEL_NAME}: {p} parts of a walk of "
-                                 f"{split_walk(w.shape[0], f.tkb)} chunks")
-        scratch = torch.empty(max(s1 * 2 * M * N1, s2 * M * N2)
-                              if max(s1, s2) > 1 else 0,
-                              dtype=torch.int32, device=dev)
-        extra = [scratch.data_ptr() or None, s1, s2]
+        (s1, t1), (s2, t2) = (
+            gemv_plan(KERNEL_NAME, M, f.N, w.shape[0], f.tkb, 1, dev, p,
+                      wplanes=sets)
+            for f, w, sets, p in zip((fmt_gate, fmt_down), (pg, pd), (2, 1),
+                                     parts or (None, None)))
+        part = counters = None
+        if max(s1, s2) > 1:
+            part = torch.empty(max(s1 * 2 * M * N1, s2 * M * N2),
+                               dtype=torch.int32, device=dev)
+            counters = gemv_counters(dev, stream, max(t1, t2))
+        extra = [None if t is None else t.data_ptr()
+                 for t in (part, counters)] + [s1, s2]
     err = getattr(_build.load(), entry)(
         xq.data_ptr(), sx.data_ptr(), M, K,
         pg.data_ptr(), pu.data_ptr(), pg.shape[0], pg.shape[1],
@@ -313,8 +300,7 @@ def _swiglu_run(mma: bool, xq, sx, fmt_gate, fmt_up, fmt_down, *,
         pd.data_ptr(), pd.shape[0], pd.shape[1], fmt_down.tkb,
         fmt_down.tile_n, N2,
         float(gamma_gate), float(gamma_up), float(gamma_down),
-        h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream_handle(dev),
-        *extra)
+        h.data_ptr(), rmax.data_ptr(), y.data_ptr(), stream, *extra)
     _build.check(err, entry)
     # counted where it is launched or captured, not at a graph's replay
     # (``ops.cuda_kernels.launches``)
@@ -328,7 +314,7 @@ def _swiglu_lanes(xq, sx, fmt_gate, fmt_up, fmt_down, *, parts=None,
                   **gammas):
     """The decode branch of the SwiGLU kernel at any M; ``parts`` = (S1,
     S2) splits its phases' walks into other parts than
-    :func:`split_parts`' (``(1, 1)``: the unsplit kernel)."""
+    :func:`gemv_parts`' (``(1, 1)``: unsplit, no scratch, no counters)."""
     return _swiglu_run(False, xq, sx, fmt_gate, fmt_up, fmt_down,
                        parts=parts, **gammas)
 

@@ -3,6 +3,7 @@
 int``::
 
     python -m ternary_spgemm_tpu_torch.tools.ffn_bench        [--device cpu]
+    python -m ternary_spgemm_tpu_torch.tools.swiglu_bench     [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.membench         [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.decode_roofline  [--device cpu]
     python -m ternary_spgemm_tpu_torch.tools.deposit_study    [--device cpu]

@@ -49,6 +49,7 @@ tkb variants bitwise, the traces holding the card's kernel records.
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -934,40 +935,94 @@ def test_swiglu_branches_bitwise(dev, M, K, N1, N2, tile_n):
         assert torch.equal(got, want), what
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4])
+def _swiglu_walks(fg, fd):
+    """Each phase's byte-row walk and its fewest parts at M rows (the
+    staged X a part may hold: phase 1 on two plane sets)."""
+    walks = [f.plane.shape[0] * f.tkb for f in (fg, fd)]
+    return walks, lambda M: [
+        -(-w // fused_ffn.gemv_part_max(M, 1, sets))
+        for w, sets in zip(walks, (2, 1))]
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 16])
 @pytest.mark.parametrize("K,N1,N2,tile_n", [(4096, 11008, 4096, 4096),
-                                            (200, 300, 96, 128)])
+                                            (200, 300, 96, 30)])
 def test_swiglu_decode_split_bitwise(dev, M, K, N1, N2, tile_n):
-    """The SwiGLU's decode branch as a split walk (its rule's parts, and
-    other parts: unsplit, two, a walk's worth) gives y, h and rmax bit for
-    bit equal to the tensor-core branch at the same M, and the same bits
-    over two launches; at BitNet-7B width (S = 3 and 4 on an H100) and at
-    odd widths (gn1 = 3, N2 = 96, walks of one and two chunks)."""
+    """The SwiGLU's decode branch (both phases on the streaming decode
+    body, gate and up on two plane sets) at its rule's parts (``gemv_parts``
+    a phase), unsplit where the staged X allows it, at two parts and at the
+    most a walk allows gives y, h and rmax bit for bit equal to the
+    tensor-core branch at the same M, and the same bits over two launches
+    (the counters left at 0 between them); at BitNet-7B width and at odd
+    widths (tile_n 30: byte loads, ten hidden tiles, N2 = 96)."""
     xq, sx, fg, fu, fd = _swiglu_case(dev, M, K, N1, N2, tile_n)
     kw = dict(gamma_gate=0.021, gamma_up=0.034, gamma_down=1.7)
     want = fused_ffn._swiglu_mma(xq, sx, fg, fu, fd, **kw)
-    walks = [fused_ffn.split_walk(f.plane.shape[0], f.tkb) for f in (fg, fd)]
+    walks, fewest = _swiglu_walks(fg, fd)
+    lo = fewest(M)
     before = ck.launches[fused_ffn.KERNEL_NAME]
     runs = [fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)
-            for _ in range(2)]
-    for parts in ((1, 1), (min(2, walks[0]), min(2, walks[1])),
-                  tuple(walks)):
+            for _ in range(2)] if M <= fused_ffn.SWIGLU_MMA_MIN_M else []
+    n_rule = len(runs)
+    for parts in (tuple(lo), tuple(max(2, p) for p in lo), tuple(walks)):
         runs.append(fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts,
                                             **kw))
+    runs.append(fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, **kw))
     torch.cuda.synchronize()
-    assert ck.launches[fused_ffn.KERNEL_NAME] == before + 5
+    assert ck.launches[fused_ffn.KERNEL_NAME] == before + n_rule + 4
     for got in runs:
         for g, w, what in zip(got, want, ("y", "h", "rmax")):
             assert torch.equal(g, w), what
+    counters = ck._GEMV_COUNTERS.get((dev, ck.stream_handle(dev)))
+    assert counters is None or int(counters.abs().sum()) == 0
 
 
 def test_swiglu_decode_refuses_bad_parts(dev):
-    """Parts outside 1..the walk's chunks raise before any launch."""
-    xq, sx, fg, fu, fd = _swiglu_case(dev, 4, 200, 300, 96, 128)
-    walk = fused_ffn.split_walk(fd.plane.shape[0], fd.tkb)
-    for parts in ((0, 1), (1, walk + 1)):
+    """Parts outside 1..each phase's walk, or fewer than its staged X
+    allows, raise before any launch."""
+    xq, sx, fg, fu, fd = _swiglu_case(dev, 16, 4096, 11008, 4096, 4096)
+    walks, fewest = _swiglu_walks(fg, fd)
+    lo = fewest(16)
+    assert lo[1] > 1
+    before = ck.launches[fused_ffn.KERNEL_NAME]
+    for parts in ((0, lo[1]), (1, 0), (walks[0] + 1, lo[1]),
+                  (1, walks[1] + 1), (1, lo[1] - 1)):
         with pytest.raises(ValueError, match="parts"):
             fused_ffn._swiglu_lanes(xq, sx, fg, fu, fd, parts=parts)
+    assert ck.launches[fused_ffn.KERNEL_NAME] == before
+
+
+def test_swiglu_decode_captured_in_a_graph(dev):
+    """A fused-FFN decode call captured into a CUDA graph after one warm-up
+    on the capture stream (which allocates the decode body's counters)
+    replays the eager call's y, h and rmax bit for bit, twice; without the
+    warm-up the capture raises (the counters would be allocated inside the
+    graph)."""
+    xq, sx, fg, fu, fd = _swiglu_case(dev, 4, 4096, 11008, 4096, 4096)
+    kw = dict(gamma_gate=0.021, gamma_up=0.034, gamma_down=1.7)
+    want = fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)
+    stream = torch.cuda.Stream(dev)
+    # streams come from a pool: forget any counters an earlier test left
+    ck._GEMV_COUNTERS.pop((dev, stream.cuda_stream), None)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with pytest.raises(RuntimeError, match="warm-up"), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # the graph is empty
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+            fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)
+    with torch.cuda.stream(stream):
+        fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)     # the warm-up
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fused_ffn.swiglu_launch(xq, sx, fg, fu, fd, **kw)
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w, what in zip(out, want, ("y", "h", "rmax")):
+            assert torch.equal(g, w), what
 
 
 @pytest.mark.parametrize("M,K,N,tile_n,block_k", [

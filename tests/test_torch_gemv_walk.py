@@ -162,12 +162,14 @@ def test_every_byte_row_and_column_once(K, N, tkb, tile_n, S):
 def stage_rule(x: np.ndarray, rule: str, scale=None) -> np.ndarray:
     """``stage_value``: x8 rint and clamp to +-127; i8 ``floor(x + 512) -
     512`` in f32; rq (the requantizing rule) ``rint(x / scale)`` by an f32
-    division (int64 out)."""
+    division; trunc (the SwiGLU's xq) the integer part (int64 out)."""
     x = x.astype(np.float32)
     if rule == "x8":
         return np.clip(np.rint(x), -127, 127).astype(np.int64)
     if rule == "rq":
         return np.rint(x / np.float32(scale)).astype(np.int64)
+    if rule == "trunc":
+        return np.trunc(x).astype(np.int64)
     return (np.floor(x + np.float32(512)) - np.float32(512)).astype(np.int64)
 
 
@@ -310,23 +312,25 @@ def test_ternary4_every_byte_pair():
         bytes_s8(times32(ternary4(pos >> 4, neg >> 4))), 32 * want[:, 4:])
 
 
-def gemv_emulate(X, fmt, rule, S, scales=None):
+def gemv_emulate(X, fmt, rule, S, scales=None, wplanes=1, parts=False):
     """Y's int32 sums (before the epilogue) as the kernel computes them:
     each block (column tile, row tile of MT, part z) stages its part's X,
     its warps take their rows, decode each byte of the lane words to
     ternary4 words and accumulate ``__dp4a`` products per row, the warps'
     sums add, each part's sums go to the (S, M, N) scratch, and the fold
     adds the parts in order; every sum wraps to int32. ``scales``: the rq
-    rule's row scales."""
+    rule's row scales; ``wplanes``: the plane sets of the block whose M-tile
+    and staged X it takes (2: the SwiGLU's gate and up); ``parts``: the
+    parts' sums (S, M, N) before the fold."""
     plane = fmt.plane.numpy().astype(np.int64)
     nb, gn, _, tn = plane.shape
     tkb, K, N = fmt.tkb, fmt.K, fmt.N
     M = X.shape[0]
-    MT = fused_ffn.gemv_tile(M)
+    MT = fused_ffn.gemv_tile(M, wplanes)
     NA = 2 if rule == "i8" else 1
     RW = 2 * NA * MT
     walk = nb * tkb
-    assert -(-walk // S) <= fused_ffn.gemv_part_max(M, NA)
+    assert -(-walk // S) <= fused_ffn.gemv_part_max(M, NA, wplanes)
     flat = plane.reshape(-1)
     kb_stride, neg = gn * 2 * tkb * tn, tkb * tn
     cols = lane_cols(N, tkb, tn, tn % 4 == 0)
@@ -357,7 +361,7 @@ def gemv_emulate(X, fmt, rule, S, scales=None):
                 warp_sums[warp] = acc
             s = wrap32(warp_sums.sum(0))
             part[z, m0:m0 + rows] = s[:rows]
-    return wrap32(part.sum(0))
+    return part if parts else wrap32(part.sum(0))
 
 
 @pytest.mark.parametrize("K,N,tkb,tile_n", GEOMS[:3])

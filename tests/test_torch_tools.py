@@ -27,6 +27,7 @@ from ternary_spgemm_tpu_torch.tools import decode_roofline as dr
 from ternary_spgemm_tpu_torch.tools import deposit_study as ds
 from ternary_spgemm_tpu_torch.tools import ffn_bench, membench
 from ternary_spgemm_tpu_torch.tools import serve_trace as st
+from ternary_spgemm_tpu_torch.tools import swiglu_bench as sb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -325,13 +326,31 @@ def test_deposit_study_main(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("main", [ffn_bench.main, membench.main, dr.main,
-                                  ds.main, st.main],
+                                  ds.main, st.main, sb.main],
                          ids=["ffn_bench", "membench", "decode_roofline",
-                              "deposit_study", "serve_trace"])
+                              "deposit_study", "serve_trace", "swiglu_bench"])
 def test_tools_default_to_the_card(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
+
+
+def test_swiglu_bench_main(capsys, tmp_path):
+    """The SwiGLU bench on the CPU times the plain version (host clock) at
+    each shape and row count, beside the bound of the three planes."""
+    path = tmp_path / "sb.json"
+    assert sb.main(["--device", "cpu", "--rows", "1", "4", "--shapes",
+                    "128x256", "--repeats", "1", "--out", str(path)]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == json.loads(path.read_text())
+    assert got["device"] == "cpu" and got["card"] is None
+    assert [(r["d"], r["ff"], r["M"]) for r in got["rows"]] == [
+        (128, 256, 1), (128, 256, 4)]
+    for r in got["rows"]:
+        assert r["plain_ms"] > 0 and r["bound_by"] == "bytes"
+        # gate and up 128 x 256, down 256 x 128: 2 bits a weight
+        want = (3 * 2 * 128 * 256 // 8 + 4 * (2 * r["M"] * 128 + r["M"]))
+        assert r["bound_ms"] == pytest.approx(want / 3.35e12 * 1e3)
 
 
 def test_no_tool_writes_the_tpu_records(tmp_path):
