@@ -184,6 +184,20 @@ result line if any fails, or if no GPU is visible):
     TFLOP/s); then, counted, the entry point
     ``parallel.ring_allgather_spgemm`` at each ranks, one launch a call,
     equal to ``X @ W + b``;
+11b. the ring one rank a process: 8 processes on the card, joined by a
+    gloo group over 127.0.0.1 (NCCL refuses two ranks on one device), run
+    ``parallel.ring_rank_local`` at d = 2 and 4 at phase 11's full width
+    and at d = 8 at the JAX test's shape, each rank's own launch of
+    ``csrc/ring.cu`` (``ternary_ring_rank``) storing into its neighbours'
+    slots and flags through CUDA IPC peer pointers (``RingComm``). Counted
+    from 0 in each rank over 21 calls on one communicator: each rank's
+    columns bitwise equal to those of the one-launch ring and of the plain
+    version on integer X, every call the same, within rtol=1e-5, atol=1e-3
+    of the plain version on non-integer X, with phase 11's seeded integer
+    bias; each rank's ms a call (CUDA events) beside the one-launch ring's,
+    a rank's plain products', ``library_ms`` and ``bound_ms``. The card
+    time-slices the ranks' kernels, so these times are not a multi-card
+    ring's and show no overlap; any rank's failure fails the phase;
 12. the serving tool (``tools/serving_bench.py``) in-process at bitnet3b,
     full depth (26 layers, d=3200, 32 heads of 100, ff=8640, vocab 32000:
     K pads to 4096 rows on QKV, wo, gate and up and 8640 to 9216 on down),
@@ -262,7 +276,11 @@ result line if any fails, or if no GPU is visible):
     down at tkb 16) at 4 and 512 rows, each bitwise the single-device call
     (as is the column scheme over ``container_from_local_shard``), their
     launches exactly x8 4 (1 on the tensor cores) and the SwiGLU 2 (1),
-    each scheme's ms beside the single call's; then
+    each scheme's ms beside the single call's; the ring all-gather SpMM
+    through JAX's ``mesh=`` / ``axis=`` entry on the default device (the
+    merged QKV at 512 rows, integer X), its ``full_tensor()`` bitwise
+    ``ranks=1`` and the plain version, one ring launch, its communicator
+    closed by ``close_ring_comms``; then
     ``make_sharded_lm_train_step`` with sequence parallelism and ZeRO-1
     on a data 1 x model 1 mesh at phase 14's configuration, 3 steps from
     the parameters of 3 unsharded steps in the same call: losses within
@@ -345,7 +363,9 @@ QKV at M = 512, ``moe`` and ``moe_prefill`` objects for an expert's gate
 at 4 and 512 rows; the SwiGLU's: M = 4 and a ``prefill`` object at M = 512;
 the i8 kernel's: the north star and a ``u`` object at 32x4096x11008;
 phase 6's: the north star, ``u`` and an ``l`` object at 512x4096x4096, the
-block-packed ones at factor 4), the card line, and ``{"ok": true,
+block-packed ones at factor 4; the ring's: phase 11's ranks = 8 and a
+``ranks`` object for phase 11b at d = 4, with its mode and launches), the
+card line, and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -443,6 +463,18 @@ SWIGLU_SPLIT_WALK_MS = 0.1308
 #: BitNet-7B's merged QKV
 RING_RANKS = (2, 4, 8)
 RING_FULL = (512, 4096, 12288)
+#: phase 11b: (d, shape) of each ring run one rank a process, all in one
+#: group of ``RING_RANK_WORLD`` processes on the card (d < the group's size
+#: over a subgroup of its first d ranks); "full" is ``RING_FULL``, "small"
+#: the JAX test's shape (K=64, NL=128, mc=8)
+RING_RANK_CASES = ((2, "full"), (4, "full"), (8, "small"))
+RING_RANK_WORLD = 8
+#: phase 11b: seconds the rank processes get (the gloo group's timeout too)
+RING_RANK_TIMEOUT = 300
+#: phase 11b: how the ranks share the card
+RING_RANK_MODE = ("one rank a process, all on one card: the ranks' kernels "
+                  "time-sliced by the card, their flags and slots reached "
+                  "through CUDA IPC peer pointers")
 #: phase 5b's long prompt (the JAX serving tool's T0, which phase 5 cuts to
 #: 128) and its chunks: 8 (32 rows, up to ``X8_MMA_MIN_M``: the x8 decode
 #: body), 9 (36 rows: its tensor cores) and 128
@@ -2439,6 +2471,209 @@ def phase_ring(dev, card: str):
     return {rk.KERNEL_NAME: stat}, counts
 
 
+def ring_rank_cmd(rank: int, world: int, port: int, out: str, dev) -> list:
+    """Phase 11b's command for one rank process on ``dev``."""
+    return [sys.executable, os.path.abspath(__file__), "--ring-rank",
+            str(rank), str(world), str(port), out, str(dev)]
+
+
+def phase_ring_ranks(dev, card: str):
+    """Phase 11b: the ring one rank a process (``RING_RANK_MODE``): one
+    gloo group of ``RING_RANK_WORLD`` processes over 127.0.0.1, each on the
+    card, runs every case of ``RING_RANK_CASES`` (``ring_rank_case``) and
+    writes what it found; any rank's failure, or a rank still running after
+    ``RING_RANK_TIMEOUT`` s, fails the phase. Returns (stats, launch counts
+    of the ranks' counted runs, summed)."""
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel as rk
+
+    world = RING_RANK_WORLD
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen(
+            ring_rank_cmd(r, world, port, tmp, dev), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        outs, late = [""] * world, False
+        deadline = time.monotonic() + RING_RANK_TIMEOUT
+        try:
+            for r, p in enumerate(procs):
+                outs[r] = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            late = True
+        finally:
+            for r, p in enumerate(procs):
+                if p.poll() is None:
+                    p.kill()
+                    outs[r] = p.communicate()[0]
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        check(not late and not failed,
+              f"ring rank processes {failed or 'timed out'}:\n" + "\n----\n"
+              .join(f"rank {r}:\n{outs[r][-2000:]}" for r in failed or
+                    range(world)))
+        found = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                found.append(json.load(f))
+
+    stat, launches = {}, 0
+    for d, shape in RING_RANK_CASES:
+        runs = [found[r][str(d)] for r in range(d)]
+        first = runs[0]
+        n = sum(run["launches"] for run in runs)
+        check(all(run["launches"] == 21 for run in runs),
+              f"ring ranks={d}: launches a rank {[x['launches'] for x in runs]}"
+              " != 21 (one a call)")
+        launches += n
+        print(f"kernel ring_allgather_spgemm one rank a process ranks={d} "
+              f"{first['shape']} ({first['blocks']} blocks a rank; "
+              f"{RING_RANK_MODE}): every rank's columns bitwise equal to the "
+              f"one-launch ring's and the plain version's on integer X, 20 "
+              f"calls identical, non-integer X within rtol=1e-5, atol=1e-3 "
+              f"(max |diff| {max(x['max_abs_err'] for x in runs):.3g}; "
+              f"bitwise the one-launch ring: "
+              f"{all(x['float_bitwise'] for x in runs)}); ms a call by rank "
+              f"{[round(x['ms'], 4) for x in runs]} vs the one-launch ring "
+              f"{first['ring_launch_ms']:.4f} ms (ranks time-sliced on one "
+              f"card: not the multi-card time, no overlap shown), a rank's "
+              f"plain products {first['plain_ms']:.4f} ms, library "
+              f"{first['library_ms']:.4f} ms, bound {first['bound_ms']:.6f} "
+              f"ms ({first['bound_by']}); launches {n} [{card}]", flush=True)
+        if (d, shape) == max(c for c in RING_RANK_CASES if c[1] == "full"):
+            stat = {"ms": max(x["ms"] for x in runs), "d": d,
+                    "mode": RING_RANK_MODE,
+                    **{k: first[k] for k in ("plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}}
+    stat["launches"] = launches
+    return {rk.KERNEL_NAME: {"ranks": stat}}, {rk.KERNEL_NAME: launches}
+
+
+def ring_rank_main(argv) -> int:
+    """A rank process of phase 11b: ``rank world port out device``. Joins
+    the gloo group, runs ``ring_rank_case`` on the device for every case
+    whose ring it is in, meets the group after each, and writes
+    ``out/rank<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, ROOT)
+    dev = torch.device(argv[4])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=RING_RANK_TIMEOUT))
+    groups = {d: dist.new_group(list(range(d))) if d < world
+              else dist.group.WORLD for d, _ in RING_RANK_CASES}
+    found = {}
+    for d, shape in RING_RANK_CASES:
+        if rank < d:
+            found[str(d)] = ring_rank_case(dev, groups[d], d, shape)
+        dist.barrier()
+    check("jax" not in sys.modules, "jax was imported")
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def ring_rank_case(dev, group, d: int, shape: str) -> dict:
+    """This process's rank of a ring of ``d`` over ``group`` (phase 11b):
+    X, W and a seeded integer bias per column made alike in every rank;
+    ``ring_rank_local`` on this rank's chunk, W and bias columns, counted
+    from 0 over 21 calls on one communicator: its columns bitwise equal to
+    those of the one-launch ring (``ring_launch(..., ranks=d)``) and of the
+    plain version on integer X, every call the same, within rtol=1e-5,
+    atol=1e-3 of the plain version on non-integer X. Then its time a call
+    (CUDA events, every rank of the ring timing at once, since every call
+    is a collective), and on rank 0 alone (the others waiting on the host)
+    the one-launch ring's time, the rank's plain products' and the
+    library's; its bound from its own shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.bench.timing import event_ms
+    from ternary_spgemm_tpu_torch.formats import (
+        DenseTernary, generate_ternary, generate_x)
+    from ternary_spgemm_tpu_torch.models.serving import random_ternary
+    from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
+    from ternary_spgemm_tpu_torch.ops.api import matmul_dense
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel as rk
+
+    r = dist.get_rank(group)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    if shape == "full":
+        M, K, N = RING_FULL
+        fmt = DenseTernary.from_dense(random_ternary(K, N, 2, gen, dev))
+    else:
+        M, K, N = 8 * d, 64, 128 * d
+        fmt = DenseTernary.from_dense(generate_ternary(K, N, 4, seed=3),
+                                      device=dev)
+    b = torch.randint(-64, 65, (N,), generator=gen, device=dev).to(
+        torch.float32)
+    X = torch.from_numpy(generate_x(M, K, seed=4)).to(dev)
+    Xf = 4.0 * torch.rand((M, K), generator=gen, device=dev) - 2.0
+    mc, NL = M // d, N // d
+    rows, cols = slice(r * mc, (r + 1) * mc), slice(r * NL, (r + 1) * NL)
+    w = DenseTernary(dense=fmt.dense[:, cols].contiguous(), K=K, N=NL)
+    bl, x, xf = (b[cols].contiguous(), X[rows].contiguous(),
+                 Xf[rows].contiguous())
+    ref, blocks = rk.ring_launch(X, fmt, b, ranks=d)
+    ref, ref_f = ref[:, cols], rk.ring_launch(Xf, fmt, b, ranks=d)[0][:, cols]
+    plain = rk.ring_allgather_spgemm_plain(X, fmt, b, ranks=d)[:, cols]
+    plain_f = rk.ring_allgather_spgemm_plain(Xf, fmt, b, ranks=d)[:, cols]
+    what = f"ring rank {r} of {d} {M}x{K}x{N}"
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    with rk.RingComm(group, mc, K, dev) as comm:
+        ck.reset_counts()
+        y, B = rk.ring_rank_launch(x, w, bl, comm=comm)
+        again = [rk.ring_rank_local(x, w, bl, comm=comm) for _ in range(20)]
+        torch.cuda.synchronize()
+        counts = dict(ck.launches)
+        check(not ck.plain_on_cuda, f"{what}: a plain version ran on CUDA")
+        check(torch.equal(y, ref), f"{what}: != the one-launch ring (max "
+              f"|diff| {float((y - ref).abs().max())})")
+        check(torch.equal(y, plain), f"{what}: != the plain version")
+        check(all(torch.equal(a, y) for a in again),
+              f"{what}: 20 back-to-back calls differ")
+        del again
+        yf = rk.ring_rank_local(xf, w, bl, comm=comm)
+        torch.cuda.synchronize()
+        err = float((yf - plain_f).abs().max())
+        bad = (yf - plain_f).abs() > 1e-3 + 1e-5 * plain_f.abs()
+        check(not bool(bad.any()), f"{what}: {int(bad.sum())} outputs outside "
+              f"rtol=1e-5, atol=1e-3 on non-integer X (max |diff| {err})")
+        dist.barrier(group)
+        ms = event_ms(lambda: rk.ring_rank_local(x, w, bl, comm=comm),
+                      flush=flush)
+    # X chunk, W and bias columns read once and Y columns written once; a
+    # multiply-add a nonzero weight and row, as three bf16 passes
+    bms, by = bound(4 * (mc * K + NL + M * NL) + K * NL,
+                    F32_BF16_PASSES * spmm_ops(M, w), BF16_FLOPS_PER_S)
+    found = {"shape": f"{M}x{K}x{N}", "blocks": B, "ms": ms,
+             "launches": counts.get(rk.KERNEL_NAME, 0),
+             "max_abs_err": err, "float_bitwise": bool(torch.equal(yf, ref_f)),
+             "bound_ms": bms, "bound_by": by}
+    dist.barrier(group)
+    if r == 0:
+        owners = [X[o * mc:(o + 1) * mc] for o in range(d)]
+        found.update(
+            ring_launch_ms=event_ms(lambda: rk.ring_launch(X, fmt, b,
+                                                           ranks=d),
+                                    flush=flush),
+            plain_ms=event_ms(lambda: [matmul_dense(xo, w.dense) + bl
+                                       for xo in owners], flush=flush),
+            library_ms=library_ms(X, w, flush))
+    dist.barrier(group)
+    return found
+
+
 def phase_serve_3b(dev, card: str) -> dict:
     """Phase 12: the serving tool (``tools/serving_bench.py``) in-process at
     bitnet3b, full depth, in each of ``SERVE_3B_VARIANTS``, counted: its
@@ -3381,11 +3616,12 @@ def phase_parallel(dev, card: str) -> dict:
     (module docstring). Returns the launch counts of the schemes' run."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import Shard
 
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.checkpoint import (
         _leaves, restore_sharded_pytree, save_sharded_pytree)
-    from ternary_spgemm_tpu_torch.formats import TiledBitplane
+    from ternary_spgemm_tpu_torch.formats import DenseTernary, TiledBitplane
     from ternary_spgemm_tpu_torch.models import (
         BitTransformerLM, make_lm_train_step, make_sharded_lm_train_step)
     from ternary_spgemm_tpu_torch.models.convert import _unflat
@@ -3395,9 +3631,10 @@ def phase_parallel(dev, card: str) -> dict:
     from ternary_spgemm_tpu_torch.ops.fused_ffn import (
         fused_bitplane_swiglu, requantize_rows, swiglu_launch, swiglu_plain)
     from ternary_spgemm_tpu_torch.parallel import (
-        column_sharded_spgemm, container_from_local_shard, init_distributed,
-        make_mesh, overlapped_gather_spgemm, row_sharded_spgemm,
-        tensor_parallel_fused_swiglu)
+        close_ring_comms, column_sharded_spgemm, container_from_local_shard,
+        init_distributed, make_mesh, overlapped_gather_spgemm,
+        ring_allgather_spgemm, ring_allgather_spgemm_plain,
+        row_sharded_spgemm, tensor_parallel_fused_swiglu)
     from ternary_spgemm_tpu_torch.parallel.ffn import swiglu_local
     from ternary_spgemm_tpu_torch.parallel.spgemm import column_local, row_local
 
@@ -3468,6 +3705,34 @@ def phase_parallel(dev, card: str) -> dict:
             check(torch.equal(y, single[k]), f"the {k} scheme at d = 1 "
                   f"differs from the single-device call (max |diff| "
                   f"{float((y - single[k]).abs().max())})")
+        # (a) the ring all-gather SpMM through JAX's mesh= / axis= entry,
+        # one rank a process, on the default device: the merged QKV at 512
+        # rows, integer X and bias, counted; then its communicator closed
+        f_ring = DenseTernary.from_dense(W_qkv)
+        y_ring, c_ring = counted(lambda: ring_allgather_spgemm(
+            xs[hi], f_ring, b_qkv, mesh=mesh, axis="model"))
+        check(c_ring == {"ring_allgather_spgemm": 1}, f"the ring's mesh "
+              f"entry launched {c_ring}, not the ring kernel once")
+        check(tuple(y_ring.placements) == (Shard(1),),
+              f"the ring's mesh entry is laid out {y_ring.placements}")
+        y_ring = y_ring.full_tensor()
+        close_ring_comms()
+        for name, want_r in (
+                ("ranks=1", ring_allgather_spgemm(xs[hi], f_ring, b_qkv,
+                                                  ranks=1)),
+                ("the plain version", ring_allgather_spgemm_plain(
+                    xs[hi], f_ring, b_qkv, ranks=1))):
+            check(torch.equal(y_ring, want_r), f"the ring's mesh entry at "
+                  f"d = 1 differs from {name} (max |diff| "
+                  f"{float((y_ring - want_r).abs().max())})")
+        counts.update(c_ring)
+        print(f"parallel (a) ring_allgather_spgemm(mesh=model 1, "
+              f"axis='model') on the default device, {hi}x{d}->{3 * d} "
+              f"integer X: full_tensor() bitwise ranks=1 and the plain "
+              f"version; launches {c_ring}; communicators closed",
+              flush=True)
+        del f_ring, y_ring, want_r
+
         sms = {k: event_ms(fn, flush=flush) for k, fn in (
             ("column", lambda: col(lo)), ("row", lambda: row(lo, False)),
             ("ring", lambda: ring(hi)), ("tp_hi", lambda: tp(hi)))}
@@ -4220,6 +4485,8 @@ def main() -> int:
     stats.update(ragged_stats)
     ring_stats, ring_counts = timed("11", phase_ring, dev, card)
     stats.update(ring_stats)
+    rank_stats, rank_counts = timed("11b", phase_ring_ranks, dev, card)
+    stats[ring_kernel.KERNEL_NAME].update(rank_stats[ring_kernel.KERNEL_NAME])
     serve3b_counts = timed("12", phase_serve_3b, dev, card)
     tune_counts = timed("13", phase_autotune, dev, card)
     train_counts = timed("14", phase_train, dev, card)
@@ -4232,17 +4499,20 @@ def main() -> int:
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
     runs = (serve_counts, more_counts, bench_counts, ffn_counts,
-            probe_counts, ragged_counts, ring_counts, serve3b_counts,
+            probe_counts, ragged_counts, ring_counts, rank_counts,
+            serve3b_counts,
             tune_counts, train_counts, moe_counts, par_counts, tool_counts,
             study_counts)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    #: the extra objects of an entry, and their keys
+    extras = {"prefill": keys, "u": keys, "l": keys, "moe": keys,
+              "moe_prefill": keys, "ranks": ("mode", "d", *keys, "launches")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),
                 **{k: stats[name][k] for k in ("max_abs_err", *keys)},
-                **{extra: {k: stats[name][extra][k] for k in keys}
-                   for extra in ("prefill", "u", "l", "moe", "moe_prefill")
-                   if extra in stats[name]}}
+                **{extra: {k: stats[name][extra][k] for k in ks}
+                   for extra, ks in extras.items() if extra in stats[name]}}
                for name, (src, ref) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -4253,4 +4523,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-rank"]:
+        sys.exit(ring_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -32,6 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
 #: (x, M, K, weights, nb, gn, rows a K-block (the bitplane core's byte-rows
 #: tkb, the packed core's rows tkq), tile_n, N, bias, alpha, y, stream)
 _SPMM = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
@@ -93,6 +94,16 @@ SIGNATURES = {
     "ternary_scalar_deposit": [_P, _I, _P, _P],
     #: (x, w, bias, y, buf, flags, ranks, mc, K, N, blocks_out, stream)
     "ternary_ring_spgemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    #: (x, w, bias, y, mine, theirs, flags_me, flags_left, flags_right, d,
+    #: r, mc, K, NL, epoch, blocks_out, stream)
+    "ternary_ring_rank": [*[_P] * 9, *[_I] * 5, _U, _P, _P],
+    #: (bytes, out pointer); (pointer, 64-byte handle out); (handle, out
+    #: pointer); (pointer); (pointer)
+    "ternary_ipc_alloc": [ctypes.c_size_t, _P],
+    "ternary_ipc_handle": [_P, _P],
+    "ternary_ipc_open": [_P, _P],
+    "ternary_ipc_close": [_P],
+    "ternary_ipc_free": [_P],
 }
 
 _LOADED = {}

@@ -3,9 +3,10 @@ on ``torch.distributed``: mesh construction and container sharding
 (:mod:`.sharding`), the column-, row- and ring-sharded SpMM
 (:mod:`.spgemm`), the tensor-parallel fused SwiGLU (:mod:`.ffn`) and the
 GPipe pipeline (:mod:`.pipeline`), each running the port's kernels on the
-ranks' local shards; and the ring all-gather SpMM on one card
-(:mod:`.ring_kernel`, its ranks groups of blocks of one launch; with one
-rank a card it needs several cards).
+ranks' local shards; and the ring all-gather SpMM (:mod:`.ring_kernel`):
+one rank a process over a mesh axis, each rank's launch storing into its
+neighbour's buffers through CUDA IPC peer pointers, or all ranks as groups
+of blocks of one launch.
 """
 
 from ternary_spgemm_tpu_torch.parallel.ffn import tensor_parallel_fused_swiglu
@@ -15,9 +16,12 @@ from ternary_spgemm_tpu_torch.parallel.pipeline import (
     stack_stages,
 )
 from ternary_spgemm_tpu_torch.parallel.ring_kernel import (  # noqa: F401
+    RingComm,
+    close_ring_comms,
     ring_allgather_spgemm,
     ring_allgather_spgemm_plain,
     ring_launch,
+    ring_rank_local,
 )
 from ternary_spgemm_tpu_torch.parallel.sharding import (  # noqa: F401
     SHARDABLE_FORMATS,

@@ -15,7 +15,10 @@ probe of its inner step); so must the f32 and
 bf16 kernels (dense, stride-packed, ELL gathers) on integer X in their
 domains, where every value and f32 partial sum is exact (``-k
 dense_mma`` runs the bf16 tensor-core tile of the dense f32 and bf16
-kernels alone, ``-k ring`` the ring on the same tile, ``-k packed_mma``
+kernels alone, ``-k ring`` the ring on the same tile (one launch, and one
+rank a process over 2 and 4 processes on the card, with its IPC buffers,
+and its ``mesh=`` entry over an NCCL group of one rank),
+``-k packed_mma``
 the int8-X kernels over the packed-row containers on it and ``-k
 float_mma`` the f32 stride-packed and bf16 bitplane kernels). Off those
 domains the f32 and bf16 kernels and their plain versions see the same X
@@ -1383,6 +1386,69 @@ def test_ring_kernel(dev, ranks, mc, K, NL):
     want = ring_allgather_spgemm_plain(Xf, fmt, b, ranks=ranks)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def ring_ranks(dev, tmp_path_factory):
+    """The worker's ``ring_cuda`` suite: 4 processes on the card, one rank
+    each, joined by a gloo group (NCCL refuses two ranks on one device)."""
+    import torch_mp_worker as mpw
+
+    return mpw.spawn("ring_cuda", 4, tmp_path_factory.mktemp("ring_cuda"))
+
+
+@pytest.mark.parametrize("shape", ["8x64x128", "72x1000x130"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_ring_rank_kernel_over_processes(ring_ranks, d, shape):
+    """The ring one rank a process (``ring_rank_local`` on CUDA tensors:
+    each rank's own launch of ``ternary_ring_rank``, storing into its
+    neighbours' buffers through CUDA IPC peer pointers): every rank's
+    columns bitwise equal to the same columns of the one-launch ring and
+    of the plain version on integer X (the Narrow tile; the Wide one over
+    byte-staged W columns), six calls on one communicator the same (the
+    epochs' offsets), non-integer X within rtol=1e-5, atol=1e-3."""
+    _, record = ring_ranks
+    rec = record[f"{d}/{shape}"]
+    assert "raised" not in rec, rec.get("trace")
+    assert rec["ranks"] == [{"kernel": True, "plain": True,
+                             "calls_same": True, "calls": 7,
+                             "float": True}] * d
+
+
+def test_ring_ipc_buffers_across_processes(dev, tmp_path_factory):
+    """``RingComm``'s buffers over 2 processes on the card: zeroed when
+    made, the neighbour's handle opened once, a store through the peer
+    pointer read back by the owner, closed and freed; a one-rank
+    communicator opens nothing."""
+    import torch_mp_worker as mpw
+
+    _, record = mpw.spawn("ipc", 2, tmp_path_factory.mktemp("ipc"))
+    for case in ("pair", "one"):
+        assert "raised" not in record[case], record[case].get("trace")
+    assert record["pair"]["ranks"] == [
+        {"zeroed": True, "opened": [1 - r], "read_back": True,
+         "closed": True} for r in range(2)]
+    assert record["one"] == {"opened": [], "bases": 1}
+
+
+def test_ring_mesh_entry_on_the_card(dev, tmp_path_factory):
+    """``ring_allgather_spgemm(..., mesh=, axis=)`` on the card over an
+    NCCL group of one rank, on the default device (``"cuda"``, which names
+    no index while the tensors sit on ``cuda:0``): laid out ``(None,
+    axis)``, its ``full_tensor()`` bitwise ``ranks=1`` and the plain
+    version on integer X, the same on a second call and from DTensor
+    inputs (Narrow and Wide tiles); ``close_ring_comms`` frees the one
+    communicator of each chunk shape."""
+    import torch_mp_worker as mpw
+
+    _, record = mpw.spawn("ring_mesh_cuda", 1,
+                          tmp_path_factory.mktemp("ring_mesh_cuda"))
+    for case in ("8x64x128", "72x1000x130"):
+        assert record[case] == {
+            "placements": "(Shard(dim=1),)", "device": "cuda:0",
+            "ranks1": True, "plain": True, "again": True, "dtensor": True}, \
+            record[case].get("trace")
+    assert record["close"] == {"made": 2, "left": 0}
 
 
 def test_cuda_graph_timer(dev):

@@ -8,8 +8,9 @@ checkpoint shard file).
 
 Not a pytest module (no ``test_`` prefix). Run as a script:
 ``python torch_mp_worker.py <suite> <rank> <world> <port> <dir>``; the
-suites are ``parallel``, ``ffn``, ``pipeline``, ``train`` and
-``scaling``.
+suites are ``parallel``, ``ffn``, ``pipeline``, ``train``, ``scaling``
+and ``ring`` on the CPU, and ``ring_cuda`` and ``ipc``, whose ranks all
+use ``cuda:0`` (a gloo group all the same), on the card.
 """
 
 import json
@@ -609,9 +610,320 @@ def suite_scaling(res, inputs, tmp):
         res.run(scheme, run)
 
 
+def _ring_shard(X, W, b, group, d):
+    """This rank's chunk, W columns (a DenseTernary) and bias columns of
+    the ring of ``d`` over ``group``."""
+    import torch
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.formats import DenseTernary
+
+    r = dist.get_rank(group)
+    mc, NL = X.shape[0] // d, W.shape[1] // d
+    return (X[r * mc:(r + 1) * mc].contiguous(),
+            DenseTernary.from_dense(W[:, r * NL:(r + 1) * NL].contiguous()),
+            torch.as_tensor(b[r * NL:(r + 1) * NL]).contiguous())
+
+
+def _ring_groups():
+    """The ring's groups: d = 4 the whole (4-rank) group, d = 2 ranks 0-1."""
+    import torch.distributed as dist
+
+    return {4: dist.group.WORLD, 2: dist.new_group([0, 1])}
+
+
+def suite_ring(res, inputs, tmp):
+    """The ring all-gather SpMM one rank a process, on the CPU
+    (tests/test_torch_ring_ranks.py): ``ring_rank_local`` (its plain
+    version) at d = 4 over the group and at d = 2 over a subgroup, three
+    calls on one communicator, and the ``mesh=`` / ``axis=`` entry point
+    with plain and DTensor inputs, at the JAX test's shape; then
+    ``close_ring_comms`` empties the mesh path's communicators."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from ternary_spgemm_tpu_torch.formats import DenseTernary
+    from ternary_spgemm_tpu_torch.parallel import (
+        RingComm, close_ring_comms, column_leaf_specs, make_mesh, placements,
+        ring_allgather_spgemm, ring_rank_local, shard_container)
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel as rk
+    from ternary_spgemm_tpu_torch.parallel.ring_kernel import ring_rank_plain
+
+    rank = dist.get_rank()
+    groups = _ring_groups()
+    meshes = {d: make_mesh({"model": d}, device_type="cpu") for d in (2, 4)}
+    t = lambda k: torch.from_numpy(inputs[k])  # noqa: E731
+
+    for d in (4, 2):
+        for kind in ("int", "float"):
+            case = f"{kind}/{d}"
+            X, W, b = t(f"{case}/X"), t(f"{case}/W"), t(f"{case}/b")
+
+            def local(d=d, case=case, X=X, W=W, b=b):
+                if rank >= d:
+                    return
+                group = groups[d]
+                x, w, bl = _ring_shard(X, W, b, group, d)
+                comm = RingComm(group, x.shape[0], x.shape[1], "cpu")
+                trace = []
+                ys = [ring_rank_plain(x, w, bl, comm=comm, trace=trace)]
+                ys += [ring_rank_local(x, w, bl, comm=comm) for _ in range(2)]
+                cols = [torch.empty_like(ys[0]) for _ in range(d)]
+                dist.all_gather(cols, ys[0], group=group)
+                if rank == 0:
+                    res.put(f"local/{case}", torch.cat(cols, dim=1))
+                owners = [None] * d
+                dist.all_gather_object(owners, [
+                    (rec["step"], rec["rank"], rec["owner"],
+                     bool(torch.equal(rec["held"], X[
+                         rec["owner"] * x.shape[0]:
+                         (rec["owner"] + 1) * x.shape[0]])))
+                    for rec in trace], group=group)
+                res.note(f"local/{case}", calls=comm.calls, trace=owners,
+                         same=all(torch.equal(y, ys[0]) for y in ys))
+
+            res.run(f"local/{case}", local)
+
+            def mesh(d=d, case=case, X=X, W=W, b=b):
+                y = ring_allgather_spgemm(X.numpy(), DenseTernary.from_dense(W),
+                                          b.numpy(), mesh=meshes[d],
+                                          axis="model", device="cpu")
+                res.note(f"mesh/{case}", placements=str(y.placements),
+                         local=list(y.to_local().shape))
+                res.put(f"mesh/{case}", y)
+
+            res.run(f"mesh/{case}", mesh)
+
+    def dtensors():
+        m = meshes[4]
+        X, W, b = t("int/4/X"), t("int/4/W"), t("int/4/b")
+        y = ring_allgather_spgemm(
+            distribute_tensor(X, m, placements(m, ("model", None))),
+            shard_container(DenseTernary.from_dense(W), m,
+                            column_leaf_specs(DenseTernary, "model")),
+            distribute_tensor(b, m, placements(m, ("model",))),
+            mesh=m, axis="model", device="cpu")
+        res.note("mesh_dtensor", placements=str(y.placements))
+        res.put("mesh_dtensor", y)
+
+    res.run("mesh_dtensor", dtensors)
+
+    W, b = t("int/4/W")[:, :128], t("int/4/b")[:128]
+    for M in (30, 12):
+        res.run(f"err/{M}", lambda M=M: ring_allgather_spgemm(
+            torch.ones((M, W.shape[0])), DenseTernary.from_dense(W), b,
+            mesh=meshes[4], axis="model", device="cpu"))
+
+    def close():
+        made = len(rk._COMMS)
+        close_ring_comms()
+        res.note("close", made=made, left=len(rk._COMMS))
+
+    res.run("close", close)
+
+
+def suite_ring_cuda(res, inputs, tmp):
+    """The per-rank kernel of the ring over processes that all use
+    ``cuda:0`` (tests/test_torch_cuda.py): at d = 4 over the group and d =
+    2 over a subgroup, each rank's columns on integer X against the same
+    columns of the one-launch ring (bitwise) and of its plain version
+    (bitwise), six calls on one communicator, and on non-integer X within
+    rtol=1e-5, atol=1e-3 of the plain version. Each rank records what it
+    found; rank 0 records every rank's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.formats import (
+        DenseTernary, generate_ternary, generate_x)
+    from ternary_spgemm_tpu_torch.parallel import RingComm, ring_rank_local
+    from ternary_spgemm_tpu_torch.parallel.ring_kernel import (
+        ring_allgather_spgemm_plain, ring_launch)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    groups = _ring_groups()
+    rank = dist.get_rank()
+    for d in (4, 2):
+        # the Narrow tile, and the Wide one over byte-staged W columns
+        for mc, K, NL in ((8, 64, 128), (72, 1000, 130)):
+            case = f"{d}/{mc}x{K}x{NL}"
+
+            def run(d=d, mc=mc, K=K, NL=NL, case=case):
+                if rank >= d:
+                    return
+                M, N = d * mc, d * NL
+                fmt = DenseTernary.from_dense(
+                    generate_ternary(K, N, 3, seed=K), device=dev)
+                b = torch.from_numpy(
+                    np.linspace(-2, 2, N).astype(np.float32)).to(dev)
+                X = torch.from_numpy(generate_x(M, K, seed=d)).to(dev)
+                Xf = torch.from_numpy(np.random.default_rng(d).uniform(
+                    -2, 2, (M, K)).astype(np.float32)).to(dev)
+                group = groups[d]
+                r = dist.get_rank(group)
+                cols = slice(r * NL, (r + 1) * NL)
+                with RingComm(group, mc, K, dev) as comm:
+                    x, w, bl = _ring_shard(X, fmt.dense, b, group, d)
+                    ys = [ring_rank_local(x, w, bl, comm=comm)
+                          for _ in range(6)]
+                    yf = ring_rank_local(_ring_shard(Xf, fmt.dense, b, group,
+                                                     d)[0], w, bl, comm=comm)
+                    torch.cuda.synchronize()
+                    found = {
+                        "kernel": bool(torch.equal(
+                            ys[0], ring_launch(X, fmt, b, ranks=d)[0][:, cols])),
+                        "plain": bool(torch.equal(ys[0], ring_allgather_spgemm_plain(
+                            X, fmt, b, ranks=d)[:, cols])),
+                        "calls_same": all(torch.equal(y, ys[0]) for y in ys),
+                        "calls": comm.calls,
+                        "float": bool(torch.allclose(
+                            yf, ring_allgather_spgemm_plain(
+                                Xf, fmt, b, ranks=d)[:, cols],
+                            rtol=1e-5, atol=1e-3)),
+                    }
+                every = [None] * d
+                dist.all_gather_object(every, found, group=group)
+                res.note(case, ranks=every)
+
+            res.run(case, run)
+
+
+def suite_ring_mesh_cuda(res, inputs, tmp):
+    """The ``mesh=`` / ``axis=`` entry of the ring on the card
+    (tests/test_torch_cuda.py), over an NCCL group of one rank: on the
+    default device (``"cuda"``, no index), with plain and DTensor inputs,
+    its ``full_tensor()`` on integer X against ``ranks=1`` and the plain
+    version, twice (the communicator reused); then ``close_ring_comms``
+    frees the communicators it made."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from ternary_spgemm_tpu_torch.formats import (
+        DenseTernary, generate_ternary, generate_x)
+    from ternary_spgemm_tpu_torch.parallel import (
+        close_ring_comms, column_leaf_specs, make_mesh, placements,
+        ring_allgather_spgemm, shard_container)
+    from ternary_spgemm_tpu_torch.parallel import ring_kernel as rk
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh({"model": 1}, device_type="cuda")
+    for mc, K, NL in ((8, 64, 128), (72, 1000, 130)):
+        case = f"{mc}x{K}x{NL}"
+
+        def run(mc=mc, K=K, NL=NL, case=case):
+            fmt = DenseTernary.from_dense(generate_ternary(K, NL, 3, seed=K),
+                                          device=dev)
+            b = torch.from_numpy(
+                np.linspace(-2, 2, NL).astype(np.float32)).to(dev)
+            X = torch.from_numpy(generate_x(mc, K, seed=1)).to(dev)
+            ys = [ring_allgather_spgemm(X, fmt, b, mesh=mesh, axis="model")
+                  for _ in range(2)]
+            y_dt = ring_allgather_spgemm(
+                distribute_tensor(X, mesh, placements(mesh, ("model", None))),
+                shard_container(fmt, mesh, column_leaf_specs(DenseTernary,
+                                                             "model")),
+                distribute_tensor(b, mesh, placements(mesh, ("model",))),
+                mesh=mesh, axis="model")
+            y = ys[0].full_tensor()
+            res.note(case, placements=str(ys[0].placements),
+                     device=str(y.device),
+                     ranks1=bool(torch.equal(
+                         y, ring_allgather_spgemm(X, fmt, b, ranks=1))),
+                     plain=bool(torch.equal(
+                         y, rk.ring_allgather_spgemm_plain(X, fmt, b,
+                                                           ranks=1))),
+                     again=bool(torch.equal(ys[1].full_tensor(), y)),
+                     dtensor=bool(torch.equal(y_dt.full_tensor(), y)))
+
+        res.run(case, run)
+
+    def close():
+        made = len(rk._COMMS)
+        close_ring_comms()
+        res.note("close", made=made, left=len(rk._COMMS))
+
+    res.run("close", close)
+
+
+def _views(comm, p):
+    """(flags, slots): group rank ``p``'s IPC buffer in ``comm`` (this
+    rank's or a neighbour's) as int32 ``(5,)`` and f32 ``(2, mc, K)``
+    tensors on the card, no copy (``__cuda_array_interface__``)."""
+    import torch
+
+    from ternary_spgemm_tpu_torch.parallel.ring_kernel import FLAGS_PER_RANK
+
+    def view(ptr, shape, typestr):
+        mem = type("DeviceMemory", (), {"__cuda_array_interface__": {
+            "shape": shape, "typestr": typestr, "data": (ptr, False),
+            "version": 2, "strides": None}})()
+        return torch.as_tensor(mem, device=comm.device)
+
+    return (view(comm.flags(p), (FLAGS_PER_RANK,), "<i4"),
+            view(comm.slots(p), (2, comm.mc, comm.K), "<f4"))
+
+
+def suite_ipc(res, inputs, tmp):
+    """``RingComm``'s IPC buffers on ``cuda:0`` over 2 processes
+    (tests/test_torch_cuda.py): each buffer zeroed when made, the
+    neighbour's opened once (d = 2: left is right), a store through the
+    peer pointer read back by the buffer's owner, then closed and freed;
+    and a one-rank communicator, which opens nothing."""
+    import torch
+    import torch.distributed as dist
+
+    from ternary_spgemm_tpu_torch.parallel import RingComm
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    solo = [dist.new_group([0]), dist.new_group([1])][rank]
+
+    def pair():
+        comm = RingComm(dist.group.WORLD, 8, 64, dev)
+        flags, slots = _views(comm, rank)
+        found = {"zeroed": bool((flags == 0).all()) and
+                 bool((slots == 0).all()),
+                 "opened": list(comm._opened)}
+        peer_flags, peer_slots = _views(comm, comm.right)
+        peer_slots.copy_(torch.full_like(peer_slots, 10.0 + rank)
+                         + torch.arange(64, device=dev))
+        peer_flags.fill_(rank + 1)
+        torch.cuda.synchronize()
+        dist.barrier()
+        want = torch.full_like(slots, 10.0 + comm.left) \
+            + torch.arange(64, device=dev)
+        found["read_back"] = bool(torch.equal(slots, want)) and bool(
+            (flags == comm.left + 1).all())
+        comm.close()
+        found["closed"] = not comm.base
+        every = [None] * 2
+        dist.all_gather_object(every, found)
+        res.note("pair", ranks=every)
+
+    res.run("pair", pair)
+
+    def one():
+        comm = RingComm(solo, 8, 64, dev)
+        res.note("one", opened=list(comm._opened), bases=len(comm.base))
+        comm.close()
+
+    res.run("one", one)
+
+
 SUITES = {"parallel": suite_parallel, "ffn": suite_ffn,
           "pipeline": suite_pipeline, "train": suite_train,
-          "scaling": suite_scaling}
+          "scaling": suite_scaling, "ring": suite_ring,
+          "ring_cuda": suite_ring_cuda, "ipc": suite_ipc,
+          "ring_mesh_cuda": suite_ring_mesh_cuda}
+#: the suites whose group is NCCL on the card (one rank a card); the
+#: others run over gloo, their tensors on the CPU or all on ``cuda:0``
+NCCL_SUITES = {"ring_mesh_cuda"}
 
 
 def main(argv):
@@ -623,7 +935,8 @@ def main(argv):
     torch.set_num_threads(1)
     from ternary_spgemm_tpu_torch.parallel import init_distributed
 
-    init_distributed(rank, world, f"tcp://127.0.0.1:{port}", "cpu")
+    init_distributed(rank, world, f"tcp://127.0.0.1:{port}",
+                     "cuda" if suite in NCCL_SUITES else "cpu")
     res = Results()
     SUITES[suite](res, load_inputs(tmp, suite), tmp)
     import torch.distributed as dist
