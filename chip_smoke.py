@@ -163,11 +163,16 @@ result line if any fails, or if no GPU is visible):
    ``tools.deposit_study`` (bytes audit and ladder; full and staticcap
    exact), each in-process, no plain version on a CUDA tensor;
 10. the ragged probe: the scalar-deposit kernel's tile bitwise equal to its
-    plain version at 4096 entries (the probe's, seed 0) and 65,536, its
-    entries/s beside its latency bound (4096 dependent shared-memory
-    read-modify-writes on one thread, each at least ``SMEM_RMW_CYCLES``,
-    a shared-memory load's and a dependent integer op's latency, at the SM
-    clock read under load); then, counted, ``tools.ragged_probe`` in-process: both
+    plain version at 0, 1, 4095, 4096, 4097 and 65,536 entries and at the
+    nonzeros of the tool's six configs (``RAGGED_SIZES``, up to
+    7,573,504), on 1,048,576 entries that all hit one word and at three
+    unaligned bases; timed at 4096 entries (the probe's, seed 0) and at
+    each config's nonzeros, its grid and entries/s beside its bytes bound
+    (12 bytes an entry and the 4 KB tile at 3.35 TB/s); ``python3
+    chip_smoke.py --ragged PARENT`` runs this phase alone and times
+    PARENT's serial kernel in turns with it; then, counted,
+    ``tools.ragged_probe`` in-process (each config's floor its nonzeros'
+    measured deposit): both
     ``CudaTiledBitplane_i8`` and ``CudaEllDeposit_i8`` launched on each of
     its six configs (M = 32, K = N in {4096, 11008}, s in {16, 32, 64}), no
     row with an error, no plain version on a CUDA tensor;
@@ -380,6 +385,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -486,14 +492,15 @@ RING_WINDOW, RING_T0, RING_NEW, RING_LAYERS = 128, 64, 192, 32
 #: phase 5b's bf16 head against the f32 head (the JAX package's own
 #: tolerance, ``tests/test_decode.py``)
 BF16_HEAD_TOL = 0.05
-#: phase 10's latency bound of the ragged probe's chain: the cycles of one
-#: dependent shared-memory read-modify-write on one thread, a shared-memory
-#: load's latency (19 cycles) and a dependent integer op's (4), the figures
-#: Jia et al. measured on Volta ("Dissecting the NVIDIA Volta GPU
-#: Architecture via Microbenchmarking", arXiv:1804.06826); that Hopper's
-#: are no shorter is an assumption. The bound is 4096 entries of it at the
-#: SM clock read under load
-SMEM_RMW_CYCLES = 19 + 4
+#: phase 10's deposit sizes: the probe's 4096 entries and the nonzeros of
+#: ``tools.ragged_probe``'s six configs (K = N in {4096, 11008}, s in {16,
+#: 32, 64}; ``generate_ternary`` places 2 * ((N // s) // 2) a row), each
+#: timed; the other entry counts it holds bitwise, the last of them (65,536)
+#: also from three unaligned bases; and its stream on one word
+RAGGED_SIZES = (4096, *sorted(kn * 2 * ((kn // s) // 2)
+                              for kn in (4096, 11008) for s in (16, 32, 64)))
+RAGGED_EDGES = (0, 1, 4095, 4097, 65536)
+RAGGED_ONE_WORD = 1 << 20
 #: phase 12's serving tool runs at bitnet3b (full depth, batch 4, the
 #: preset's 512-token prompt and 64 new tokens, int8 cache, captured): the
 #: fast paths both, none, and both with 8 shared K/V heads
@@ -2274,24 +2281,45 @@ def phase_probes(dev, card: str):
     return stats, counts
 
 
-def sm_clock_under_load(dev) -> float:
-    """The SM clock in MHz, read by ``nvidia-smi`` while the card works
-    through a queue of f32 matmuls (an idle card drops its clock)."""
+def parent_deposit(parent: str):
+    """Another tree's scalar-deposit kernel (``parent``: its
+    ``ternary_spgemm_tpu_torch/csrc/ragged.cu``, the serial walk with the C
+    entry ``ternary_scalar_deposit(entries, n, tile, stream)``), built alone
+    into ``build/`` -> fn(entries) -> the (8, 128) int32 tile."""
+    import ctypes
+
     import torch
 
-    a = torch.randn((8192, 8192), device=dev)
-    for _ in range(64):
-        a = torch.matmul(a, a).clamp_(-1.0, 1.0)
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0]
-    torch.cuda.synchronize()
-    return float(out)
+    from ternary_spgemm_tpu_torch.ops import _build
+    from ternary_spgemm_tpu_torch.ops.cuda_kernels import stream_handle
+
+    src = os.path.join(parent, "ternary_spgemm_tpu_torch", "csrc", "ragged.cu")
+    lib = os.path.join(ROOT, "build", "parent_ragged.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
+                    src], check=True, capture_output=True)
+    entry = ctypes.CDLL(lib).ternary_scalar_deposit
+    entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+
+    def run(ents):
+        tile = torch.empty((8, 128), dtype=torch.int32, device=ents.device)
+        _build.check(entry(ents.data_ptr(), ents.shape[0], tile.data_ptr(),
+                           stream_handle(ents.device)),
+                     "the parent's ternary_scalar_deposit")
+        return tile
+
+    return run
 
 
-def phase_ragged(dev, card: str):
+def phase_ragged(dev, card: str, parent: str = None):
     """Phase 10: the ragged probe's kernel bitwise against its plain version
-    (4096 entries, the probe's, and 65,536), timed beside its bound; then ``tools.ragged_probe``
+    at ``RAGGED_EDGES`` and ``RAGGED_SIZES`` entries, on a stream whose
+    entries all hit one word and at the three unaligned bases; timed at
+    ``RAGGED_SIZES`` beside its bytes bound, each size's grid printed (and,
+    with ``parent``, a tree holding the serial kernel, that kernel's times
+    in turns with this one's, P C C P); then ``tools.ragged_probe``
     in-process, counted, both SpMM kernels launched on each of its six
     configs. Returns (stats, launch counts of the tool's run)."""
     import torch
@@ -2299,32 +2327,79 @@ def phase_ragged(dev, card: str):
     from ternary_spgemm_tpu_torch.bench.timing import event_ms
     from ternary_spgemm_tpu_torch.ops import cuda_kernels as ck
     from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
+    from ternary_spgemm_tpu_torch.utils.device import sm_count
 
-    for entries in (4096, 65536):
-        ents = torch.from_numpy(rp.scalar_entries(entries)).to(dev)
-        want = rp.scalar_deposit_plain(ents)
-        got = rp.scalar_deposit_launch(ents)
+    def entries(n):
+        return torch.from_numpy(rp.scalar_entries(n)).to(dev)
+
+    def bitwise(ents, label, fn=rp.scalar_deposit_launch):
+        got, want = fn(ents), rp.scalar_deposit_plain(ents)
         torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"scalar deposit, {entries} entries: tile != plain")
-    ents = torch.from_numpy(rp.scalar_entries(4096)).to(dev)
+        check(torch.equal(got, want), f"scalar deposit, {label}: tile != plain")
+
+    sms = sm_count(dev)
+    for n in sorted({*RAGGED_EDGES, *RAGGED_SIZES}):
+        bitwise(entries(n), f"{n} entries")
+    one = entries(RAGGED_ONE_WORD)
+    one[:, 0], one[:, 1] = 5, 77
+    bitwise(one, f"{RAGGED_ONE_WORD} entries on one word")
+    base = entries(RAGGED_EDGES[-1] + 3)
+    for off in (1, 2, 3):
+        ents = base[off:]
+        check(ents.data_ptr() % 16 != 0, "the unaligned case is aligned")
+        bitwise(ents, f"{ents.shape[0]} entries from byte {12 * off} of "
+                f"their buffer")
+    run_parent = parent and parent_deposit(parent)
+    if run_parent:
+        bitwise(entries(4096), "the parent's, 4096 entries", run_parent)
+    print(f"kernel scalar_deposit_rate: tile bitwise equal at "
+          f"{sorted({*RAGGED_EDGES, *RAGGED_SIZES})} entries, at "
+          f"{RAGGED_ONE_WORD} on one word and at {RAGGED_EDGES[-1]} from "
+          f"three unaligned bases [{card}]", flush=True)
+
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    ms = event_ms(lambda: rp.scalar_deposit_launch(ents), flush=flush)
-    pms = event_ms(lambda: rp.scalar_deposit_plain(ents), flush=flush)
-    del flush
-    mhz = sm_clock_under_load(dev)
-    # the entries read once and the tile written once; 4096 dependent
-    # shared-memory read-modify-writes on one thread, each at least a
-    # load's and a dependent integer op's latency (SMEM_RMW_CYCLES)
-    bms, by = bound(ents.numel() * 4 + 8 * 128 * 4,
-                    ents.shape[0] * SMEM_RMW_CYCLES, mhz * 1e6)
-    stats = {rp.KERNEL_NAME: dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
-                                  library_ms=None, bound_ms=bms, bound_by=by)}
-    print(f"kernel scalar_deposit_rate: tile bitwise equal (4096 and 65536 "
-          f"entries); 4096 entries {ms:.4f} ms = {4096 / ms * 1e3:.4g} "
-          f"entries/s; plain {pms:.4f} ms; latency bound {bms:.6f} ms ({by}: "
-          f"4096 x {SMEM_RMW_CYCLES} cycles, SM clock {mhz:.0f} MHz under "
-          f"load) [{card}]", flush=True)
+    timed = {}
+    for n in RAGGED_SIZES:
+        ents = entries(n)
+        turns = []
+        if run_parent:
+            turns.append(event_ms(lambda: run_parent(ents), flush=flush))
+        kern = [event_ms(lambda: rp.scalar_deposit_launch(ents), flush=flush)
+                for _ in range(2)]
+        if run_parent:
+            turns.append(event_ms(lambda: run_parent(ents), flush=flush))
+        ms = statistics.median(kern)
+        # each entry's 12 bytes read once, the tile written once
+        bms, by = bound(12 * n + 8 * 128 * 4, 0)
+        blocks, per_block = rp.deposit_plan(n, sms)
+        timed[n] = dict(max_abs_err=0.0, ms=ms, bound_ms=bms, bound_by=by,
+                       library_ms=None)
+        if n in (RAGGED_SIZES[0], RAGGED_SIZES[-1]):
+            timed[n]["plain_ms"] = event_ms(
+                lambda: rp.scalar_deposit_plain(ents), flush=flush)
+        print(f"scalar deposit {n} entries: grid {blocks} blocks x "
+              f"{per_block} entries, clusters of {rp.DEPOSIT_CLUSTER}; "
+              f"{kern[0]:.4f} / {kern[1]:.4f} ms "
+              f"({n / ms * 1e3:.4g} entries/s), {bms / ms:.1%} of the bytes "
+              f"bound {bms:.6f} ms; "
+              + (f"the parent's {turns[0]:.4f} / {turns[1]:.4f} ms "
+                 f"({n / statistics.median(turns) * 1e3:.4g} entries/s); "
+                 if run_parent else "")
+              + (f"plain {timed[n]['plain_ms']:.4f} ms " if "plain_ms"
+                 in timed[n] else "") + f"[{card}]", flush=True)
+        del ents
+    # the stream on one word against the random stream of its size
+    rand = entries(RAGGED_ONE_WORD)
+    one_ms, rand_ms = (event_ms(lambda: rp.scalar_deposit_launch(e),
+                                flush=flush) for e in (one, rand))
+    print(f"scalar deposit {RAGGED_ONE_WORD} entries on one word: "
+          f"{one_ms:.4f} ms against {rand_ms:.4f} ms spread over the tile "
+          f"[{card}]", flush=True)
+    del flush, one, rand
+    # the line's row: the probe's 4096 entries; the largest config's
+    # stream beside it
+    stats = {rp.KERNEL_NAME: dict(timed[RAGGED_SIZES[0]],
+                                  stream=timed[RAGGED_SIZES[-1]])}
 
     ck.reset_counts()
     per_config, run_config = [], rp.run_config
@@ -2346,18 +2421,25 @@ def phase_ragged(dev, card: str):
           end="", flush=True)
     rec = json.loads(out.splitlines()[-1])
     rows = rec["high_sparsity"]
+    floors = rec["ragged_floor_analysis"]
     check(rc == 0 and len(rows) == 12 and len(per_config) == 6,
           f"ragged_probe: exit {rc}, {len(rows)} rows")
     check(not any(r["error"] for r in rows),
           f"ragged_probe: a kernel failed: {[r for r in rows if r['error']]}")
     check(all(n > 0 for c in per_config for n in c.values()),
           f"ragged_probe: a config did not launch both kernels: {per_config}")
-    check(all(v is not None and v > 0 for v in
-              rec["ragged_floor_analysis"]["floors_seconds"].values()),
-          "ragged_probe: a floor is missing")
+    check(all(v is not None and v > 0 for k in ("floors_seconds",
+                                                 "entries_per_s")
+              for v in floors[k].values()),
+          "ragged_probe: a floor or a rate is missing")
+    check(sorted(round(floors["floors_seconds"][k] * v)
+                 for k, v in floors["entries_per_s"].items())
+          == sorted(RAGGED_SIZES[1:]),
+          "ragged_probe: the floors are not the configs' nonzeros")
     print(f"ragged_probe launches: {counts} (by config: {per_config}); plain "
           f"versions on CUDA: {plain}; entries_per_s "
-          f"{rec['scalar_deposit']['entries_per_s']:.6g} [{card}]", flush=True)
+          f"{rec['scalar_deposit']['entries_per_s']:.6g} at 4096, by config "
+          f"{floors['entries_per_s']} [{card}]", flush=True)
     check(not plain, f"a plain version ran on a CUDA tensor: {plain}")
     check(counts.get(rp.KERNEL_NAME, 0) > 0, "the probe's kernel was not "
           "launched")
@@ -4506,7 +4588,8 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     #: the extra objects of an entry, and their keys
     extras = {"prefill": keys, "u": keys, "l": keys, "moe": keys,
-              "moe_prefill": keys, "ranks": ("mode", "d", *keys, "launches")}
+              "moe_prefill": keys, "stream": keys,
+              "ranks": ("mode", "d", *keys, "launches")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": ref,
                 "launches": sum(c.get(name, 0) for c in runs),
@@ -4522,7 +4605,29 @@ def main() -> int:
     return 0
 
 
+def ragged_main(argv) -> int:
+    """``--ragged [PARENT]``: the card's line, the build and phase 10 alone;
+    with PARENT, a tree holding the serial scalar-deposit kernel, that
+    kernel timed in turns with this one (P C C P) at every size."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    from ternary_spgemm_tpu_torch.ops import _build
+    _build.load()
+    stats, counts = phase_ragged(dev, card, argv[0] if argv else None)
+    print(json.dumps({"stats": stats, "launches": counts}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ring-rank"]:
         sys.exit(ring_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ragged"]:
+        sys.exit(ragged_main(sys.argv[2:]))
     sys.exit(main())

@@ -90,8 +90,8 @@ SIGNATURES = {
     #: static_pos, static_neg, N, bias, y, mode, stream)
     "ternary_deposit_variant": [_P, _I, _I, _P, _P, _P, _P, *[_I] * 7, _P,
                                 _P, _I, _P],
-    #: (entries, n, tile, stream)
-    "ternary_scalar_deposit": [_P, _I, _P, _P],
+    #: (entries, n, blocks, entries a block, tile, stream)
+    "ternary_scalar_deposit": [_P, _I, _I, _I, _P, _P],
     #: (x, w, bias, y, buf, flags, ranks, mc, K, N, blocks_out, stream)
     "ternary_ring_spgemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     #: (x, w, bias, y, mine, theirs, flags_me, flags_left, flags_right, d,

@@ -4,26 +4,33 @@ Counterpart of ``tools/ragged_probe.py``. A per-column ragged CSC stream
 (one byte a nonzero, 8/s bits a weight) is the only layout that stores
 less than the 2-bit bitplane for s > 32. Its consumer reads a flat (row,
 column) entry stream and deposits each entry's bit into the word its
-column picks. The tool measures what settles the question:
+column picks. On the TPU only the scalar core can consume such a stream,
+one entry at a time; on the card every SM can, with shared-memory atomics,
+so ``csrc/ragged.cu`` spreads the stream over the whole card (a grid of
+:func:`deposit_plan`, each block ORing its share into its own tile in
+shared memory, the blocks' tiles merged over thread block clusters), and
+what bounds it is the stream's bytes. The tool measures what settles the
+question:
 
 1. **Scalar-deposit rate** (:func:`scalar_deposit_rate`): 4096 (row, lane,
-   bit) entries, drawn as the JAX tool draws them, ORed one at a time into
-   a zeroed (8, 128) int32 tile by one thread of ``csrc/ragged.cu``, the
-   tile in shared memory: the best rate any truly ragged consumer can
-   reach. (The TPU's Mosaic refused this kernel, "Cannot store scalars to
-   VMEM"; the card runs it.)
+   bit) entries, drawn as the JAX tool draws them, deposited into a zeroed
+   (8, 128) int32 tile, the JAX record's size and key. At 49 KB this times
+   a launch, not a rate. (The TPU's Mosaic refused this kernel, "Cannot
+   store scalars to VMEM"; the card runs it.)
 2. **High-sparsity kernel times**: ``CudaTiledBitplane_i8`` (2 bits a
    weight, positional) against ``CudaEllDeposit_i8`` (cap-padded ELL)
    through ``bench.run_config`` at M = 32, K = N in {4096, 11008}, s in
    {16, 32, 64}, the two designs that bracket the ragged stream, each as a
-   user calls it: at M = 32 the bitplane kernel takes its tensor-core
-   branch (above ``ops.cuda_kernels.I8_MMA_MIN_M`` rows), which its rows
-   name (``branch``; None for the ELL kernel).
-3. **The ragged floor**: ``nnz / entries_per_s`` a config, the deposit time
-   alone of a ragged stream over the same W. nnz is counted from the
-   container (about K * N / s: ``generate_ternary`` places ``2 * ((N // s)
-   // 2)`` nonzeros a row); the JAX tool's ``2 * kn * kn // s``
-   (``tools/ragged_probe.py:121``) counts twice that.
+   user calls it: at M = 32 the bitplane kernel takes its decode branch
+   (up to ``ops.cuda_kernels.I8_MMA_MIN_M`` rows), which its rows name
+   (``branch``; None for the ELL kernel).
+3. **The ragged floor**: the deposit time alone of a ragged stream over the
+   same W, measured a config by :func:`scalar_deposit_rate` at the
+   config's own nonzeros (the same draws, :func:`scalar_entries`), written
+   as ``nnz / entries_per_s`` beside that rate. nnz is counted from the
+   container (about K * N / s: ``generate_ternary`` places ``2 * ((N //
+   s) // 2)`` nonzeros a row); the JAX tool's ``2 * kn * kn // s``
+   (``tools/ragged_probe.py:121``) counts twice that, at its one rate.
 
 Usage::
 
@@ -54,7 +61,7 @@ from ternary_spgemm_tpu_torch.ops.cuda_kernels import (
     stream_handle,
 )
 from ternary_spgemm_tpu_torch.tools import emit, timer
-from ternary_spgemm_tpu_torch.utils.device import resolve_device
+from ternary_spgemm_tpu_torch.utils.device import resolve_device, sm_count
 
 KERNEL_NAME = "scalar_deposit_rate"
 SOURCE = "ternary_spgemm_tpu_torch/csrc/ragged.cu"
@@ -62,6 +69,14 @@ REFERENCE = "tools/ragged_probe.py:37"
 ROWS, LANES, BITS = 8, 128, 31
 #: the two designs that bracket the ragged stream (the JAX tool's pair)
 KERNELS = ["CudaTiledBitplane_i8", "CudaEllDeposit_i8"]
+#: ``csrc/ragged.cu``'s grid: blocks in clusters of ``DEPOSIT_CLUSTER``
+#: (its ``kCluster``), at most ``DEPOSIT_BLOCKS_PER_SM`` an SM (the blocks
+#: its ``__launch_bounds__`` asks an SM to hold), none given fewer than
+#: ``DEPOSIT_MIN_ENTRIES`` entries unless the stream is short (one group of
+#: four entries a thread of its 256)
+DEPOSIT_CLUSTER = 8
+DEPOSIT_BLOCKS_PER_SM = 2
+DEPOSIT_MIN_ENTRIES = 1024
 
 
 def scalar_entries(entries: int = 4096) -> np.ndarray:
@@ -96,16 +111,33 @@ def scalar_deposit_plain(ents: torch.Tensor) -> torch.Tensor:
         torch.int32).reshape(ROWS, LANES)
 
 
+def deposit_plan(n: int, sms: int) -> tuple:
+    """-> (blocks, per_block): the kernel's grid over ``n`` entries on a
+    card of ``sms`` SMs. Block b takes entries ``[b * per_block, min(n, (b +
+    1) * per_block))``; ``per_block`` is a multiple of 4 (so that every
+    block's 16-byte loads share one alignment) and ``blocks`` a multiple of
+    ``DEPOSIT_CLUSTER``, enough to fill the card once the stream gives each
+    block ``DEPOSIT_MIN_ENTRIES``; the last blocks may take fewer entries,
+    or none."""
+    want = min(sms * DEPOSIT_BLOCKS_PER_SM, -(-n // DEPOSIT_MIN_ENTRIES))
+    blocks = max(1, -(-want // DEPOSIT_CLUSTER)) * DEPOSIT_CLUSTER
+    return blocks, max(4, 4 * -(-n // (4 * blocks)))
+
+
 def scalar_deposit_launch(ents: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel over the entries -> the (8, 128) int32
-    tile."""
+    """One launch of the kernel over the entries (on the grid of
+    :func:`deposit_plan`) -> the (8, 128) int32 tile."""
     _check(ents)
+    if ents.shape[0] >= 2 ** 31:
+        raise ValueError(f"{KERNEL_NAME} takes fewer than 2**31 entries (a C "
+                         f"int); got {ents.shape[0]}")
     if not ents.is_cuda:
         raise ValueError(f"{KERNEL_NAME} runs on CUDA tensors (CPU tensors "
                          "take the plain version)")
+    blocks, per_block = deposit_plan(ents.shape[0], sm_count(ents.device))
     tile = torch.empty((ROWS, LANES), dtype=torch.int32, device=ents.device)
     err = _build.load().ternary_scalar_deposit(
-        ents.data_ptr(), ents.shape[0], tile.data_ptr(),
+        ents.data_ptr(), ents.shape[0], blocks, per_block, tile.data_ptr(),
         stream_handle(ents.device))
     _build.check(err, "ternary_scalar_deposit")
     launches[KERNEL_NAME] += 1
@@ -121,9 +153,10 @@ def scalar_deposit(ents: torch.Tensor) -> torch.Tensor:
 
 
 def scalar_deposit_rate(entries: int = 4096, device="cuda") -> dict:
-    """Entries a second of the one-at-a-time deposit (the launch alone,
-    ``bench.timing``'s CUDA-event timer with the L2 evicted before each; on
-    the CPU the plain version's host time)."""
+    """Entries a second of the deposit of ``scalar_entries(entries)`` (the
+    launch alone, ``bench.timing``'s CUDA-event timer with the L2 evicted
+    before each; on the CPU the plain version's host time). At the default
+    4096 entries, the JAX record's, it times a launch."""
     dev = resolve_device(device)
     ents = torch.from_numpy(scalar_entries(entries)).to(dev)
     t = timer(dev)(scalar_deposit, ents, min_seconds=0.2)
@@ -156,16 +189,23 @@ def high_sparsity_rows(kns, s_values, M: int, dev: torch.device):
     return rows, nnz
 
 
-def ragged_floor_analysis(nnz: dict, entries_per_s: float) -> dict:
-    """The ragged stream's deposit floor a config: its nonzeros at the
-    scalar-deposit rate (None where no kernel built the container)."""
+def ragged_floor_analysis(nnz: dict, rates: dict) -> dict:
+    """The ragged stream's deposit floor a config: its nonzeros over the
+    rate :func:`scalar_deposit_rate` measured at those nonzeros (``rates``,
+    by ``(kn, s)``), beside that rate (None where no kernel built the
+    container)."""
+    floors, per_s = {}, {}
+    for (kn, s), n in nnz.items():
+        key = f"KN={kn},s={s}"
+        per_s[key] = None if n is None else rates[(kn, s)]["entries_per_s"]
+        floors[key] = None if n is None else n / per_s[key]
     return {
-        "note": "ragged stream floor = nnz / scalar_rate (deposit only, "
+        "note": "ragged stream floor = nnz / entries_per_s, the deposit of "
+                "the config's nnz entries timed at that size (deposit only, "
                 "before decode+dot; nnz counted from the container); "
                 "compare with the measured kernels",
-        "floors_seconds": {f"KN={kn},s={s}": None if n is None
-                           else n / entries_per_s
-                           for (kn, s), n in nnz.items()},
+        "floors_seconds": floors,
+        "entries_per_s": per_s,
     }
 
 
@@ -187,8 +227,13 @@ def main(argv=None) -> int:
     rows, nnz = high_sparsity_rows(args.kn, args.s_values, args.M, dev)
     result["high_sparsity"] = rows
     nnz = {(kn, s): nnz.get((kn, s)) for kn in args.kn for s in args.s_values}
-    result["ragged_floor_analysis"] = ragged_floor_analysis(
-        nnz, sd["entries_per_s"])
+    rates = {}
+    for (kn, s), n in nnz.items():
+        if n is not None:
+            r = rates[(kn, s)] = scalar_deposit_rate(n, device=dev)
+            print(f"deposit K=N={kn} s={s}: {n} entries, "
+                  f"{r['entries_per_s']:.4g} entries/s", flush=True)
+    result["ragged_floor_analysis"] = ragged_floor_analysis(nnz, rates)
     emit(result, args.out)
     return 0
 

@@ -48,7 +48,9 @@ tooling``): ``profiling.trace`` names the x8 kernel, the export CLI's
 ``generate`` gives the in-process tokens, and a one-config sweep is
 correct for every kernel. The study tools (``-k studies``): each runs on
 the card, chipgate correct at the hostile shape, the nibble pair and the
-tkb variants bitwise, the traces holding the card's kernel records.
+tkb variants bitwise, the traces holding the card's kernel records. The
+ragged probe's deposit (``-k scalar_deposit``): bitwise its plain version
+at chip_smoke phase 10's sizes, on one word and at unaligned bases.
 """
 
 import dataclasses
@@ -1341,13 +1343,45 @@ def test_deposit_variant_kernel(dev, mode, M, K, N, s, tile_n):
         assert torch.equal(got, ck.cuda_ell_deposit_i8_kernel(X, fmt, b))
 
 
-@pytest.mark.parametrize("entries", [0, 1, 4096, 4097, 65536])
+@pytest.mark.parametrize("entries", [0, 1, 4095, 4096, 4097, 65536,
+                                     262_144, 524_288, 1_048_576, 1_893_376,
+                                     3_786_752, 7_573_504])
 def test_scalar_deposit_kernel(dev, entries):
-    """The ragged probe's tile bitwise equal to its plain version, within
-    one staged chunk of entries and across several."""
+    """The ragged probe's tile bitwise equal to its plain version, from one
+    cluster of blocks up to a full grid at the six configs' nonzeros
+    (``chip_smoke.py`` phase 10's sizes)."""
     from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
 
     ents = torch.from_numpy(rp.scalar_entries(entries)).to(dev)
+    got = rp.scalar_deposit_launch(ents)
+    want = rp.scalar_deposit_plain(ents)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_scalar_deposit_kernel_on_one_word(dev):
+    """1,048,576 entries that all hit one word: the blocks' atomics on it
+    and the clusters' merge lose no bit."""
+    from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
+
+    ents = torch.from_numpy(rp.scalar_entries(1 << 20)).to(dev)
+    ents[:, 0], ents[:, 1] = 5, 77
+    got = rp.scalar_deposit_launch(ents)
+    want = rp.scalar_deposit_plain(ents)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got[5, 77]) == (1 << 31) - 1
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_scalar_deposit_kernel_at_an_unaligned_base(dev, off):
+    """A stream that starts at byte 12, 24 or 36 of its buffer, off every
+    16-byte boundary (its first entries one a thread, then 16-byte
+    loads)."""
+    from ternary_spgemm_tpu_torch.tools import ragged_probe as rp
+
+    base = torch.from_numpy(rp.scalar_entries(65536 + 3)).to(dev)
+    ents = base[off:]
+    assert ents.is_contiguous() and ents.data_ptr() % 16 != 0
     got = rp.scalar_deposit_launch(ents)
     want = rp.scalar_deposit_plain(ents)
     torch.cuda.synchronize()

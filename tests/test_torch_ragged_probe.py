@@ -2,14 +2,17 @@
 ragged_probe.py``) on the CPU, against the JAX tool (``tools/ragged_probe.py``).
 
 The scalar-deposit kernel's plain version is held against a numpy OR over
-the same entries (the CUDA kernel is held against the plain version on the
-card, ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 10). The
+the same entries, and against it on a stream whose entries all hit one word
+(the CUDA kernel is held against the plain version on the card,
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 10). The kernel's
+grid (``deposit_plan``) covers the stream with no gap and no overlap. The
 tool's ``main`` runs with ``--device cpu`` at a tiny size: its record has
 the JAX record's keys, its ``container_bytes`` are the bytes of the JAX
-containers over the same W, and its floors count the nonzeros of that W.
-The JAX tool's floors count twice as many (``tools/ragged_probe.py:121``):
-that parity cell is an expected failure of the reference. The numbers of a
-CPU run are host-clock numbers and are checked only for being positive.
+containers over the same W, and each floor is its config's nonzeros over
+the rate measured at those nonzeros. The JAX tool's floors count twice as
+many nonzeros (``tools/ragged_probe.py:121``): that parity cell is an
+expected failure of the reference. The numbers of a CPU run are host-clock
+numbers and are checked only for being positive.
 """
 
 import json
@@ -71,6 +74,88 @@ def test_scalar_deposit_repeats_and_bit_30():
         rp.scalar_deposit(torch.from_numpy(ents[::-1].copy())).numpy(), got)
 
 
+def test_scalar_deposit_plain_on_one_word():
+    """A stream whose 1,048,576 entries all hit one word (``chip_smoke.py``
+    phase 10's): that word is the OR of their bits, every other word 0."""
+    ents = rp.scalar_entries(1 << 20)
+    ents[:, 0], ents[:, 1] = 5, 77
+    got = rp.scalar_deposit(torch.from_numpy(ents)).numpy()
+    np.testing.assert_array_equal(got, _np_tile(ents))
+    assert got[5, 77] == (1 << 31) - 1 and np.count_nonzero(got) == 1
+
+
+#: the stream's sizes the grid is checked at: the edges and the largest
+#: config's nonzeros (K = N = 11008, s = 16)
+PLAN_SIZES = [0, 1, 3, 4, 4095, 4096, 4097, 65536, 7_573_504]
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_deposit_plan_covers_the_stream(n, sms):
+    """Block b takes ``[b * per_block, min(n, (b + 1) * per_block))``: the
+    blocks cover ``[0, n)`` with no gap and no overlap, in clusters of
+    ``DEPOSIT_CLUSTER``, ``per_block`` a multiple of 4, at most one cluster
+    more than ``DEPOSIT_BLOCKS_PER_SM`` an SM and no empty cluster."""
+    blocks, per_block = rp.deposit_plan(n, sms)
+    assert blocks % rp.DEPOSIT_CLUSTER == 0 and blocks > 0
+    assert per_block % 4 == 0 and per_block > 0
+    starts = [min(n, b * per_block) for b in range(blocks)]
+    ends = [min(n, (b + 1) * per_block) for b in range(blocks)]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(e == s for e, s in zip(ends, starts[1:]))      # no gap, no overlap
+    assert all(s <= e for s, e in zip(starts, ends))
+    assert blocks <= max(rp.DEPOSIT_CLUSTER,
+                         sms * rp.DEPOSIT_BLOCKS_PER_SM + rp.DEPOSIT_CLUSTER - 1)
+    # the last cluster holds at least one entry (or the stream is empty)
+    assert n == 0 or starts[blocks - rp.DEPOSIT_CLUSTER] < n
+
+
+def _kernel_walk(n: int, blocks: int, per_block: int, phase: int):
+    """A model of ``csrc/ragged.cu``'s index arithmetic: how many times each
+    entry is deposited, and every 16-byte load's offset in bytes from the
+    stream's base (the base ``phase`` words past a 16-byte boundary)."""
+    seen = np.zeros(n, np.int64)
+    loads = []
+    for b in range(blocks):
+        lo = b * per_block
+        hi = max(lo, min(n, lo + per_block))
+        head = min(hi, lo + phase)
+        groups = (hi - head) >> 2
+        tail = head + 4 * groups
+        seen[lo:head] += 1                  # one a thread (t < 3)
+        seen[tail:hi] += 1                  # one a thread (3 <= t < 6)
+        assert head - lo <= 3 and hi - tail <= 3
+        seen[head:tail] += 1                # three 16-byte loads a group
+        if groups:
+            loads.append(4 * phase + 12 * head)
+    return seen, loads
+
+
+@pytest.mark.parametrize("phase", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_kernel_walk_deposits_each_entry_once(n, phase):
+    """Under the plan, the kernel's head, groups of four and tail deposit
+    every entry exactly once, and every group's first load (hence all three)
+    sits on a 16-byte boundary, whatever the base's phase."""
+    blocks, per_block = rp.deposit_plan(n, 132)
+    seen, loads = _kernel_walk(n, blocks, per_block, phase)
+    assert (seen == 1).all()
+    assert all(off % 16 == 0 for off in loads)
+
+
+@pytest.mark.parametrize("kn,s", [(kn, s) for kn in (4096, 11008)
+                                  for s in (16, 32, 64)])
+def test_deposit_plan_fills_the_card_at_the_configs(kn, s):
+    """At each config's nonzeros the grid spreads the stream over at least
+    the H100's 132 SMs, and a block never gets fewer than
+    ``DEPOSIT_MIN_ENTRIES`` unless the card is full."""
+    nnz = kn * 2 * ((kn // s) // 2)
+    blocks, per_block = rp.deposit_plan(nnz, 132)
+    assert blocks >= 132
+    assert per_block >= rp.DEPOSIT_MIN_ENTRIES \
+        or blocks >= 132 * rp.DEPOSIT_BLOCKS_PER_SM
+
+
 def test_scalar_deposit_checks_its_input():
     with pytest.raises(ValueError, match=r"\(n, 3\) int32"):
         rp.scalar_deposit(torch.zeros((4, 2), dtype=torch.int32))
@@ -79,6 +164,10 @@ def test_scalar_deposit_checks_its_input():
     with pytest.raises(ValueError, match="CUDA tensors"):
         rp.scalar_deposit(torch.zeros((4, 3), dtype=torch.int32,
                                       device="meta"))
+    # the kernel's C entry takes the count as an int
+    with pytest.raises(ValueError, match=r"fewer than 2\*\*31 entries"):
+        rp.scalar_deposit_launch(torch.empty((2 ** 31, 3), dtype=torch.int32,
+                                             device="meta"))
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +200,8 @@ def test_record_has_the_jax_keys(record):
         assert row["branch"] == ("plain" if row["kernel"] == rp.KERNELS[0]
                                  else None)
         assert row["error"] is None and row["seconds"] > 0
-    assert set(record["ragged_floor_analysis"]) == {"note", "floors_seconds"}
+    assert set(record["ragged_floor_analysis"]) == {"note", "floors_seconds",
+                                                    "entries_per_s"}
 
 
 @pytest.mark.parametrize("s", [16, 32])
@@ -145,11 +235,35 @@ def test_container_bytes_agree_with_the_jax_subtraction():
 
 @pytest.mark.parametrize("s", [16, 32])
 def test_floors_count_the_containers_nonzeros(record, s):
+    """Each floor is its config's nonzeros over the rate measured at those
+    nonzeros, which stands beside it (not the 4096-entry rate)."""
     nnz = int(np.count_nonzero(tf.generate_ternary(256, 256, s, seed=0)))
     assert nnz == 256 * 2 * ((256 // s) // 2)          # ~ K * N / s
-    rate = record["scalar_deposit"]["entries_per_s"]
-    got = record["ragged_floor_analysis"]["floors_seconds"][f"KN=256,s={s}"]
+    analysis = record["ragged_floor_analysis"]
+    rate = analysis["entries_per_s"][f"KN=256,s={s}"]
+    assert rate > 0
+    got = analysis["floors_seconds"][f"KN=256,s={s}"]
     assert got == pytest.approx(nnz / rate, rel=1e-12)
+
+
+def test_floors_are_each_configs_deposit():
+    """``ragged_floor_analysis`` takes each config's own measured deposit:
+    the floor is that deposit's seconds, the rate its entries a second."""
+    nnz = {(64, 16): 256, (64, 32): 128, (64, 8): None}
+    rates = {k: rp.scalar_deposit_rate(n, device="cpu")
+             for k, n in nnz.items() if n is not None}
+    for k, r in rates.items():
+        assert r["entries"] == nnz[k]
+    got = rp.ragged_floor_analysis(nnz, rates)
+    for (kn, s), n in nnz.items():
+        key = f"KN={kn},s={s}"
+        if n is None:
+            assert got["floors_seconds"][key] is None
+            assert got["entries_per_s"][key] is None
+            continue
+        assert got["entries_per_s"][key] == rates[(kn, s)]["entries_per_s"]
+        assert got["floors_seconds"][key] == pytest.approx(
+            rates[(kn, s)]["seconds"], rel=1e-12)
 
 
 @pytest.mark.xfail(strict=True, reason=(
@@ -159,7 +273,8 @@ def test_floors_count_the_containers_nonzeros(record, s):
     "(ROADMAP queue C)"))
 @pytest.mark.parametrize("s", [16, 32])
 def test_floors_parity_with_the_jax_formula(record, s):
-    rate = record["scalar_deposit"]["entries_per_s"]
+    """The JAX formula at each config's own rate."""
+    rate = record["ragged_floor_analysis"]["entries_per_s"][f"KN=256,s={s}"]
     jax_floor = (2 * 256 * 256 // s) / rate
     got = record["ragged_floor_analysis"]["floors_seconds"][f"KN=256,s={s}"]
     assert got == pytest.approx(jax_floor, rel=1e-6)
